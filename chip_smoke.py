@@ -8,9 +8,12 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
 1. card and build: prints ``nvidia-smi``'s name and power limit, builds every
    kernel from ``tony_tpu_torch/csrc`` with ``nvcc`` and prints the seconds;
 2. kernels: holds each kernel against its plain PyTorch version on the card,
-   in bf16, at the Llama-3-8B serving shapes, and times the kernel, the plain
-   version, the one PyTorch call that computes the same function (SDPA over a
-   padded batch; ``x @ W_bf16``) and the least time the card could take;
+   in bf16, at the Llama-3-8B serving shapes (B4-B6) and training shapes
+   (B1-B3 flash attention: B=4, T=2048 causal; B=1, T=8192; 3 packed
+   segments; window 1024), and times the kernel, the plain version, the one
+   PyTorch call that computes the same function (SDPA over a padded batch or
+   with the band as a mask: its forward, and its backward alone; ``x @ W_bf16``)
+   and the least time the card could take;
 3. serve: starts ``python -m tony_tpu_torch.models.serving_http --preset
    llama3-8b`` (full width, all 32 layers, seeded random weights, 8 slots,
    max_len 2048) three times — paged KV (the default), ``--int8``, and
@@ -21,7 +24,19 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    that SIGTERM drains to exit 0; then a decode-dominated batch (one 16-token
    prompt per slot, 128-token answers); prints tok/s of both batches, the
    decode step time and the time to the first streamed token;
-4. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+4. whole step: ``loss_fn`` and every gradient through the flash kernels
+   against ``attn_impl="reference"`` on the same params and batch (8B width,
+   2 layers, B=1, T=2048); two planted faults (a query head dropped by B1,
+   or by B3) must fail the limits the kernels pass;
+5. train: ``run_lm_training`` in this process at the full 8B width cut to
+   8 layers (bf16, remat "full", ce_chunk 512, B=4, T=2048): 3 steps with a
+   checkpoint, then a second call to 6 steps that must resume at step 3;
+   prints loss and grad_norm per step, tok/s, ms/step, MFU, peak memory and
+   the B1-B3 launches of the two calls; then the same step on a fresh state
+   split with CUDA events into loss + gradients and the optimizer update,
+   and its device time by kernel family from ``torch.profiler`` with the
+   card's busy share of the profiled window;
+6. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 
 Imports only ``tony_tpu_torch``, torch, numpy and the standard library.
 """
@@ -29,8 +44,14 @@ Imports only ``tony_tpu_torch``, torch, numpy and the standard library.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import gc
 import json
+import math
 import os
+from unittest import mock
+import shutil
 import signal
 import subprocess
 import sys
@@ -50,6 +71,30 @@ LENGTHS = [0, 1, 255, 256, 1000, 2047, 512, 1500]
 INT8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
 ATTN_TOL = 2e-2    # bf16 output: ~2 ulps at |o| <= 1 (f32 maths in both, sums in another order)
 INT8_REL_TOL = 2e-2  # max |kernel - plain| <= 2e-2 * max |plain|: ~2.5 bf16 ulps at the top of the range
+
+# Llama-3-8B training shapes of the flash kernels (B1-B3)
+FLASH_CASES = {
+    "train": dict(B=4, T=2048, window=0, n_seg=1),      # the train run's shape
+    "long": dict(B=1, T=8192, window=0, n_seg=1),       # where JAX streams dk/dv
+    "segments": dict(B=4, T=2048, window=0, n_seg=3),   # 3 packed segments a row
+    "window": dict(B=4, T=2048, window=1024, n_seg=1),  # sliding window 1024
+}
+# o, dq, dk and dv of the bf16 kernels against their f32 plain versions, held
+# row by row (``row_rel_err``): the kernels round P and dS to bf16 for the
+# tensor cores, so a sound row is off by a few bf16 ulps of the row (H100:
+# 4.2e-3 to 5.1e-3). The limit sits between that and the readings of a
+# planted fault, a skipped 64-key tile for the last q tile's rows (2.2e-2 for
+# dk/dv at T=8192, 0.14 to 0.99 elsewhere; PERF.md). lse is f32 on both sides
+FLASH_ROW_TOL = 1e-2
+LSE_ATOL = 1e-3
+# whole step, bf16, 2 layers, against attn_impl="reference": the loss within
+# STEP_LOSS_REL relative, every gradient leaf within STEP_GRAD_REL in relative
+# norm. Each limit sits between the sound reading (H100: loss 4.1e-6, worst
+# leaf 8.7e-3) and that of a planted fault, one query head of each kv group
+# dropped by B1 (loss 5.3e-5) or by B3 (worst leaf 0.53); PERF.md
+STEP_LOSS_REL = 1.5e-5
+STEP_GRAD_REL = 5e-2
+TRAIN_LAYERS = 8
 
 
 class SmokeFailure(Exception):
@@ -260,6 +305,368 @@ def kernel_phase(torch, DA, Q, flush) -> dict:
     return out
 
 
+# -- flash attention kernels (B1-B3) --------------------------------------------
+
+def row_rel_err(got, want) -> float:
+    """Largest error of a row (a head_dim vector) over that row's norm, the
+    norm floored at a tenth of the RMS row norm: a row whose exact value is
+    0 (dq of a segment's first query) holds only rounding noise."""
+    d = (got.float() - want.float()).norm(dim=-1)
+    n = want.float().norm(dim=-1)
+    return (d / n.clamp_min(0.1 * n.square().mean().sqrt())).max().item()
+
+
+def skipped_tile(A):
+    """``_visible`` of a faulty kernel, planted to show the check's reach:
+    the rows of the last 64-row q tile skip the 64-key tile holding the
+    first key row T-1 sees (a wrong window start), one tile of up to 32."""
+    real = A._visible
+
+    def visible(Tq, Tk, causal, window, seg_b, device):
+        ok = real(Tq, Tk, causal, window, seg_b, device)
+        k0 = min(int(ok[-1].nonzero()[0]) // 64 * 64, Tq - 128)
+        ok[Tq - 64:, k0:k0 + 64] = False
+        return ok
+
+    return visible
+
+
+def flash_inputs(torch, A, c):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    B, T = c["B"], c["T"]
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
+    q, k, v, do = rnd(B, H, T, DH), rnd(B, HKV, T, DH), rnd(B, HKV, T, DH), rnd(B, H, T, DH)
+    seg = None
+    if c["n_seg"] > 1:
+        rows = []
+        for _ in range(B):
+            cuts = torch.randperm(T - 1, generator=g, device="cuda")[: c["n_seg"] - 1].sort().values + 1
+            rows.append(torch.searchsorted(cuts, torch.arange(T, device="cuda"), right=True))
+        seg = torch.stack(rows).to(torch.int32).contiguous()
+    visible = torch.stack([A._visible(T, T, True, c["window"], None if seg is None else seg[b], "cuda")
+                           for b in range(B)])
+    return q, k, v, do, seg, visible
+
+
+def flash_cost(c, pairs: int, seg) -> dict:
+    """Operations and bytes of each kernel on this run's data: ``pairs``
+    visible (query, key) positions per head; each input read once, each
+    output written once (bf16 tensors, f32 lse / delta, int32 segment ids)."""
+    B, T = c["B"], c["T"]
+    qb, kvb, row = B * H * T * DH * 2, B * HKV * T * DH * 2, B * H * T * 4
+    segb = B * T * 4 if seg is not None else 0
+    return {
+        "flash_fwd": (4 * H * DH * pairs, 2 * qb + 2 * kvb + row + segb),
+        "flash_bwd_dq": (6 * H * DH * pairs, 3 * qb + 2 * kvb + 2 * row + segb),
+        "flash_bwd_dkv": (8 * H * DH * pairs, 2 * qb + 4 * kvb + 2 * row + segb),
+    }
+
+
+def flash_kernel_phase(torch, A, flush) -> dict:
+    import torch.nn.functional as F
+
+    recs = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
+    for name, c in FLASH_CASES.items():
+        q, k, v, do, seg, visible = flash_inputs(torch, A, c)
+        kw = dict(causal=True, segment_ids=seg, window=c["window"])
+        o, lse = A.flash_fwd(q, k, v, **kw)
+        o_p, lse_p = A.flash_fwd_plain(q, k, v, **kw)
+        delta = (do.float() * o_p.float()).sum(-1)
+        bwd = (q, k, v, do, lse_p, delta)
+        dq = A.flash_bwd_dq(*bwd, **kw)
+        dk, dv = A.flash_bwd_dkv(*bwd, **kw)
+        torch.cuda.synchronize()
+        dq_p = A.flash_bwd_dq_plain(*bwd, **kw)
+        dk_p, dv_p = A.flash_bwd_dkv_plain(*bwd, **kw)
+        lse_err = (lse - lse_p).abs().max().item()
+        with mock.patch.object(A, "_visible", skipped_tile(A)):
+            o_f = A.flash_fwd_plain(q, k, v, **kw)[0]
+            dq_f = A.flash_bwd_dq_plain(*bwd, **kw)
+            dk_f, dv_f = A.flash_bwd_dkv_plain(*bwd, **kw)
+        outs = {"flash_fwd": [(o, o_p, o_f)], "flash_bwd_dq": [(dq, dq_p, dq_f)],
+                "flash_bwd_dkv": [(dk, dk_p, dk_f), (dv, dv_p, dv_f)]}
+        # the library yardstick: SDPA on head-expanded K/V (a boolean mask for
+        # segments and the window), its forward, and its backward alone from
+        # a saved forward (which covers B2 and B3 together)
+        rep = H // HKV
+        kk = k.repeat_interleave(rep, 1).requires_grad_(True)
+        vv = v.repeat_interleave(rep, 1).requires_grad_(True)
+        qq = q.detach().clone().requires_grad_(True)
+        mask = visible[:, None] if seg is not None or c["window"] else None
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qq, kk, vv, attn_mask=mask, is_causal=mask is None)
+        with torch.no_grad():
+            lib_err = (sdpa().float() - o_p.float()).abs().max().item()
+            lib_fwd = time_ms(torch, sdpa, flush)
+        lib_o = sdpa()
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(lib_o, (qq, kk, vv), do, retain_graph=True),
+                          flush)
+        del lib_o
+        pairs = int(visible.sum().item())
+        cost = flash_cost(c, pairs, seg)
+        kernels = {"flash_fwd": lambda: A.flash_fwd(q, k, v, **kw),
+                   "flash_bwd_dq": lambda: A.flash_bwd_dq(*bwd, **kw),
+                   "flash_bwd_dkv": lambda: A.flash_bwd_dkv(*bwd, **kw)}
+        plains = {"flash_fwd": lambda: A.flash_fwd_plain(q, k, v, **kw),
+                  "flash_bwd_dq": lambda: A.flash_bwd_dq_plain(*bwd, **kw),
+                  "flash_bwd_dkv": lambda: A.flash_bwd_dkv_plain(*bwd, **kw)}
+        errs = {}
+        for kname, triples in outs.items():
+            for got, _, _ in triples:
+                check(bool(torch.isfinite(got.float()).all()), f"{kname} {name}: non-finite output")
+            err = max(row_rel_err(got, want) for got, want, _ in triples)
+            fault = max(row_rel_err(bad, want) for _, want, bad in triples)
+            abs_err = max((got.float() - want.float()).abs().max().item() for got, want, _ in triples)
+            errs[kname] = (err, fault, abs_err)
+            print(f"[kernel] {kname} {name:9s} row err {err:.3e} (tol {FLASH_ROW_TOL}; planted fault "
+                  f"{fault:.3e}), max_abs_err {abs_err:.3e}"
+                  + (f"; lse err {lse_err:.2e} (tol {LSE_ATOL}); sdpa max_abs_err {lib_err:.2e}"
+                     if kname == "flash_fwd" else ""), flush=True)
+        check(lse_err <= LSE_ATOL, f"flash_fwd {name}: lse error {lse_err} > {LSE_ATOL}")
+        for kname, (err, fault, _) in errs.items():
+            check(err <= FLASH_ROW_TOL, f"{kname} {name}: row error {err} > {FLASH_ROW_TOL}")
+            check(fault > FLASH_ROW_TOL, f"{kname} {name}: the check passes a planted fault ({fault})")
+        for kname, (err, fault, abs_err) in errs.items():
+            flops, nbytes = cost[kname]
+            rec = {"case": name, "max_abs_err": abs_err, "row_err": err, "tol": FLASH_ROW_TOL,
+                   "fault_row_err": fault, "pairs": pairs, "flops": flops, "bytes": nbytes,
+                   "ms": time_ms(torch, kernels[kname], flush),
+                   "plain_ms": time_ms(torch, plains[kname], flush, iters=3, warmup=1),
+                   "library_ms": lib_fwd if kname == "flash_fwd" else lib_bwd,
+                   "library_call": "sdpa forward" if kname == "flash_fwd"
+                   else "sdpa backward alone (covers B2+B3 together)",
+                   "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+                   "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations"}
+            rec["tflops"] = flops / rec["ms"] / 1e9
+            print(f"[kernel] {kname} {name:9s} ms {rec['ms']:.4f} plain {rec['plain_ms']:.4f} "
+                  f"{rec['library_call']} {rec['library_ms']:.4f} bound {rec['bound_ms']:.4f} "
+                  f"({rec['bound_by']}); {rec['tflops']:.1f} TFLOP/s", flush=True)
+            recs[kname].append(rec)
+        del q, k, v, do, seg, visible, o, lse, o_p, lse_p, delta, dq, dk, dv, dq_p, dk_p, dv_p
+        del o_f, dq_f, dk_f, dv_f, qq, kk, vv, mask, outs, bwd
+        torch.cuda.empty_cache()
+    return {kname: dict(rs[0], cases=rs) for kname, rs in recs.items()}
+
+
+def _leaves(tree: dict, prefix: str = ""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _leaves(val, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def dropped_head_fwd(A):
+    """B1 with a planted fault: query head 0 of every kv group gives zeros."""
+    real = A.flash_fwd
+
+    def fwd(q, k, v, **kw):
+        o, lse = real(q, k, v, **kw)
+        o = o.clone()
+        o[:, ::q.shape[1] // k.shape[1]] = 0
+        return o, lse
+
+    return fwd
+
+
+def dropped_head_dkv(A):
+    """B3 with a planted fault: dk and dv leave out query head 0 of every
+    kv group (its do and delta read as zeros)."""
+    real = A.flash_bwd_dkv
+
+    def dkv(q, k, v, do, lse, delta, **kw):
+        do, delta = do.clone(), delta.clone()
+        do[:, ::q.shape[1] // k.shape[1]] = 0
+        delta[:, ::q.shape[1] // k.shape[1]] = 0
+        return real(q, k, v, do, lse, delta, **kw)
+
+    return dkv
+
+
+def whole_step_check(torch, llama, A) -> dict:
+    """One ``loss_fn`` value and gradient through the kernels (remat "full",
+    as the train run) against ``attn_impl="reference"`` on the same params
+    and batch: 8B width, 2 layers, B=1, T=2048. Two planted faults (one
+    query head of each kv group dropped by B1, or by B3) must fail the limits
+    that the sound kernels pass."""
+    cfg = llama.config_from_dict({"preset": "llama3-8b", "n_layers": 2})
+    params = llama.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    names, tensors = zip(*_leaves(params))
+    for t in tensors:
+        t.requires_grad_(True)
+    batch = llama.synthetic_batch(torch.Generator(device="cuda").manual_seed(1), 1, 2048, cfg)
+
+    def run(impl):
+        A.reset_launches()
+        loss, _ = llama.loss_fn(params, batch, dataclasses.replace(cfg, attn_impl=impl))
+        return loss.item(), torch.autograd.grad(loss, tensors), dict(A.launches)
+
+    lr, gr, nr = run("reference")
+    check(not any(nr.values()), f"whole step: the reference launched kernels {nr}")
+    out = {"loss_reference": lr}
+    variants = {"kernels": None, "fault_b1_head": ("flash_fwd", dropped_head_fwd(A)),
+                "fault_b3_head": ("flash_bwd_dkv", dropped_head_dkv(A))}
+    for variant, patch in variants.items():
+        with mock.patch.object(A, *patch) if patch else contextlib.nullcontext():
+            lk, gk, nk = run("auto")
+        grad_rel = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+                    for n, a, b in zip(names, gk, gr)}
+        del gk
+        worst = max(grad_rel, key=grad_rel.get)
+        rec = {"loss": lk, "loss_rel": abs(lk - lr) / abs(lr), "worst_leaf": worst,
+               "worst_grad_rel": grad_rel[worst], "grad_rel": grad_rel, "launches": nk}
+        out[variant] = rec
+        print(f"[step] {variant}: loss {lk:.6f} reference {lr:.6f} rel {rec['loss_rel']:.2e} "
+              f"(tol {STEP_LOSS_REL}); worst grad leaf {worst} rel norm {grad_rel[worst]:.2e} "
+              f"(tol {STEP_GRAD_REL}); kernel launches {nk}", flush=True)
+        check(all(nk.values()), f"whole step {variant}: kernel launches {nk}")
+    k = out["kernels"]
+    check(math.isfinite(k["loss"]) and k["loss_rel"] <= STEP_LOSS_REL,
+          f"whole step: loss {k['loss']} vs {lr}")
+    check(all(math.isfinite(x) and x <= STEP_GRAD_REL for x in k["grad_rel"].values()),
+          f"whole step: gradient relative norms {k['grad_rel']}")
+    check(out["fault_b1_head"]["loss_rel"] > STEP_LOSS_REL,
+          f"whole step: the loss limit passes a planted B1 fault ({out['fault_b1_head']['loss_rel']})")
+    for variant in ("fault_b1_head", "fault_b3_head"):
+        check(out[variant]["worst_grad_rel"] > STEP_GRAD_REL,
+              f"whole step: the gradient limit passes the planted {variant} "
+              f"({out[variant]['worst_grad_rel']})")
+    return out
+
+
+def train_phase(torch, llama, A, out_dir: Path) -> dict:
+    """``run_lm_training`` twice on one checkpoint directory: 3 steps with a
+    checkpoint at step 3, then 6 steps resumed from it. The kernel launch
+    counts are set to 0 just before and read just after the two calls."""
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+    from tony_tpu_torch.train.metrics import transformer_flops_per_token
+
+    cfg = llama.config_from_dict({"preset": "llama3-8b", "n_layers": TRAIN_LAYERS})
+    ck = out_dir / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    base = dict(batch_size=4, seq_len=2048, warmup_steps=2, schedule_steps=6, checkpoint_every=3,
+                checkpoint_dir=str(ck), log_every=1)
+    runs = []
+    A.reset_launches()
+    for steps in (3, 6):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run_lm_training(llama, cfg, LoopConfig(steps=steps, **base))
+        res["wall_s"] = time.perf_counter() - t0
+        res["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        runs.append(res)
+    launches = dict(A.launches)
+    shutil.rmtree(ck, ignore_errors=True)
+    log = runs[0]["log"] + runs[1]["log"]
+    for line in log:
+        check(math.isfinite(line["loss"]) and math.isfinite(line["grad_norm"]), f"train: {line}")
+        print(f"[train] step {line['step']} loss {line['loss']} grad_norm {line['grad_norm']} "
+              f"{line['step_time_ms']} ms", flush=True)
+    check([x["step"] for x in log] == [1, 2, 3, 4, 5, 6], f"train: steps {[x['step'] for x in log]}")
+    check(abs(log[0]["loss"] - math.log(cfg.vocab_size)) <= 1.5,
+          f"train: first loss {log[0]['loss']} not within 1.5 of ln(V) {math.log(cfg.vocab_size):.2f}")
+    check(runs[0]["start_step"] == 0 and runs[1]["start_step"] == 3,
+          f"train: start steps {runs[0]['start_step']}, {runs[1]['start_step']} (want 0, 3)")
+    check(all(launches.values()), f"train: a flash kernel was never launched: {launches}")
+    # steady state: every step but the first of each call (allocator / first-use warm-up)
+    steady = sorted(x["step_time_ms"] for x in runs[0]["log"][1:] + runs[1]["log"][1:])
+    ms = steady[len(steady) // 2]
+    tokens = base["batch_size"] * base["seq_len"]
+    fpt = transformer_flops_per_token(cfg.num_params(), cfg.n_layers, cfg.d_model, base["seq_len"])
+    rec = {
+        "layers": TRAIN_LAYERS, "params": cfg.num_params(), "batch": base["batch_size"],
+        "seq_len": base["seq_len"], "log": log, "launches": launches,
+        "step_ms": ms, "tok_per_s": tokens / ms * 1e3,
+        "mfu_loop": sorted(x["mfu"] for x in runs[0]["log"][1:] + runs[1]["log"][1:])[len(steady) // 2],
+        "mfu_t2048": tokens / ms * 1e3 * fpt / BF16_FLOPS,
+        "max_memory_gib": max(r["max_memory_gib"] for r in runs),
+        "wall_s": [r["wall_s"] for r in runs], "start_steps": [r["start_step"] for r in runs],
+    }
+    print(f"[train] 8B width, {TRAIN_LAYERS} layers, B=4 T=2048: {rec['step_ms']:.1f} ms/step, "
+          f"{rec['tok_per_s']:.0f} tok/s, MFU {rec['mfu_t2048']:.3f} (6N + attention at T=2048; "
+          f"the loop's max_seq basis {rec['mfu_loop']:.3f}), peak memory {rec['max_memory_gib']:.1f} GiB, "
+          f"calls {rec['wall_s'][0]:.1f}s + {rec['wall_s'][1]:.1f}s; launches {launches}", flush=True)
+    return rec
+
+
+def _union_us(ranges) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(ranges):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def _kernel_family(name: str) -> str:
+    for fam in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
+        if fam in name:
+            return fam
+    low = name.lower()
+    return "gemm" if any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma")) else "other"
+
+
+def step_breakdown(torch, llama) -> dict:
+    """Where the train step's time goes, on the train run's shapes: the step
+    as ``make_train_step`` runs it (``loss_fn``, gradients, global norm,
+    AdamW), timed with CUDA events in two parts, then two more steps under
+    ``torch.profiler`` for device time by kernel family and the busy share
+    (device time over the host wall of the profiled steps, which the
+    profiler's own host cost stretches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState, global_norm
+
+    cfg = llama.config_from_dict({"preset": "llama3-8b", "n_layers": TRAIN_LAYERS})
+    opt = OptimizerConfig(learning_rate=3e-4, warmup_steps=2, total_steps=6).build()
+    state = TrainState.create(llama.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda"), opt)
+    names, tensors = zip(*_leaves(state.params))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def step():
+        batch = llama.synthetic_batch(gen, 4, 2048, cfg)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss, _ = llama.loss_fn(state.params, batch, cfg)
+        grads = torch.autograd.grad(loss, tensors)
+        ev[1].record()
+        opt.update(state.params, dict(zip(names, grads)), state.opt_state, global_norm(grads))
+        ev[2].record()
+        return ev
+
+    step()
+    timed = [step() for _ in range(2)]
+    torch.cuda.synchronize()
+    split = [(a.elapsed_time(b), b.elapsed_time(c)) for a, b, c in timed]
+    rec = {"grads_ms": min(x[0] for x in split), "optimizer_ms": min(x[1] for x in split)}
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kernels:
+        fam: dict = {}
+        for e in kernels:
+            f = _kernel_family(e.name)
+            fam[f] = fam.get(f, 0.0) + (e.time_range.end - e.time_range.start) / 2e3  # ms a step
+        busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
+        rec.update(device_ms_by_family=fam, device_ms=busy_us / 2e3, profiled_wall_ms=wall_us / 2e3,
+                   busy_share=busy_us / wall_us)
+        print(f"[train] step split: loss+grads {rec['grads_ms']:.1f} ms, optimizer {rec['optimizer_ms']:.1f} ms; "
+              f"device ms a step by kernel family {({k: round(v, 1) for k, v in fam.items()})}, "
+              f"busy {rec['busy_share']:.3f} of the profiled wall", flush=True)
+    else:
+        rec["device_ms_by_family"] = "not measured: the profiler recorded no device activity"
+        print(f"[train] step split: loss+grads {rec['grads_ms']:.1f} ms, optimizer {rec['optimizer_ms']:.1f} ms; "
+              "the profiler recorded no device activity", flush=True)
+    return rec
+
+
 # -- serve phase ---------------------------------------------------------------
 
 def _post(url: str, body: dict, timeout: float = 600):
@@ -403,6 +810,14 @@ def run_server(name: str, extra: list[str], out_dir: Path) -> dict:
 # -- main ----------------------------------------------------------------------
 
 KERNELS = {
+    "flash_fwd": ("tony_tpu_torch/csrc/flash_attention.cu",
+                  "tony_tpu/ops/attention.py:95 (_flash_kernel via _flash_fwd_lanes :215)", "train"),
+    "flash_bwd_dq": ("tony_tpu_torch/csrc/flash_attention.cu",
+                     "tony_tpu/ops/attention.py:287 (_flash_bwd_dq_kernel via _flash_bwd_impl :526)",
+                     "train"),
+    "flash_bwd_dkv": ("tony_tpu_torch/csrc/flash_attention.cu",
+                      "tony_tpu/ops/attention.py:373 and :434 (_flash_bwd_dkv_kernel_resident :572, "
+                      "_flash_bwd_dkv_kernel :662)", "train"),
     "ragged_decode_attention": ("tony_tpu_torch/csrc/decode_attention.cu",
                                 "tony_tpu/ops/decode_attention.py:49 (_kernel via ragged_decode_attention :185)",
                                 "dense_ragged"),
@@ -431,7 +846,9 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, str(ROOT))
+    from tony_tpu_torch.models import llama
     from tony_tpu_torch.ops import _build
+    from tony_tpu_torch.ops import attention as A
     from tony_tpu_torch.ops import decode_attention as DA
     from tony_tpu_torch.ops import quant as Q
 
@@ -453,28 +870,41 @@ def main() -> int:
                     print(f"[ptxas] {stem}: {line.strip()}", flush=True)
         flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")  # > 50 MB L2
         kern = kernel_phase(torch, DA, Q, flush)
+        kern.update(flash_kernel_phase(torch, A, flush))
         del flush
         torch.cuda.empty_cache()
+        # serving before training: the serve runs' host-bound decode steps
+        # are measured as they were before the train phase existed
         serve = {name: run_server(name, extra, out_dir) for name, extra in SERVE_RUNS}
+        step = whole_step_check(torch, llama, A)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train = train_phase(torch, llama, A, out_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train["breakdown"] = step_breakdown(torch, llama)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
+    path_launches = {run: rec["kernel_launches"] for run, rec in serve.items()}
+    path_launches["train"] = train["launches"]
     kernels = []
     for name, (source, replaces, run) in KERNELS.items():
         k = kern[name]
-        launches = serve[run]["kernel_launches"][name]
+        launches = path_launches[run][name]
         if not launches:
-            print(f"chip_smoke FAILED: {name} was not launched by the {run} serve run", file=sys.stderr)
+            print(f"chip_smoke FAILED: {name} was not launched by the {run} run", file=sys.stderr)
             return 1
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "launches_run": run, "case": k["case"],
             "max_abs_err": k["max_abs_err"], "tol": k["tol"],
+            **{x: k[x] for x in ("row_err", "fault_row_err") if x in k},
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"], "cases": k["cases"],
         })
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": kernels, "serve": serve}, indent=1))
+        {"card": card, "kernels": kernels, "whole_step": step, "train": train, "serve": serve}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tony_tpu_torch.ops import attention as A  # noqa: E402
 from tony_tpu_torch.ops import decode_attention as DA  # noqa: E402
 from tony_tpu_torch.ops import quant as Q  # noqa: E402
 
@@ -112,3 +113,128 @@ def test_engine_on_card_matches_cpu_greedy(gen):
             eng.submit(prompt, 9)
         outs.append(eng.run())
     assert outs[0] == outs[1] == outs[2]
+
+
+# -- flash attention (B1 forward, B2 dq, B3 dk/dv) ------------------------------
+
+def _flash_inputs(gen, dtype, B, H, Hkv, T, D, n_seg):
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    q, k, v, do = r(B, H, T, D), r(B, Hkv, T, D), r(B, Hkv, T, D), r(B, H, T, D)
+    seg = None
+    if n_seg > 1:
+        bounds = torch.randperm(T - 1, generator=gen, device="cuda")[: n_seg - 1].sort().values + 1
+        seg = torch.searchsorted(bounds, torch.arange(T, device="cuda"), right=True)
+        seg = seg.to(torch.int32)[None].expand(B, T).contiguous()
+    return q, k, v, do, seg
+
+
+# o, dq, dk, dv: the largest row error over the row's norm (``_row_err``).
+# f32: sums in another order (H100: at most 5.6e-6 over this grid); bf16: P
+# and dS are rounded to bf16 before the tensor-core products (the plain
+# version keeps them in f32), a few bf16 ulps of a row (at most 5.3e-3),
+# while a skipped 64-key tile reads 2.2e-2 or more (``chip_smoke.py``).
+# lse is f32 on both sides.
+ROW_TOL = {torch.float32: 5e-5, torch.bfloat16: 1e-2}
+LSE_ATOL = 1e-3
+
+
+def _row_err(got, want):
+    """Largest error of a row (a head_dim vector) over that row's norm, the
+    norm floored at a tenth of the RMS row norm: a row whose exact value is
+    0 (dq of a segment's first query) holds only rounding noise."""
+    d = (got.float() - want.float()).norm(dim=-1)
+    n = want.float().norm(dim=-1)
+    return (d / n.clamp_min(0.1 * n.square().mean().sqrt())).max().item()
+
+
+def _flash_compare(gen, dtype, B, H, Hkv, T, D, causal, window, n_seg):
+    """Every kernel against its plain version on the same inputs; returns
+    the errors."""
+    q, k, v, do, seg = _flash_inputs(gen, dtype, B, H, Hkv, T, D, n_seg)
+    kw = dict(causal=causal, segment_ids=seg, window=window)
+    before = dict(A.launches)
+    o, lse = A.flash_fwd(q, k, v, **kw)
+    o_p, lse_p = A.flash_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * o_p.float()).sum(-1)
+    dq = A.flash_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = A.flash_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    want = {"o": o_p, "dq": A.flash_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw)}
+    want["dk"], want["dv"] = A.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta, **kw)
+    got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
+    assert lse.shape == lse_p.shape and lse.dtype == torch.float32
+    errs = {"lse": (lse - lse_p).abs().max().item()}
+    assert errs["lse"] <= LSE_ATOL, f"lse: abs err {errs['lse']} > {LSE_ATOL}"
+    for name, w in want.items():
+        g = got[name]
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert bool(torch.isfinite(g.float()).all()), name
+        errs[name] = _row_err(g, w)
+        assert errs[name] <= ROW_TOL[dtype], f"{name}: row err {errs[name]} > {ROW_TOL[dtype]}"
+    assert A.launches == {k_: before[k_] + 1 for k_ in before}
+    return errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,n_rep", [(128, 4), (64, 1), (64, 8), (128, 8)])
+@pytest.mark.parametrize("causal,window,n_seg", [(True, 0, 1), (True, 300, 1), (True, 0, 3),
+                                                 (True, 256, 3), (False, 0, 1)],
+                         ids=["causal", "window", "segments", "window-segments", "full"])
+def test_flash_kernels_match_plain(gen, dtype, D, n_rep, causal, window, n_seg):
+    _flash_compare(gen, dtype, B=2, H=2 * n_rep, Hkv=2, T=1024, D=D, causal=causal,
+                   window=window, n_seg=n_seg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [200, 8192])
+def test_flash_kernels_long_and_ragged(gen, dtype, T):
+    """T=8192 with GQA (where the JAX package takes its streaming dk/dv
+    kernel) and a length that is no multiple of a tile."""
+    _flash_compare(gen, dtype, B=1, H=4, Hkv=1, T=T, D=128, causal=True, window=0,
+                   n_seg=3 if T == 200 else 1)
+
+
+def test_flash_autograd_on_card_matches_reference(gen):
+    """The one autograd function on the card (B1 + B2 + B3) against autograd
+    through the plain reference, in f32 (TF32 off on both)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, seg = _flash_inputs(gen, torch.float32, 2, 8, 2, 384, 64, 3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = A.mha(*leaves, impl="flash", segment_ids=seg, window=200)
+    (o * do).sum().backward()
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o_r = A.attention_reference(ref[0], A.repeat_kv(ref[1], 4), A.repeat_kv(ref[2], 4),
+                                segment_ids=seg, window=200)
+    (o_r * do).sum().backward()
+    torch.testing.assert_close(o, o_r, atol=2e-5, rtol=0)
+    for a, b in zip(leaves, ref):
+        err = (a.grad - b.grad).abs().max().item() / b.grad.abs().max().item()
+        assert err < 2e-4
+
+
+@pytest.mark.parametrize("T", [100, 200, 1000])
+def test_mha_on_card_takes_the_kernels_at_every_length(gen, T):
+    """On CUDA tensors ``mha`` (``impl="auto"``) launches B1, B2 and B3 at
+    lengths that are no multiple of a tile, as at any other."""
+    q, k, v, do, seg = _flash_inputs(gen, torch.bfloat16, 1, 8, 2, T, 128, 3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = dict(A.launches)
+    (A.mha(*leaves, segment_ids=seg) * do).sum().backward()
+    assert A.launches == {k_: before[k_] + 1 for k_ in before}
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(gen):
+    """A CUDA tensor outside what the kernels take raises; it never runs the
+    plain version."""
+    before = dict(A.launches)
+    q = torch.randn(1, 4, 256, 96, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        A.flash_fwd(q, q[:, :2], q[:, :2])
+    with pytest.raises(ValueError, match="head_dim"):
+        A.mha(q, q[:, :2], q[:, :2])  # never the plain reference for a card tensor
+    q = torch.randn(1, 16, 256, 64, device="cuda")
+    with pytest.raises(ValueError, match="at most 8x"):
+        A.flash_fwd(q, q[:, :1], q[:, :1])
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        A.flash_fwd(q.half(), q.half(), q.half())
+    assert A.launches == before

@@ -34,14 +34,23 @@ def test_no_jax_and_no_tony_tpu_imports(path):
         assert top not in ("jax", "jaxlib", "tony_tpu"), f"{path.name} imports {mod}"
 
 
-def test_serving_http_import_loads_no_jax():
-    code = ("import sys, tony_tpu_torch.models.serving_http, tony_tpu_torch.models.convert; "
-            "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'tony_tpu.'))]; "
+def _assert_import_loads_no_jax(modules: str) -> None:
+    code = (f"import sys, {modules}; "
+            "bad = [m for m in sys.modules if m in ('jax', 'tony_tpu') or m.startswith(('jax.', 'tony_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_serving_http_import_loads_no_jax():
+    _assert_import_loads_no_jax("tony_tpu_torch.models.serving_http, tony_tpu_torch.models.convert")
+
+
+def test_training_import_loads_no_jax():
+    _assert_import_loads_no_jax(
+        "tony_tpu_torch.train.loop, tony_tpu_torch.ops.attention, tony_tpu_torch.train.pretrain")
 
 
 def test_cuda_is_the_default_device():
@@ -51,3 +60,15 @@ def test_cuda_is_the_default_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             resolve_device()
+
+
+def test_training_defaults_to_cuda():
+    """``run_lm_training`` with no device named runs on the card, so without
+    one it raises instead of training on the CPU."""
+    from tony_tpu_torch.models import llama
+    from tony_tpu_torch.train.loop import LoopConfig, parse_loop_args, run_lm_training
+
+    assert LoopConfig().device == "cuda" and parse_loop_args([])[0].device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_lm_training(llama, llama.LLAMA_TINY, LoopConfig(steps=1))

@@ -1,18 +1,24 @@
-"""Llama-family decoder config and random init (serving subset).
+"""Llama-family decoder: config, random init, forward and training loss.
 
 Counterpart of ``tony_tpu/models/llama.py``: the same ``LlamaConfig``
 fields, the same presets and the same parameter tree — a nested dict with
 stacked layers (leading dim L on every block weight), weights ``[K, N]``
-used as ``x @ w``. ``forward``/``loss_fn``, sharding rules and the CP/PP
-branches belong to the training slice.
+used as ``x @ w``. The layer scan is a Python loop over the stacked dim
+(each stacked weight is unbound once per forward, so its gradient is
+stacked once in the backward). Single device only: a mesh (FSDP/TP, A8),
+a context axis (A12) and pipeline stages (A13) raise until they are ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from functools import partial
 
 import torch
+
+from tony_tpu_torch.ops import attention as attn_ops
+from tony_tpu_torch.ops import layers as L
 
 
 @dataclass(frozen=True)
@@ -54,6 +60,14 @@ class LlamaConfig:
             + 2 * D
         )
         return V * D + self.n_layers * per_layer + D + D * V
+
+    def flops_per_token(self) -> int:
+        """Training FLOPs/token: 6N + causal-attention term 12·L·D·T/2."""
+        from tony_tpu_torch.train.metrics import transformer_flops_per_token
+
+        return transformer_flops_per_token(
+            self.num_params(), self.n_layers, self.d_model, self.max_seq, training=True
+        )
 
 
 LLAMA3_8B = LlamaConfig()
@@ -110,6 +124,115 @@ def init(gen: torch.Generator, cfg: LlamaConfig, device: torch.device | str) -> 
         "final_norm": norm_init(D),
         "lm_head": dense(D, V, fan_in=D),
     }
+
+
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "a device mesh (FSDP/TP, context or pipeline axes) is not ported yet "
+            "(ROADMAP queue A8, A12, A13); the port trains on one device")
+
+
+def _attention(q, k, v, cfg: LlamaConfig, mesh, segment_ids=None) -> torch.Tensor:
+    """Single-device multi-head attention (the context-parallel branches of
+    the JAX function are not ported)."""
+    if cfg.cp_impl not in ("xla", "pallas", "ulysses"):
+        raise ValueError(f"cp_impl must be 'xla', 'pallas', or 'ulysses', got {cfg.cp_impl!r}")
+    _no_mesh(mesh)
+    return attn_ops.mha(q, k, v, causal=True, impl=cfg.attn_impl, segment_ids=segment_ids,
+                        window=cfg.sliding_window)
+
+
+def mask_packed_targets(tokens: torch.Tensor, seg: torch.Tensor | None):
+    """Next-token pairs stay within one segment and segment 0 (padding)
+    never contributes loss. Returns (targets [B, T], seg_in [B, T] or None)."""
+    targets = tokens[:, 1:]
+    if seg is None:
+        return targets, None
+    ok = (seg[:, 1:] == seg[:, :-1]) & (seg[:, 1:] != 0)
+    return torch.where(ok, targets, torch.full_like(targets, -100)), seg[:, :-1]
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Embedding rows for ``tokens`` (the unsharded branch of the JAX function)."""
+    _no_mesh(mesh)
+    return embed[tokens.long()]
+
+
+def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
+    """[B, T] per-segment positions (0-based, restarting at each segment
+    boundary) for RoPE on packed batches."""
+    B, T = segment_ids.shape
+    idx = torch.arange(T, device=segment_ids.device).expand(B, T)
+    is_start = torch.cat([torch.ones(B, 1, dtype=torch.bool, device=segment_ids.device),
+                          segment_ids[:, 1:] != segment_ids[:, :-1]], dim=1)
+    start = torch.cummax(torch.where(is_start, idx, 0), dim=1).values
+    return idx - start
+
+
+def _block(x, lp: dict, cos, sin, cfg: LlamaConfig, mesh, segment_ids=None, positions=None):
+    """One decoder block (pre-norm attention + SwiGLU)."""
+    B, T = x.shape[0], x.shape[1]
+    Dh, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = (h @ lp["wq"]).reshape(B, T, H, Dh).transpose(1, 2)
+    k = (h @ lp["wk"]).reshape(B, T, Hkv, Dh).transpose(1, 2)
+    v = (h @ lp["wv"]).reshape(B, T, Hkv, Dh).transpose(1, 2)
+    q = L.apply_rope(q, cos, sin, positions=positions)
+    k = L.apply_rope(k, cos, sin, positions=positions)
+    o = _attention(q, k, v, cfg, mesh, segment_ids=segment_ids)
+    o = o.transpose(1, 2).reshape(B, T, H * Dh)
+    x = x + o @ lp["wo"]
+    h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
+def hidden_states(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None,
+                  segment_ids=None) -> torch.Tensor:
+    """tokens [B, T] → final-norm hidden states [B, T, D]. ``segment_ids``
+    [B, T] confines attention within packed segments and restarts RoPE
+    positions at every boundary."""
+    T = tokens.shape[1]
+    cos, sin = L.rope_frequencies(cfg.head_dim, T, cfg.rope_theta, cfg.rope_scaling,
+                                  device=tokens.device)
+    positions = segment_positions(segment_ids) if segment_ids is not None else None
+    x = embed_lookup(params["embed"], tokens, mesh)
+    block_fn = attn_ops.remat_block(
+        partial(_block, cos=cos, sin=sin, cfg=cfg, mesh=mesh, segment_ids=segment_ids,
+                positions=positions),
+        cfg.remat, cfg.remat_policy,
+    )
+    per_layer = {name: w.unbind(0) for name, w in params["layers"].items()}
+    for i in range(cfg.n_layers):
+        x = block_fn(x, {name: ws[i] for name, ws in per_layer.items()})
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None,
+            segment_ids=None) -> torch.Tensor:
+    """tokens [B, T] → logits [B, T, V]."""
+    return hidden_states(params, tokens, cfg, mesh, segment_ids=segment_ids) @ params["lm_head"]
+
+
+def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, mesh=None) -> tuple[torch.Tensor, dict]:
+    """batch: {"tokens": [B, T+1], optional "segment_ids": [B, T+1]} →
+    (next-token CE loss, {"loss", "tokens"}). ``cfg.ce_chunk > 0`` fuses the
+    lm head and CE per chunk so the [B, T, V] logits never exist."""
+    tokens = batch["tokens"]
+    targets, seg_in = mask_packed_targets(tokens, batch.get("segment_ids"))
+    if cfg.ce_chunk > 0:
+        x = hidden_states(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in)
+        loss, n = L.chunked_cross_entropy_loss(x, params["lm_head"], targets, chunk=cfg.ce_chunk)
+    else:
+        logits = forward(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in)
+        loss, n = L.cross_entropy_loss(logits, targets)
+    return loss, {"loss": loss, "tokens": n}
+
+
+def synthetic_batch(gen: torch.Generator, batch_size: int, seq_len: int, cfg: LlamaConfig) -> dict:
+    """Uniform random tokens [B, T+1] drawn from ``gen`` on its device."""
+    return {"tokens": torch.randint(0, cfg.vocab_size, (batch_size, seq_len + 1), generator=gen,
+                                    device=gen.device)}
 
 
 def config_from_dict(d) -> LlamaConfig:
