@@ -36,7 +36,26 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    split with CUDA events into loss + gradients and the optimizer update,
    and its device time by kernel family from ``torch.profiler`` with the
    card's busy share of the profiled window;
-6. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+6. MoE kernels (B7, B8; run with phase 2): the grouped SwiGLU forward and
+   backward against their plain versions at Mixtral-8x7B widths (D 4096,
+   F 14336, 8 experts, top-2) on three routings (the train shape B=4,
+   T=2048; every token to experts 0 and 1; one 1000-token prompt), ys and
+   dxs row by row and each expert's dW in relative norm, with a planted
+   fault (each expert's last row tile on the next expert's weights) that
+   must fail every check; times against the three grouped GEMMs of
+   ``torch._grouped_mm`` (or a per-expert ``torch.matmul`` loop);
+7. Mixtral whole step: ``loss_fn`` and every gradient through B7/B8 against
+   the plain versions (full width, 1 layer, B=1, T=2048); two planted faults
+   (B7 zeroes an expert's rows, B8 drops an expert's dWd) must fail;
+8. Mixtral train: ``run_lm_training`` at Mixtral-8x7B width cut to 2
+   layers (bf16, remat "full", B=4, T=2048), 4 steps; loss, grad_norm and
+   the MoE metrics per step, ms/step, tok/s, MFU on the active parameters,
+   peak memory, and B7/B8 launches of exactly 2·layers·steps and
+   layers·steps;
+9. Mixtral serve: the in-process ``ContinuousBatcher`` on that model, six
+   requests (prompts of 17-1000 tokens, two identical greedy ones) of 16
+   new tokens, prefill through B7;
+10. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 
 Imports only ``tony_tpu_torch``, torch, numpy and the standard library.
 """
@@ -95,6 +114,33 @@ LSE_ATOL = 1e-3
 STEP_LOSS_REL = 1.5e-5
 STEP_GRAD_REL = 5e-2
 TRAIN_LAYERS = 8
+
+# Mixtral-8x7B widths of the MoE kernels (B7, B8): D, F, experts, top-k
+MOE_D, MOE_F, MOE_E, MOE_K = 4096, 14336, 8, 2
+MOE_CASES = {
+    "train": dict(tokens=4 * 2048, skew="random"),   # the train run's B=4, T=2048
+    "skewed": dict(tokens=4 * 2048, skew="two"),     # every token to experts 0 and 1
+    "prefill": dict(tokens=1000, skew="random"),     # one 1000-token prompt
+}
+# ys and dxs of the bf16 kernels against their plain versions row by row
+# (``row_rel_err``), each expert's dW in relative Frobenius norm: both sum in
+# f32 and round h, dg and du to bf16, so a sound kernel differs only where a
+# sum in another order moves a rounding (H100: rows <= 1.9e-3, dW <= 8.6e-4).
+# The planted fault (``next_expert_tiles``) reads 1.47-1.49 on rows and
+# 0.18-0.97 on dW (PERF.md)
+MOE_ROW_TOL = 1e-2
+MOE_W_TOL = 1e-2
+# Mixtral whole step (1 layer, B=1, T=2048), kernels against the plain
+# versions: the loss within MOE_STEP_LOSS_REL relative, every gradient leaf
+# within MOE_STEP_GRAD_REL in relative norm. Each limit sits between the
+# sound reading (H100: loss 2.8e-6, worst leaf 6.1e-3) and the planted
+# faults' (B7 zeroes expert 1's rows: loss 2.2e-4, worst leaf 0.36; B8 drops
+# its dWd: worst leaf 0.37)
+MOE_STEP_LOSS_REL = 3e-5
+MOE_STEP_GRAD_REL = 2e-2
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 4
+MOE_SERVE_TOKENS = 16
 
 
 class SmokeFailure(Exception):
@@ -807,6 +853,363 @@ def run_server(name: str, extra: list[str], out_dir: Path) -> dict:
         log.close()
 
 
+# -- MoE grouped SwiGLU kernels (B7, B8) and the Mixtral path --------------------
+
+def moe_inputs(torch, MG, expert, c):
+    """Routed rows at Mixtral-8x7B widths: ``c["tokens"]`` tokens routed
+    top-2 over 8 experts by a seeded random router ('random'), or every
+    token to experts 0 and 1 ('two': experts 2-7 own one pad tile and no
+    real row); expert weights at fan-in scale; the cotangent zero on pad rows,
+    as the combine's backward makes it."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    N, bf = c["tokens"], torch.bfloat16
+    x = torch.randn(1, N, MOE_D, generator=g, device="cuda").to(bf)
+    router = torch.randn(MOE_D, MOE_E, generator=g, device="cuda") / MOE_D ** 0.5
+    if c["skew"] == "two":
+        router = torch.zeros_like(router)
+        router[:, :2] = 1.0
+        x = x.abs()
+    sort_tok, _, _, gate_sorted, gs, _ = expert.route_ragged(
+        x, router, expert.MoEConfig(MOE_E, MOE_K), tile=MG.TILE)
+    xs = x.reshape(N, MOE_D)[sort_tok.long()].contiguous()
+    tg = MG.tile_group_map(gs, xs.shape[0] // MG.TILE, MG.TILE)
+
+    def w(*shape, fan):
+        return (torch.randn(*shape, generator=g, device="cuda") * fan ** -0.5).to(bf)
+
+    wg, wu, wd = w(MOE_E, MOE_D, MOE_F, fan=MOE_D), w(MOE_E, MOE_D, MOE_F, fan=MOE_D), \
+        w(MOE_E, MOE_F, MOE_D, fan=MOE_F)
+    dy = (torch.randn(xs.shape, generator=g, device="cuda") * (gate_sorted != 0)[:, None]).to(bf)
+    return dict(xs=xs, wg=wg, wu=wu, wd=wd, tg=tg, dy=dy, gs=gs, rows=N * MOE_K)
+
+
+def next_expert_tiles(torch, tg, E: int):
+    """A planted fault for the plain versions: the last row tile of each
+    expert's run computed with the next expert's weights."""
+    bad = tg.clone()
+    end = torch.tensor([E], dtype=tg.dtype, device=tg.device)
+    last = torch.nonzero(torch.diff(tg, append=end) != 0)[:, 0]
+    bad[last] = (tg[last] + 1) % E
+    return bad
+
+
+def expert_rel_err(got, want) -> tuple[float, bool]:
+    """(largest relative Frobenius error over the experts whose reference
+    dW is not zero, whether every other expert's dW is exactly zero)."""
+    errs, zeros_ok = [0.0], True
+    for e in range(want.shape[0]):
+        ref = want[e].float()
+        n = ref.norm()
+        if n == 0:
+            zeros_ok &= bool((got[e] == 0).all())
+        else:
+            errs.append(((got[e].float() - ref).norm() / n).item())
+    return max(errs), zeros_ok
+
+
+def grouped_mm_works(torch) -> bool:
+    """Whether this torch build's ``torch._grouped_mm`` runs a bf16 grouped
+    product with its backward on this card (it picks the library yardstick)."""
+    if not hasattr(torch, "_grouped_mm"):
+        return False
+    try:
+        a = torch.randn(256, 128, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+        b = torch.randn(2, 128, 128, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+        offs = torch.tensor([128, 256], dtype=torch.int32, device="cuda")
+        out = torch._grouped_mm(a, b, offs=offs)
+        torch.autograd.grad(out.float().sum(), (a, b))
+        want = torch.cat([a[:128] @ b[0], a[128:] @ b[1]])
+        return bool(((out.float() - want.float()).abs().max() < 0.5).item())
+    except (RuntimeError, TypeError, NotImplementedError):
+        return False
+
+
+def library_swiglu(torch, grouped: bool, xs, wg, wu, wd, gs):
+    """The yardstick: the expert MLP as three grouped GEMMs with silu·mul
+    between them, through ``torch._grouped_mm`` (``grouped``) or a loop of
+    ``torch.matmul`` over the experts' spans."""
+    import torch.nn.functional as F
+
+    offs = torch.cumsum(gs, 0).to(torch.int32)
+    ends = offs.tolist()
+    xs = xs[:ends[-1]]  # the rows of the experts' spans (the tiles past them are unused)
+    if grouped:
+        def mm(a, b):
+            return torch._grouped_mm(a, b, offs=offs)
+    else:
+        def mm(a, b):
+            return torch.cat([a[s:t] @ b[e] for e, (s, t) in enumerate(zip([0] + ends[:-1], ends))])
+    return mm(F.silu(mm(xs, wg)) * mm(xs, wu), wd)
+
+
+def moe_cost(m) -> dict:
+    """Operations over this run's real routed rows and the bytes of each
+    input read once and each output written once."""
+    PN, E, D, F = m["xs"].shape[0], MOE_E, MOE_D, MOE_F
+    w, act = 3 * E * D * F * 2, PN * D * 2
+    return {"moe_fwd": (2 * m["rows"] * D * F * 3, 2 * act + w + PN // 128 * 4),
+            "moe_bwd": (2 * m["rows"] * D * F * 8, 3 * act + 2 * w + PN // 128 * 4)}
+
+
+def moe_kernel_phase(torch, MG, expert, flush) -> dict:
+    """B7 and B8 against their plain versions on the card, in bf16: ys and
+    dxs row by row, each expert's dW in relative Frobenius norm, a planted
+    fault (``next_expert_tiles``) that each check must fail; then the times."""
+    grouped = grouped_mm_works(torch)
+    lib_name = "torch._grouped_mm" if grouped else "torch.matmul loop over experts"
+    recs = {"moe_fwd": [], "moe_bwd": []}
+    for name, c in MOE_CASES.items():
+        m = moe_inputs(torch, MG, expert, c)
+        args = (m["xs"], m["wg"], m["wu"], m["wd"])
+        ys = MG.moe_fwd(*args, m["tg"])
+        bwd = MG.moe_bwd(m["xs"], m["dy"], *args[1:], m["tg"])
+        torch.cuda.synchronize()
+        ys_p = MG.moe_fwd_plain(*args, m["tg"])
+        bwd_p = MG.moe_bwd_plain(m["xs"], m["dy"], *args[1:], m["tg"])
+        bad = next_expert_tiles(torch, m["tg"], MOE_E)
+        ys_f = MG.moe_fwd_plain(*args, bad)
+        bwd_f = MG.moe_bwd_plain(m["xs"], m["dy"], *args[1:], bad)
+        for t in (ys, *bwd):
+            check(bool(torch.isfinite(t.float()).all()), f"moe {name}: non-finite kernel output")
+        w_err = [expert_rel_err(a, b) for a, b in zip(bwd[1:], bwd_p[1:])]
+        w_fault = max(expert_rel_err(a, b)[0] for a, b in zip(bwd_f[1:], bwd_p[1:]))
+        errs = {
+            "moe_fwd": {"row_err": row_rel_err(ys, ys_p), "fault_row_err": row_rel_err(ys_f, ys_p),
+                        "max_abs_err": (ys.float() - ys_p.float()).abs().max().item()},
+            "moe_bwd": {"row_err": row_rel_err(bwd[0], bwd_p[0]),
+                        "fault_row_err": row_rel_err(bwd_f[0], bwd_p[0]),
+                        "w_err": max(e for e, _ in w_err), "fault_w_err": w_fault,
+                        "w_zeros_exact": all(z for _, z in w_err),
+                        "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                           for a, b in zip(bwd, bwd_p))},
+        }
+        del ys_f, bwd_f
+        lib_ys = library_swiglu(torch, grouped, *args, m["gs"])
+        lib_err = row_rel_err(lib_ys, ys_p[:lib_ys.shape[0]])
+        for kname, e in errs.items():
+            print(f"[moe] {kname} {name:8s} row err {e['row_err']:.3e} (tol {MOE_ROW_TOL}; planted fault "
+                  f"{e['fault_row_err']:.3e}), max_abs_err {e['max_abs_err']:.3e}"
+                  + (f"; dW rel err {e['w_err']:.3e} (tol {MOE_W_TOL}; planted fault {e['fault_w_err']:.3e}),"
+                     f" zero-row experts exactly 0: {e['w_zeros_exact']}" if kname == "moe_bwd"
+                     else f"; {lib_name} row err {lib_err:.3e}"), flush=True)
+        leaves = [t.detach().clone().requires_grad_(True) for t in args]
+        lib_out = library_swiglu(torch, grouped, *leaves, m["gs"])
+        lib_ms = {
+            "moe_fwd": time_ms(torch, lambda: library_swiglu(torch, grouped, *args, m["gs"]), flush, iters=5),
+            "moe_bwd": time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, m["dy"][:lib_out.shape[0]],
+                                                                  retain_graph=True),
+                               flush, iters=5),
+        }
+        del lib_out, leaves, lib_ys
+        kernels = {"moe_fwd": lambda: MG.moe_fwd(*args, m["tg"]),
+                   "moe_bwd": lambda: MG.moe_bwd(m["xs"], m["dy"], *args[1:], m["tg"])}
+        plains = {"moe_fwd": lambda: MG.moe_fwd_plain(*args, m["tg"]),
+                  "moe_bwd": lambda: MG.moe_bwd_plain(m["xs"], m["dy"], *args[1:], m["tg"])}
+        cost = moe_cost(m)
+        for kname, e in errs.items():
+            flops, nbytes = cost[kname]
+            rec = dict(e, case=name, tol=MOE_ROW_TOL, rows=m["rows"], padded_rows=m["xs"].shape[0],
+                       flops=flops, bytes=nbytes,
+                       ms=time_ms(torch, kernels[kname], flush, iters=5, warmup=1),
+                       plain_ms=time_ms(torch, plains[kname], flush, iters=3, warmup=1),
+                       library_ms=lib_ms[kname],
+                       library_call=f"{lib_name}: 3 GEMMs + silu·mul" if kname == "moe_fwd"
+                       else f"autograd backward of the {lib_name} composite, from a saved forward",
+                       bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+                       bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations")
+            if kname == "moe_fwd":
+                rec["library_row_err"] = lib_err
+            rec["tflops"] = flops / rec["ms"] / 1e9
+            print(f"[moe] {kname} {name:8s} ms {rec['ms']:.3f} plain {rec['plain_ms']:.3f} library "
+                  f"{rec['library_ms']:.3f} bound {rec['bound_ms']:.3f} ({rec['bound_by']}); "
+                  f"{rec['tflops']:.1f} TFLOP/s", flush=True)
+            recs[kname].append(rec)
+        del m, args, ys, bwd, ys_p, bwd_p, kernels, plains
+        torch.cuda.empty_cache()
+        for kname, rs in recs.items():
+            e = rs[-1]
+            check(e["row_err"] <= MOE_ROW_TOL, f"{kname} {name}: row error {e['row_err']} > {MOE_ROW_TOL}")
+            check(e["fault_row_err"] > MOE_ROW_TOL,
+                  f"{kname} {name}: the row check passes a planted fault ({e['fault_row_err']})")
+        b = recs["moe_bwd"][-1]
+        check(b["w_err"] <= MOE_W_TOL and b["w_zeros_exact"],
+              f"moe_bwd {name}: dW error {b['w_err']} > {MOE_W_TOL} or a zero-row expert's dW is not 0")
+        check(b["fault_w_err"] > MOE_W_TOL, f"moe_bwd {name}: the dW check passes a planted fault")
+    return {kname: dict(rs[0], cases=rs) for kname, rs in recs.items()}
+
+
+def zeroed_expert_fwd(MG, e: int = 1):
+    """B7 with a planted fault: the rows of expert ``e`` come out as zeros."""
+    real = MG.moe_fwd
+
+    def fwd(xs, wg, wu, wd, tile_group, tile=MG.TILE):
+        ys = real(xs, wg, wu, wd, tile_group, tile)
+        ys[tile_group.repeat_interleave(tile) == e] = 0
+        return ys
+
+    return fwd
+
+
+def dropped_dwd_bwd(MG, e: int = 1):
+    """B8 with a planted fault: expert ``e``'s dWd is left out (zeros)."""
+    real = MG.moe_bwd
+
+    def bwd(*a, **kw):
+        dxs, dwg, dwu, dwd = real(*a, **kw)
+        dwd[e] = 0
+        return dxs, dwg, dwu, dwd
+
+    return bwd
+
+
+def moe_whole_step_check(torch, mixtral, MG) -> dict:
+    """One Mixtral ``loss_fn`` value and every gradient leaf through B7/B8
+    (remat "full", as the train run) against the same step with the plain
+    versions swapped in, on the same params and batch: full width, 1 layer,
+    B=1, T=2048. Two planted faults (expert 1's rows zeroed by B7, or its
+    dWd left out by B8) must fail the limits that the kernels pass."""
+    cfg = mixtral.config_from_dict({"preset": "mixtral-8x7b", "n_layers": 1})
+    params = mixtral.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    names, tensors = zip(*_leaves(params))
+    for t in tensors:
+        t.requires_grad_(True)
+    batch = mixtral.synthetic_batch(torch.Generator(device="cuda").manual_seed(1), 1, 2048, cfg)
+
+    def run():
+        MG.reset_launches()
+        loss, aux = mixtral.loss_fn(params, batch, cfg)
+        return loss.item(), torch.autograd.grad(loss, tensors), dict(MG.launches)
+
+    plain = [mock.patch.object(MG, "moe_fwd", MG.moe_fwd_plain),
+             mock.patch.object(MG, "moe_bwd", MG.moe_bwd_plain)]
+    with contextlib.ExitStack() as stack:
+        for p in plain:
+            stack.enter_context(p)
+        lr, gr, nr = run()
+    check(not any(nr.values()), f"moe whole step: the plain run launched kernels {nr}")
+    out = {"loss_plain": lr}
+    variants = {"kernels": None, "fault_b7_expert": ("moe_fwd", zeroed_expert_fwd(MG)),
+                "fault_b8_dwd": ("moe_bwd", dropped_dwd_bwd(MG))}
+    for variant, patch in variants.items():
+        with mock.patch.object(MG, *patch) if patch else contextlib.nullcontext():
+            lk, gk, nk = run()
+        grad_rel = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+                    for n, a, b in zip(names, gk, gr)}
+        del gk
+        worst = max(grad_rel, key=grad_rel.get)
+        rec = {"loss": lk, "loss_rel": abs(lk - lr) / abs(lr), "worst_leaf": worst,
+               "worst_grad_rel": grad_rel[worst], "grad_rel": grad_rel, "launches": nk}
+        out[variant] = rec
+        print(f"[moe-step] {variant}: loss {lk:.6f} plain {lr:.6f} rel {rec['loss_rel']:.2e} "
+              f"(tol {MOE_STEP_LOSS_REL}); worst grad leaf {worst} rel norm {grad_rel[worst]:.2e} "
+              f"(tol {MOE_STEP_GRAD_REL}); launches {nk}", flush=True)
+    k = out["kernels"]
+    check(k["launches"] == {"moe_fwd": 2, "moe_bwd": 1}, f"moe whole step: launches {k['launches']}")
+    check(math.isfinite(k["loss"]) and k["loss_rel"] <= MOE_STEP_LOSS_REL,
+          f"moe whole step: loss {k['loss']} vs {lr}")
+    check(all(math.isfinite(x) and x <= MOE_STEP_GRAD_REL for x in k["grad_rel"].values()),
+          f"moe whole step: gradient relative norms {k['grad_rel']}")
+    check(out["fault_b7_expert"]["loss_rel"] > MOE_STEP_LOSS_REL,
+          f"moe whole step: the loss limit passes a planted B7 fault ({out['fault_b7_expert']['loss_rel']})")
+    for variant in ("fault_b7_expert", "fault_b8_dwd"):
+        check(out[variant]["worst_grad_rel"] > MOE_STEP_GRAD_REL,
+              f"moe whole step: the gradient limit passes the planted {variant} "
+              f"({out[variant]['worst_grad_rel']})")
+    return out
+
+
+def moe_train_phase(torch, mixtral, A, MG) -> dict:
+    """``run_lm_training`` on Mixtral-8x7B's widths cut to 2 layers (bf16,
+    remat "full", ce_chunk 512, B=4, T=2048), 4 steps in this process. The
+    kernel launch counts are set to 0 just before and read just after."""
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+    from tony_tpu_torch.train.metrics import transformer_flops_per_token
+
+    cfg = mixtral.config_from_dict({"preset": "mixtral-8x7b", "n_layers": MOE_TRAIN_LAYERS})
+    loop = LoopConfig(steps=MOE_TRAIN_STEPS, batch_size=4, seq_len=2048, warmup_steps=2,
+                      schedule_steps=MOE_TRAIN_STEPS, log_every=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    MG.reset_launches()
+    t0 = time.perf_counter()
+    res = run_lm_training(mixtral, cfg, loop)
+    wall = time.perf_counter() - t0
+    launches = {**A.launches, **MG.launches}
+    log = res["log"]
+    for line in log:
+        check(all(math.isfinite(line[k]) for k in ("loss", "grad_norm", "moe_balance_loss", "moe_z_loss")),
+              f"mixtral train: {line}")
+        print(f"[moe-train] step {line['step']} loss {line['loss']} grad_norm {line['grad_norm']} "
+              f"balance {line['moe_balance_loss']:.6f} z {line['moe_z_loss']:.6f} "
+              f"dropped {line['moe_dropped_frac']} {line['step_time_ms']} ms", flush=True)
+    L, S = MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS
+    check([x["step"] for x in log] == list(range(1, S + 1)), f"mixtral train: steps {[x['step'] for x in log]}")
+    check(abs(log[0]["loss"] - math.log(cfg.vocab_size)) <= 1.5,
+          f"mixtral train: first loss {log[0]['loss']} not within 1.5 of ln(V) {math.log(cfg.vocab_size):.2f}")
+    check(launches["moe_fwd"] == 2 * L * S and launches["moe_bwd"] == L * S,
+          f"mixtral train: MoE launches {launches} (want moe_fwd {2 * L * S}, moe_bwd {L * S})")
+    check(all(launches.values()), f"mixtral train: a kernel was never launched: {launches}")
+    steady = sorted(x["step_time_ms"] for x in log[1:])
+    ms = steady[len(steady) // 2]
+    tokens = loop.batch_size * loop.seq_len
+    fpt = transformer_flops_per_token(cfg.active_params(), L, cfg.d_model, loop.seq_len)
+    rec = {
+        "layers": L, "params": cfg.num_params(), "active_params": cfg.active_params(),
+        "batch": loop.batch_size, "seq_len": loop.seq_len, "log": log, "launches": launches,
+        "step_ms": ms, "tok_per_s": tokens / ms * 1e3, "mfu_active_t2048": tokens / ms * 1e3 * fpt / BF16_FLOPS,
+        "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "wall_s": wall,
+    }
+    print(f"[moe-train] Mixtral-8x7B width, {L} layers ({rec['params'] / 1e9:.2f} B params, "
+          f"{rec['active_params'] / 1e9:.2f} B active), B=4 T=2048: {ms:.1f} ms/step, "
+          f"{rec['tok_per_s']:.0f} tok/s, MFU {rec['mfu_active_t2048']:.3f} (active 6N + attention at "
+          f"T=2048), peak memory {rec['max_memory_gib']:.1f} GiB, wall {wall:.1f}s; launches {launches}",
+          flush=True)
+    return rec
+
+
+def moe_serve_phase(torch, mixtral, MG) -> dict:
+    """The in-process ``ContinuousBatcher`` (paged KV) on the 2-layer
+    Mixtral: four prompts of 17-1000 tokens plus two identical greedy ones,
+    16 new tokens each (prefill through B7, decode through the all-expert
+    branch); every request returns its tokens, the identical pair agrees."""
+    import numpy as np
+
+    from tony_tpu_torch.models.serving import ContinuousBatcher
+
+    cfg = mixtral.config_from_dict({"preset": "mixtral-8x7b", "n_layers": MOE_TRAIN_LAYERS})
+    with torch.no_grad():
+        params = mixtral.init(torch.Generator(device="cuda").manual_seed(5), cfg, "cuda")
+    eng = ContinuousBatcher(params, cfg, num_slots=4, max_len=2048, kv="paged", page_len=256)
+    eng.submit(list(range(1, 40)), 4)  # warm-up: first CUDA use of each path
+    eng.run()
+    rng = np.random.default_rng(2)
+    same = rng.integers(1, cfg.vocab_size, 100).tolist()
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (17, 300, 1000, 200)] + [same, list(same)]
+    MG.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, MOE_SERVE_TOKENS) for p in prompts]
+    res = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(MG.launches)
+    for rid, p in zip(rids, prompts):
+        toks = res[rid]
+        check(len(toks) == MOE_SERVE_TOKENS and all(0 <= t < cfg.vocab_size for t in toks),
+              f"mixtral serve: request {rid} ({len(p)} prompt tokens) returned {toks}")
+    check(res[rids[4]] == res[rids[5]], f"mixtral serve: identical greedy prompts disagree:\n"
+                                        f"{res[rids[4]]}\n{res[rids[5]]}")
+    check(launches["moe_fwd"] > 0 and launches["moe_bwd"] == 0, f"mixtral serve: launches {launches}")
+    gen = len(prompts) * MOE_SERVE_TOKENS
+    rec = {"wall_s": wall, "tokens": gen, "prompt_tokens": [len(p) for p in prompts],
+           "tok_per_s": gen / wall, "launches": launches, "first_tokens": [res[r][0] for r in rids]}
+    print(f"[moe-serve] {len(prompts)} requests ({rec['prompt_tokens']} prompt tokens), {gen} new tokens "
+          f"in {wall:.2f}s = {rec['tok_per_s']:.1f} tok/s; launches {launches}", flush=True)
+    return rec
+
+
 # -- main ----------------------------------------------------------------------
 
 KERNELS = {
@@ -827,6 +1230,11 @@ KERNELS = {
     "int8_matmul": ("tony_tpu_torch/csrc/int8_matmul.cu",
                     "tony_tpu/ops/quant.py:54 (_quant_matmul_kernel via int8_matmul :78)",
                     "int8"),
+    "moe_fwd": ("tony_tpu_torch/csrc/moe_gemm.cu",
+                "tony_tpu/ops/moe_gemm.py:104 (_fwd_kernel via _fwd_call :198; moe_swiglu_grouped :262)",
+                "mixtral_train"),
+    "moe_bwd": ("tony_tpu_torch/csrc/moe_gemm.cu",
+                "tony_tpu/ops/moe_gemm.py:128 (_bwd_kernel via _bwd_call :238)", "mixtral_train"),
 }
 SERVE_RUNS = [("paged", []), ("int8", ["--int8"]), ("dense_ragged", ["--kv", "dense", "--attn", "ragged"])]
 
@@ -846,8 +1254,10 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, str(ROOT))
-    from tony_tpu_torch.models import llama
+    from tony_tpu_torch.models import llama, mixtral
     from tony_tpu_torch.ops import _build
+    from tony_tpu_torch.ops import moe_gemm as MG
+    from tony_tpu_torch.parallel import expert
     from tony_tpu_torch.ops import attention as A
     from tony_tpu_torch.ops import decode_attention as DA
     from tony_tpu_torch.ops import quant as Q
@@ -871,6 +1281,7 @@ def main() -> int:
         flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")  # > 50 MB L2
         kern = kernel_phase(torch, DA, Q, flush)
         kern.update(flash_kernel_phase(torch, A, flush))
+        kern.update(moe_kernel_phase(torch, MG, expert, flush))
         del flush
         torch.cuda.empty_cache()
         # serving before training: the serve runs' host-bound decode steps
@@ -883,11 +1294,22 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train["breakdown"] = step_breakdown(torch, llama)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Mixtral after the Llama phases, with their state freed
+        moe_step = moe_whole_step_check(torch, mixtral, MG)
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_train = moe_train_phase(torch, mixtral, A, MG)
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_serve = moe_serve_phase(torch, mixtral, MG)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     path_launches = {run: rec["kernel_launches"] for run, rec in serve.items()}
     path_launches["train"] = train["launches"]
+    path_launches["mixtral_train"] = moe_train["launches"]
     kernels = []
     for name, (source, replaces, run) in KERNELS.items():
         k = kern[name]
@@ -899,12 +1321,14 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "launches_run": run, "case": k["case"],
             "max_abs_err": k["max_abs_err"], "tol": k["tol"],
-            **{x: k[x] for x in ("row_err", "fault_row_err") if x in k},
+            **{x: k[x] for x in ("row_err", "fault_row_err", "w_err", "fault_w_err", "library_call")
+               if x in k},
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"], "cases": k["cases"],
         })
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": kernels, "whole_step": step, "train": train, "serve": serve}, indent=1))
+        {"card": card, "kernels": kernels, "whole_step": step, "train": train, "serve": serve,
+         "mixtral": {"whole_step": moe_step, "train": moe_train, "serve": moe_serve}}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -238,3 +238,109 @@ def test_flash_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         A.flash_fwd(q.half(), q.half(), q.half())
     assert A.launches == before
+
+
+# -- MoE grouped SwiGLU (B7 forward, B8 backward) ---------------------------------
+
+def _moe_inputs(gen, E, D, F, N, skew):
+    """Routed rows for N tokens, top-2 over E experts, in bf16: 'random'
+    (a random router), 'two' (every token to experts 0 and 1, so the rest
+    own one pad tile and no real row). The cotangent is zero on pad rows, as
+    the combine's backward makes it."""
+    from tony_tpu_torch.ops import moe_gemm as MG
+    from tony_tpu_torch.parallel.expert import MoEConfig, route_ragged
+
+    bf = torch.bfloat16
+    r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device="cuda") * scale).to(bf)  # noqa: E731
+    x = r(1, N, D)
+    router = torch.randn(D, E, generator=gen, device="cuda") / D ** 0.5
+    if skew == "two":
+        router = torch.zeros(D, E, device="cuda")
+        router[:, :2] = 1.0
+        x = x.abs()
+    sort_tok, _, _, gate_sorted, gs, _ = route_ragged(x, router, MoEConfig(E, 2), tile=MG.TILE)
+    xs = x.reshape(N, D)[sort_tok.long()].contiguous()
+    tg = MG.tile_group_map(gs, xs.shape[0] // MG.TILE, MG.TILE)
+    w = (r(E, D, F, scale=D ** -0.5), r(E, D, F, scale=D ** -0.5), r(E, F, D, scale=F ** -0.5))
+    dy = (r(*xs.shape) * (gate_sorted != 0)[:, None]).contiguous()
+    return xs, w, tg, dy
+
+
+# ys and dxs held row by row (``_row_err``), each expert's dW in relative
+# Frobenius norm: both sides take the same bf16 inputs, sum in f32 and round
+# h, dg and du to bf16, so the kernels differ from the plain versions only
+# where a sum in another order moves a rounding (a bf16 ulp of a few
+# elements). A tile computed with the wrong expert's weights reads ~1
+# (chip_smoke.py's planted fault).
+MOE_TOL = 1e-2
+
+
+@pytest.mark.parametrize("E,D,F,N,skew", [
+    (4, 128, 256, 32, "random"),
+    (8, 256, 384, 300, "two"),
+    (8, 512, 1024, 1000, "random"),
+    (2, 384, 128, 77, "random"),
+])
+def test_moe_kernels_match_plain(gen, E, D, F, N, skew):
+    from tony_tpu_torch.ops import moe_gemm as MG
+
+    xs, (wg, wu, wd), tg, dy = _moe_inputs(gen, E, D, F, N, skew)
+    before = dict(MG.launches)
+    ys = MG.moe_fwd(xs, wg, wu, wd, tg)
+    grads = MG.moe_bwd(xs, dy, wg, wu, wd, tg)
+    torch.cuda.synchronize()
+    assert MG.launches == {"moe_fwd": before["moe_fwd"] + 1, "moe_bwd": before["moe_bwd"] + 1}
+    want_ys = MG.moe_fwd_plain(xs, wg, wu, wd, tg)
+    want = MG.moe_bwd_plain(xs, dy, wg, wu, wd, tg)
+    assert _row_err(ys, want_ys) <= MOE_TOL
+    assert _row_err(grads[0], want[0]) <= MOE_TOL
+    for got, exp in zip(grads[1:], want[1:]):
+        assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got.float()).all())
+        for e in range(E):
+            ref = exp[e].float()
+            if ref.norm() == 0:  # an expert with no real row: exactly zero
+                assert bool((got[e] == 0).all()), e
+                continue
+            assert ((got[e].float() - ref).norm() / ref.norm()).item() <= MOE_TOL, e
+    if skew == "two":
+        assert all(bool((g[2:] == 0).all()) for g in grads[1:])
+
+
+def test_moe_ffn_and_mixtral_step_on_card_launch_the_kernels(gen):
+    """``moe_ffn`` on card tensors launches B7 once and B8 once; a Mixtral
+    loss and backward under remat "full" launches B7 twice a layer (forward
+    and replay) and B8 once a layer."""
+    import dataclasses
+
+    from tony_tpu_torch.models import mixtral
+    from tony_tpu_torch.ops import moe_gemm as MG
+
+    cfg = dataclasses.replace(mixtral.MIXTRAL_TINY, dtype="bfloat16", d_model=256, n_heads=4,
+                              n_kv_heads=2, d_ff=256, remat=True, attn_impl="auto", ce_chunk=32)
+    params = mixtral.init(gen, cfg, "cuda")
+    names, tensors = zip(*((k, v) for k, v in params["layers"].items()))
+    for t in tensors:
+        t.requires_grad_(True)
+    batch = mixtral.synthetic_batch(gen, 2, 64, cfg)
+    MG.reset_launches()
+    loss, aux = mixtral.loss_fn(params, batch, cfg)
+    grads = torch.autograd.grad(loss, tensors)
+    torch.cuda.synchronize()
+    assert MG.launches == {"moe_fwd": 2 * cfg.n_layers, "moe_bwd": cfg.n_layers}
+    assert torch.isfinite(loss) and all(bool(torch.isfinite(g.float()).all()) for g in grads)
+    assert aux["moe_balance_loss"].item() > 0
+
+
+def test_moe_kernels_refuse_what_they_do_not_take(gen):
+    from tony_tpu_torch.ops import moe_gemm as MG
+
+    before = dict(MG.launches)
+    xs = torch.randn(128, 128, device="cuda")
+    w = torch.randn(2, 128, 128, device="cuda")
+    tg = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16"):
+        MG.moe_fwd(xs, w, w, w, tg)
+    xs, w = torch.randn(128, 96, device="cuda").bfloat16(), torch.randn(2, 96, 128, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="multiples of 128"):
+        MG.moe_fwd(xs, w, w, w.transpose(1, 2).contiguous(), tg)
+    assert MG.launches == before

@@ -53,6 +53,12 @@ def test_training_import_loads_no_jax():
         "tony_tpu_torch.train.loop, tony_tpu_torch.ops.attention, tony_tpu_torch.train.pretrain")
 
 
+def test_mixtral_import_loads_no_jax():
+    _assert_import_loads_no_jax(
+        "tony_tpu_torch.models.mixtral, tony_tpu_torch.train.pretrain_mixtral, "
+        "tony_tpu_torch.ops.moe_gemm, tony_tpu_torch.parallel.expert")
+
+
 def test_cuda_is_the_default_device():
     from tony_tpu_torch.device import resolve_device
 

@@ -1,4 +1,4 @@
-"""Autoregressive generation with a KV cache for the Llama family.
+"""Autoregressive generation with a KV cache for the Llama family (Mixtral included).
 
 Counterpart of ``tony_tpu/models/generate.py``. The cache is a static
 ``[L, B, Hkv, max_len, Dh]`` pair of tensors written IN PLACE (the JAX
@@ -20,6 +20,7 @@ import torch
 from tony_tpu_torch.models.llama import LlamaConfig
 from tony_tpu_torch.ops import layers as L
 from tony_tpu_torch.ops import quant as Q
+from tony_tpu_torch.parallel.expert import _gating, moe_ffn
 
 
 def _mm(x, w):
@@ -106,13 +107,25 @@ def _masked_slot_attention(q1, ck, cv, lengths, n_rep: int, window: int = 0, *, 
 
 
 def _ffn_with_cache(h, lp, cfg: LlamaConfig):
-    """Dense SwiGLU FFN. The MoE mixture (Mixtral family) is not ported yet."""
-    if "router" in lp:
-        raise NotImplementedError(
-            "MoE (Mixtral) serving is not ported yet: it comes with the port's MoE slice")
-    g = torch.nn.functional.silu(_mm(h, lp["w_gate"]))
-    u = _mm(h, lp["w_up"])
-    return _mm(g * u, lp["w_down"])
+    """Dense SwiGLU FFN, or the MoE mixture when the layer carries a router
+    (Mixtral family). More than 16 new tokens (prefill) route through the
+    training dispatch ``moe_ffn`` (the B7 kernel on the card); fewer
+    (decode) compute every expert with plain products and combine them with
+    the top-k gates of the same ``_gating``, as the JAX function does."""
+    if "router" not in lp:
+        g = torch.nn.functional.silu(_mm(h, lp["w_gate"]))
+        u = _mm(h, lp["w_up"])
+        return _mm(g * u, lp["w_down"])
+    if h.shape[1] > 16:
+        y, _ = moe_ffn(h, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"], cfg.moe, None)
+        return y
+    E = lp["router"].shape[-1]
+    gate_vals, gate_idx, _, _ = _gating(h, lp["router"], cfg.moe, None)
+    w = (torch.nn.functional.one_hot(gate_idx, E).float() * gate_vals[..., None]).sum(dim=-2)
+    ge = torch.einsum("btd,edf->btef", h, lp["we_gate"])
+    ue = torch.einsum("btd,edf->btef", h, lp["we_up"])
+    ye = torch.einsum("btef,efd->bted", torch.nn.functional.silu(ge) * ue, lp["we_down"])
+    return torch.einsum("bted,bte->btd", ye, w.to(ye.dtype))
 
 
 def _block_with_cache(x, lp, ck, cv, length: int, cos, sin, cfg: LlamaConfig):

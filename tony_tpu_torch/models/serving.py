@@ -19,7 +19,8 @@ Decode attention is one of:
 
 The JAX engine's jit-stability helpers become plain in-place tensor updates:
 PyTorch runs eagerly and the cache tensors are updated where they live.
-Tensor-parallel serving and Mixtral configs are not ported yet and raise.
+A Mixtral config serves through the MoE branch of ``_ffn_with_cache``.
+Tensor-parallel serving is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -296,9 +297,6 @@ class ContinuousBatcher:
             raise ValueError(f"kv must be dense|paged, got {kv!r}")
         if tp != 1:
             raise NotImplementedError("tensor-parallel serving (tp > 1) is not ported yet")
-        if "router" in params["layers"] or hasattr(cfg, "moe"):
-            raise NotImplementedError(
-                "Mixtral (MoE) serving is not ported yet: it comes with the port's MoE slice")
         self.kv = kv
         if kv == "paged":
             if page_len < 8 or page_len % 8:

@@ -88,10 +88,11 @@ def _batch_generator(device: torch.device, data_seed: int, step: int) -> torch.G
 
 
 def run_lm_training(model_module, model_cfg, loop: LoopConfig) -> dict:
-    """Decoder-LM pretraining loop (the llama module).
+    """Decoder-LM pretraining loop (the llama and mixtral modules).
 
     model_module exposes init(gen, cfg, device), loss_fn and synthetic_batch;
-    the config flops_per_token(). Returns the final metrics plus
+    the config flops_per_token(). Each logged step report carries the loss's
+    ``moe_*`` metrics when it has them. Returns the final metrics plus
     ``start_step`` and ``log`` (every logged step report)."""
     _refuse_unported(loop)
     device = resolve_device(loop.device)
@@ -147,6 +148,7 @@ def run_lm_training(model_module, model_cfg, loop: LoopConfig) -> dict:
                     "step_time_ms": round(report["step_time_ms"], 2),
                     "mfu": round(report["mfu"], 4),
                     "time": time.strftime("%H:%M:%S"),
+                    **{k: float(v) for k, v in metrics.items() if k.startswith("moe_")},
                 }
                 print(json.dumps(line), flush=True)
                 _drop_train_metrics(line)
