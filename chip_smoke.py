@@ -36,14 +36,15 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    split with CUDA events into loss + gradients and the optimizer update,
    and its device time by kernel family from ``torch.profiler`` with the
    card's busy share of the profiled window;
-6. MoE kernels (B7, B8; run with phase 2): the grouped SwiGLU forward and
+6. MoE kernels (B7, B8; after the Llama phases, so their minutes of load
+   do not run before the serve runs): the grouped SwiGLU forward and
    backward against their plain versions at Mixtral-8x7B widths (D 4096,
    F 14336, 8 experts, top-2) on three routings (the train shape B=4,
    T=2048; every token to experts 0 and 1; one 1000-token prompt), ys and
    dxs row by row and each expert's dW in relative norm, with a planted
    fault (each expert's last row tile on the next expert's weights) that
    must fail every check; times against the three grouped GEMMs of
-   ``torch._grouped_mm`` (or a per-expert ``torch.matmul`` loop);
+   ``torch._grouped_mm``;
 7. Mixtral whole step: ``loss_fn`` and every gradient through B7/B8 against
    the plain versions (full width, 1 layer, B=1, T=2048); two planted faults
    (B7 zeroes an expert's rows, B8 drops an expert's dWd) must fail;
@@ -52,9 +53,12 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    the MoE metrics per step, ms/step, tok/s, MFU on the active parameters,
    peak memory, and B7/B8 launches of exactly 2·layers·steps and
    layers·steps;
-9. Mixtral serve: the in-process ``ContinuousBatcher`` on that model, six
-   requests (prompts of 17-1000 tokens, two identical greedy ones) of 16
-   new tokens, prefill through B7;
+9. Mixtral serve: the in-process ``ContinuousBatcher`` (paged KV, 8 slots,
+   max_len 2048) at Mixtral-8x7B width cut to 27 of 32 layers, with the
+   Llama serve runs' traffic: the mixed batch (prefill through B7, decode
+   through the all-expert products; prefix hits, the identical greedy
+   prompts agree, the first token of one request timed) and the decode
+   batch; tok/s of both, the decode step time and peak memory;
 10. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 
 Imports only ``tony_tpu_torch``, torch, numpy and the standard library.
@@ -140,7 +144,11 @@ MOE_STEP_LOSS_REL = 3e-5
 MOE_STEP_GRAD_REL = 2e-2
 MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_STEPS = 4
-MOE_SERVE_TOKENS = 16
+# the deepest cut that fits one 80 GB card: bf16 weights of 2.90 GB a layer
+# plus 0.52 GB of embed and head are 78.9 GB (73.5 GiB) at 27 layers, and
+# with the KV pool (68 MB a layer) and the prefill temporaries the engine
+# peaks at 77.6 of the H100's 79.2 GiB; a 28th layer adds 2.7 GiB
+MOE_SERVE_LAYERS = 27
 
 
 class SmokeFailure(Exception):
@@ -726,15 +734,15 @@ def _get(url: str, timeout: float = 60) -> dict:
         return json.load(r)
 
 
-def serve_requests():
+def serve_requests(vocab: int = 128_000):
     """Eight requests: two sharing a 512-token prefix, two identical greedy
     prompts (shorter than a page, so neither is a prefix hit of the other
     and both run the same computation), four of other lengths; the last is
-    streamed. Tokens come from a seeded numpy generator."""
+    streamed. Tokens in [1, vocab) come from a seeded numpy generator."""
     import numpy as np
 
     rng = np.random.default_rng(0)
-    tok = lambda n: rng.integers(1, 128_000, n).tolist()  # noqa: E731
+    tok = lambda n: rng.integers(1, vocab, n).tolist()  # noqa: E731
     prefix = tok(512)
     same = tok(100)
     prompts = [prefix + tok(40), prefix + tok(70), same, list(same), tok(17), tok(300), tok(1000), tok(200)]
@@ -744,13 +752,13 @@ def serve_requests():
 DECODE_TOKENS = 128
 
 
-def decode_requests():
+def decode_requests(vocab: int = 128_000):
     """Eight short prompts (16 tokens) with 128-token answers: one per slot,
     so the run is dominated by full-batch decode steps."""
     import numpy as np
 
     rng = np.random.default_rng(1)
-    return [{"prompt_tokens": rng.integers(1, 128_000, 16).tolist(), "max_tokens": DECODE_TOKENS,
+    return [{"prompt_tokens": rng.integers(1, vocab, 16).tolist(), "max_tokens": DECODE_TOKENS,
              "stream": False} for _ in range(S)]
 
 
@@ -907,38 +915,17 @@ def expert_rel_err(got, want) -> tuple[float, bool]:
     return max(errs), zeros_ok
 
 
-def grouped_mm_works(torch) -> bool:
-    """Whether this torch build's ``torch._grouped_mm`` runs a bf16 grouped
-    product with its backward on this card (it picks the library yardstick)."""
-    if not hasattr(torch, "_grouped_mm"):
-        return False
-    try:
-        a = torch.randn(256, 128, device="cuda", dtype=torch.bfloat16, requires_grad=True)
-        b = torch.randn(2, 128, 128, device="cuda", dtype=torch.bfloat16, requires_grad=True)
-        offs = torch.tensor([128, 256], dtype=torch.int32, device="cuda")
-        out = torch._grouped_mm(a, b, offs=offs)
-        torch.autograd.grad(out.float().sum(), (a, b))
-        want = torch.cat([a[:128] @ b[0], a[128:] @ b[1]])
-        return bool(((out.float() - want.float()).abs().max() < 0.5).item())
-    except (RuntimeError, TypeError, NotImplementedError):
-        return False
-
-
-def library_swiglu(torch, grouped: bool, xs, wg, wu, wd, gs):
-    """The yardstick: the expert MLP as three grouped GEMMs with silu·mul
-    between them, through ``torch._grouped_mm`` (``grouped``) or a loop of
-    ``torch.matmul`` over the experts' spans."""
+def library_swiglu(torch, xs, wg, wu, wd, gs):
+    """The yardstick: the expert MLP as three ``torch._grouped_mm`` products
+    with silu·mul between them, over the experts' spans."""
     import torch.nn.functional as F
 
     offs = torch.cumsum(gs, 0).to(torch.int32)
-    ends = offs.tolist()
-    xs = xs[:ends[-1]]  # the rows of the experts' spans (the tiles past them are unused)
-    if grouped:
-        def mm(a, b):
-            return torch._grouped_mm(a, b, offs=offs)
-    else:
-        def mm(a, b):
-            return torch.cat([a[s:t] @ b[e] for e, (s, t) in enumerate(zip([0] + ends[:-1], ends))])
+    xs = xs[:int(offs[-1])]  # the rows of the experts' spans (the tiles past them are unused)
+
+    def mm(a, b):
+        return torch._grouped_mm(a, b, offs=offs)
+
     return mm(F.silu(mm(xs, wg)) * mm(xs, wu), wd)
 
 
@@ -955,8 +942,7 @@ def moe_kernel_phase(torch, MG, expert, flush) -> dict:
     """B7 and B8 against their plain versions on the card, in bf16: ys and
     dxs row by row, each expert's dW in relative Frobenius norm, a planted
     fault (``next_expert_tiles``) that each check must fail; then the times."""
-    grouped = grouped_mm_works(torch)
-    lib_name = "torch._grouped_mm" if grouped else "torch.matmul loop over experts"
+    lib_name = "torch._grouped_mm"
     recs = {"moe_fwd": [], "moe_bwd": []}
     for name, c in MOE_CASES.items():
         m = moe_inputs(torch, MG, expert, c)
@@ -984,7 +970,7 @@ def moe_kernel_phase(torch, MG, expert, flush) -> dict:
                                            for a, b in zip(bwd, bwd_p))},
         }
         del ys_f, bwd_f
-        lib_ys = library_swiglu(torch, grouped, *args, m["gs"])
+        lib_ys = library_swiglu(torch, *args, m["gs"])
         lib_err = row_rel_err(lib_ys, ys_p[:lib_ys.shape[0]])
         for kname, e in errs.items():
             print(f"[moe] {kname} {name:8s} row err {e['row_err']:.3e} (tol {MOE_ROW_TOL}; planted fault "
@@ -993,9 +979,9 @@ def moe_kernel_phase(torch, MG, expert, flush) -> dict:
                      f" zero-row experts exactly 0: {e['w_zeros_exact']}" if kname == "moe_bwd"
                      else f"; {lib_name} row err {lib_err:.3e}"), flush=True)
         leaves = [t.detach().clone().requires_grad_(True) for t in args]
-        lib_out = library_swiglu(torch, grouped, *leaves, m["gs"])
+        lib_out = library_swiglu(torch, *leaves, m["gs"])
         lib_ms = {
-            "moe_fwd": time_ms(torch, lambda: library_swiglu(torch, grouped, *args, m["gs"]), flush, iters=5),
+            "moe_fwd": time_ms(torch, lambda: library_swiglu(torch, *args, m["gs"]), flush, iters=5),
             "moe_bwd": time_ms(torch, lambda: torch.autograd.grad(lib_out, leaves, m["dy"][:lib_out.shape[0]],
                                                                   retain_graph=True),
                                flush, iters=5),
@@ -1169,44 +1155,73 @@ def moe_train_phase(torch, mixtral, A, MG) -> dict:
     return rec
 
 
-def moe_serve_phase(torch, mixtral, MG) -> dict:
-    """The in-process ``ContinuousBatcher`` (paged KV) on the 2-layer
-    Mixtral: four prompts of 17-1000 tokens plus two identical greedy ones,
-    16 new tokens each (prefill through B7, decode through the all-expert
-    branch); every request returns its tokens, the identical pair agrees."""
-    import numpy as np
-
-    from tony_tpu_torch.models.serving import ContinuousBatcher
-
-    cfg = mixtral.config_from_dict({"preset": "mixtral-8x7b", "n_layers": MOE_TRAIN_LAYERS})
-    with torch.no_grad():
-        params = mixtral.init(torch.Generator(device="cuda").manual_seed(5), cfg, "cuda")
-    eng = ContinuousBatcher(params, cfg, num_slots=4, max_len=2048, kv="paged", page_len=256)
-    eng.submit(list(range(1, 40)), 4)  # warm-up: first CUDA use of each path
-    eng.run()
-    rng = np.random.default_rng(2)
-    same = rng.integers(1, cfg.vocab_size, 100).tolist()
-    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (17, 300, 1000, 200)] + [same, list(same)]
-    MG.reset_launches()
+def engine_batch(torch, eng, reqs: list[dict]):
+    """Submit every request at once to the in-process engine and step it to
+    the end. Returns (tokens per request, seconds to the first token of the
+    streamed request, wall seconds of the batch)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rids = [eng.submit(p, MOE_SERVE_TOKENS) for p in prompts]
-    res = eng.run()
-    torch.cuda.synchronize()
+    rids = [eng.submit(r["prompt_tokens"], r["max_tokens"]) for r in reqs]
+    streamed = [rid for rid, r in zip(rids, reqs) if r["stream"]]
+    ttft = None
+    while eng.step():
+        if ttft is None and streamed and eng.drain_stream().get(streamed[0], ([],))[0]:
+            ttft = time.perf_counter() - t0
     wall = time.perf_counter() - t0
-    launches = dict(MG.launches)
-    for rid, p in zip(rids, prompts):
-        toks = res[rid]
-        check(len(toks) == MOE_SERVE_TOKENS and all(0 <= t < cfg.vocab_size for t in toks),
-              f"mixtral serve: request {rid} ({len(p)} prompt tokens) returned {toks}")
-    check(res[rids[4]] == res[rids[5]], f"mixtral serve: identical greedy prompts disagree:\n"
-                                        f"{res[rids[4]]}\n{res[rids[5]]}")
-    check(launches["moe_fwd"] > 0 and launches["moe_bwd"] == 0, f"mixtral serve: launches {launches}")
-    gen = len(prompts) * MOE_SERVE_TOKENS
-    rec = {"wall_s": wall, "tokens": gen, "prompt_tokens": [len(p) for p in prompts],
-           "tok_per_s": gen / wall, "launches": launches, "first_tokens": [res[r][0] for r in rids]}
-    print(f"[moe-serve] {len(prompts)} requests ({rec['prompt_tokens']} prompt tokens), {gen} new tokens "
-          f"in {wall:.2f}s = {rec['tok_per_s']:.1f} tok/s; launches {launches}", flush=True)
+    return [eng.done[rid] for rid in rids], ttft, wall
+
+
+def moe_serve_phase(torch, mixtral, DA, MG) -> dict:
+    """The in-process ``ContinuousBatcher`` (paged KV, page_len 256, 8 slots,
+    max_len 2048, decode_chunk 8) at Mixtral-8x7B width cut to
+    ``MOE_SERVE_LAYERS`` layers, with the traffic of the Llama serve runs:
+    the mixed batch of ``serve_requests`` (prefill of more than 16 tokens
+    through B7, decode through the all-expert products and B5) and the
+    decode batch of ``decode_requests``. Every request returns its tokens,
+    the identical greedy pair agrees, the shared prefix is a cache hit, and
+    B7 and B5 were launched."""
+    from tony_tpu_torch.models.serving import ContinuousBatcher
+
+    cfg = mixtral.config_from_dict({"preset": "mixtral-8x7b", "n_layers": MOE_SERVE_LAYERS})
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        params = mixtral.init(torch.Generator(device="cuda").manual_seed(5), cfg, "cuda")
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    eng = ContinuousBatcher(params, cfg, num_slots=S, max_len=MAXT, kv="paged", page_len=PLEN,
+                            decode_chunk=8)
+    eng.submit(list(range(1, 40)), 8)  # warm-up: first CUDA use of each path
+    eng.run()
+    reqs = serve_requests(cfg.vocab_size)
+    MG.reset_launches()
+    DA.reset_launches()
+    results, ttft, wall = engine_batch(torch, eng, reqs)
+    for i, (rq, res) in enumerate(zip(reqs, results)):
+        check(len(res) == rq["max_tokens"] and all(0 <= t < cfg.vocab_size for t in res),
+              f"mixtral serve: request {i} ({len(rq['prompt_tokens'])} prompt tokens) returned {res}")
+    check(results[2] == results[3], f"mixtral serve: identical greedy prompts disagree:\n"
+                                    f"{results[2]}\n{results[3]}")
+    check(eng.prefix_hit_tokens > 0, "mixtral serve: the shared prefix was never a cache hit")
+    dreqs = decode_requests(cfg.vocab_size)
+    dres, _, dwall = engine_batch(torch, eng, dreqs)
+    check(all(len(r) == DECODE_TOKENS for r in dres), f"mixtral serve: decode batch returned {dres!r:.300}")
+    launches = {**MG.launches, **DA.launches}
+    check(launches["moe_fwd"] > 0 and launches["moe_bwd"] == 0 and launches["paged_decode_attention"] > 0,
+          f"mixtral serve: launches {launches}")
+    gen = sum(len(r) for r in results)
+    rec = {
+        "layers": MOE_SERVE_LAYERS, "params": cfg.num_params(), "weights_gib": weights_gib,
+        "wall_s": wall, "tokens": gen, "tok_per_s": gen / wall, "ttft_stream_s": ttft,
+        "decode_tok_per_s": len(dreqs) * DECODE_TOKENS / dwall, "decode_step_ms": dwall / DECODE_TOKENS * 1e3,
+        "prefix_hit_tokens": eng.prefix_hit_tokens, "launches": launches,
+        "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "card_memory_gib": torch.cuda.get_device_properties(0).total_memory / 2**30,
+        "first_tokens": [r[0] for r in results],
+    }
+    print(f"[moe-serve] Mixtral-8x7B width, {MOE_SERVE_LAYERS} layers ({rec['params'] / 1e9:.2f} B params, "
+          f"{weights_gib:.1f} GiB): {gen} tokens in {wall:.2f}s = {rec['tok_per_s']:.1f} tok/s, "
+          f"TTFT(stream) {ttft:.3f}s; decode batch {rec['decode_tok_per_s']:.1f} tok/s "
+          f"({rec['decode_step_ms']:.2f} ms/step); prefix_hit_tokens {eng.prefix_hit_tokens}; peak memory "
+          f"{rec['max_memory_gib']:.1f} of {rec['card_memory_gib']:.1f} GiB; launches {launches}", flush=True)
     return rec
 
 
@@ -1281,11 +1296,11 @@ def main() -> int:
         flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")  # > 50 MB L2
         kern = kernel_phase(torch, DA, Q, flush)
         kern.update(flash_kernel_phase(torch, A, flush))
-        kern.update(moe_kernel_phase(torch, MG, expert, flush))
         del flush
         torch.cuda.empty_cache()
-        # serving before training: the serve runs' host-bound decode steps
-        # are measured as they were before the train phase existed
+        # serving before training and the MoE kernel phase: the serve runs'
+        # host-bound decode steps are measured as they were before those
+        # minutes of load existed
         serve = {name: run_server(name, extra, out_dir) for name, extra in SERVE_RUNS}
         step = whole_step_check(torch, llama, A)
         gc.collect()
@@ -1297,13 +1312,18 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         # Mixtral after the Llama phases, with their state freed
+        flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+        kern.update(moe_kernel_phase(torch, MG, expert, flush))
+        del flush
+        gc.collect()
+        torch.cuda.empty_cache()
         moe_step = moe_whole_step_check(torch, mixtral, MG)
         gc.collect()
         torch.cuda.empty_cache()
         moe_train = moe_train_phase(torch, mixtral, A, MG)
         gc.collect()
         torch.cuda.empty_cache()
-        moe_serve = moe_serve_phase(torch, mixtral, MG)
+        moe_serve = moe_serve_phase(torch, mixtral, DA, MG)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1

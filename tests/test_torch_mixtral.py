@@ -84,15 +84,30 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
 
 
+def _without(d: dict, keys) -> dict:
+    return {k: v for k, v in d.items() if k not in keys}
+
+
 def test_config_and_presets_mirror_jax():
+    """The presets equal JAX's but for the fields only JAX's unported
+    dispatches read (each preset takes the ragged one); a dict asking for
+    another dispatch is refused naming A11."""
     assert set(TM.PRESETS) == set(JM.PRESETS)
     for name, jcfg in JM.PRESETS.items():
         tcfg = TM.PRESETS[name]
-        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg), name
-        assert dataclasses.asdict(tcfg.moe) == dataclasses.asdict(jcfg.moe), name
+        assert jcfg.moe_dispatch == "ragged", name
+        assert dataclasses.asdict(tcfg) == _without(dataclasses.asdict(jcfg),
+                                                    ("capacity_factor", "moe_dispatch")), name
+        assert dataclasses.asdict(tcfg.moe) == _without(dataclasses.asdict(jcfg.moe),
+                                                        ("capacity_factor", "dispatch")), name
         for fn in ("num_params", "active_params", "flops_per_token"):
             assert getattr(tcfg, fn)() == getattr(jcfg, fn)(), (name, fn)
     assert TM.config_from_dict({"preset": "mixtral-8x7b", "n_layers": 2}).n_layers == 2
+    assert TM.config_from_dict({"preset": "tiny", "moe_dispatch": "ragged", "capacity_factor": 2.0}) \
+        == TM.MIXTRAL_TINY
+    for dispatch in ("ragged_xla", "gather", "dense"):
+        with pytest.raises(NotImplementedError, match="A11"):
+            TM.config_from_dict({"preset": "tiny", "moe_dispatch": dispatch})
     with pytest.raises(NotImplementedError, match="A8"):
         TM.forward({"embed": torch.zeros(8, 4)}, torch.zeros(1, 4, dtype=torch.long), _tcfg(),
                    mesh=object())

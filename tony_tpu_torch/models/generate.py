@@ -119,13 +119,16 @@ def _ffn_with_cache(h, lp, cfg: LlamaConfig):
     if h.shape[1] > 16:
         y, _ = moe_ffn(h, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"], cfg.moe, None)
         return y
+    B, T, D = h.shape
     E = lp["router"].shape[-1]
     gate_vals, gate_idx, _, _ = _gating(h, lp["router"], cfg.moe, None)
     w = (torch.nn.functional.one_hot(gate_idx, E).float() * gate_vals[..., None]).sum(dim=-2)
-    ge = torch.einsum("btd,edf->btef", h, lp["we_gate"])
-    ue = torch.einsum("btd,edf->btef", h, lp["we_up"])
-    ye = torch.einsum("btef,efd->bted", torch.nn.functional.silu(ge) * ue, lp["we_down"])
-    return torch.einsum("bted,bte->btd", ye, w.to(ye.dtype))
+    # batched products over the experts ([E, B·T, ·]): torch.einsum would
+    # first copy each [E, D, F] weight into a [D, E·F] operand
+    x = h.reshape(B * T, D)
+    g = torch.nn.functional.silu(torch.matmul(x, lp["we_gate"]))
+    ye = torch.matmul(g * torch.matmul(x, lp["we_up"]), lp["we_down"])
+    return torch.einsum("end,ne->nd", ye, w.reshape(B * T, E).to(ye.dtype)).reshape(B, T, D)
 
 
 def _block_with_cache(x, lp, ck, cv, length: int, cos, sin, cfg: LlamaConfig):

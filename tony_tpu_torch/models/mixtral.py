@@ -7,7 +7,9 @@ The parameter tree is the JAX one: per layer ``router`` [D, E] in f32 and
 ``we_gate``/``we_up`` [E, D, F], ``we_down`` [E, F, D] in the model dtype,
 stacked over layers. Single device only: a mesh raises as in
 ``models/llama.py``; ``sharding_rules`` and ``pp_value_and_grad`` wait for
-ROADMAP A8 and A13.
+ROADMAP A8 and A13. The MoE is JAX's default ragged dispatch, so the config
+has no ``moe_dispatch`` or ``capacity_factor``; ``config_from_dict`` refuses
+a dict that asks for another dispatch (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -30,18 +32,13 @@ _AUX = ("moe_balance_loss", "moe_z_loss", "moe_dropped_frac")
 class MixtralConfig(llama_mod.LlamaConfig):
     num_experts: int = 8
     top_k: int = 2
-    capacity_factor: float = 1.25
-    moe_dispatch: str = "ragged"  # ragged (ported) | ragged_xla | gather | dense
     aux_loss_coef: float = 1e-2   # load-balance loss weight
     router_z_coef: float = 1e-3   # router z-loss weight
 
     @property
     def moe(self) -> MoEConfig:
-        return MoEConfig(
-            self.num_experts, self.top_k, self.capacity_factor,
-            router_z_coef=self.router_z_coef, aux_loss_coef=self.aux_loss_coef,
-            dispatch=self.moe_dispatch,
-        )
+        return MoEConfig(self.num_experts, self.top_k, router_z_coef=self.router_z_coef,
+                         aux_loss_coef=self.aux_loss_coef)
 
     def num_params(self) -> int:
         base = super().num_params()
@@ -187,6 +184,10 @@ synthetic_batch = llama_mod.synthetic_batch
 def config_from_dict(d) -> MixtralConfig:
     if isinstance(d, str):
         return PRESETS[d]
+    if d.get("moe_dispatch", "ragged") != "ragged":
+        raise NotImplementedError(
+            f"MoE dispatch {d['moe_dispatch']!r} is not ported yet (ROADMAP queue A11); "
+            "the port runs the ragged dispatch")
     fields = {f.name for f in dataclasses.fields(MixtralConfig)}
     return dataclasses.replace(
         PRESETS.get(d.get("preset", ""), MixtralConfig()),

@@ -2,12 +2,13 @@
 
 Counterpart of ``tony_tpu/parallel/expert.py`` on one device: ``MoEConfig``,
 the top-k gating with its aux losses, the capacity-free ``route_ragged``
-counting sort, the gather-form dispatch and combine, and ``moe_ffn`` with
-``dispatch="ragged"``. The expert MLP always runs through
+counting sort, the gather-form dispatch and combine, and ``moe_ffn``, which
+is JAX's ``dispatch="ragged"`` path. The expert MLP always runs through
 ``ops/moe_gemm.moe_swiglu_grouped`` (B7/B8 on the card, their plain versions
-on the CPU) with spans padded to ``moe_gemm.TILE``. The capacity dispatches
-(``"gather"``, ``"dense"``), ``"ragged_xla"`` and an expert mesh axis raise
-until they are ported (ROADMAP queue A11).
+on the CPU) with spans padded to ``moe_gemm.TILE``. ``MoEConfig`` has no
+``dispatch`` or ``capacity_factor``: the capacity dispatches (``"gather"``,
+``"dense"``) and ``"ragged_xla"`` are not ported, and an expert mesh axis
+raises (ROADMAP queue A11).
 """
 
 from __future__ import annotations
@@ -24,11 +25,8 @@ from tony_tpu_torch.ops import moe_gemm
 class MoEConfig:
     num_experts: int = 8
     top_k: int = 2
-    capacity_factor: float = 1.25
     router_z_coef: float = 1e-3      # router z-loss (stability)
     aux_loss_coef: float = 1e-2      # load-balance loss
-    # ragged (the only dispatch ported) | ragged_xla | gather | dense
-    dispatch: str = "ragged"
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -183,7 +181,7 @@ def _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, token_
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             w_down: torch.Tensor, cfg: MoEConfig, mesh=None,
             token_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
-    """SwiGLU mixture-of-experts FFN, the ragged dispatch on one device.
+    """SwiGLU mixture-of-experts FFN: the capacity-free ragged dispatch on one device.
 
     x [B, T, D]; router_w [D, E]; w_gate/w_up [E, D, F]; w_down [E, F, D] →
     (y [B, T, D], aux losses)."""
@@ -191,9 +189,4 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor, w_up:
         raise NotImplementedError(
             "an expert (or any) mesh axis is not ported yet (ROADMAP queue A8, A11); "
             "the port's MoE runs on one device")
-    if cfg.dispatch == "ragged":
-        return _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg, token_mask)
-    if cfg.dispatch in ("ragged_xla", "gather", "dense"):
-        raise NotImplementedError(
-            f"MoE dispatch {cfg.dispatch!r} is not ported yet (ROADMAP queue A11); use 'ragged'")
-    raise ValueError(f"dispatch must be ragged|ragged_xla|gather|dense, got {cfg.dispatch!r}")
+    return _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg, token_mask)
