@@ -150,6 +150,29 @@ MOE_TRAIN_STEPS = 4
 # peaks at 77.6 of the H100's 79.2 GiB; a 28th layer adds 2.7 GiB
 MOE_SERVE_LAYERS = 27
 
+# context-parallel Llama training (B9, B10): B=1, T=16384 over a context of 4
+# (Tl 4096) on a DeviceRing on the card; the ring kernels are held against
+# their plain versions row by row with the flash limits (the kernels round P
+# and dS to bf16 for the tensor cores as B1-B3 do, the plain versions keep
+# f32; H100: rows <= 5.1e-3, the planted faults 0.96 and more)
+RING_N, RING_T = 4, 16384
+RING_CASES = {
+    "causal": dict(window=0, n_seg=1),
+    "segments": dict(window=0, n_seg=3),    # 3 packed segments, boundaries off the shard edges
+    "window": dict(window=1024, n_seg=1),   # sliding window 1024 < Tl: whole shards skipped
+}
+# whole step (2 layers) with cp_impl "pallas" against the single-device flash
+# path (B1-B3): the loss within CP_STEP_LOSS_REL relative, every gradient leaf
+# within CP_STEP_GRAD_REL in relative norm. H100: sound loss 3.4e-6, worst
+# leaf 5.8e-3; B9 skipping one ring step of one shard: loss 7.2e-6 (within
+# the loss limit: one step's KV of one layer barely moves a random-weight
+# loss), worst leaf 0.11; B10 keeping a neighbour's dk/dv: worst leaf 0.96.
+# The gradient limit sits between the sound reading and both faults'
+CP_STEP_LOSS_REL = 1.5e-5
+CP_STEP_GRAD_REL = 2e-2
+CP_TRAIN_LAYERS = 4
+CP_TRAIN_STEPS = 3
+
 
 class SmokeFailure(Exception):
     pass
@@ -721,6 +744,310 @@ def step_breakdown(torch, llama) -> dict:
     return rec
 
 
+# -- context-parallel ring attention (B9, B10) ------------------------------------
+
+def ring_inputs(torch, A, c):
+    """q, k, v, do at Llama-3-8B widths over the whole T=16384, three packed
+    segments with boundaries off the shard edges, the visible (query, key)
+    pairs of the case."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    T = RING_T
+    rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
+    q, k, v, do = rnd(1, H, T, DH), rnd(1, HKV, T, DH), rnd(1, HKV, T, DH), rnd(1, H, T, DH)
+    seg = None
+    if c["n_seg"] > 1:
+        cuts = torch.tensor([int(0.31 * T) + 5, int(0.68 * T) + 11], device="cuda")
+        seg = torch.searchsorted(cuts, torch.arange(T, device="cuda"), right=True)[None].to(torch.int32)
+    visible = A._visible(T, T, True, c["window"], None if seg is None else seg[0], "cuda")
+    return q, k, v, do, seg, visible
+
+
+@contextlib.contextmanager
+def plain_ring_steps(TR):
+    """The ring with the plain step versions in place of the kernels."""
+    with contextlib.ExitStack() as stack:
+        for name in ("ring_fwd_step", "ring_bwd_dq_step", "ring_bwd_dkv_step"):
+            stack.enter_context(mock.patch.object(TR, name, getattr(TR, name + "_plain")))
+        yield
+
+
+def skipped_ring_step(TR, my: int = 3, src: int = 2):
+    """B9 with a planted fault: shard ``my`` never folds in the KV shard
+    ``src`` (a middle step of the ring: its state passes through unchanged)."""
+    real = TR.ring_fwd_step
+    Tl = RING_T // RING_N
+
+    def step(*a, **kw):
+        if kw["q_pos0"] == my * Tl and kw["k_pos0"] == src * Tl:
+            return None
+        return real(*a, **kw)
+
+    return step
+
+
+def kept_home_dkv(TR):
+    """B10 with a planted fault: shard 0 skips the final rotation and keeps
+    the dk/dv accumulators it holds (its right neighbour's)."""
+    real = TR._deliver_home
+
+    def deliver(ring, dk_acc, dv_acc):
+        dk, dv = real(ring, dk_acc, dv_acc)
+        dk[0], dv[0] = dk_acc[0], dv_acc[0]
+        return dk, dv
+
+    return deliver
+
+
+def ring_cost(pairs: int, seg) -> dict:
+    """(operations, bytes, the launches' own operations) of one ring pass on
+    this run's data, as ``flash_cost``. B9 as B1. B10 as the TPU kernel's
+    one pass of five products a visible pair (q.k, do.v, p.do, ds.q, ds.k:
+    10 H DH), reading q, k, v, do, lse, delta once and writing dq, dk, dv
+    once; the port's dq and dk/dv step kernels each recompute q.k and do.v
+    (14 H DH), work of the split and not of the function."""
+    qb, kvb, row = H * RING_T * DH * 2, HKV * RING_T * DH * 2, H * RING_T * 4
+    segb = RING_T * 4 if seg is not None else 0
+    return {"ring_fwd": (4 * H * DH * pairs, 2 * qb + 2 * kvb + row + segb, 4 * H * DH * pairs),
+            "ring_bwd": (10 * H * DH * pairs, 3 * qb + 4 * kvb + 2 * row + segb, 14 * H * DH * pairs)}
+
+
+def ring_kernel_phase(torch, A, TR, flush) -> dict:
+    """B9 and B10 at Llama-3-8B widths, B=1, T=16384 over a DeviceRing of 4
+    on the card (Tl 4096), in bf16: the whole ring pass (steps, side-stream
+    rotations, the final rotation) through the kernels against the same pass
+    through the plain steps, o and lse forward, dq, dk and dv backward (the
+    backward of both from the plain forward's o and lse), row by row; two
+    planted faults must fail the same limits. Times of the passes, of one
+    diagonal and one past step of each kernel, and of SDPA over the whole
+    sequence on head-expanded KV (forward; backward alone)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from tony_tpu_torch.parallel.collectives import DeviceRing
+
+    ring = DeviceRing(RING_N, "cuda")
+    Tl = RING_T // RING_N
+    recs = {"ring_fwd": [], "ring_bwd": []}
+    for name, c in RING_CASES.items():
+        q, k, v, do, seg, visible = ring_inputs(torch, A, c)
+        segq, segk = TR._segments(ring, seg)
+        w = c["window"]
+        fwd = lambda: TR._ring_fwd(q, k, v, ring, True, w, segq, segk)  # noqa: E731
+        o, lse = fwd()
+        with plain_ring_steps(TR):
+            o_p, lse_p = fwd()
+        bwd = lambda: TR._ring_bwd(q, k, v, o_p, lse_p, do, ring, True, w, segq, segk)  # noqa: E731
+        grads = bwd()
+        with plain_ring_steps(TR):
+            grads_p = bwd()
+        with mock.patch.object(TR, "ring_fwd_step", skipped_ring_step(TR)):
+            o_f = fwd()[0]
+        with mock.patch.object(TR, "_deliver_home", kept_home_dkv(TR)):
+            grads_f = bwd()
+        torch.cuda.synchronize()
+        lse_err = (lse - lse_p).abs().max().item()
+        outs = {"ring_fwd": [(o, o_p, o_f)], "ring_bwd": list(zip(grads, grads_p, grads_f))}
+        errs = {}
+        for kname, triples in outs.items():
+            for got, _, _ in triples:
+                check(bool(torch.isfinite(got.float()).all()), f"{kname} {name}: non-finite output")
+            err = max(row_rel_err(got, want) for got, want, _ in triples)
+            fault = max(row_rel_err(bad, want) for _, want, bad in triples)
+            abs_err = max((got.float() - want.float()).abs().max().item() for got, want, _ in triples)
+            errs[kname] = (err, fault, abs_err)
+            print(f"[ring] {kname} {name:8s} row err {err:.3e} (tol {FLASH_ROW_TOL}; planted fault "
+                  f"{fault:.3e}), max_abs_err {abs_err:.3e}"
+                  + (f"; lse err {lse_err:.2e} (tol {LSE_ATOL})" if kname == "ring_fwd" else ""), flush=True)
+        check(lse_err <= LSE_ATOL, f"ring_fwd {name}: lse error {lse_err} > {LSE_ATOL}")
+        for kname, (err, fault, _) in errs.items():
+            check(err <= FLASH_ROW_TOL, f"{kname} {name}: row error {err} > {FLASH_ROW_TOL}")
+            check(fault > FLASH_ROW_TOL, f"{kname} {name}: the check passes a planted fault ({fault})")
+        del o, lse, grads, grads_f, o_f, outs
+        # one diagonal step (shard 1 on its own KV) and one past step (shard 3
+        # on shard 2's KV: every pair visible under the causal mask)
+        f32 = dict(dtype=torch.float32, device="cuda")
+        delta = (do.float() * o_p.float()).sum(-1)
+        step_ms = {}
+        for sname, my, src in (("diagonal", 1, 1), ("past", 3, 2)):
+            sl = slice(my * Tl, (my + 1) * Tl)
+            qs, dos, os_ = (t[:, :, sl].contiguous() for t in (q, do, o_p))
+            ks, vs = (t[:, :, src * Tl:(src + 1) * Tl].contiguous() for t in (k, v))
+            rows = (lse_p[:, :, sl].contiguous(), delta[:, :, sl].contiguous())
+            acc, m, l = torch.zeros(qs.shape, **f32), torch.zeros(qs.shape[:3], **f32), torch.zeros(qs.shape[:3], **f32)
+            lse_s = torch.zeros(qs.shape[:3], **f32)
+            dq, dk, dv = torch.zeros(qs.shape, **f32), torch.zeros(ks.shape, **f32), torch.zeros(ks.shape, **f32)
+            kw = dict(q_pos0=my * Tl, k_pos0=src * Tl, causal=True, window=w,
+                      segq=None if segq is None else segq[:, sl].contiguous(), segk=segk)
+            step_ms[sname] = {
+                "ring_fwd": time_ms(torch, lambda: TR.ring_fwd_step(qs, ks, vs, acc, m, l, os_, lse_s,
+                                                                    first=my == src, **kw), flush),
+                "ring_bwd_dq": time_ms(torch, lambda: TR.ring_bwd_dq_step(qs, ks, vs, dos, *rows, dq, **kw), flush),
+                "ring_bwd_dkv": time_ms(torch, lambda: TR.ring_bwd_dkv_step(qs, ks, vs, dos, *rows, dk, dv, **kw),
+                                        flush),
+            }
+        del acc, m, l, lse_s, dq, dk, dv
+        # the library yardstick: SDPA over the whole sequence on head-expanded
+        # K/V (a boolean mask for segments and the window), never the MATH
+        # backend's T x T scores
+        rep = H // HKV
+        kk = k.repeat_interleave(rep, 1).requires_grad_(True)
+        vv = v.repeat_interleave(rep, 1).requires_grad_(True)
+        qq = q.detach().clone().requires_grad_(True)
+        mask = visible[None, None] if seg is not None or w else None
+        backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION]
+
+        def sdpa():
+            with sdpa_kernel(backends):
+                return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, is_causal=mask is None)
+
+        with torch.no_grad():
+            lib_err = (sdpa().float() - o_p.float()).abs().max().item()
+            lib_fwd = time_ms(torch, sdpa, flush, iters=10)
+        lib_o = sdpa()
+        lib_bwd = time_ms(torch, lambda: torch.autograd.grad(lib_o, (qq, kk, vv), do, retain_graph=True),
+                          flush, iters=10)
+        del lib_o, qq, kk, vv, mask
+        torch.cuda.empty_cache()
+        pairs = int(visible.sum().item())
+        cost = ring_cost(pairs, seg)
+        passes = {"ring_fwd": (fwd, lib_fwd, "sdpa forward over the whole sequence"),
+                  "ring_bwd": (bwd, lib_bwd, "sdpa backward alone over the whole sequence")}
+        for kname, (run, lib_ms, lib_call) in passes.items():
+            err, fault, abs_err = errs[kname]
+            flops, nbytes, kernel_flops = cost[kname]
+            rec = {"case": name, "max_abs_err": abs_err, "row_err": err, "tol": FLASH_ROW_TOL,
+                   "fault_row_err": fault, "pairs": pairs, "flops": flops, "bytes": nbytes,
+                   "kernel_flops": kernel_flops,
+                   "ms": time_ms(torch, run, flush, iters=10),
+                   "step_ms": {s: {x: t for x, t in d.items() if x.startswith(kname)} for s, d in step_ms.items()},
+                   "library_ms": lib_ms, "library_call": lib_call,
+                   "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
+                   "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations"}
+            with plain_ring_steps(TR):
+                rec["plain_ms"] = time_ms(torch, run, flush, iters=2, warmup=1)
+            rec["tflops"] = flops / rec["ms"] / 1e9
+            rec["kernel_tflops"] = kernel_flops / rec["ms"] / 1e9
+            if kname == "ring_fwd":
+                rec["library_max_abs_err"] = lib_err
+            print(f"[ring] {kname} {name:8s} pass ms {rec['ms']:.3f} (steps: {rec['step_ms']}) plain "
+                  f"{rec['plain_ms']:.3f} {lib_call} {lib_ms:.3f} bound {rec['bound_ms']:.3f} "
+                  f"({rec['bound_by']}); {rec['tflops']:.1f} TFLOP/s of the function, "
+                  f"{rec['kernel_tflops']:.1f} of the launches' own work", flush=True)
+            recs[kname].append(rec)
+        del q, k, v, do, seg, visible, o_p, lse_p, grads_p, delta, segq, segk, fwd, bwd, passes
+        torch.cuda.empty_cache()
+    return {kname: dict(rs[0], cases=rs) for kname, rs in recs.items()}
+
+
+def cp_whole_step_check(torch, llama, A, TR) -> dict:
+    """One ``loss_fn`` value and gradient with ``cp_impl="pallas"`` over a
+    context of 4 (the B9/B10 ring on a DeviceRing on the card) against the
+    single-device flash path (B1-B3, no mesh) on the same params and batch:
+    8B width, 2 layers, B=1, T=16384, remat "full". The two planted ring
+    faults must fail the gradient limit that the sound kernels pass."""
+    from tony_tpu_torch.parallel.mesh import MeshSpec
+
+    cfg = llama.config_from_dict({"preset": "llama3-8b", "n_layers": 2, "cp_impl": "pallas"})
+    params = llama.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    names, tensors = zip(*_leaves(params))
+    for t in tensors:
+        t.requires_grad_(True)
+    batch = llama.synthetic_batch(torch.Generator(device="cuda").manual_seed(1), 1, RING_T, cfg)
+    mesh = MeshSpec(context=RING_N).build("cuda")
+
+    def run(m):
+        A.reset_launches()
+        TR.reset_launches()
+        loss, _ = llama.loss_fn(params, batch, cfg, m)
+        return loss.item(), torch.autograd.grad(loss, tensors), {**A.launches, **TR.launches}
+
+    lr, gr, nr = run(None)
+    check(all(nr[x] for x in A.launches) and not any(nr[x] for x in TR.launches),
+          f"cp whole step: the flash path launched {nr}")
+    out = {"loss_flash": lr}
+    variants = {"kernels": None, "fault_b9_step": ("ring_fwd_step", skipped_ring_step(TR)),
+                "fault_b10_home": ("_deliver_home", kept_home_dkv(TR))}
+    for variant, patch in variants.items():
+        with mock.patch.object(TR, *patch) if patch else contextlib.nullcontext():
+            lk, gk, nk = run(mesh)
+        grad_rel = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+                    for n, a, b in zip(names, gk, gr)}
+        del gk
+        worst = max(grad_rel, key=grad_rel.get)
+        rec = {"loss": lk, "loss_rel": abs(lk - lr) / abs(lr), "worst_leaf": worst,
+               "worst_grad_rel": grad_rel[worst], "grad_rel": grad_rel, "launches": nk}
+        out[variant] = rec
+        print(f"[cp-step] {variant}: loss {lk:.6f} flash {lr:.6f} rel {rec['loss_rel']:.2e} "
+              f"(tol {CP_STEP_LOSS_REL}); worst grad leaf {worst} rel norm {grad_rel[worst]:.2e} "
+              f"(tol {CP_STEP_GRAD_REL}); launches {nk}", flush=True)
+    k = out["kernels"]
+    check(all(k["launches"][x] for x in TR.launches) and not any(k["launches"][x] for x in A.launches),
+          f"cp whole step: the ring path launched {k['launches']}")
+    check(math.isfinite(k["loss"]) and k["loss_rel"] <= CP_STEP_LOSS_REL,
+          f"cp whole step: loss {k['loss']} vs {lr}")
+    check(all(math.isfinite(x) and x <= CP_STEP_GRAD_REL for x in k["grad_rel"].values()),
+          f"cp whole step: gradient relative norms {k['grad_rel']}")
+    for variant in ("fault_b9_step", "fault_b10_home"):
+        check(out[variant]["worst_grad_rel"] > CP_STEP_GRAD_REL,
+              f"cp whole step: the gradient limit passes the planted {variant} "
+              f"({out[variant]['worst_grad_rel']})")
+    return out
+
+
+def cp_train_phase(torch, llama, A, TR) -> dict:
+    """``run_lm_training`` with a context axis of 4 (``cp_impl="pallas"``) at
+    the 8B width cut to ``CP_TRAIN_LAYERS`` layers, B=1, T=16384, remat
+    "full", ``CP_TRAIN_STEPS`` steps. The launch counts are set to 0 just
+    before and read just after; B9/B10 launches must equal the schedule's
+    (shards x steps that run x layers x train steps, the forward twice
+    under remat)."""
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+    from tony_tpu_torch.train.metrics import transformer_flops_per_token
+
+    cfg = llama.config_from_dict({"preset": "llama3-8b", "n_layers": CP_TRAIN_LAYERS, "cp_impl": "pallas"})
+    loop = LoopConfig(steps=CP_TRAIN_STEPS, batch_size=1, seq_len=RING_T, context_axis=RING_N,
+                      warmup_steps=1, schedule_steps=CP_TRAIN_STEPS, log_every=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    TR.reset_launches()
+    t0 = time.perf_counter()
+    res = run_lm_training(llama, cfg, loop)
+    wall = time.perf_counter() - t0
+    launches = {**A.launches, **TR.launches}
+    log = res["log"]
+    for line in log:
+        check(math.isfinite(line["loss"]) and math.isfinite(line["grad_norm"]), f"cp train: {line}")
+        print(f"[cp-train] step {line['step']} loss {line['loss']} grad_norm {line['grad_norm']} "
+              f"{line['step_time_ms']} ms", flush=True)
+    L, S, Tl = CP_TRAIN_LAYERS, CP_TRAIN_STEPS, RING_T // RING_N
+    sched = [(my, s) for my in range(RING_N) for s in range(RING_N)]
+    want = {"ring_fwd": 2 * L * S * sum(TR.fwd_step_runs(my, s, RING_N, Tl, True, 0) for my, s in sched),
+            "ring_bwd_dq": L * S * sum(TR.bwd_step_runs(my, s, RING_N, Tl, True, 0) for my, s in sched)}
+    want["ring_bwd_dkv"] = want["ring_bwd_dq"]
+    check([x["step"] for x in log] == list(range(1, S + 1)), f"cp train: steps {[x['step'] for x in log]}")
+    check(abs(log[0]["loss"] - math.log(cfg.vocab_size)) <= 1.5,
+          f"cp train: first loss {log[0]['loss']} not within 1.5 of ln(V) {math.log(cfg.vocab_size):.2f}")
+    check({x: launches[x] for x in want} == want and not any(launches[x] for x in A.launches),
+          f"cp train: launches {launches} (want {want} and no flash launch)")
+    steady = sorted(x["step_time_ms"] for x in log[1:])
+    ms = steady[len(steady) // 2]
+    fpt = transformer_flops_per_token(cfg.num_params(), L, cfg.d_model, RING_T)
+    rec = {
+        "layers": L, "params": cfg.num_params(), "batch": 1, "seq_len": RING_T, "context": RING_N,
+        "log": log, "launches": {**launches, "ring_bwd": launches["ring_bwd_dq"] + launches["ring_bwd_dkv"]},
+        "launches_want": want, "step_ms": ms, "tok_per_s": RING_T / ms * 1e3,
+        "mfu_t16384": RING_T / ms * 1e3 * fpt / BF16_FLOPS,
+        "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "wall_s": wall,
+    }
+    print(f"[cp-train] 8B width, {L} layers, B=1 T={RING_T} over a context of {RING_N} (cp_impl pallas): "
+          f"{ms:.1f} ms/step, {rec['tok_per_s']:.0f} tok/s, MFU {rec['mfu_t16384']:.3f} (6N + causal attention "
+          f"at T={RING_T}), peak memory {rec['max_memory_gib']:.1f} GiB, wall {wall:.1f}s; launches {launches}",
+          flush=True)
+    return rec
+
+
 # -- serve phase ---------------------------------------------------------------
 
 def _post(url: str, body: dict, timeout: float = 600):
@@ -1250,6 +1577,12 @@ KERNELS = {
                 "mixtral_train"),
     "moe_bwd": ("tony_tpu_torch/csrc/moe_gemm.cu",
                 "tony_tpu/ops/moe_gemm.py:128 (_bwd_kernel via _bwd_call :238)", "mixtral_train"),
+    "ring_fwd": ("tony_tpu_torch/csrc/ring_attention.cu",
+                 "tony_tpu/ops/ring.py:83 (_ring_fwd_kernel via _ring_fwd :347; ring_attention_pallas :766, "
+                 "ring_attention_pallas_seg :810)", "cp_train"),
+    "ring_bwd": ("tony_tpu_torch/csrc/ring_attention.cu",
+                 "tony_tpu/ops/ring.py:380 (_ring_bwd_kernel via _ring_bwd :720; the dq and dk/dv step "
+                 "kernels, launches of both)", "cp_train"),
 }
 SERVE_RUNS = [("paged", []), ("int8", ["--int8"]), ("dense_ragged", ["--kv", "dense", "--attn", "ragged"])]
 
@@ -1276,6 +1609,7 @@ def main() -> int:
     from tony_tpu_torch.ops import attention as A
     from tony_tpu_torch.ops import decode_attention as DA
     from tony_tpu_torch.ops import quant as Q
+    from tony_tpu_torch.ops import ring as TR
 
     out_dir = Path(args.out) if args.out else ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -1311,6 +1645,19 @@ def main() -> int:
         train["breakdown"] = step_breakdown(torch, llama)
         gc.collect()
         torch.cuda.empty_cache()
+        # context-parallel training through the ring kernels, after the
+        # single-device Llama phases, with their state freed
+        flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+        kern.update(ring_kernel_phase(torch, A, TR, flush))
+        del flush
+        gc.collect()
+        torch.cuda.empty_cache()
+        cp_step = cp_whole_step_check(torch, llama, A, TR)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cp_train = cp_train_phase(torch, llama, A, TR)
+        gc.collect()
+        torch.cuda.empty_cache()
         # Mixtral after the Llama phases, with their state freed
         flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
         kern.update(moe_kernel_phase(torch, MG, expert, flush))
@@ -1330,6 +1677,7 @@ def main() -> int:
     path_launches = {run: rec["kernel_launches"] for run, rec in serve.items()}
     path_launches["train"] = train["launches"]
     path_launches["mixtral_train"] = moe_train["launches"]
+    path_launches["cp_train"] = cp_train["launches"]
     kernels = []
     for name, (source, replaces, run) in KERNELS.items():
         k = kern[name]
@@ -1341,14 +1689,15 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "launches_run": run, "case": k["case"],
             "max_abs_err": k["max_abs_err"], "tol": k["tol"],
-            **{x: k[x] for x in ("row_err", "fault_row_err", "w_err", "fault_w_err", "library_call")
-               if x in k},
+            **{x: k[x] for x in ("row_err", "fault_row_err", "w_err", "fault_w_err", "library_call",
+                                 "step_ms") if x in k},
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"], "cases": k["cases"],
         })
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "whole_step": step, "train": train, "serve": serve,
-         "mixtral": {"whole_step": moe_step, "train": moe_train, "serve": moe_serve}}, indent=1))
+         "mixtral": {"whole_step": moe_step, "train": moe_train, "serve": moe_serve},
+         "cp": {"whole_step": cp_step, "train": cp_train}}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -344,3 +344,185 @@ def test_moe_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="multiples of 128"):
         MG.moe_fwd(xs, w, w, w.transpose(1, 2).contiguous(), tg)
     assert MG.launches == before
+
+
+# -- ring attention (B9 forward step, B10 dq and dk/dv steps) ----------------------
+
+def _ring_step_inputs(gen, dtype, B, H, Hkv, Tl, D, n_seg, my, n):
+    """This shard's rows of q/do as a view of a [B, H, n·Tl, D] tensor (the
+    held shards of a DeviceRing side by side), one held KV shard, the f32
+    state, and segment ids over the whole sequence (its slice and the table)."""
+    q, _, _, do, seg = _flash_inputs(gen, dtype, B, H, Hkv, n * Tl, D, n_seg)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    sl = slice(my * Tl, (my + 1) * Tl)
+    k, v = r(B, Hkv, Tl, D).to(dtype), r(B, Hkv, Tl, D).to(dtype)
+    segq = None if seg is None else seg[:, sl]
+    return q[:, :, sl], do[:, :, sl], k, v, segq, seg
+
+
+def _at_rows(t, n, my):
+    """A copy of ``t`` [B, H, Tl(, D)] at rows my·Tl.. of a [B, H, n·Tl(, D)]
+    tensor: the row layout of q's view, which the kernels share between q and
+    every per-row tensor (acc, m, l, o, lse, do, delta, dq)."""
+    Tl = t.shape[2]
+    full = torch.zeros((*t.shape[:2], n * Tl, *t.shape[3:]), dtype=t.dtype, device=t.device)
+    view = full[:, :, my * Tl:(my + 1) * Tl]
+    view.copy_(t)
+    return view
+
+
+# (my, src, causal, window, segments) of one step of a ring of 3 shards of 200 rows
+RING_STEPS = {
+    "diagonal": (1, 1, True, 0, 1),
+    "past": (2, 0, True, 0, 1),
+    "window": (1, 0, True, 120, 1),
+    "segments": (2, 1, True, 0, 3),
+    "future-noncausal": (0, 2, False, 0, 1),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,n_rep", [(128, 4), (64, 1), (64, 8)])
+@pytest.mark.parametrize("step", list(RING_STEPS))
+def test_ring_step_kernels_match_plain(gen, dtype, D, n_rep, step):
+    """One ring step of each kernel against its plain version on the same
+    inputs and state: B9 as the first, a middle and the last step (acc, m, l;
+    o, lse), B10's dq and riding dk/dv accumulators from a nonzero start."""
+    from tony_tpu_torch.ops import ring as TR
+
+    my, src, causal, window, n_seg = RING_STEPS[step]
+    Tl, Hkv, n = 200, 2, 3
+    H = Hkv * n_rep
+    q, do, k, v, segq, segk = _ring_step_inputs(gen, dtype, 2, H, Hkv, Tl, D, n_seg, my, n)
+    kw = dict(q_pos0=my * Tl, k_pos0=src * Tl, causal=causal, window=window, segq=segq, segk=segk)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    rows = lambda t: _at_rows(t, n, my)  # noqa: E731
+    # a state that a plain first step on another KV shard left
+    k0, v0 = torch.randn_like(k.float()).to(dtype), torch.randn_like(v.float()).to(dtype)
+    acc0, m0, l0 = torch.empty(q.shape, **f32), torch.empty(q.shape[:3], **f32), torch.empty(q.shape[:3], **f32)
+    o_p, lse_p = torch.empty_like(q), torch.empty(q.shape[:3], **f32)
+    TR.ring_fwd_step_plain(q, k0, v0, acc0, m0, l0, o_p, lse_p, **dict(kw, k_pos0=0, causal=False),
+                           first=True)
+    before = dict(TR.launches)
+    for first, last in ((True, False), (False, False), (False, True)):
+        st = [rows(t) for t in (acc0, m0, l0)]
+        st_p = [t.clone() for t in (acc0, m0, l0)]
+        o, lse = rows(torch.zeros_like(q)), rows(torch.zeros(q.shape[:3], **f32))
+        o_p, lse_p = torch.zeros_like(q), torch.zeros(q.shape[:3], **f32)
+        TR.ring_fwd_step(q, k, v, *st, o, lse, first=first, last=last, **kw)
+        TR.ring_fwd_step_plain(q, k, v, *st_p, o_p, lse_p, first=first, last=last, **kw)
+        torch.cuda.synchronize()
+        if last:
+            assert _row_err(o, o_p) <= ROW_TOL[dtype], f"o first={first}"
+            assert (lse - lse_p).abs().max().item() <= LSE_ATOL
+        else:
+            assert _row_err(st[0], st_p[0]) <= ROW_TOL[dtype], f"acc first={first}"
+            vis = st_p[1] > -1e29  # rows that saw a key: their max and sum
+            assert torch.equal(vis, st[1] > -1e29)
+            torch.testing.assert_close(st[1][vis], st_p[1][vis], atol=1e-4, rtol=0)
+            torch.testing.assert_close(st[2], st_p[2], atol=0, rtol=1e-3)
+    delta = (do.float() * o_p.float()).sum(-1)
+    bwd = (q, k, v, do, rows(lse_p), rows(delta))
+    dq0 = torch.randn(q.shape, **f32)
+    dk0, dv0 = torch.randn(k.shape, **f32), torch.randn(v.shape, **f32)
+    dq, dq_p = rows(dq0), dq0.clone()
+    dk, dv, dk_p, dv_p = dk0.clone(), dv0.clone(), dk0.clone(), dv0.clone()
+    TR.ring_bwd_dq_step(*bwd, dq, **kw)
+    TR.ring_bwd_dkv_step(*bwd, dk, dv, **kw)
+    TR.ring_bwd_dq_step_plain(*bwd, dq_p, **kw)
+    TR.ring_bwd_dkv_step_plain(*bwd, dk_p, dv_p, **kw)
+    torch.cuda.synchronize()
+    for name, got, want, start in (("dq", dq, dq_p, dq0), ("dk", dk, dk_p, dk0), ("dv", dv, dv_p, dv0)):
+        # the step's own contribution, held row by row
+        assert _row_err(got - start, want - start) <= ROW_TOL[dtype], name
+    assert TR.launches == {"ring_fwd": before["ring_fwd"] + 3, "ring_bwd_dq": before["ring_bwd_dq"] + 1,
+                           "ring_bwd_dkv": before["ring_bwd_dkv"] + 1}
+
+
+def _ring_pass(q, k, v, do, seg, n, window, plain, fwd=None):
+    """The whole ring on a DeviceRing of n on the card (side-stream
+    rotations): B9 forward → (o, lse), and B10 backward with the final
+    rotation → (dq, dk, dv) from the forward ``fwd`` (o, lse; default this
+    pass's own); ``plain`` swaps the plain steps in."""
+    import contextlib
+    from unittest import mock
+
+    from tony_tpu_torch.ops import ring as TR
+    from tony_tpu_torch.parallel.collectives import DeviceRing
+
+    ring = DeviceRing(n, "cuda")
+    names = ("ring_fwd_step", "ring_bwd_dq_step", "ring_bwd_dkv_step")
+    with contextlib.ExitStack() as stack:
+        for name in names if plain else ():
+            stack.enter_context(mock.patch.object(TR, name, getattr(TR, name + "_plain")))
+        segq, segk = TR._segments(ring, seg)
+        o, lse = TR._ring_fwd(q, k, v, ring, True, window, segq, segk)
+        o_b, lse_b = fwd if fwd is not None else (o, lse)
+        grads = TR._ring_bwd(q, k, v, o_b, lse_b, do, ring, True, window, segq, segk)
+    torch.cuda.synchronize()
+    return (o, lse), grads
+
+
+@pytest.mark.parametrize("dtype,B,H,Hkv,n,Tl,D,window,n_seg", [
+    (torch.float32, 2, 8, 2, 4, 200, 64, 0, 1),
+    (torch.float32, 1, 4, 4, 2, 96, 128, 150, 3),
+    (torch.bfloat16, 2, 8, 2, 4, 200, 128, 300, 1),
+    (torch.bfloat16, 1, 16, 2, 3, 333, 64, 0, 3),
+    (torch.bfloat16, 1, 8, 2, 4, 4096, 128, 1024, 1),
+    (torch.bfloat16, 1, 8, 2, 4, 4096, 128, 0, 3),
+], ids=["f32", "f32-window-segments", "bf16-window", "bf16-segments-ragged", "bf16-Tl4096-window",
+        "bf16-Tl4096-segments"])
+def test_ring_on_card_matches_the_plain_ring(gen, dtype, B, H, Hkv, n, Tl, D, window, n_seg):
+    """The ring through the kernels against the same ring through the plain
+    steps, both on a DeviceRing on the card: o and lse forward; dq, dk and
+    dv after the final rotation, both backwards from the plain forward's o
+    and lse (as the flash tests share them); the launches follow the
+    schedule."""
+    from tony_tpu_torch.ops import ring as TR
+
+    q, k, v, do, seg = _flash_inputs(gen, dtype, B, H, Hkv, n * Tl, D, n_seg)
+    (o_p, lse_p), grads_p = _ring_pass(q, k, v, do, seg, n, window, plain=True)
+    TR.reset_launches()
+    (o, lse), grads = _ring_pass(q, k, v, do, seg, n, window, plain=False, fwd=(o_p, lse_p))
+    runs = {"ring_fwd": sum(TR.fwd_step_runs(my, s, n, Tl, True, window) for my in range(n) for s in range(n)),
+            "ring_bwd_dq": sum(TR.bwd_step_runs(my, s, n, Tl, True, window) for my in range(n) for s in range(n))}
+    runs["ring_bwd_dkv"] = runs["ring_bwd_dq"]
+    assert TR.launches == runs
+    assert (lse - lse_p).abs().max().item() <= LSE_ATOL
+    for name, g, w in zip(("o", "dq", "dk", "dv"), (o, *grads), (o_p, *grads_p)):
+        assert g.dtype == dtype and bool(torch.isfinite(g.float()).all()), name
+        assert _row_err(g, w) <= ROW_TOL[dtype], f"{name}: row err {_row_err(g, w)}"
+
+
+def test_ring_autograd_on_card_matches_full_attention(gen):
+    """``ring_attention_pallas_seg`` on the card against autograd through the
+    full-sequence reference, in f32 (TF32 off)."""
+    from tony_tpu_torch.ops import ring as TR
+    from tony_tpu_torch.parallel.collectives import DeviceRing
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, do, seg = _flash_inputs(gen, torch.float32, 2, 8, 2, 4 * 96, 64, 3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = TR.ring_attention_pallas_seg(*leaves, seg, DeviceRing(4, "cuda"), window=100)
+    (o * do).sum().backward()
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o_r = A.attention_reference(ref[0], A.repeat_kv(ref[1], 4), A.repeat_kv(ref[2], 4),
+                                segment_ids=seg, window=100)
+    (o_r * do).sum().backward()
+    torch.testing.assert_close(o, o_r, atol=2e-5, rtol=0)
+    for a, b in zip(leaves, ref):
+        assert (a.grad - b.grad).abs().max().item() / b.grad.abs().max().item() < 2e-4
+
+
+def test_ring_kernels_refuse_what_they_do_not_take(gen):
+    from tony_tpu_torch.ops import ring as TR
+    from tony_tpu_torch.parallel.collectives import DeviceRing
+
+    before = dict(TR.launches)
+    q = torch.randn(1, 4, 256, 96, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        TR.ring_attention_pallas(q, q[:, :2], q[:, :2], DeviceRing(2, "cuda"))
+    q = torch.randn(1, 4, 256, 64, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        TR.ring_attention_pallas(q.half(), q[:, :2].half(), q[:, :2].half(), DeviceRing(2, "cuda"))
+    assert TR.launches == before

@@ -227,8 +227,7 @@ def test_state_load_checks_every_leaf_before_copying():
 
 
 def test_unported_options_and_gangs_raise(monkeypatch):
-    for kw in (dict(model_axis=2), dict(context_axis=2), dict(stage_axis=2), dict(expert_axis=2),
-               dict(data_dir="/data")):
+    for kw in (dict(model_axis=2), dict(stage_axis=2), dict(expert_axis=2), dict(data_dir="/data")):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", **kw))
     monkeypatch.setenv("WORLD_SIZE", "2")

@@ -5,8 +5,12 @@ fields, the same presets and the same parameter tree — a nested dict with
 stacked layers (leading dim L on every block weight), weights ``[K, N]``
 used as ``x @ w``. The layer scan is a Python loop over the stacked dim
 (each stacked weight is unbound once per forward, so its gradient is
-stacked once in the backward). Single device only: a mesh (FSDP/TP, A8),
-a context axis (A12) and pipeline stages (A13) raise until they are ported.
+stacked once in the backward). A mesh may carry a context axis
+(``parallel/mesh.py``): with the JAX package's single-process semantics the
+model runs on whole ``[B, T, ...]`` tensors and only attention splits T
+into the mesh ring's shards (``cp_impl``: "xla" ring, "pallas" ring
+kernels, "ulysses"). FSDP/TP (A8) and pipeline stages (A13) raise until
+they are ported.
 """
 
 from __future__ import annotations
@@ -19,6 +23,9 @@ import torch
 
 from tony_tpu_torch.ops import attention as attn_ops
 from tony_tpu_torch.ops import layers as L
+from tony_tpu_torch.ops.ring import ring_attention_pallas, ring_attention_pallas_seg
+from tony_tpu_torch.parallel.context import ring_attention, ulysses_attention
+from tony_tpu_torch.parallel.mesh import context_degree
 
 
 @dataclass(frozen=True)
@@ -126,19 +133,45 @@ def init(gen: torch.Generator, cfg: LlamaConfig, device: torch.device | str) -> 
     }
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh (FSDP/TP, context or pipeline axes) is not ported yet "
-            "(ROADMAP queue A8, A12, A13); the port trains on one device")
-
-
 def _attention(q, k, v, cfg: LlamaConfig, mesh, segment_ids=None) -> torch.Tensor:
-    """Single-device multi-head attention (the context-parallel branches of
-    the JAX function are not ported)."""
+    """Dispatch: context-parallel attention (``cfg.cp_impl``: the plain
+    PyTorch ring, the ring kernels, or Ulysses' all-to-all) when the mesh's
+    context axis is real, else single-device ``mha``.
+
+    q: [B, H, T, Dh]; k/v: [B, Hkv, T, Dh]; segment_ids [B, T] (packing)."""
     if cfg.cp_impl not in ("xla", "pallas", "ulysses"):
         raise ValueError(f"cp_impl must be 'xla', 'pallas', or 'ulysses', got {cfg.cp_impl!r}")
-    _no_mesh(mesh)
+    cp = context_degree(mesh)
+    if cp > 1:
+        if cfg.cp_impl != "pallas":
+            if segment_ids is not None:
+                raise ValueError(
+                    "sequence packing (segment_ids) composes with a context axis only via "
+                    "cp_impl='pallas' (the ring kernel carries the global segment table); "
+                    "xla/ulysses do not")
+            if cfg.sliding_window > 0:
+                raise ValueError("sliding_window composes with a context axis only via "
+                                 "cp_impl='pallas' (in-kernel band skipping)")
+        ring = mesh.ring
+        if cfg.cp_impl == "pallas":
+            # the ring kernels: GQA-native, KV stays at Hkv width on the ring
+            if segment_ids is not None:
+                return ring_attention_pallas_seg(q, k, v, segment_ids, ring, causal=True,
+                                                 window=cfg.sliding_window)
+            return ring_attention_pallas(q, k, v, ring, causal=True, window=cfg.sliding_window)
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        if cfg.cp_impl == "ulysses":
+            # all-to-all seq↔head reshard; KV stays at Hkv width when the
+            # context degree divides it (mha's GQA aliasing then applies)
+            if cfg.n_heads % cp:
+                raise ValueError(f"cp_impl='ulysses' needs n_heads {cfg.n_heads} divisible by the "
+                                 f"context degree {cp} (use 'xla'/'pallas' ring)")
+            if cfg.n_kv_heads % cp:
+                k, v = attn_ops.repeat_kv(k, n_rep), attn_ops.repeat_kv(v, n_rep)
+            return ulysses_attention(q, k, v, ring=ring, attn_fn=partial(
+                attn_ops.mha, causal=True, impl=cfg.attn_impl))
+        return ring_attention(q, attn_ops.repeat_kv(k, n_rep), attn_ops.repeat_kv(v, n_rep),
+                              ring=ring, causal=True)
     return attn_ops.mha(q, k, v, causal=True, impl=cfg.attn_impl, segment_ids=segment_ids,
                         window=cfg.sliding_window)
 
@@ -154,8 +187,10 @@ def mask_packed_targets(tokens: torch.Tensor, seg: torch.Tensor | None):
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
-    """Embedding rows for ``tokens`` (the unsharded branch of the JAX function)."""
-    _no_mesh(mesh)
+    """Embedding rows for ``tokens``. The JAX function's one-hot product is
+    for meshes with two or more active axes; the port's mesh has at most
+    the context axis, where JAX keeps the plain take too."""
+    context_degree(mesh)
     return embed[tokens.long()]
 
 

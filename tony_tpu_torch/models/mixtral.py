@@ -5,8 +5,8 @@ Counterpart of ``tony_tpu/models/mixtral.py``: the Llama backbone
 by a top-k-of-E SwiGLU mixture routed per token (``parallel/expert.py``).
 The parameter tree is the JAX one: per layer ``router`` [D, E] in f32 and
 ``we_gate``/``we_up`` [E, D, F], ``we_down`` [E, F, D] in the model dtype,
-stacked over layers. Single device only: a mesh raises as in
-``models/llama.py``; ``sharding_rules`` and ``pp_value_and_grad`` wait for
+stacked over layers. Single device only: a mesh raises (a context axis
+waits for a later slice); ``sharding_rules`` and ``pp_value_and_grad`` wait for
 ROADMAP A8 and A13. The MoE is JAX's default ragged dispatch, so the config
 has no ``moe_dispatch`` or ``capacity_factor``; ``config_from_dict`` refuses
 a dict that asks for another dispatch (ROADMAP A11).
@@ -134,6 +134,10 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=N
     ``segment_ids`` [B, T] (packed sequences): segment-confined attention,
     per-segment RoPE positions, and padding (segment 0) routed with zero
     gates and left out of the router losses."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "Mixtral under a device mesh is not ported yet (a context axis: ROADMAP queue A12, "
+            "Mixtral CP; FSDP/TP/expert axes: A8, A11); the port trains it on one device")
     T = tokens.shape[1]
     cos, sin = L.rope_frequencies(cfg.head_dim, T, cfg.rope_theta, cfg.rope_scaling,
                                   device=tokens.device)

@@ -2,10 +2,12 @@
 
 Counterpart of ``tony_tpu/train/loop.py`` for one process on one device:
 initialise (or resume) the state, step with throughput metrics, checkpoint
-on an interval and at the end. Mesh axes, a gang of processes, real data
-shards, the obs tracer and registry, ``StepProfiler`` and the urgent-save
-drain are not ported yet (ROADMAP queue A6, A8, A12, A13); the options that
-ask for them raise instead of being ignored.
+on an interval and at the end. ``context_axis > 1`` trains with a context
+axis: every context shard on the one device, attention over the mesh's
+ring (``cp_impl`` of the model config). The other mesh axes, a gang of
+processes, real data shards, the obs tracer and registry, ``StepProfiler``
+and the urgent-save drain are not ported yet (ROADMAP queue A6, A8, A11,
+A13); the options that ask for them raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from tony_tpu_torch import constants
 from tony_tpu_torch.device import resolve_device
+from tony_tpu_torch.parallel.mesh import MeshSpec
 from tony_tpu_torch.runtime import init_distributed
 from tony_tpu_torch.train.checkpoint import restore_or_init
 from tony_tpu_torch.train.input_pipeline import InputPipeline
@@ -74,13 +77,16 @@ def _drop_train_metrics(line: dict) -> None:
 
 def _refuse_unported(loop: LoopConfig) -> None:
     asked = {name: getattr(loop, name) for name in
-             ("model_axis", "context_axis", "expert_axis", "stage_axis") if getattr(loop, name) > 1}
+             ("model_axis", "expert_axis", "stage_axis") if getattr(loop, name) > 1}
     if loop.data_dir:
         asked["data_dir"] = loop.data_dir
     if asked:
         raise NotImplementedError(
             f"{asked}: not ported yet — the port trains on one device with synthetic batches "
-            "(ROADMAP queue A6 data loader, A8 mesh, A11 experts, A12 context, A13 stages)")
+            "(ROADMAP queue A6 data loader, A8 mesh, A11 experts, A13 stages)")
+    if loop.seq_len % loop.context_axis:
+        raise ValueError(f"seq_len {loop.seq_len} does not split into context_axis "
+                         f"{loop.context_axis} shards")
 
 
 def _batch_generator(device: torch.device, data_seed: int, step: int) -> torch.Generator:
@@ -90,13 +96,14 @@ def _batch_generator(device: torch.device, data_seed: int, step: int) -> torch.G
 def run_lm_training(model_module, model_cfg, loop: LoopConfig) -> dict:
     """Decoder-LM pretraining loop (the llama and mixtral modules).
 
-    model_module exposes init(gen, cfg, device), loss_fn and synthetic_batch;
-    the config flops_per_token(). Each logged step report carries the loss's
-    ``moe_*`` metrics when it has them. Returns the final metrics plus
-    ``start_step`` and ``log`` (every logged step report)."""
+    model_module exposes init(gen, cfg, device), loss_fn(params, batch, cfg,
+    mesh) and synthetic_batch; the config flops_per_token(). Each logged step
+    report carries the loss's ``moe_*`` metrics when it has them. Returns the
+    final metrics plus ``start_step`` and ``log`` (every logged step report)."""
     _refuse_unported(loop)
     device = resolve_device(loop.device)
     init_distributed()  # a single process; raises if the env names a gang
+    mesh = MeshSpec(context=loop.context_axis).build(device) if loop.context_axis > 1 else None
 
     opt = OptimizerConfig(
         learning_rate=loop.learning_rate, warmup_steps=loop.warmup_steps,
@@ -113,7 +120,7 @@ def run_lm_training(model_module, model_cfg, loop: LoopConfig) -> dict:
         print(f"[train] resumed from checkpoint step {start_step}", flush=True)
 
     def loss_fn(params, batch):
-        return model_module.loss_fn(params, batch, model_cfg)
+        return model_module.loss_fn(params, batch, model_cfg, mesh)
 
     step_fn = make_train_step(loss_fn, opt)
     probe = model_module.synthetic_batch(_batch_generator(device, 0, 0), 1, loop.seq_len, model_cfg)
