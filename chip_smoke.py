@@ -13,7 +13,9 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    segments; window 1024), and times the kernel, the plain version, the one
    PyTorch call that computes the same function (SDPA over a padded batch or
    with the band as a mask: its forward, and its backward alone; ``x @ W_bf16``)
-   and the least time the card could take;
+   and the least time the card could take; prints ptxas's registers and spill
+   bytes, the shared memory a block asks for and the ``nvcc`` seconds of each
+   attention kernel;
 3. serve: starts ``python -m tony_tpu_torch.models.serving_http --preset
    llama3-8b`` (full width, all 32 layers, seeded random weights, 8 slots,
    max_len 2048) three times — paged KV (the default), ``--int8``, and
@@ -36,6 +38,13 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    split with CUDA events into loss + gradients and the optimizer update,
    and its device time by kernel family from ``torch.profiler`` with the
    card's busy share of the profiled window;
+5b. context parallelism (B9, B10): the ring kernels' build report, then
+   the whole ring pass over a ``DeviceRing`` of 4 on the card at 8B
+   widths, B=1, T=16384 (causal, 3 segments, window 1024) against the
+   plain steps, with two planted faults that must fail; the causal pass
+   run twice must give the same bits; a 2-layer whole-step check against
+   the flash path; ``run_lm_training`` with a context axis of 4 at 4
+   layers for 3 steps (B9/B10 launches must equal the schedule's count);
 6. MoE kernels (B7, B8; after the Llama phases, so their minutes of load
    do not run before the serve runs): the grouped SwiGLU forward and
    backward against their plain versions at Mixtral-8x7B widths (D 4096,
@@ -73,6 +82,7 @@ import gc
 import json
 import math
 import os
+import re
 from unittest import mock
 import shutil
 import signal
@@ -384,6 +394,46 @@ def kernel_phase(torch, DA, Q, flush) -> dict:
 
 # -- flash attention kernels (B1-B3) --------------------------------------------
 
+_PTXAS_KERNEL = re.compile(r"(hop|simt)\d+(attn_[a-z_]+?_kernel)ILi(\d+)ELb([01])E")
+
+
+def attention_build_report(stem: str) -> dict:
+    """The attention kernels of the library built from ``csrc/<stem>.cu``:
+    ptxas's registers (at entry: the bf16 kernels' consumer warpgroups raise
+    theirs to 240 with setmaxnreg) and spill bytes from the ``.log`` that
+    ``_build`` writes beside the library, the dynamic shared memory a block
+    asks for, and the ``nvcc`` seconds that log ends with."""
+    import ctypes
+
+    from tony_tpu_torch.ops import _build
+
+    log = _build.build_all()[stem].with_suffix(".log").read_text()
+    smem = _build.library("flash_attention").tt_attention_smem_bytes
+    smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int] * 3
+    kinds = {"attn_fwd_kernel": 0, "attn_bwd_dq_kernel": 1, "attn_bwd_dkv_kernel": 2}
+    kernels, cur = [], None
+    for line in log.splitlines():
+        found = _PTXAS_KERNEL.search(line)
+        if "Compiling entry function" in line and found:
+            route, name, d, step = found.groups()
+            cur = {"kernel": name, "dtype": "bf16" if route == "hop" else "f32", "D": int(d),
+                   "step": step == "1", "smem_bytes": smem(kinds[name], int(d), 0 if route == "hop" else 1)}
+            kernels.append(cur)
+        elif cur is not None and "spill stores" in line:
+            for n, what in re.findall(r"(\d+) bytes (stack frame|spill stores|spill loads)", line):
+                cur[what.replace(" ", "_")] = int(n)
+        elif cur is not None and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    wall = re.search(re.escape(_build.NVCC_WALL) + r" ([\d.]+)", log)
+    secs = float(wall.group(1)) if wall else None
+    print(f"[build] {stem}.cu: nvcc " + (f"{secs:.1f}s" if wall else "seconds not in the log"), flush=True)
+    for k in kernels:
+        print(f"[build]   {k['dtype']} {k['kernel']}<D{k['D']}{', ring step' if k['step'] else ''}>: "
+              f"{k['registers']} registers at entry, {k['smem_bytes']} B shared memory, spills "
+              f"{k['spill_stores']} / {k['spill_loads']} B", flush=True)
+    return {"nvcc_s": secs, "kernels": kernels}
+
+
 def row_rel_err(got, want) -> float:
     """Largest error of a row (a head_dim vector) over that row's norm, the
     norm floored at a tenth of the RMS row norm: a row whose exact value is
@@ -442,6 +492,7 @@ def flash_cost(c, pairs: int, seg) -> dict:
 def flash_kernel_phase(torch, A, flush) -> dict:
     import torch.nn.functional as F
 
+    build = attention_build_report("flash_attention")
     recs = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
     for name, c in FLASH_CASES.items():
         q, k, v, do, seg, visible = flash_inputs(torch, A, c)
@@ -522,7 +573,7 @@ def flash_kernel_phase(torch, A, flush) -> dict:
         del q, k, v, do, seg, visible, o, lse, o_p, lse_p, delta, dq, dk, dv, dq_p, dk_p, dv_p
         del o_f, dq_f, dk_f, dv_f, qq, kk, vv, mask, outs, bwd
         torch.cuda.empty_cache()
-    return {kname: dict(rs[0], cases=rs) for kname, rs in recs.items()}
+    return {kname: dict(rs[0], cases=rs, build=build) for kname, rs in recs.items()}
 
 
 def _leaves(tree: dict, prefix: str = ""):
@@ -825,6 +876,7 @@ def ring_kernel_phase(torch, A, TR, flush) -> dict:
 
     from tony_tpu_torch.parallel.collectives import DeviceRing
 
+    build = attention_build_report("ring_attention")
     ring = DeviceRing(RING_N, "cuda")
     Tl = RING_T // RING_N
     recs = {"ring_fwd": [], "ring_bwd": []}
@@ -862,6 +914,16 @@ def ring_kernel_phase(torch, A, TR, flush) -> dict:
         for kname, (err, fault, _) in errs.items():
             check(err <= FLASH_ROW_TOL, f"{kname} {name}: row error {err} > {FLASH_ROW_TOL}")
             check(fault > FLASH_ROW_TOL, f"{kname} {name}: the check passes a planted fault ({fault})")
+        if name == "causal":
+            # no atomics: a second pass gives the same bits
+            o2, lse2 = fwd()
+            grads2 = bwd()
+            torch.cuda.synchronize()
+            same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                    and all(torch.equal(a, b) for a, b in zip(grads, grads2)))
+            print(f"[ring] causal: a second pass gives the same bits: {same}", flush=True)
+            check(same, "ring causal: two passes of the kernels differ in their bits")
+            del o2, lse2, grads2
         del o, lse, grads, grads_f, o_f, outs
         # one diagonal step (shard 1 on its own KV) and one past step (shard 3
         # on shard 2's KV: every pair visible under the causal mask)
@@ -936,7 +998,7 @@ def ring_kernel_phase(torch, A, TR, flush) -> dict:
             recs[kname].append(rec)
         del q, k, v, do, seg, visible, o_p, lse_p, grads_p, delta, segq, segk, fwd, bwd, passes
         torch.cuda.empty_cache()
-    return {kname: dict(rs[0], cases=rs) for kname, rs in recs.items()}
+    return {kname: dict(rs[0], cases=rs, build=build) for kname, rs in recs.items()}
 
 
 def cp_whole_step_check(torch, llama, A, TR) -> dict:
@@ -1690,12 +1752,14 @@ def main() -> int:
             "launches": launches, "launches_run": run, "case": k["case"],
             "max_abs_err": k["max_abs_err"], "tol": k["tol"],
             **{x: k[x] for x in ("row_err", "fault_row_err", "w_err", "fault_w_err", "library_call",
-                                 "step_ms") if x in k},
+                                 "step_ms", "tflops") if x in k},
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"], "cases": k["cases"],
         })
+    builds = {"flash_attention": kern["flash_fwd"]["build"], "ring_attention": kern["ring_fwd"]["build"]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": kernels, "whole_step": step, "train": train, "serve": serve,
+        {"card": card, "kernels": kernels, "builds": builds, "whole_step": step, "train": train,
+         "serve": serve,
          "mixtral": {"whole_step": moe_step, "train": moe_train, "serve": moe_serve},
          "cp": {"whole_step": cp_step, "train": cp_train}}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

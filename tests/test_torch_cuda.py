@@ -147,10 +147,13 @@ def _row_err(got, want):
     return (d / n.clamp_min(0.1 * n.square().mean().sqrt())).max().item()
 
 
-def _flash_compare(gen, dtype, B, H, Hkv, T, D, causal, window, n_seg):
-    """Every kernel against its plain version on the same inputs; returns
+def _flash_compare(gen, dtype, B, H, Hkv, T, D, causal, window, n_seg, seg_ids=None):
+    """Every kernel against its plain version on the same inputs (segment
+    ids ``seg_ids`` [T] when given, else ``n_seg`` random segments); returns
     the errors."""
     q, k, v, do, seg = _flash_inputs(gen, dtype, B, H, Hkv, T, D, n_seg)
+    if seg_ids is not None:
+        seg = seg_ids.to(device="cuda", dtype=torch.int32)[None].expand(B, T).contiguous()
     kw = dict(causal=causal, segment_ids=seg, window=window)
     before = dict(A.launches)
     o, lse = A.flash_fwd(q, k, v, **kw)
@@ -526,3 +529,86 @@ def test_ring_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         TR.ring_attention_pallas(q.half(), q[:, :2].half(), q[:, :2].half(), DeviceRing(2, "cuda"))
     assert TR.launches == before
+
+
+# -- the Hopper bodies: determinism, segment skipping, ragged lengths ---------------
+
+def _ring_compare(gen, dtype, B, H, Hkv, n, Tl, D, window, n_seg, seg_ids=None):
+    """The ring through the kernels against the ring through the plain steps
+    (both backwards from the plain forward), as
+    ``test_ring_on_card_matches_the_plain_ring``; ``seg_ids`` [n·Tl] when given."""
+    q, k, v, do, seg = _flash_inputs(gen, dtype, B, H, Hkv, n * Tl, D, n_seg)
+    if seg_ids is not None:
+        seg = seg_ids.to(device="cuda", dtype=torch.int32)[None].expand(B, n * Tl).contiguous()
+    (o_p, lse_p), grads_p = _ring_pass(q, k, v, do, seg, n, window, plain=True)
+    (o, lse), grads = _ring_pass(q, k, v, do, seg, n, window, plain=False, fwd=(o_p, lse_p))
+    assert (lse - lse_p).abs().max().item() <= LSE_ATOL
+    for name, g, w in zip(("o", "dq", "dk", "dv"), (o, *grads), (o_p, *grads_p)):
+        assert g.dtype == dtype and bool(torch.isfinite(g.float()).all()), name
+        assert _row_err(g, w) <= ROW_TOL[dtype], f"{name}: row err {_row_err(g, w)}"
+
+
+@pytest.mark.parametrize("path", ["flash", "ring"])
+def test_kernels_give_the_same_bits_twice(gen, path):
+    """No atomics: two runs on the same inputs give the same bits, B1-B3
+    forward and backward, and the whole ring pass (B9, B10)."""
+    if path == "flash":
+        q, k, v, do, seg = _flash_inputs(gen, torch.bfloat16, 2, 8, 2, 1000, 128, 3)
+        kw = dict(segment_ids=seg, window=300)
+
+        def run():
+            o, lse = A.flash_fwd(q, k, v, **kw)
+            delta = (do.float() * o.float()).sum(-1)
+            return (o, lse, A.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                    *A.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    else:
+        q, k, v, do, seg = _flash_inputs(gen, torch.bfloat16, 1, 8, 2, 4 * 333, 128, 3)
+
+        def run():
+            (o, lse), grads = _ring_pass(q, k, v, do, seg, 4, 0, plain=False)
+            return (o, lse, *grads)
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _ids(*runs):
+    """Segment ids [T] from (id, length) runs."""
+    return torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in runs])
+
+
+# segment layouts of T = 512 against the 128-row blocks (and 64-row tiles)
+SEGMENT_LAYOUTS = {
+    "tile-edge": _ids((0, 256), (1, 256)),                      # a boundary on a 128-row edge
+    "off-edge": _ids((0, 300), (1, 212)),                       # a boundary inside a tile
+    "inside-one-tile": _ids((0, 150), (1, 50), (2, 312)),       # a segment wholly in one tile
+    "id0-padding": _ids((1, 200), (2, 180), (0, 132)),          # packed rows, then id-0 padding
+    "skip-between": _ids((0, 128), (1, 128), (0, 128), (1, 128)),  # a tile skipped between two seen
+}
+
+
+@pytest.mark.parametrize("path", ["flash", "ring"])
+@pytest.mark.parametrize("layout", list(SEGMENT_LAYOUTS))
+def test_segment_skip_matches_plain(gen, path, layout):
+    """Tiles whose query and key rows share no segment are skipped; every
+    layout against the plain versions, D 128 and GQA, bf16."""
+    seg = SEGMENT_LAYOUTS[layout]
+    if path == "flash":
+        _flash_compare(gen, torch.bfloat16, B=2, H=8, Hkv=2, T=512, D=128, causal=True, window=0,
+                       n_seg=1, seg_ids=seg)
+    else:
+        _ring_compare(gen, torch.bfloat16, B=1, H=8, Hkv=2, n=4, Tl=128, D=128, window=0, n_seg=1,
+                      seg_ids=seg)
+
+
+@pytest.mark.parametrize("path", ["flash", "ring"])
+@pytest.mark.parametrize("Tl,D", [(40, 64), (200, 128), (333, 64), (4160, 128)])
+def test_ragged_and_short_lengths_match_plain(gen, path, Tl, D):
+    """Lengths that are no multiple of the 128-row blocks, and one under a
+    64-row tile: flash attention at T = Tl, the ring at Tl per shard."""
+    if path == "flash":
+        _flash_compare(gen, torch.bfloat16, B=1, H=8, Hkv=2, T=Tl, D=D, causal=True, window=0, n_seg=3)
+    else:
+        _ring_compare(gen, torch.bfloat16, B=1, H=8, Hkv=2, n=4, Tl=Tl, D=D, window=0, n_seg=3)

@@ -8,7 +8,12 @@
 //
 // The kernels are attention_kernels.cuh's, in their flash mode: one launch computes the
 // whole function at positions 0, and o, lse, dq, dk and dv are written once, in q's type
-// (lse f32). The maths, the tiling and the bound are in that header.
+// (lse f32). The maths, the tiling and the bound are in that header. Bound: operations (the
+// T x T scores stay on chip). In bf16 each kernel is a warp-specialised Hopper kernel: one
+// producer warp keeps TMA loads of the next k (or q) tiles in flight behind mbarriers while
+// two consumer warpgroups multiply with wgmma into register accumulators and run the
+// softmax (or dS) in registers; tiles outside the causal band, the window or every shared
+// segment are never loaded.
 
 #include "attention_kernels.cuh"
 
@@ -66,4 +71,20 @@ extern "C" int tt_flash_bwd_dkv(const void* q, const void* k, const void* v, con
   a.dk = dk;
   a.dv = dv;
   return dispatch<Dkv, false>(a, Dh, dtype);
+}
+
+// Dynamic shared memory of one block of a kernel (0 forward, 1 dq, 2 dk/dv) for head_dim Dh
+// and dtype (0 bfloat16, 1 float32), the same for both modes; -1 for what they do not take.
+extern "C" int tt_attention_smem_bytes(int kernel, int Dh, int dtype) {
+  if (Dh != 64 && Dh != 128) return -1;
+  if (dtype == 0) {
+    if (kernel == 0) return (int)(Dh == 128 ? hop::FwdLayout<128>().bytes : hop::FwdLayout<64>().bytes);
+    if (kernel == 1) return (int)(Dh == 128 ? hop::DqLayout<128>().bytes : hop::DqLayout<64>().bytes);
+    if (kernel == 2) return (int)(Dh == 128 ? hop::DkvLayout<128>().bytes : hop::DkvLayout<64>().bytes);
+  } else if (dtype == 1) {
+    if (kernel == 0) return (int)(Dh == 128 ? simt::FwdSmem<128>().bytes : simt::FwdSmem<64>().bytes);
+    if (kernel == 1 || kernel == 2)
+      return (int)(Dh == 128 ? simt::BwdSmem<128>(kernel == 2).bytes : simt::BwdSmem<64>(kernel == 2).bytes);
+  }
+  return -1;
 }

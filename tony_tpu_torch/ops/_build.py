@@ -9,7 +9,8 @@ into a shared library with a plain C interface, loaded with ``ctypes``:
 The library name carries a hash of the sources, so an edit rebuilds and an
 unchanged tree reuses what an earlier process built (``chip_smoke.py``
 builds once; the server it starts finds the libraries ready). ``ptxas``'s
-register and shared-memory report lands beside each library as ``.log``.
+register and shared-memory report lands beside each library as ``.log``,
+which ends with the ``nvcc``'s wall seconds.
 The kernels are built from this package's own sources only.
 """
 
@@ -21,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -31,6 +33,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 ]
+
+#: the last line of each build's ``.log``: this, then the ``nvcc``'s wall seconds
+NVCC_WALL = "nvcc wall seconds:"
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -71,23 +76,31 @@ def build_all() -> dict[str, Path]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = {stem: _lib_path(stem, digest) for stem in _sources()}
         todo = {stem: src for stem, src in _sources().items() if not out[stem].exists()}
-        procs = {}
+        running = {}
+        t0 = time.perf_counter()
         for stem, src in todo.items():
-            # write to a private name, publish by rename: two processes
+            # write to private names, publish by rename: two processes
             # building at once never load a half-written library
             tmp = out[stem].with_suffix(f".{os.getpid()}.tmp")
+            log = out[stem].with_suffix(f".{os.getpid()}.log.tmp")
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            procs[stem] = (tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            with log.open("w") as f:
+                running[stem] = (tmp, log, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT))
         errors = []
-        for stem, (tmp, proc) in procs.items():
-            log, _ = proc.communicate()
-            out[stem].with_suffix(".log").write_text(log)
-            if proc.returncode != 0:
-                errors.append(f"nvcc {stem}.cu failed ({proc.returncode}):\n{log}")
-                tmp.unlink(missing_ok=True)
-            else:
-                os.replace(tmp, out[stem])
+        while running:
+            for stem in [s for s, (_, _, p) in running.items() if p.poll() is not None]:
+                tmp, log, proc = running.pop(stem)
+                with log.open("a") as f:
+                    f.write(f"{NVCC_WALL} {time.perf_counter() - t0:.1f}\n")
+                os.replace(log, out[stem].with_suffix(".log"))
+                if proc.returncode != 0:
+                    text = out[stem].with_suffix(".log").read_text()
+                    errors.append(f"nvcc {stem}.cu failed ({proc.returncode}):\n{text}")
+                    tmp.unlink(missing_ok=True)
+                else:
+                    os.replace(tmp, out[stem])
+            if running:
+                time.sleep(0.05)
         if errors:
             raise RuntimeError("\n".join(errors))
         return out
