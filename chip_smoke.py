@@ -46,7 +46,9 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    the flash path; ``run_lm_training`` with a context axis of 4 at 4
    layers for 3 steps (B9/B10 launches must equal the schedule's count);
 6. MoE kernels (B7, B8; after the Llama phases, so their minutes of load
-   do not run before the serve runs): the grouped SwiGLU forward and
+   do not run before the serve runs): the build report of the six passes
+   of ``moe_gemm.cu`` (registers, spills, shared memory; a pass that
+   spills fails the run), then the grouped SwiGLU forward and
    backward against their plain versions at Mixtral-8x7B widths (D 4096,
    F 14336, 8 experts, top-2) on three routings (the train shape B=4,
    T=2048; every token to experts 0 and 1; one 1000-token prompt), ys and
@@ -61,7 +63,9 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    layers (bf16, remat "full", B=4, T=2048), 4 steps; loss, grad_norm and
    the MoE metrics per step, ms/step, tok/s, MFU on the active parameters,
    peak memory, and B7/B8 launches of exactly 2·layers·steps and
-   layers·steps;
+   layers·steps; then the same step on a fresh state split into loss +
+   gradients and the optimizer, and its device time by kernel family
+   (``moe``, ``attention``, ``gemm``, ``other``) with the busy share;
 9. Mixtral serve: the in-process ``ContinuousBatcher`` (paged KV, 8 slots,
    max_len 2048) at Mixtral-8x7B width cut to 27 of 32 layers, with the
    Llama serve runs' traffic: the mixed batch (prefill through B7, decode
@@ -395,6 +399,38 @@ def kernel_phase(torch, DA, Q, flush) -> dict:
 # -- flash attention kernels (B1-B3) --------------------------------------------
 
 _PTXAS_KERNEL = re.compile(r"(hop|simt)\d+(attn_[a-z_]+?_kernel)ILi(\d+)ELb([01])E")
+_PTXAS_MOE = re.compile(r"moe_gemm_kernelILi(\d)E")
+MOE_PASSES = ["up", "up_bwd", "down", "dx", "dw_gu", "dw_d"]  # moe_gemm.cu's Pass, in order
+
+
+def ptxas_entries(log: str, pattern) -> list:
+    """(the pattern's groups, {registers, spill_stores, spill_loads, stack_frame}) of
+    each kernel entry in a ptxas ``-v`` report whose name the pattern matches;
+    registers are those at entry (a warp-specialised kernel's consumers raise
+    theirs with setmaxnreg)."""
+    entries, cur = [], None
+    for line in log.splitlines():
+        found = pattern.search(line)
+        if "Compiling entry function" in line:
+            cur = {} if found else None
+            if found:
+                entries.append((found.groups(), cur))
+        elif cur is not None and "spill stores" in line:
+            for n, what in re.findall(r"(\d+) bytes (stack frame|spill stores|spill loads)", line):
+                cur[what.replace(" ", "_")] = int(n)
+        elif cur is not None and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return entries
+
+
+def nvcc_seconds(stem: str, log: str):
+    """The ``nvcc`` wall seconds a build's log ends with (printed; None if absent)."""
+    from tony_tpu_torch.ops import _build
+
+    wall = re.search(re.escape(_build.NVCC_WALL) + r" ([\d.]+)", log)
+    secs = float(wall.group(1)) if wall else None
+    print(f"[build] {stem}.cu: nvcc " + (f"{secs:.1f}s" if wall else "seconds not in the log"), flush=True)
+    return secs
 
 
 def attention_build_report(stem: str) -> dict:
@@ -411,26 +447,42 @@ def attention_build_report(stem: str) -> dict:
     smem = _build.library("flash_attention").tt_attention_smem_bytes
     smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int] * 3
     kinds = {"attn_fwd_kernel": 0, "attn_bwd_dq_kernel": 1, "attn_bwd_dkv_kernel": 2}
-    kernels, cur = [], None
-    for line in log.splitlines():
-        found = _PTXAS_KERNEL.search(line)
-        if "Compiling entry function" in line and found:
-            route, name, d, step = found.groups()
-            cur = {"kernel": name, "dtype": "bf16" if route == "hop" else "f32", "D": int(d),
-                   "step": step == "1", "smem_bytes": smem(kinds[name], int(d), 0 if route == "hop" else 1)}
-            kernels.append(cur)
-        elif cur is not None and "spill stores" in line:
-            for n, what in re.findall(r"(\d+) bytes (stack frame|spill stores|spill loads)", line):
-                cur[what.replace(" ", "_")] = int(n)
-        elif cur is not None and "registers" in line:
-            cur["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
-    wall = re.search(re.escape(_build.NVCC_WALL) + r" ([\d.]+)", log)
-    secs = float(wall.group(1)) if wall else None
-    print(f"[build] {stem}.cu: nvcc " + (f"{secs:.1f}s" if wall else "seconds not in the log"), flush=True)
+    kernels = []
+    for (route, name, d, step), rec in ptxas_entries(log, _PTXAS_KERNEL):
+        kernels.append({"kernel": name, "dtype": "bf16" if route == "hop" else "f32", "D": int(d),
+                        "step": step == "1", "smem_bytes": smem(kinds[name], int(d), 0 if route == "hop" else 1),
+                        **rec})
+    secs = nvcc_seconds(stem, log)
     for k in kernels:
         print(f"[build]   {k['dtype']} {k['kernel']}<D{k['D']}{', ring step' if k['step'] else ''}>: "
               f"{k['registers']} registers at entry, {k['smem_bytes']} B shared memory, spills "
               f"{k['spill_stores']} / {k['spill_loads']} B", flush=True)
+    return {"nvcc_s": secs, "kernels": kernels}
+
+
+def moe_build_report() -> dict:
+    """The six passes of ``csrc/moe_gemm.cu`` (bf16, one warp-specialised body):
+    ptxas's registers at entry (the consumers raise theirs to 240) and spill
+    bytes, the dynamic shared memory a block asks for, the ``nvcc`` seconds.
+    A pass that spills fails the run."""
+    import ctypes
+
+    from tony_tpu_torch.ops import _build
+
+    log = _build.build_all()["moe_gemm"].with_suffix(".log").read_text()
+    smem = _build.library("moe_gemm").tt_moe_smem_bytes
+    smem.restype, smem.argtypes = ctypes.c_int, []
+    kernels = [{"kernel": "moe_gemm_kernel", "pass": MOE_PASSES[int(p)], "dtype": "bf16",
+                "smem_bytes": smem(), **rec} for (p,), rec in ptxas_entries(log, _PTXAS_MOE)]
+    secs = nvcc_seconds("moe_gemm", log)
+    for k in kernels:
+        print(f"[build]   bf16 moe_gemm_kernel<{k['pass']}>: {k['registers']} registers at entry, "
+              f"{k['smem_bytes']} B shared memory, spills {k['spill_stores']} / {k['spill_loads']} B",
+              flush=True)
+    check(sorted(k["pass"] for k in kernels) == sorted(MOE_PASSES),
+          f"moe build: ptxas reported passes {[k['pass'] for k in kernels]}, want {MOE_PASSES}")
+    check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in kernels),
+          "moe build: a bf16 MoE kernel spills: " + str([(k["pass"], k["spill_stores"]) for k in kernels]))
     return {"nvcc_s": secs, "kernels": kernels}
 
 
@@ -730,35 +782,39 @@ def _union_us(ranges) -> float:
 
 
 def _kernel_family(name: str) -> str:
-    for fam in ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"):
-        if fam in name:
-            return fam
+    """The port's kernels by source (``moe`` B7/B8, ``attention`` B1-B3 and
+    B9/B10), cuBLAS's products as ``gemm``, the rest ``other``."""
+    if "moe_gemm_kernel" in name:
+        return "moe"
+    if re.search(r"attn_(fwd|bwd_dq|bwd_dkv)_kernel", name):
+        return "attention"
     low = name.lower()
     return "gemm" if any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma")) else "other"
 
 
-def step_breakdown(torch, llama) -> dict:
-    """Where the train step's time goes, on the train run's shapes: the step
-    as ``make_train_step`` runs it (``loss_fn``, gradients, global norm,
-    AdamW), timed with CUDA events in two parts, then two more steps under
-    ``torch.profiler`` for device time by kernel family and the busy share
-    (device time over the host wall of the profiled steps, which the
-    profiler's own host cost stretches)."""
+def step_breakdown(torch, model, preset: str, layers: int, tag: str) -> dict:
+    """Where the train step's time goes, on the train run's shapes (B=4,
+    T=2048, ``preset`` cut to ``layers``): the step as ``make_train_step``
+    runs it (``loss_fn``, gradients, global norm, AdamW), timed with CUDA
+    events in two parts, then two more steps under ``torch.profiler`` for
+    device time by kernel family and the busy share (device time over the
+    host wall of the profiled steps, which the profiler's own host cost
+    stretches)."""
     from torch.profiler import ProfilerActivity, profile
 
     from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState, global_norm
 
-    cfg = llama.config_from_dict({"preset": "llama3-8b", "n_layers": TRAIN_LAYERS})
+    cfg = model.config_from_dict({"preset": preset, "n_layers": layers})
     opt = OptimizerConfig(learning_rate=3e-4, warmup_steps=2, total_steps=6).build()
-    state = TrainState.create(llama.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda"), opt)
+    state = TrainState.create(model.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda"), opt)
     names, tensors = zip(*_leaves(state.params))
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def step():
-        batch = llama.synthetic_batch(gen, 4, 2048, cfg)
+        batch = model.synthetic_batch(gen, 4, 2048, cfg)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
-        loss, _ = llama.loss_fn(state.params, batch, cfg)
+        loss, _ = model.loss_fn(state.params, batch, cfg)
         grads = torch.autograd.grad(loss, tensors)
         ev[1].record()
         opt.update(state.params, dict(zip(names, grads)), state.opt_state, global_norm(grads))
@@ -785,12 +841,12 @@ def step_breakdown(torch, llama) -> dict:
         busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
         rec.update(device_ms_by_family=fam, device_ms=busy_us / 2e3, profiled_wall_ms=wall_us / 2e3,
                    busy_share=busy_us / wall_us)
-        print(f"[train] step split: loss+grads {rec['grads_ms']:.1f} ms, optimizer {rec['optimizer_ms']:.1f} ms; "
+        print(f"[{tag}] step split: loss+grads {rec['grads_ms']:.1f} ms, optimizer {rec['optimizer_ms']:.1f} ms; "
               f"device ms a step by kernel family {({k: round(v, 1) for k, v in fam.items()})}, "
               f"busy {rec['busy_share']:.3f} of the profiled wall", flush=True)
     else:
         rec["device_ms_by_family"] = "not measured: the profiler recorded no device activity"
-        print(f"[train] step split: loss+grads {rec['grads_ms']:.1f} ms, optimizer {rec['optimizer_ms']:.1f} ms; "
+        print(f"[{tag}] step split: loss+grads {rec['grads_ms']:.1f} ms, optimizer {rec['optimizer_ms']:.1f} ms; "
               "the profiler recorded no device activity", flush=True)
     return rec
 
@@ -1327,10 +1383,42 @@ def moe_cost(m) -> dict:
             "moe_bwd": (2 * m["rows"] * D * F * 8, 3 * act + 2 * w + PN // 128 * 4)}
 
 
+MOE_KERNEL_PASSES = {"moe_fwd": ("up", "down"), "moe_bwd": ("up_bwd", "dx", "dw_gu", "dw_d")}
+
+
+def moe_pass_ms(torch, kernels) -> dict:
+    """Device ms of each pass of B7 and B8 (``torch.profiler``, L2 warm): the
+    median over three launches of each, by the pass in the kernel's name
+    (the profiler may miss its first kernels); empty if it saw no device
+    activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in kernels.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            for fn in kernels.values():
+                fn()
+        torch.cuda.synchronize()
+    runs: dict = {}
+    for e in prof.events():
+        found = re.search(r"moe_gemm_kernel<(\d)>", e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and found:
+            runs.setdefault(MOE_PASSES[int(found.group(1))], []).append(
+                (e.time_range.end - e.time_range.start) / 1e3)
+    ms = {k: sorted(v)[len(v) // 2] for k, v in runs.items()}
+    print("[moe]   device ms by pass " + (str({k: round(v, 3) for k, v in ms.items()}) if ms
+                                          else "not measured: the profiler recorded no device activity"),
+          flush=True)
+    return ms
+
+
 def moe_kernel_phase(torch, MG, expert, flush) -> dict:
     """B7 and B8 against their plain versions on the card, in bf16: ys and
     dxs row by row, each expert's dW in relative Frobenius norm, a planted
     fault (``next_expert_tiles``) that each check must fail; then the times."""
+    build = moe_build_report()
     lib_name = "torch._grouped_mm"
     recs = {"moe_fwd": [], "moe_bwd": []}
     for name, c in MOE_CASES.items():
@@ -1399,6 +1487,9 @@ def moe_kernel_phase(torch, MG, expert, flush) -> dict:
                   f"{rec['library_ms']:.3f} bound {rec['bound_ms']:.3f} ({rec['bound_by']}); "
                   f"{rec['tflops']:.1f} TFLOP/s", flush=True)
             recs[kname].append(rec)
+        passes = moe_pass_ms(torch, kernels)
+        for kname in recs:
+            recs[kname][-1]["pass_ms"] = {k: v for k, v in passes.items() if k in MOE_KERNEL_PASSES[kname]}
         del m, args, ys, bwd, ys_p, bwd_p, kernels, plains
         torch.cuda.empty_cache()
         for kname, rs in recs.items():
@@ -1410,7 +1501,7 @@ def moe_kernel_phase(torch, MG, expert, flush) -> dict:
         check(b["w_err"] <= MOE_W_TOL and b["w_zeros_exact"],
               f"moe_bwd {name}: dW error {b['w_err']} > {MOE_W_TOL} or a zero-row expert's dW is not 0")
         check(b["fault_w_err"] > MOE_W_TOL, f"moe_bwd {name}: the dW check passes a planted fault")
-    return {kname: dict(rs[0], cases=rs) for kname, rs in recs.items()}
+    return {kname: dict(rs[0], cases=rs, build=build) for kname, rs in recs.items()}
 
 
 def zeroed_expert_fwd(MG, e: int = 1):
@@ -1704,7 +1795,7 @@ def main() -> int:
         train = train_phase(torch, llama, A, out_dir)
         gc.collect()
         torch.cuda.empty_cache()
-        train["breakdown"] = step_breakdown(torch, llama)
+        train["breakdown"] = step_breakdown(torch, llama, "llama3-8b", TRAIN_LAYERS, "train")
         gc.collect()
         torch.cuda.empty_cache()
         # context-parallel training through the ring kernels, after the
@@ -1732,6 +1823,9 @@ def main() -> int:
         moe_train = moe_train_phase(torch, mixtral, A, MG)
         gc.collect()
         torch.cuda.empty_cache()
+        moe_train["breakdown"] = step_breakdown(torch, mixtral, "mixtral-8x7b", MOE_TRAIN_LAYERS, "moe-train")
+        gc.collect()
+        torch.cuda.empty_cache()
         moe_serve = moe_serve_phase(torch, mixtral, DA, MG)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
@@ -1756,7 +1850,8 @@ def main() -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"], "cases": k["cases"],
         })
-    builds = {"flash_attention": kern["flash_fwd"]["build"], "ring_attention": kern["ring_fwd"]["build"]}
+    builds = {"flash_attention": kern["flash_fwd"]["build"], "ring_attention": kern["ring_fwd"]["build"],
+              "moe_gemm": kern["moe_fwd"]["build"]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "builds": builds, "whole_step": step, "train": train,
          "serve": serve,

@@ -248,13 +248,26 @@ def test_flash_kernels_refuse_what_they_do_not_take(gen):
 def _moe_inputs(gen, E, D, F, N, skew):
     """Routed rows for N tokens, top-2 over E experts, in bf16: 'random'
     (a random router), 'two' (every token to experts 0 and 1, so the rest
-    own one pad tile and no real row). The cotangent is zero on pad rows, as
-    the combine's backward makes it."""
+    own one pad tile and no real row); or, for a tuple of E row counts, the
+    layout given directly: each expert's rows padded to whole tiles (an
+    expert with 0 rows owns no tile), then ``N`` more tiles that
+    ``tile_group_map`` clamps to the last expert. The cotangent is zero on
+    pad rows, as the combine's backward makes it."""
     from tony_tpu_torch.ops import moe_gemm as MG
     from tony_tpu_torch.parallel.expert import MoEConfig, route_ragged
 
     bf = torch.bfloat16
     r = lambda *s, scale=1.0: (torch.randn(*s, generator=gen, device="cuda") * scale).to(bf)  # noqa: E731
+    w = (r(E, D, F, scale=D ** -0.5), r(E, D, F, scale=D ** -0.5), r(E, F, D, scale=F ** -0.5))
+    if isinstance(skew, tuple):
+        T = MG.TILE
+        sizes = torch.tensor(skew, device="cuda")
+        gs = -(-sizes // T) * T
+        tg = MG.tile_group_map(gs, int(gs.sum()) // T + N, T)
+        xs = r(tg.shape[0] * T, D)
+        real = torch.cat([torch.arange(g, device="cuda") < n for g, n in zip(gs.tolist(), skew)]
+                         + [torch.zeros(N * T, dtype=torch.bool, device="cuda")])
+        return xs, w, tg, (r(*xs.shape) * real[:, None]).contiguous()
     x = r(1, N, D)
     router = torch.randn(D, E, generator=gen, device="cuda") / D ** 0.5
     if skew == "two":
@@ -264,7 +277,6 @@ def _moe_inputs(gen, E, D, F, N, skew):
     sort_tok, _, _, gate_sorted, gs, _ = route_ragged(x, router, MoEConfig(E, 2), tile=MG.TILE)
     xs = x.reshape(N, D)[sort_tok.long()].contiguous()
     tg = MG.tile_group_map(gs, xs.shape[0] // MG.TILE, MG.TILE)
-    w = (r(E, D, F, scale=D ** -0.5), r(E, D, F, scale=D ** -0.5), r(E, F, D, scale=F ** -0.5))
     dy = (r(*xs.shape) * (gate_sorted != 0)[:, None]).contiguous()
     return xs, w, tg, dy
 
@@ -283,6 +295,12 @@ MOE_TOL = 1e-2
     (8, 256, 384, 300, "two"),
     (8, 512, 1024, 1000, "random"),
     (2, 384, 128, 77, "random"),
+    (4, 384, 640, 300, "random"),              # D and F 128 mod 256
+    (1, 256, 384, 1, (300,)),                  # one expert, a trailing tile clamped to it
+    (4, 256, 512, 0, (0, 0, 700, 0)),          # every row on one expert
+    (3, 256, 384, 2, (200, 0, 130)),           # an expert with no tile between two with tiles
+    (2, 128, 256, 0, (100, 0)),                # PN of exactly one tile
+    (8, 4096, 14336, 1000, "random"),          # a Mixtral-8x7B prefill
 ])
 def test_moe_kernels_match_plain(gen, E, D, F, N, skew):
     from tony_tpu_torch.ops import moe_gemm as MG
@@ -548,11 +566,18 @@ def _ring_compare(gen, dtype, B, H, Hkv, n, Tl, D, window, n_seg, seg_ids=None):
         assert _row_err(g, w) <= ROW_TOL[dtype], f"{name}: row err {_row_err(g, w)}"
 
 
-@pytest.mark.parametrize("path", ["flash", "ring"])
+@pytest.mark.parametrize("path", ["flash", "ring", "moe"])
 def test_kernels_give_the_same_bits_twice(gen, path):
     """No atomics: two runs on the same inputs give the same bits, B1-B3
-    forward and backward, and the whole ring pass (B9, B10)."""
-    if path == "flash":
+    forward and backward, the whole ring pass (B9, B10), and B7 and B8."""
+    if path == "moe":
+        from tony_tpu_torch.ops import moe_gemm as MG
+
+        xs, (wg, wu, wd), tg, dy = _moe_inputs(gen, 8, 512, 1024, 1000, "random")
+
+        def run():
+            return (MG.moe_fwd(xs, wg, wu, wd, tg), *MG.moe_bwd(xs, dy, wg, wu, wd, tg))
+    elif path == "flash":
         q, k, v, do, seg = _flash_inputs(gen, torch.bfloat16, 2, 8, 2, 1000, 128, 3)
         kw = dict(segment_ids=seg, window=300)
 

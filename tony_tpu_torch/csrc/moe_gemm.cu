@@ -15,283 +15,346 @@
 //   in f32 and written once in bf16 (the parameter type).
 // Wg/Wu [E, D, F], Wd [E, F, D], all bf16. An expert that owns no row tile gets dW = 0.
 //
-// Bound on this card: operations. At the Mixtral-8x7B training shape (D 4096, F 14336,
-// 16k routed rows) B7 does 6*N*D*F and B8 16*N*D*F flops against ~3 GB of weights: far
-// above the ~295 flop/B ridge. The TPU kernel keeps a [128, F] intermediate and the
-// expert's weight slabs (~100 MB) in VMEM for one pass per row tile; a Hopper SM has
-// 228 KB of shared memory, so the design splits the work into GEMM passes that each keep
-// one 128 x 64 output tile in registers and write the bf16 intermediate once:
-//   B7  (a) per (row tile, F tile): g and u accumulators, epilogue h = bf16(silu(g) * u)
-//           into an [PN, F] scratch (the TPU kernel's own rounding point);
-//       (b) per (row tile, D tile): ys = h.Wd[e].
-//   B8  (a) per (row tile, F tile): g, u and dh accumulators; epilogue writes h, dg, du;
-//       (b) per (row tile, D tile): dxs = dg.Wg[e]^T + du.Wu[e]^T;
-//       (c) per (expert, output tile) of dWg / dWu / dWd: the block finds its expert's row
-//           tiles in tile_group and loops over them, summing in f32 registers; no atomics,
-//           so the same inputs give the same bits.
-// Every product runs on the tensor cores through WMMA bf16 16x16x16 tiles with f32
-// accumulate: 256 threads, a 128 x 64 block tile, 32-deep K slabs staged through shared
-// memory (the next slab is loaded into registers while the current one is multiplied).
-// Operands stored transposed (Wd in dh, Wg/Wu in dxs, xs/h in the weight gradients) are
-// staged as stored and read with column-major fragments. D and F must be multiples of
-// 128 and PN of 128, so no tile is ragged. wgmma/TMA pipelining comes later.
+// Bound on this card. At the Mixtral-8x7B training shape (D 4096, F 14336, 16k routed rows)
+// operations: B7 does 6*N*D*F and B8 16*N*D*F flops against ~2.8 GB of weights, far above
+// the ~295 flop/B ridge. For one 1000-token prefill bytes: ~3 row tiles an expert, so every
+// weight panel serves 3 row tiles and the 2.8 GB of weights, read once, set the floor.
+// The TPU kernel keeps a [128, F] intermediate and the expert's weight slabs in VMEM for one
+// pass per row tile; a Hopper SM has 227 KB of shared memory, so the work is split into GEMM
+// passes, each a 128 x 128 output tile a block with its f32 accumulators in registers:
+//   B7  UP     per (row tile, F tile): g and u, epilogue h = bf16(silu(g) * u) into an
+//              [PN, F] scratch (the TPU kernel's own rounding point);
+//       DOWN   per (row tile, D tile): ys = h.Wd[e].
+//   B8  UP_BWD per (row tile, F tile): g and u over xs, then dh over dy; epilogue h, dg, du;
+//       DX     per (row tile, D tile): dxs = dg.Wg[e]^T + du.Wu[e]^T in one accumulator;
+//       DW_GU  per (expert, D tile, F tile): dWg and dWu from one xs tile, K = the expert's rows;
+//       DW_D   per (expert, F tile, D tile): dWd = h^T.dy.
+// The design, against what bounds it:
+//   - one warp-specialised body for all six passes: 384 threads, a producer warpgroup lowered
+//     to 24 registers of which one thread issues TMA loads (cp.async.bulk.tensor, 128-byte
+//     swizzle, boxes 64 columns wide) into a 192 KB ring of stages behind full/empty
+//     mbarriers (4 stages of three 16 KB tiles, or 6 of two), and two consumer warpgroups
+//     raised to 240 registers, 64 output rows each, that run wgmma.mma_async m64n128k16 with
+//     the accumulators in registers and keep one k slab's products in flight while the
+//     previous stage is handed back (ptxas notes, C7515, that it serialises the products of
+//     five passes across that boundary; a build that waited for every slab, without the note,
+//     was no faster at the training shape);
+//   - N = 128: the up passes hold two (B8: three) 64 x 128 f32 accumulators a thread, 128
+//     (192) registers; N = 256 would need 256 (384). Tiles that share an operand share its
+//     load: g and u read one xs tile, dWg and dWu one xs tile, dxs sums both products in one
+//     accumulator;
+//   - operand layouts: activations are K-major A tiles; Wg/Wu in UP and Wd in DOWN are
+//     MN-major B (N runs along the weight's rows); Wd in dh and Wg/Wu in dxs K-major B; the
+//     dW passes take xs^T / h^T as MN-major A (wgmma's transpose-A) and dg, du, dy as MN-major
+//     B. Weights are seen as 2-D maps over all experts, [E*D, F] and [E*F, D]; the expert
+//     picks the row offset, and D, F multiples of 128 keep every box inside one expert;
+//   - the epilogue works from the accumulator registers (silu, its derivative and the bf16
+//     rounding there), stages each bf16 output tile in the then idle ring and writes it once
+//     with 16-byte stores;
+//   - the tile order: a row pass's block b covers expert e = tile_group[b / panels], and
+//     inside an expert's blocks the row tile runs fastest, so one expert's row tiles of one
+//     weight panel run side by side and the panel comes from HBM about once a launch. Each
+//     block finds its expert's first and last row tile by binary search in tile_group (it is
+//     non-decreasing); a dW block sums over exactly those tiles. Every block owns the tile it
+//     writes: no atomics, so the same inputs give the same bits.
+// D and F must be multiples of 128 and PN of 128, so no tile is ragged.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
-#include <type_traits>
+#include <climits>
+
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+using namespace hop;
 
-constexpr int TILE = 128;                // routing row tile
-constexpr int BM = 128, BN = 64, BK = 32;
-constexpr int NT = 256;                  // 8 warps: 4 along M x 2 along N, 32 x 32 each
-constexpr int ROW = 0, COL = 1;
-// A: ROW -> A[m * lda + k], COL -> A[k * lda + m]; B: ROW -> B[k * ldb + n], COL -> B[n * ldb + k]
+constexpr int TILE = 128;                 // routing row tile, and a block tile's rows
+constexpr int BN = 128;                   // a block tile's columns
+constexpr int BK = 64;                    // K slab: one 128-byte swizzled box row
+constexpr int NCONS = 256;                // two consumer warpgroups of 64 rows each
+constexpr int NTHREADS = NCONS + 128;     // and the producer warpgroup, of which one thread works
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 128 x 24 + 256 x 240 <= 65536
+constexpr int SLOT = TILE * BK;           // bf16 elements of one operand tile of a stage, 16 KB
+constexpr int BOX = 64 * 64;              // one 64-row box of an MN-major tile [2][64][64]
+constexpr int RING = 12 * SLOT;           // 192 KB: 4 stages of three tiles or 6 of two
+constexpr int MAX_STAGES = 6;
+constexpr int OPITCH = BN + 8;            // staged output row in bf16: 272 B, no bank conflicts
+constexpr int SMEM_BYTES = RING * 2 + 2 * MAX_STAGES * 8 + 1024;  // and the base's alignment
 
-template <int L, int MN>  // shared tile of an operand: R rows of C contiguous elements
-struct Stage {
-  static constexpr int R = L == ROW ? MN : BK;
-  static constexpr int C = L == ROW ? BK : MN;
-  static constexpr int LD = C + 8;       // 16-byte pad: banks shift by row, fragments stay aligned
-  static constexpr int ELEMS = R * LD;
-  static constexpr int PER = R * C / 8 / NT;   // 16-byte chunks per thread
+enum Pass { UP, UP_BWD, DOWN, DX, DW_GU, DW_D };
+
+template <int P>
+struct Spec {
+  static constexpr bool ROWS = P == UP || P == UP_BWD || P == DOWN || P == DX;  // row-tile blocks
+  static constexpr int SLOTS = P == UP || P == UP_BWD || P == DW_GU ? 3 : 2;    // tiles a stage
+  static constexpr int STAGES = RING / (SLOTS * SLOT);
+  static constexpr int PHASES = P == UP_BWD || P == DX ? 2 : 1;  // K loops run one after another
+  static constexpr int NACC = P == UP_BWD ? 3 : P == UP || P == DW_GU ? 2 : 1;
+  static constexpr int NOUT = P == UP_BWD ? 3 : P == DW_GU ? 2 : 1;
 };
-template <int AL> using SA = Stage<AL, BM>;
-// B is stored [k][n] (ROW) or [n][k] (COL): the same shapes with the roles of the dims swapped
-template <int BL> using SB = Stage<BL == ROW ? COL : ROW, BN>;
 
-constexpr int CLD = BN + 4;
-constexpr int SMEM_MAIN = (BM * (BK + 8) > BK * (BM + 8) ? BM * (BK + 8) : BK * (BM + 8)) * 2
-                        + (BK * (BN + 8) > BN * (BK + 8) ? BK * (BN + 8) : BN * (BK + 8)) * 2;
-constexpr int SMEM_EPI = BM * CLD * 4;
-constexpr int SMEM_BYTES = SMEM_MAIN > SMEM_EPI ? SMEM_MAIN : SMEM_EPI;
+// The tensor maps of a pass (see the launches for which is which).
+struct Maps {
+  CUtensorMap m[5];
+};
 
-using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using Tile = Acc[2][2];
+// One block's work: the expert, the output tile's origin (m0 rows, n0 columns), the first
+// activation row of its K loop (dW passes) and the number of K slabs of each phase.
+struct Job {
+  int e, m0, n0, r0, steps;
+};
 
-template <int R, int C, int PER>
-__device__ __forceinline__ void gload(const bf16* __restrict__ base, size_t ld, uint4 (&r)[PER]) {
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int idx = threadIdx.x + i * NT;
-    const int row = idx / (C / 8), c = idx % (C / 8);
-    r[i] = *reinterpret_cast<const uint4*>(base + (size_t)row * ld + c * 8);
+// the first row tile whose expert is >= e (tile_group is non-decreasing)
+__device__ __forceinline__ int first_tile(const int* __restrict__ tg, int n, int e) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (tg[mid] < e) lo = mid + 1;
+    else hi = mid;
   }
+  return lo;
 }
 
-template <int C, int LD, int PER>
-__device__ __forceinline__ void sstore(bf16* s, const uint4 (&r)[PER]) {
-#pragma unroll
-  for (int i = 0; i < PER; ++i) {
-    const int idx = threadIdx.x + i * NT;
-    const int row = idx / (C / 8), c = idx % (C / 8);
-    *reinterpret_cast<uint4*>(s + row * LD + c * 8) = r[i];
+template <int P>
+__device__ __forceinline__ Job job(const int* __restrict__ tg, int ntiles, int D, int F) {
+  Job j;
+  if constexpr (Spec<P>::ROWS) {
+    // blocks [panels * lo, panels * hi) belong to the expert of tiles [lo, hi): panel-major,
+    // the row tile fastest
+    const int panels = (P == UP || P == UP_BWD ? F : D) / BN;
+    const int b = blockIdx.x;
+    j.e = tg[b / panels];
+    const int lo = first_tile(tg, ntiles, j.e), cnt = first_tile(tg, ntiles, j.e + 1) - lo;
+    const int i = b - panels * lo;
+    j.m0 = (lo + i % cnt) * TILE;
+    j.n0 = (i / cnt) * BN;
+    j.r0 = j.m0;
+    j.steps = (P == UP || P == UP_BWD ? D : F) / BK;
+  } else {
+    const int mtiles = (P == DW_GU ? D : F) / TILE;
+    j.e = blockIdx.y;
+    const int lo = first_tile(tg, ntiles, j.e), hi = first_tile(tg, ntiles, j.e + 1);
+    j.m0 = (blockIdx.x % mtiles) * TILE;
+    j.n0 = (blockIdx.x / mtiles) * BN;
+    j.r0 = lo * TILE;
+    j.steps = (hi - lo) * (TILE / BK);
   }
+  return j;
 }
 
-__device__ __forceinline__ void zero(Tile& t) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(t[i][j], 0.f);
+// A tile of a 2-D map at (column c0, row r): K-major, one box [128 rows][64]; or MN-major,
+// two boxes [64 rows][64] at columns c0 and c0 + 64.
+__device__ __forceinline__ void load_k(bf16* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int r) {
+  tma_load(dst, map, bar, c0, r, 0);
+}
+__device__ __forceinline__ void load_mn(bf16* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                        int r) {
+  tma_load(dst, map, bar, c0, r, 0);
+  tma_load(dst + BOX, map, bar, c0 + 64, r, 0);
 }
 
-// acc += A[0:BM, 0:K] . B[0:K, 0:BN]; A and B point at the tile's origin.
-template <int AL, int BL>
-__device__ void gemm(Tile& acc, const bf16* __restrict__ A, size_t lda, const bf16* __restrict__ B,
-                     size_t ldb, int K, unsigned char* smem) {
-  using Sa = SA<AL>;
-  using Sb = SB<BL>;
-  using LA = typename std::conditional<AL == ROW, wmma::row_major, wmma::col_major>::type;
-  using LB = typename std::conditional<BL == ROW, wmma::row_major, wmma::col_major>::type;
-  bf16* as = reinterpret_cast<bf16*>(smem);
-  bf16* bs = as + Sa::ELEMS;
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp % 4) * 32, wn = (warp / 4) * 32;
-  // the K step moves along the contiguous dim of a ROW A / COL B, across rows otherwise
-  const size_t astep = AL == ROW ? BK : BK * lda;
-  const size_t bstep = BL == ROW ? BK * ldb : BK;
-  uint4 ar[Sa::PER], br[Sb::PER];
-  if (K > 0) {
-    gload<Sa::R, Sa::C>(A, lda, ar);
-    gload<Sb::R, Sb::C>(B, ldb, br);
-  }
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    __syncthreads();  // every warp is done with the previous slab (or the caller's epilogue)
-    sstore<Sa::C, Sa::LD>(as, ar);
-    sstore<Sb::C, Sb::LD>(bs, br);
-    __syncthreads();
-    if (k0 + BK < K) {  // in flight during the products below
-      gload<Sa::R, Sa::C>(A + (k0 / BK + 1) * astep, lda, ar);
-      gload<Sb::R, Sb::C>(B + (k0 / BK + 1) * bstep, ldb, br);
+template <int P>
+__device__ __forceinline__ int stage_bytes(int phase) {
+  return (P == UP_BWD && phase == 1 ? 2 : Spec<P>::SLOTS) * SLOT * 2;
+}
+
+// The producer's loads of K slab k of a phase into stage st.
+template <int P>
+__device__ __forceinline__ void load_slab(const Maps& mp, bf16* st, uint64_t* bar, const Job& j,
+                                          int phase, int k, int D, int F) {
+  const int k0 = k * BK;
+  if constexpr (P == UP || P == UP_BWD) {
+    if (phase == 0) {
+      load_k(st, &mp.m[0], bar, k0, j.m0);                     // xs rows: K-major A
+      load_mn(st + SLOT, &mp.m[1], bar, j.n0, j.e * D + k0);      // Wg[e] rows k: MN-major B
+      load_mn(st + 2 * SLOT, &mp.m[2], bar, j.n0, j.e * D + k0);  // Wu[e]
+    } else {
+      load_k(st, &mp.m[3], bar, k0, j.m0);                   // dy rows
+      load_k(st + SLOT, &mp.m[4], bar, k0, j.e * F + j.n0);  // Wd[e] rows n: K-major B
     }
+  } else if constexpr (P == DOWN) {
+    load_k(st, &mp.m[0], bar, k0, j.m0);                  // h rows
+    load_mn(st + SLOT, &mp.m[1], bar, j.n0, j.e * F + k0);  // Wd[e] rows k: MN-major B
+  } else if constexpr (P == DX) {
+    load_k(st, &mp.m[2 * phase], bar, k0, j.m0);                       // dg (du) rows
+    load_k(st + SLOT, &mp.m[2 * phase + 1], bar, k0, j.e * D + j.n0);  // Wg[e] (Wu[e]) rows n
+  } else {
+    const int r = j.r0 + k0;                              // the expert's rows are K
+    load_mn(st, &mp.m[0], bar, j.m0, r);         // xs (h) rows k, columns m: MN-major A
+    load_mn(st + SLOT, &mp.m[1], bar, j.n0, r);  // dg (dy) rows k, columns n: MN-major B
+    if constexpr (P == DW_GU) load_mn(st + 2 * SLOT, &mp.m[2], bar, j.n0, r);  // du
+  }
+}
+
+// descriptors of one k step (16) of the slab: K-major (32 bytes into the swizzled row) or
+// MN-major (16 rows of an [2][64][64] tile, the halves 8 KB apart)
+__device__ __forceinline__ uint64_t kdesc(const bf16* t, int kk) { return sw128(t + kk * 16, 16); }
+__device__ __forceinline__ uint64_t mdesc(const bf16* t, int kk) {
+  return sw128(t + kk * 16 * 64, BOX * 2);
+}
+
+// The consumer warpgroup wg's products of one K slab in stage st.
+template <int P, int NA>
+__device__ __forceinline__ void mma_slab(float (&acc)[NA][64], const bf16* st, int phase, int wg) {
+  const bf16* a = st + wg * BOX;  // K-major A: the warpgroup's 64 rows; MN-major A: its 64 columns
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int m = wm + i * 16;
-        wmma::load_matrix_sync(a[i], AL == ROW ? as + m * Sa::LD + kk : as + kk * Sa::LD + m, Sa::LD);
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    if constexpr (P == UP || P == UP_BWD) {
+      if (phase == 0) {
+        wgmma_ss<1>(acc[0], kdesc(a, kk), mdesc(st + SLOT, kk), 1);
+        wgmma_ss<1>(acc[1], kdesc(a, kk), mdesc(st + 2 * SLOT, kk), 1);
+      } else {
+        wgmma_ss<0>(acc[NA - 1], kdesc(a, kk), kdesc(st + SLOT, kk), 1);
       }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n = wn + j * 16;
-        wmma::load_matrix_sync(b[j], BL == ROW ? bs + kk * Sb::LD + n : bs + n * Sb::LD + kk, Sb::LD);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    } else if constexpr (P == DOWN) {
+      wgmma_ss<1>(acc[0], kdesc(a, kk), mdesc(st + SLOT, kk), 1);
+    } else if constexpr (P == DX) {
+      wgmma_ss<0>(acc[0], kdesc(a, kk), kdesc(st + SLOT, kk), 1);
+    } else {
+      wgmma_ss<1, 1>(acc[0], mdesc(a, kk), mdesc(st + SLOT, kk), 1);
+      if constexpr (P == DW_GU) wgmma_ss<1, 1>(acc[1], mdesc(a, kk), mdesc(st + 2 * SLOT, kk), 1);
     }
-  }
-}
-
-// Write one BM x BN tile in bf16 at out (row pitch ldo): each element is fn(fragment index
-// i, j, element t) in f32, staged through shared memory for 16-byte stores. Fragments of
-// one type share their element-to-thread mapping, so fn may combine several accumulators.
-template <typename Fn>
-__device__ void emit(bf16* __restrict__ out, size_t ldo, unsigned char* smem, Fn fn) {
-  float* cs = reinterpret_cast<float*>(smem);
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp % 4) * 32, wn = (warp / 4) * 32;
-  __syncthreads();  // the main loop's last slab is no longer read
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      Acc f;
-#pragma unroll
-      for (int t = 0; t < f.num_elements; ++t) f.x[t] = fn(i, j, t);
-      wmma::store_matrix_sync(cs + (wm + i * 16) * CLD + wn + j * 16, f, CLD, wmma::mem_row_major);
-    }
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < BM * BN / 8 / NT; ++q) {
-    const int idx = threadIdx.x + q * NT;
-    const int r = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
-    __align__(16) bf16 v[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] = __float2bfloat16_rn(cs[r * CLD + c + e]);
-    *reinterpret_cast<uint4*>(out + (size_t)r * ldo + c) = *reinterpret_cast<const uint4*>(v);
   }
 }
 
 __device__ __forceinline__ float sigmoid(float g) { return 1.f / (1.f + expf(-g)); }
 
-// B7 (a), B8 (a): block (F tile, row tile). With dy == nullptr only h is written.
-__global__ void __launch_bounds__(NT)
-moe_up_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ dy, const bf16* __restrict__ wg,
-              const bf16* __restrict__ wu, const bf16* __restrict__ wd, const int* __restrict__ tg,
-              bf16* __restrict__ h, bf16* __restrict__ dg, bf16* __restrict__ du, int D, int F) {
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  const int n0 = blockIdx.x * BN;
-  const size_t m0 = (size_t)blockIdx.y * BM;
-  const size_t e = tg[blockIdx.y];
-  const size_t DF = (size_t)D * F;
-  Tile G, U;
-  zero(G);
-  zero(U);
-  gemm<ROW, ROW>(G, xs + m0 * D, D, wg + e * DF + n0, F, D, smem);
-  gemm<ROW, ROW>(U, xs + m0 * D, D, wu + e * DF + n0, F, D, smem);
-  bf16* hout = h + m0 * F + n0;
-  if (dy == nullptr) {
-    emit(hout, F, smem, [&](int i, int j, int t) {
-      const float g = G[i][j].x[t];
-      return g * sigmoid(g) * U[i][j].x[t];
-    });
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+template <int P>
+__global__ void __launch_bounds__(NTHREADS, 1)
+moe_gemm_kernel(const __grid_constant__ Maps mp, const int* __restrict__ tg, int ntiles, int D,
+                int F, bf16* __restrict__ o0, bf16* __restrict__ o1, bf16* __restrict__ o2) {
+  using S = Spec<P>;
+  unsigned char* smem = smem_base();
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + RING * 2);
+  uint64_t* empty = full + MAX_STAGES;
+  const Job j = job<P>(tg, ntiles, D, F);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::STAGES; ++s) {
+      bar_init(&full[s], 1);              // the producer's arrive, and the TMA bytes
+      bar_init(&empty[s], NCONS / 32);    // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= NCONS) {  // the producer warpgroup: one thread loads, the rest leave
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x != NCONS) return;
+    int st = 0, ph = 0;
+    for (int i = 0; i < S::PHASES * j.steps; ++i) {
+      const int phase = i >= j.steps, k = i - phase * j.steps;
+      bar_wait(&empty[st], ph ^ 1);
+      bar_arrive_tx(&full[st], stage_bytes<P>(phase));
+      load_slab<P>(mp, ring + st * S::SLOTS * SLOT, &full[st], j, phase, k, D, F);
+      if (++st == S::STAGES) {
+        st = 0;
+        ph ^= 1;
+      }
+    }
     return;
   }
-  Tile DH;
-  zero(DH);
-  // dh[r, f] = sum_d dy[r, d] Wd[e][f, d]: Wd read as stored, [f][d], column-major B
-  gemm<ROW, COL>(DH, dy + m0 * D, D, wd + e * DF + (size_t)n0 * D, D, D, smem);
-  emit(hout, F, smem, [&](int i, int j, int t) {
-    const float g = G[i][j].x[t];
-    return g * sigmoid(g) * U[i][j].x[t];
-  });
-  emit(du + m0 * F + n0, F, smem, [&](int i, int j, int t) {
-    const float g = G[i][j].x[t];
-    return DH[i][j].x[t] * (g * sigmoid(g));
-  });
-  emit(dg + m0 * F + n0, F, smem, [&](int i, int j, int t) {
-    const float g = G[i][j].x[t], s = sigmoid(g);
-    return DH[i][j].x[t] * U[i][j].x[t] * (s * (1.f + g * (1.f - s)));
-  });
-}
 
-// B7 (b): ys = h . Wd[e]; block (D tile, row tile).
-__global__ void __launch_bounds__(NT)
-moe_down_kernel(const bf16* __restrict__ h, const bf16* __restrict__ wd, const int* __restrict__ tg,
-                bf16* __restrict__ ys, int D, int F) {
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  const int n0 = blockIdx.x * BN;
-  const size_t m0 = (size_t)blockIdx.y * BM;
-  const size_t e = tg[blockIdx.y];
-  Tile Y;
-  zero(Y);
-  gemm<ROW, ROW>(Y, h + m0 * F, F, wd + e * (size_t)D * F + n0, D, F, smem);
-  emit(ys + m0 * D + n0, D, smem, [&](int i, int j, int t) { return Y[i][j].x[t]; });
-}
-
-// B8 (b): dxs = dg . Wg[e]^T + du . Wu[e]^T; block (D tile, row tile).
-__global__ void __launch_bounds__(NT)
-moe_dx_kernel(const bf16* __restrict__ dg, const bf16* __restrict__ du, const bf16* __restrict__ wg,
-              const bf16* __restrict__ wu, const int* __restrict__ tg, bf16* __restrict__ dxs,
-              int D, int F) {
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  const int n0 = blockIdx.x * BN;
-  const size_t m0 = (size_t)blockIdx.y * BM;
-  const size_t eDF = (size_t)tg[blockIdx.y] * D * F;
-  Tile X;
-  zero(X);
-  // Wg[e] read as stored, [d][f]: B(k = f, n = d) is column-major
-  gemm<ROW, COL>(X, dg + m0 * F, F, wg + eDF + (size_t)n0 * F, F, F, smem);
-  gemm<ROW, COL>(X, du + m0 * F, F, wu + eDF + (size_t)n0 * F, F, F, smem);
-  emit(dxs + m0 * D + n0, D, smem, [&](int i, int j, int t) { return X[i][j].x[t]; });
-}
-
-// B8 (c): block (output tile, expert, which): which 0 -> dWg = xs^T.dg, 1 -> dWu = xs^T.du
-// (both [D, F]), 2 -> dWd = h^T.dy ([F, D]). The K loop runs over the expert's row tiles.
-__global__ void __launch_bounds__(NT)
-moe_dw_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ dy, const bf16* __restrict__ h,
-              const bf16* __restrict__ dg, const bf16* __restrict__ du, const int* __restrict__ tg,
-              int ntiles, bf16* __restrict__ dwg, bf16* __restrict__ dwu, bf16* __restrict__ dwd,
-              int D, int F) {
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  __shared__ int s_lo, s_hi;
-  const int e = blockIdx.y, which = blockIdx.z;
-  if (threadIdx.x == 0) {
-    s_lo = ntiles;
-    s_hi = 0;
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < ntiles; t += NT)
-    if (tg[t] == e) {
-      atomicMin(&s_lo, t);
-      atomicMax(&s_hi, t + 1);
+  regs_inc<CONSUMER_REGS>();
+  const int wg = threadIdx.x >> 7;
+  float acc[S::NACC][64];
+#pragma unroll
+  for (int a = 0; a < S::NACC; ++a)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[a][i] = 0.f;
+  int st = 0, ph = 0, prev = -1;
+  for (int i = 0; i < S::PHASES * j.steps; ++i) {
+    bar_wait(&full[st], ph);
+    wg_fence();
+    mma_slab<P>(acc, ring + st * S::SLOTS * SLOT, i >= j.steps, wg);
+    wg_commit();
+    wg_wait<1>();  // the previous slab's products are done: hand its stage back
+    if (prev >= 0) {
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) bar_arrive(&empty[prev]);
     }
-  __syncthreads();
-  const int lo = s_lo, K = s_hi > s_lo ? (s_hi - s_lo) * TILE : 0;
-  const size_t r0 = (size_t)lo * TILE;
-  const int M = which < 2 ? D : F, N = which < 2 ? F : D;
-  const int m0 = (blockIdx.x / (N / BN)) * BM, n0 = (blockIdx.x % (N / BN)) * BN;
-  const bf16* A = which < 2 ? xs : h;                        // [rows][M]: column-major A
-  const bf16* B = which == 0 ? dg : which == 1 ? du : dy;    // [rows][N]
-  bf16* out = (which == 0 ? dwg : which == 1 ? dwu : dwd) + (size_t)e * D * F;
-  Tile W;
-  zero(W);
-  gemm<COL, ROW>(W, A + r0 * M + m0, M, B + r0 * N + n0, N, K, smem);
-  emit(out + (size_t)m0 * N + n0, N, smem, [&](int i, int j, int t) { return W[i][j].x[t]; });
+    prev = st;
+    if (++st == S::STAGES) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+  wg_wait<0>();
+#pragma unroll
+  for (int a = 0; a < S::NACC; ++a) pin(acc[a]);
+
+  // Epilogue: each bf16 output tile staged in the ring (every load has landed and both
+  // warpgroups' products are done), then written once with 16-byte stores.
+  consumers_sync();
+  const int t = threadIdx.x;
+  const int row = (wg << 6) + (((t >> 5) & 3) << 4) + ((t & 31) >> 2), col = 2 * (t & 3);
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = 4 * jj + 2 * hh;
+      float v[S::NOUT][2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if constexpr (P == UP || P == UP_BWD) {
+          const float g = acc[0][i + q], u = acc[1][i + q], s = sigmoid(g), sg = g * s;
+          v[0][q] = sg * u;  // h
+          if constexpr (P == UP_BWD) {
+            const float dh = acc[2][i + q];
+            v[1][q] = dh * u * (s * (1.f + g * (1.f - s)));  // dg
+            v[2][q] = dh * sg;                               // du
+          }
+        } else {
+#pragma unroll
+          for (int o = 0; o < S::NOUT; ++o) v[o][q] = acc[o][i + q];
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < S::NOUT; ++o)
+        *reinterpret_cast<__nv_bfloat162*>(ring + (o * TILE + row + 8 * hh) * OPITCH + 8 * jj +
+                                           col) = __floats2bfloat162_rn(v[o][0], v[o][1]);
+    }
+  consumers_sync();
+  const int ld = P == UP || P == UP_BWD || P == DW_GU ? F : D;
+  const size_t base = (S::ROWS ? 0 : (size_t)j.e * D * F) + (size_t)j.m0 * ld + j.n0;
+  bf16* outs[3] = {o0, o1, o2};
+#pragma unroll
+  for (int o = 0; o < S::NOUT; ++o)
+#pragma unroll
+    for (int c = t; c < TILE * BN / 8; c += NCONS) {
+      const int r = c / (BN / 8), x = c % (BN / 8) * 8;
+      *reinterpret_cast<uint4*>(outs[o] + base + (size_t)r * ld + x) =
+          *reinterpret_cast<const uint4*>(ring + (o * TILE + r) * OPITCH + x);
+    }
+}
+
+// a row-major bf16 matrix [rows, cols] seen by TMA in boxes of box_rows x 64
+bool map2d(CUtensorMap* m, const void* base, int rows, int cols, int box_rows) {
+  return tensor_map(m, base, cols, rows, 1, rows, box_rows);
+}
+
+template <int P>
+cudaError_t launch(const Maps& mp, dim3 grid, const int* tg, int ntiles, int D, int F, void* o0,
+                   void* o1, void* o2, cudaStream_t st) {
+  auto kern = moe_gemm_kernel<P>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e != cudaSuccess) return e;
+  kern<<<grid, NTHREADS, SMEM_BYTES, st>>>(mp, tg, ntiles, D, F, (bf16*)o0, (bf16*)o1, (bf16*)o2);
+  return cudaGetLastError();
 }
 
 bool shapes_ok(int PN, int D, int F, int E) {
-  return PN > 0 && PN % TILE == 0 && D > 0 && D % BM == 0 && F > 0 && F % BM == 0 && E > 0;
+  return PN > 0 && PN % TILE == 0 && D > 0 && D % BN == 0 && F > 0 && F % BN == 0 && E > 0 &&
+         (long long)E * D <= INT_MAX && (long long)E * F <= INT_MAX;
 }
 
 }  // namespace
@@ -303,14 +366,17 @@ extern "C" int tt_moe_fwd(const void* xs, const void* wg, const void* wu, const 
                           void* stream) {
   if (!shapes_ok(PN, D, F, E)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  moe_up_kernel<<<dim3(F / BN, PN / BM), NT, 0, st>>>(
-      (const bf16*)xs, nullptr, (const bf16*)wg, (const bf16*)wu, nullptr, tile_group, (bf16*)h,
-      nullptr, nullptr, D, F);
-  cudaError_t err = cudaGetLastError();
+  const int nt = PN / TILE;
+  Maps up{}, down{};
+  const bool ok = map2d(&up.m[0], xs, PN, D, TILE) && map2d(&up.m[1], wg, E * D, F, 64) &&
+                  map2d(&up.m[2], wu, E * D, F, 64) && map2d(&down.m[0], h, PN, F, TILE) &&
+                  map2d(&down.m[1], wd, E * F, D, 64);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      launch<UP>(up, dim3(nt * (F / BN)), tile_group, nt, D, F, h, nullptr, nullptr, st);
   if (err != cudaSuccess) return (int)err;
-  moe_down_kernel<<<dim3(D / BN, PN / BM), NT, 0, st>>>((const bf16*)h, (const bf16*)wd, tile_group,
-                                                        (bf16*)ys, D, F);
-  return (int)cudaGetLastError();
+  return (int)launch<DOWN>(down, dim3(nt * (D / BN)), tile_group, nt, D, F, ys, nullptr, nullptr,
+                           st);
 }
 
 // dy [PN, D]; h, dg, du [PN, F] scratch; dxs [PN, D]; dwg, dwu [E, D, F], dwd [E, F, D].
@@ -320,18 +386,29 @@ extern "C" int tt_moe_bwd(const void* xs, const void* dy, const void* wg, const 
                           void* stream) {
   if (!shapes_ok(PN, D, F, E)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  moe_up_kernel<<<dim3(F / BN, PN / BM), NT, 0, st>>>(
-      (const bf16*)xs, (const bf16*)dy, (const bf16*)wg, (const bf16*)wu, (const bf16*)wd,
-      tile_group, (bf16*)h, (bf16*)dg, (bf16*)du, D, F);
-  cudaError_t err = cudaGetLastError();
+  const int nt = PN / TILE;
+  Maps up{}, dx{}, dwgu{}, dwd_{};
+  const bool ok =
+      map2d(&up.m[0], xs, PN, D, TILE) && map2d(&up.m[1], wg, E * D, F, 64) &&
+      map2d(&up.m[2], wu, E * D, F, 64) && map2d(&up.m[3], dy, PN, D, TILE) &&
+      map2d(&up.m[4], wd, E * F, D, TILE) &&
+      map2d(&dx.m[0], dg, PN, F, TILE) && map2d(&dx.m[1], wg, E * D, F, TILE) &&
+      map2d(&dx.m[2], du, PN, F, TILE) && map2d(&dx.m[3], wu, E * D, F, TILE) &&
+      map2d(&dwgu.m[0], xs, PN, D, 64) && map2d(&dwgu.m[1], dg, PN, F, 64) &&
+      map2d(&dwgu.m[2], du, PN, F, 64) &&
+      map2d(&dwd_.m[0], h, PN, F, 64) && map2d(&dwd_.m[1], dy, PN, D, 64);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaError_t err = launch<UP_BWD>(up, dim3(nt * (F / BN)), tile_group, nt, D, F, h, dg, du, st);
   if (err != cudaSuccess) return (int)err;
-  moe_dx_kernel<<<dim3(D / BN, PN / BM), NT, 0, st>>>((const bf16*)dg, (const bf16*)du,
-                                                      (const bf16*)wg, (const bf16*)wu, tile_group,
-                                                      (bf16*)dxs, D, F);
-  err = cudaGetLastError();
+  err = launch<DX>(dx, dim3(nt * (D / BN)), tile_group, nt, D, F, dxs, nullptr, nullptr, st);
   if (err != cudaSuccess) return (int)err;
-  moe_dw_kernel<<<dim3((D / BM) * (F / BN), E, 3), NT, 0, st>>>(
-      (const bf16*)xs, (const bf16*)dy, (const bf16*)h, (const bf16*)dg, (const bf16*)du, tile_group,
-      PN / TILE, (bf16*)dwg, (bf16*)dwu, (bf16*)dwd, D, F);
-  return (int)cudaGetLastError();
+  // dW: the D (F) tile fastest, then the F (D) tile, then the expert
+  err = launch<DW_GU>(dwgu, dim3((D / TILE) * (F / BN), E), tile_group, nt, D, F, dwg, dwu,
+                      nullptr, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch<DW_D>(dwd_, dim3((F / TILE) * (D / BN), E), tile_group, nt, D, F, dwd, nullptr,
+                           nullptr, st);
 }
+
+// the dynamic shared memory a block of each pass asks for (the build report prints it)
+extern "C" int tt_moe_smem_bytes() { return SMEM_BYTES; }
