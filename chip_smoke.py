@@ -15,7 +15,12 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    with the band as a mask: its forward, and its backward alone; ``x @ W_bf16``)
    and the least time the card could take; prints ptxas's registers and spill
    bytes, the shared memory a block asks for and the ``nvcc`` seconds of each
-   attention kernel;
+   attention kernel and of each instantiation of B4/B5 (a bf16 one that
+   spills fails the run); B4/B5 also on ``decode_batch``, the serve runs'
+   decode regime (8 slots at 140 positions, 4 of them staged), each decode
+   case run twice for the same bits, with two planted faults (the longest
+   slot one split shorter, the current token from another slot) that must
+   fail the limit the kernel passes;
 3. serve: starts ``python -m tony_tpu_torch.models.serving_http --preset
    llama3-8b`` (full width, all 32 layers, seeded random weights, 8 slots,
    max_len 2048) three times — paged KV (the default), ``--int8``, and
@@ -71,7 +76,9 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    Llama serve runs' traffic: the mixed batch (prefill through B7, decode
    through the all-expert products; prefix hits, the identical greedy
    prompts agree, the first token of one request timed) and the decode
-   batch; tok/s of both, the decode step time and peak memory;
+   batch; tok/s of both, the decode step time and peak memory; then one
+   decode chunk of a full batch under ``torch.profiler``: device ms by
+   kernel family (``decode`` is B4/B5) and the card's busy share;
 10. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 
 Imports only ``tony_tpu_torch``, torch, numpy and the standard library.
@@ -107,6 +114,7 @@ S, H, HKV, DH, MAXT, PLEN = 8, 32, 8, 128, 2048, 256
 LENGTHS = [0, 1, 255, 256, 1000, 2047, 512, 1500]
 INT8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 128256)]
 ATTN_TOL = 2e-2    # bf16 output: ~2 ulps at |o| <= 1 (f32 maths in both, sums in another order)
+DECODE_BATCH_LEN, DECODE_BATCH_STAGED = 140, 4  # kernel case "decode_batch": the serve runs' decode regime
 INT8_REL_TOL = 2e-2  # max |kernel - plain| <= 2e-2 * max |plain|: ~2.5 bf16 ulps at the top of the range
 
 # Llama-3-8B training shapes of the flash kernels (B1-B3)
@@ -244,6 +252,10 @@ def attention_cases(torch):
     sk, sv = rnd(S, W, HKV, DH), rnd(S, W, HKV, DH)
     count = torch.tensor([3, 1, 7, 8, 5, 8, 0, 6], dtype=torch.int32, device=dev)
     base = dict(q=q, cur_k=cur_k, cur_v=cur_v, lengths=lengths)
+    # the serve runs' decode batch halfway through: every slot at DECODE_BATCH_LEN
+    # cache positions, the last DECODE_BATCH_STAGED of them still staged
+    batch = dict(base, lengths=torch.full((S,), DECODE_BATCH_LEN, dtype=torch.int32, device=dev),
+                 staged_count=torch.full((S,), DECODE_BATCH_STAGED, dtype=torch.int32, device=dev))
     return {
         "ragged": dict(base, kind="ragged", ck=ck, cv=cv, window=0),
         "ragged_window": dict(base, kind="ragged", ck=ck, cv=cv, window=700),
@@ -252,6 +264,7 @@ def attention_cases(torch):
                              staged_k=sk, staged_v=sv, staged_count=count),
         "paged_staged_window": dict(base, kind="paged", ck=kp, cv=vp, page_table=pt, window=700,
                                     staged_k=sk, staged_v=sv, staged_count=count),
+        "decode_batch": dict(batch, kind="paged", ck=kp, cv=vp, page_table=pt, window=0, staged_k=sk, staged_v=sv),
     }
 
 
@@ -327,17 +340,41 @@ def kernel_phase(torch, DA, Q, flush) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
+    build = decode_build_report()
+    # what the event pair reads around one tiny launch: the floor under every decode time
+    tiny = torch.empty(16, dtype=torch.int8, device="cuda")
+    floor = time_ms(torch, tiny.zero_, flush)
+    print(f"[kernel] event-pair floor (one 16-byte memset between the events, L2 flushed): {floor:.4f} ms",
+          flush=True)
     cases = attention_cases(torch)
     att = {}
     for name, c in cases.items():
         got = run_attention(torch, DA, c, plain=False)
+        again = run_attention(torch, DA, c, plain=False)
+        # planted faults, from inputs outside the kernel: the longest slot one
+        # split shorter in the kernel's call only (a missed split), and every
+        # slot's current token taken from the slot before it
+        cut = c["lengths"].clone()
+        longest = int(cut.argmax())
+        cut[longest] = max(int(cut[longest]) - DA._entry()[1], 0)
+        faults = {"missed_split": run_attention(torch, DA, dict(c, lengths=cut), plain=False),
+                  "other_slot_token": run_attention(
+                      torch, DA, dict(c, cur_k=c["cur_k"].roll(1, 0).contiguous(),
+                                      cur_v=c["cur_v"].roll(1, 0).contiguous()), plain=False)}
         torch.cuda.synchronize()
         want = run_attention(torch, DA, c, plain=True)
         check(bool(torch.isfinite(got.float()).all()), f"decode attention {name}: non-finite output")
         err = (got.float() - want.float()).abs().max().item()
-        rec = {"case": name, "max_abs_err": err, "tol": ATTN_TOL}
-        print(f"[kernel] decode_attention {name:20s} max_abs_err {err:.3e} (tol {ATTN_TOL})", flush=True)
+        fault = {f: (bad.float() - want.float()).abs().max().item() for f, bad in faults.items()}
+        same = torch.equal(got, again)
+        rec = {"case": name, "max_abs_err": err, "tol": ATTN_TOL, "fault_max_abs_err": fault, "same_bits": same}
+        print(f"[kernel] decode_attention {name:20s} max_abs_err {err:.3e} (tol {ATTN_TOL}; planted faults "
+              + ", ".join(f"{f} {e:.3e}" for f, e in fault.items()) + f"); same bits twice: {same}", flush=True)
         check(err <= ATTN_TOL, f"decode attention {name}: error {err} > {ATTN_TOL}")
+        check(same, f"decode attention {name}: two runs of the kernel differ in their bits")
+        for f, e in fault.items():
+            check(e > ATTN_TOL, f"decode attention {name}: the check passes the planted fault {f} ({e})")
+        del got, again, faults
         rec["ms"] = time_ms(torch, lambda c=c: run_attention(torch, DA, c, plain=False), flush)
         rec["plain_ms"] = time_ms(torch, lambda c=c: run_attention(torch, DA, c, plain=True), flush, iters=5)
         qq, kk, vv, mm = sdpa_inputs(torch, DA, c)
@@ -349,14 +386,17 @@ def kernel_phase(torch, DA, Q, flush) -> dict:
         rec["bound_ms"] = max(b / HBM_BYTES_PER_S, f / F32_FLOPS) * 1e3
         rec["bound_by"] = "bytes" if b / HBM_BYTES_PER_S >= f / F32_FLOPS else "operations"
         rec["bytes"] = b
+        rec["gbps"] = b / rec["ms"] / 1e6
+        rec["event_floor_ms"] = floor
         print(f"[kernel]   ms {rec['ms']:.4f} plain {rec['plain_ms']:.4f} sdpa {rec['library_ms']:.4f} "
-              f"bound {rec['bound_ms']:.4f} ({rec['bound_by']}); sdpa err {rec['library_max_abs_err']:.3e}",
-              flush=True)
+              f"bound {rec['bound_ms']:.4f} ({rec['bound_by']}); {rec['gbps']:.0f} GB/s; "
+              f"sdpa err {rec['library_max_abs_err']:.3e}", flush=True)
         att[name] = rec
         del qq, kk, vv, mm
-    out["ragged_decode_attention"] = dict(att["ragged"], cases=[att["ragged"], att["ragged_window"]])
+    out["ragged_decode_attention"] = dict(att["ragged"], cases=[att["ragged"], att["ragged_window"]], build=build)
     out["paged_decode_attention"] = dict(
-        att["paged_staged"], cases=[att["paged"], att["paged_staged"], att["paged_staged_window"]])
+        att["paged_staged"], cases=[att["paged"], att["paged_staged"], att["paged_staged_window"],
+                                    att["decode_batch"]], build=build)
     del cases
     torch.cuda.empty_cache()
 
@@ -400,6 +440,7 @@ def kernel_phase(torch, DA, Q, flush) -> dict:
 
 _PTXAS_KERNEL = re.compile(r"(hop|simt)\d+(attn_[a-z_]+?_kernel)ILi(\d+)ELb([01])E")
 _PTXAS_MOE = re.compile(r"moe_gemm_kernelILi(\d)E")
+_PTXAS_DECODE = re.compile(r"decode_attention_kernelI(13__nv_bfloat16|f)Li(\d+)E")
 MOE_PASSES = ["up", "up_bwd", "down", "dx", "dw_gu", "dw_d"]  # moe_gemm.cu's Pass, in order
 
 
@@ -483,6 +524,35 @@ def moe_build_report() -> dict:
           f"moe build: ptxas reported passes {[k['pass'] for k in kernels]}, want {MOE_PASSES}")
     check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in kernels),
           "moe build: a bf16 MoE kernel spills: " + str([(k["pass"], k["spill_stores"]) for k in kernels]))
+    return {"nvcc_s": secs, "kernels": kernels}
+
+
+def decode_build_report() -> dict:
+    """The four instantiations of ``csrc/decode_attention.cu`` (B4/B5, bf16
+    and f32, Dh 64 and 128): ptxas's registers and spill bytes, the dynamic
+    shared memory a block asks for, the ``nvcc`` seconds. A bf16
+    instantiation that spills fails the run."""
+    import ctypes
+
+    from tony_tpu_torch.ops import _build
+
+    log = _build.build_all()["decode_attention"].with_suffix(".log").read_text()
+    smem = _build.library("decode_attention").tt_decode_smem_bytes
+    smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int] * 2
+    kernels = []
+    for (t, d), rec in ptxas_entries(log, _PTXAS_DECODE):
+        dtype = "f32" if t == "f" else "bf16"
+        kernels.append({"kernel": "decode_attention_kernel", "dtype": dtype, "D": int(d),
+                        "smem_bytes": smem(int(dtype == "f32"), int(d)), **rec})
+    secs = nvcc_seconds("decode_attention", log)
+    for k in kernels:
+        print(f"[build]   {k['dtype']} decode_attention_kernel<D{k['D']}>: {k['registers']} registers, "
+              f"{k['smem_bytes']} B shared memory, spills {k['spill_stores']} / {k['spill_loads']} B", flush=True)
+    check(sorted((k["dtype"], k["D"]) for k in kernels) == [("bf16", 64), ("bf16", 128), ("f32", 64), ("f32", 128)],
+          f"decode build: ptxas reported {[(k['dtype'], k['D']) for k in kernels]}")
+    check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in kernels if k["dtype"] == "bf16"),
+          "decode build: a bf16 decode kernel spills: " + str([(k["D"], k["spill_stores"])
+                                                             for k in kernels if k["dtype"] == "bf16"]))
     return {"nvcc_s": secs, "kernels": kernels}
 
 
@@ -783,13 +853,43 @@ def _union_us(ranges) -> float:
 
 def _kernel_family(name: str) -> str:
     """The port's kernels by source (``moe`` B7/B8, ``attention`` B1-B3 and
-    B9/B10), cuBLAS's products as ``gemm``, the rest ``other``."""
+    B9/B10, ``decode`` B4/B5), cuBLAS's products as ``gemm``, the rest
+    ``other``."""
     if "moe_gemm_kernel" in name:
         return "moe"
+    if "decode_attention_kernel" in name:
+        return "decode"
     if re.search(r"attn_(fwd|bwd_dq|bwd_dkv)_kernel", name):
         return "attention"
     low = name.lower()
     return "gemm" if any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma")) else "other"
+
+
+def profile_families(torch, run, reps: int):
+    """``reps`` calls of ``run`` under ``torch.profiler``: device ms a call by
+    kernel family, device-busy ms a call (the union of the kernels' spans),
+    the host wall a call, and the busy share (busy over the host wall, which
+    the profiler's own host cost stretches). None if the profiler recorded
+    no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    fam: dict = {}
+    for e in kernels:
+        f = _kernel_family(e.name)
+        fam[f] = fam.get(f, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
+    busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
+    return {"device_ms_by_family": fam, "device_ms": busy_us / 1e3 / reps,
+            "profiled_wall_ms": wall_us / 1e3 / reps, "busy_share": busy_us / wall_us}
 
 
 def step_breakdown(torch, model, preset: str, layers: int, tag: str) -> dict:
@@ -800,8 +900,6 @@ def step_breakdown(torch, model, preset: str, layers: int, tag: str) -> dict:
     device time by kernel family and the busy share (device time over the
     host wall of the profiled steps, which the profiler's own host cost
     stretches)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState, global_norm
 
     cfg = model.config_from_dict({"preset": preset, "n_layers": layers})
@@ -826,21 +924,10 @@ def step_breakdown(torch, model, preset: str, layers: int, tag: str) -> dict:
     torch.cuda.synchronize()
     split = [(a.elapsed_time(b), b.elapsed_time(c)) for a, b, c in timed]
     rec = {"grads_ms": min(x[0] for x in split), "optimizer_ms": min(x[1] for x in split)}
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            step()
-        torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if kernels:
-        fam: dict = {}
-        for e in kernels:
-            f = _kernel_family(e.name)
-            fam[f] = fam.get(f, 0.0) + (e.time_range.end - e.time_range.start) / 2e3  # ms a step
-        busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
-        rec.update(device_ms_by_family=fam, device_ms=busy_us / 2e3, profiled_wall_ms=wall_us / 2e3,
-                   busy_share=busy_us / wall_us)
+    prof = profile_families(torch, step, 2)
+    if prof:
+        rec.update(prof)
+        fam = prof["device_ms_by_family"]
         print(f"[{tag}] step split: loss+grads {rec['grads_ms']:.1f} ms, optimizer {rec['optimizer_ms']:.1f} ms; "
               f"device ms a step by kernel family {({k: round(v, 1) for k, v in fam.items()})}, "
               f"busy {rec['busy_share']:.3f} of the profiled wall", flush=True)
@@ -1651,6 +1738,38 @@ def engine_batch(torch, eng, reqs: list[dict]):
     return [eng.done[rid] for rid in rids], ttft, wall
 
 
+def decode_chunk_profile(torch, eng, vocab: int) -> dict:
+    """Decode chunks of the engine (``decode_chunk`` steps, every slot busy
+    with a ``decode_requests`` answer, no prefill in them): one timed on the
+    host clock, the next under ``torch.profiler`` for device ms by kernel
+    family; the busy share is that device time over the unprofiled chunk's
+    wall. Then the requests run to their end."""
+    reqs = decode_requests(vocab)
+    rids = [eng.submit(r["prompt_tokens"], r["max_tokens"]) for r in reqs]
+    for _ in range(64):
+        if len(eng.running) == S and not (eng.pending or eng._staged):
+            break
+        eng.step()
+    check(len(eng.running) == S and not (eng.pending or eng._staged),
+          f"decode chunk: {len(eng.running)} slots decoding, prefills still queued")
+    t0 = time.perf_counter()
+    eng.step()  # one chunk outside the profiler: its host wall (the step ends on a device-to-host copy)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_families(torch, eng.step, 1)
+    eng.run()
+    check(all(len(eng.done[rid]) == DECODE_TOKENS for rid in rids), "decode chunk: a request came back short")
+    if prof is None:
+        print("[moe-serve] decode chunk: the profiler recorded no device activity", flush=True)
+        return {"device_ms_by_family": "not measured: the profiler recorded no device activity"}
+    busy = prof["device_ms"] / wall_ms
+    print(f"[moe-serve] one decode chunk ({eng.decode_chunk} steps, {S} slots): device ms by kernel family "
+          f"{({k: round(v, 2) for k, v in prof['device_ms_by_family'].items()})}; device busy "
+          f"{prof['device_ms']:.2f} ms of the chunk's {wall_ms:.2f} ms unprofiled wall ({busy:.3f}; "
+          f"{prof['busy_share']:.3f} of the profiled wall, which the profiler stretches to "
+          f"{prof['profiled_wall_ms']:.2f} ms)", flush=True)
+    return dict(prof, steps=eng.decode_chunk, wall_ms=wall_ms, busy_share_unprofiled=busy)
+
+
 def moe_serve_phase(torch, mixtral, DA, MG) -> dict:
     """The in-process ``ContinuousBatcher`` (paged KV, page_len 256, 8 slots,
     max_len 2048, decode_chunk 8) at Mixtral-8x7B width cut to
@@ -1687,6 +1806,7 @@ def moe_serve_phase(torch, mixtral, DA, MG) -> dict:
     launches = {**MG.launches, **DA.launches}
     check(launches["moe_fwd"] > 0 and launches["moe_bwd"] == 0 and launches["paged_decode_attention"] > 0,
           f"mixtral serve: launches {launches}")
+    chunk = decode_chunk_profile(torch, eng, cfg.vocab_size)
     gen = sum(len(r) for r in results)
     rec = {
         "layers": MOE_SERVE_LAYERS, "params": cfg.num_params(), "weights_gib": weights_gib,
@@ -1695,7 +1815,7 @@ def moe_serve_phase(torch, mixtral, DA, MG) -> dict:
         "prefix_hit_tokens": eng.prefix_hit_tokens, "launches": launches,
         "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "card_memory_gib": torch.cuda.get_device_properties(0).total_memory / 2**30,
-        "first_tokens": [r[0] for r in results],
+        "first_tokens": [r[0] for r in results], "decode_chunk": chunk,
     }
     print(f"[moe-serve] Mixtral-8x7B width, {MOE_SERVE_LAYERS} layers ({rec['params'] / 1e9:.2f} B params, "
           f"{weights_gib:.1f} GiB): {gen} tokens in {wall:.2f}s = {rec['tok_per_s']:.1f} tok/s, "
@@ -1851,7 +1971,7 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"], "cases": k["cases"],
         })
     builds = {"flash_attention": kern["flash_fwd"]["build"], "ring_attention": kern["ring_fwd"]["build"],
-              "moe_gemm": kern["moe_fwd"]["build"]}
+              "moe_gemm": kern["moe_fwd"]["build"], "decode_attention": kern["paged_decode_attention"]["build"]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "builds": builds, "whole_step": step, "train": train,
          "serve": serve,

@@ -66,6 +66,89 @@ def test_decode_attention_kernel_matches_plain(gen, dtype, atol, Dh, n_rep, wind
     assert DA.launches["paged_decode_attention"] == before["paged_decode_attention"] + 2
 
 
+def _long_inputs(gen, dtype, lengths, Dh, n_rep, page_len, maxT=2048, W=8, Hkv=2):
+    """A dense cache [S, Hkv, maxT, Dh] and a shuffled page pool holding the
+    same cache, a staged window of W with per-slot counts, at the given lengths."""
+    S = len(lengths)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    ck, cv = r(S, Hkv, maxT, Dh), r(S, Hkv, maxT, Dh)
+    max_pages = -(-maxT // page_len)
+    pad = max_pages * page_len - maxT
+    P = S * max_pages + 1
+    pt = (torch.randperm(P - 1, generator=gen, device="cuda")[: S * max_pages] + 1).reshape(S, max_pages)
+    kp = torch.zeros(P, Hkv, page_len, Dh, dtype=dtype, device="cuda")
+    vp = torch.zeros_like(kp)
+    for src, pool in ((ck, kp), (cv, vp)):
+        full = torch.nn.functional.pad(src, (0, 0, 0, pad))
+        pool[pt.long()] = full.reshape(S, Hkv, max_pages, page_len, Dh).transpose(1, 2)
+    return dict(q=r(S, Hkv * n_rep, Dh), ck=ck, cv=cv, kp=kp, vp=vp, pt=pt.to(torch.int32),
+                cur_k=r(S, Hkv, Dh), cur_v=r(S, Hkv, Dh),
+                lengths=torch.tensor(lengths, dtype=torch.int32, device="cuda"),
+                sk=r(S, W, Hkv, Dh), sv=r(S, W, Hkv, Dh),
+                count=torch.tensor([(3 * i + 1) % (W + 1) for i in range(S)], dtype=torch.int32, device="cuda"))
+
+
+# maxT 2048 against the 128-position splits, pages of 256 or 24 and a window
+# of 300: "edges" puts split edges (127/128/129), page edges and window edges
+# (1023 -> 724, 427 -> 128, 2047 -> 1748) at different places, with a slot at
+# maxT - 1; "zero" has every slot empty; "full" most slots at maxT - 1
+LONG_LENGTHS = {
+    "edges": [1, 127, 128, 129, 427, 600, 1023, 2047],
+    "zero": [0] * 8,
+    "full": [2047, 2047, 0, 2046, 2047, 1, 2047, 1999],
+}
+
+
+# f32 sums in another order: 1e-4 in f32; bf16 output rounding: 2e-2
+@pytest.mark.parametrize("dtype,Dh,n_rep,atol", [(torch.bfloat16, 128, 4, 2e-2), (torch.bfloat16, 64, 8, 2e-2),
+                                                 (torch.float32, 128, 4, 1e-4), (torch.float32, 64, 8, 1e-4)])
+@pytest.mark.parametrize("page_len", [256, 24])
+@pytest.mark.parametrize("lengths", list(LONG_LENGTHS))
+@pytest.mark.parametrize("window", [0, 300])
+def test_decode_attention_long_cache_matches_plain(gen, dtype, Dh, n_rep, atol, page_len, lengths, window):
+    a = _long_inputs(gen, dtype, LONG_LENGTHS[lengths], Dh, n_rep, page_len)
+    kw = dict(cur_k=a["cur_k"], cur_v=a["cur_v"], window=window)
+    got = DA.ragged_decode_attention(a["q"], a["ck"], a["cv"], a["lengths"], **kw)
+    want = DA.decode_attention_ref(a["q"], a["ck"], a["cv"], a["lengths"], **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    for staged in (False, True):
+        if staged:
+            kw.update(staged_k=a["sk"], staged_v=a["sv"], staged_count=a["count"])
+        got = DA.paged_decode_attention(a["q"], a["kp"], a["vp"], a["lengths"], a["pt"], **kw)
+        want = DA.decode_attention_ref(a["q"], a["kp"], a["vp"], a["lengths"], page_table=a["pt"], **kw)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    if lengths == "zero" and window == 0:  # every slot empty: o is the current token's v
+        want = a["cur_v"].repeat_interleave(n_rep, 1)
+        got = DA.ragged_decode_attention(a["q"], a["ck"], a["cv"], a["lengths"], cur_k=a["cur_k"],
+                                         cur_v=a["cur_v"])
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def test_paged_decode_attention_replays_in_a_cuda_graph(gen):
+    """The launch reads nothing on the host: captured once, the call follows
+    lengths (and staged counts) changed in place before each replay."""
+    a = _long_inputs(gen, torch.bfloat16, [5, 300, 1000, 2047], 128, 4, 256)
+    lengths, count = a["lengths"].clone(), a["count"].clone()
+    args = (a["q"], a["kp"], a["vp"], lengths, a["pt"])
+    kw = dict(cur_k=a["cur_k"], cur_v=a["cur_v"], window=0, staged_k=a["sk"], staged_v=a["sv"],
+              staged_count=count)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        DA.paged_decode_attention(*args, **kw)  # build, bind and warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = DA.paged_decode_attention(*args, **kw)
+    for new_len, new_count in (([0, 1, 2047, 129], [0, 1, 8, 4]), ([2000, 0, 17, 1500], [5, 2, 0, 8])):
+        lengths.copy_(torch.tensor(new_len, dtype=torch.int32))
+        count.copy_(torch.tensor(new_count, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = DA.decode_attention_ref(a["q"], a["kp"], a["vp"], lengths, page_table=a["pt"], **kw)
+        torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
+
+
 @pytest.mark.parametrize("M,K,N", [(1, 64, 48), (3, 80, 272), (8, 256, 1024), (77, 512, 96), (130, 128, 4096)])
 def test_int8_kernel_matches_plain_for_every_m(gen, M, K, N):
     w = torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5
@@ -566,11 +649,20 @@ def _ring_compare(gen, dtype, B, H, Hkv, n, Tl, D, window, n_seg, seg_ids=None):
         assert _row_err(g, w) <= ROW_TOL[dtype], f"{name}: row err {_row_err(g, w)}"
 
 
-@pytest.mark.parametrize("path", ["flash", "ring", "moe"])
+@pytest.mark.parametrize("path", ["flash", "ring", "moe", "decode"])
 def test_kernels_give_the_same_bits_twice(gen, path):
     """No atomics: two runs on the same inputs give the same bits, B1-B3
-    forward and backward, the whole ring pass (B9, B10), and B7 and B8."""
-    if path == "moe":
+    forward and backward, the whole ring pass (B9, B10), B7 and B8, and
+    B4/B5 with their split merge."""
+    if path == "decode":
+        a = _long_inputs(gen, torch.bfloat16, LONG_LENGTHS["edges"], 128, 4, 24)
+        kw = dict(cur_k=a["cur_k"], cur_v=a["cur_v"], window=300)
+
+        def run():
+            return (DA.ragged_decode_attention(a["q"], a["ck"], a["cv"], a["lengths"], **kw),
+                    DA.paged_decode_attention(a["q"], a["kp"], a["vp"], a["lengths"], a["pt"], staged_k=a["sk"],
+                                              staged_v=a["sv"], staged_count=a["count"], **kw))
+    elif path == "moe":
         from tony_tpu_torch.ops import moe_gemm as MG
 
         xs, (wg, wu, wd), tg, dy = _moe_inputs(gen, 8, 512, 1024, 1000, "random")

@@ -17,19 +17,19 @@ Dh, PLEN, MAXT = 128, 32, 128
 LENGTHS = [0, 1, PLEN, MAXT - 1]  # empty, one, a page edge, the last position
 
 
-def _inputs(H, Hkv, seed=0):
+def _inputs(H, Hkv, seed=0, lengths=LENGTHS, maxT=MAXT):
     rng = np.random.default_rng(seed)
-    S = len(LENGTHS)
+    S = len(lengths)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
-    return dict(q=f(S, H, Dh), ck=f(S, Hkv, MAXT, Dh), cv=f(S, Hkv, MAXT, Dh),
+    return dict(q=f(S, H, Dh), ck=f(S, Hkv, maxT, Dh), cv=f(S, Hkv, maxT, Dh),
                 cur_k=f(S, Hkv, Dh), cur_v=f(S, Hkv, Dh),
-                lengths=np.array(LENGTHS, np.int32))
+                lengths=np.array(lengths, np.int32))
 
 
 def _pool(ck, cv, seed=1):
     """Scatter dense caches into a SHUFFLED page pool (proves the indirection)."""
-    S, Hkv = ck.shape[:2]
-    max_pages = MAXT // PLEN
+    S, Hkv, maxT = ck.shape[:3]
+    max_pages = maxT // PLEN
     P = S * max_pages + 3
     pt = np.random.default_rng(seed).permutation(P)[: S * max_pages].reshape(S, max_pages).astype(np.int32)
     kp = np.zeros((P, Hkv, PLEN, Dh), np.float32)
@@ -92,3 +92,44 @@ def test_cpu_path_counts_no_launch_and_rejects_unaligned_pages():
         TD.paged_decode_attention(T(a["q"]), kp, kp, T(a["lengths"]),
                                   torch.zeros((4, 1), dtype=torch.int32),
                                   cur_k=T(a["cur_k"]), cur_v=T(a["cur_v"]))
+
+
+# a cache of 256 positions:
+# the longest slot at maxT - 1, every slot empty, and bands whose window edge
+# (window 40) and length fall on either side of page (32) and split (128) edges
+LONG_MAXT = 256
+LONG_LENGTHS = {
+    "long": [255, 1, 128, 129],
+    "zero": [0, 0, 0, 0],
+    "window_edges": [100, 160, 167, 200],
+}
+
+
+@pytest.mark.parametrize("lengths", list(LONG_LENGTHS))
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("kind", ["ragged", "paged_staged"])
+def test_long_zero_and_window_edge_lengths_match_jax(lengths, window, kind):
+    a = _inputs(4, 2, seed=5, lengths=LONG_LENGTHS[lengths], maxT=LONG_MAXT)
+    cur = dict(cur_k=a["cur_k"], cur_v=a["cur_v"])
+    if kind == "ragged":
+        want = JD.ragged_decode_attention(
+            jnp.asarray(a["q"]), jnp.asarray(a["ck"]), jnp.asarray(a["cv"]), jnp.asarray(a["lengths"]),
+            window=window, chunk=PLEN, **{k: jnp.asarray(v) for k, v in cur.items()})
+        got = TD.ragged_decode_attention(T(a["q"]), T(a["ck"]), T(a["cv"]), T(a["lengths"]), window=window,
+                                         **{k: T(v) for k, v in cur.items()})
+    else:
+        kp, vp, pt = _pool(a["ck"], a["cv"], seed=6)
+        rng = np.random.default_rng(7)
+        W = 4
+        staged = dict(staged_k=rng.standard_normal((4, W, 2, Dh)).astype(np.float32),
+                      staged_v=rng.standard_normal((4, W, 2, Dh)).astype(np.float32),
+                      staged_count=np.array([4, 0, 3, 1], np.int32), **cur)
+        want = JD.paged_decode_attention(
+            jnp.asarray(a["q"]), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(a["lengths"]), jnp.asarray(pt),
+            window=window, **{k: jnp.asarray(v) for k, v in staged.items()})
+        got = TD.paged_decode_attention(T(a["q"]), T(kp), T(vp), T(a["lengths"]), T(pt), window=window,
+                                        **{k: T(v) for k, v in staged.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    if lengths == "zero" and kind == "ragged":  # every slot empty: o is the current token's v
+        np.testing.assert_allclose(got.numpy(), np.repeat(a["cur_v"], 2, axis=1), atol=ATOL, rtol=0)
+

@@ -1,6 +1,7 @@
 """``chip_smoke.py``'s build report and kernel families, on the CPU: the
-parser that reads ptxas's ``-v`` report (a bf16 MoE pass that spills fails
-the on-card run) and the names by which a profiled step is split."""
+parser that reads ptxas's ``-v`` report (a bf16 MoE pass or decode
+instantiation that spills fails the on-card run) and the names by which a
+profiled step is split."""
 
 import re
 import sys
@@ -18,6 +19,9 @@ ATTN = ("_ZN50_GLOBAL__N__5ad67ba7_17_ring_attention_cu_9de2b4463hop15attn_fwd_k
         "14CUtensorMap_stS2_S2_PKiS4_PfS5_S5_P13__nv_bfloat16S5_NS_4GeomENS_4SpanEfii")
 
 
+DECODE = "_ZN52_GLOBAL__N__5088215c_19_decode_attention_cu_5787c4f323decode_attention_kernelI{}Li{}EEEvNS_4ArgsE"
+
+
 def _entry(name, regs, spill=0):
     return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
             f"ptxas info    : Function properties for {name}\n"
@@ -29,6 +33,9 @@ def _entry(name, regs, spill=0):
 LOG = ("ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized\n"
        + _entry(MOE.format(5), 168) + _entry(ATTN, 168) + _entry(MOE.format(1), 168, spill=24)
        + "nvcc wall seconds: 6.2\n")
+DECODE_LOG = (_entry(DECODE.format("f", 64), 232) + _entry(DECODE.format("f", 128), 255, spill=136)
+              + _entry(DECODE.format("13__nv_bfloat16", 128), 180) + _entry(ATTN, 168)
+              + "nvcc wall seconds: 10.1\n")
 
 
 def test_ptxas_entries_reads_each_moe_pass_and_only_those():
@@ -45,6 +52,11 @@ def test_ptxas_entries_reads_the_attention_kernels():
     assert rec["registers"] == 168 and rec["spill_stores"] == 0
 
 
+def test_ptxas_entries_reads_each_decode_instantiation_and_only_those():
+    got = [(g, r["registers"], r["spill_stores"]) for g, r in cs.ptxas_entries(DECODE_LOG, cs._PTXAS_DECODE)]
+    assert got == [(("f", "64"), 232, 0), (("f", "128"), 255, 136), (("13__nv_bfloat16", "128"), 180, 0)]
+
+
 def test_moe_passes_match_the_source_enum():
     src = (ROOT / "tony_tpu_torch" / "csrc" / "moe_gemm.cu").read_text()
     enum = re.search(r"enum Pass \{([^}]*)\}", src).group(1)
@@ -56,6 +68,9 @@ def test_moe_passes_match_the_source_enum():
      "__nv_bfloat16*, __nv_bfloat16*, __nv_bfloat16*)", "moe"),
     ("void (anonymous namespace)::hop::attn_bwd_dkv_kernel<128, false>(CUtensorMap_st, ...)", "attention"),
     ("void (anonymous namespace)::hop::attn_fwd_kernel<64, true>(CUtensorMap_st, ...)", "attention"),
+    ("void (anonymous namespace)::decode_attention_kernel<__nv_bfloat16, 128>((anonymous namespace)::Args)",
+     "decode"),
+    ("void (anonymous namespace)::decode_attention_kernel<float, 64>((anonymous namespace)::Args)", "decode"),
     ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_TNT", "gemm"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "gemm"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),

@@ -4,7 +4,12 @@ Counterpart of ``tony_tpu/ops/decode_attention.py``. Both entry points run
 one CUDA kernel (``csrc/decode_attention.cu``, which replaces the Pallas
 ``_kernel`` at ``tony_tpu/ops/decode_attention.py:49``) for CUDA tensors and
 the plain PyTorch ``decode_attention_ref`` for CPU tensors — never the
-plain version for a CUDA tensor.
+plain version for a CUDA tensor. A call is one device launch of split
+blocks (flash-decoding: each block one run of cache positions of one slot
+and kv head); the last split of a (slot, kv head) to finish merges them in
+split order. The split count comes from the cache's shape, so a call reads
+nothing on the host and can be captured in a CUDA graph once a first call
+has made the device's ticket buffer (``_ticket_buffer``).
 
 Slot s attends its cache band ``[max(0, len_s + 1 - window), len_s - count_s)``
 (``window`` 0 → from 0), then the ``count_s`` staged entries (paged chunked
@@ -89,6 +94,44 @@ def decode_attention_ref(
     return o.reshape(S, H, Dh).to(q.dtype)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# q k v lengths page_table | max_pages | cur_k cur_v staged_k staged_v
+# staged_count | W | o workspace tickets | n_splits S H Hkv Dh T_len window dtype | stream
+_ARGTYPES = [_P] * 5 + [_I] + [_P] * 5 + [_I] + [_P] * 3 + [_I] * 8 + [_P]
+
+
+_bound: dict = {}
+
+
+def _entry():
+    """(the C entry, the split length), bound once per process."""
+    if not _bound:
+        lib = _build.library("decode_attention")
+        fn = lib.tt_decode_attention
+        fn.restype, fn.argtypes = ctypes.c_int, _ARGTYPES
+        lib.tt_decode_split_rows.restype, lib.tt_decode_split_rows.argtypes = ctypes.c_int, []
+        _bound["entry"] = (fn, lib.tt_decode_split_rows())
+    return _bound["entry"]
+
+
+_tickets: dict = {}
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """The device's (slot, kv head) tickets: zero between calls, because the
+    block that merges a (slot, kv head) resets its ticket. Calls on one
+    device share them, so they must not overlap on two streams (the port
+    launches every kernel on the current stream). Made (or grown) outside
+    any CUDA graph capture, so a captured call reuses it."""
+    t = _tickets.get(device)
+    if t is None or t.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode attention: call it once outside the CUDA graph capture "
+                               f"(its ticket buffer for {n} (slot, kv head) pairs does not exist yet)")
+        t = _tickets[device] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
+
+
 def _launch(q, k, v, lengths, *, cur_k, cur_v, window, T_len, page_table=None,
             staged_k=None, staged_v=None, staged_count=None) -> torch.Tensor:
     S, H, Dh = q.shape
@@ -117,21 +160,20 @@ def _launch(q, k, v, lengths, *, cur_k, cur_v, window, T_len, page_table=None,
     for name, t in ints.items():
         if t.device != q.device or t.dtype != torch.int32 or not t.is_contiguous():
             raise TypeError(f"{name} must be contiguous int32 on {q.device}")
-    o = torch.empty_like(q)
-    lib = _build.library("decode_attention")
-    fn = lib.tt_decode_attention
-    fn.restype = ctypes.c_int
-    P, I = ctypes.c_void_p, ctypes.c_int
-    # q k v lengths page_table | max_pages | cur_k cur_v staged_k staged_v
-    # staged_count | W | o | S H Hkv Dh T_len window dtype | stream
-    fn.argtypes = [P] * 5 + [I] + [P] * 5 + [I, P] + [I] * 7 + [P]
+    fn, split_rows = _entry()
     W = staged_k.shape[1] if staged_k is not None else 0
     max_pages = page_table.shape[1] if page_table is not None else 0
+    # splits a (slot, kv head): from the cache's shape, never from the lengths
+    ns = -(-(max_pages * T_len if page_table is not None else T_len) // split_rows)
+    o = torch.empty_like(q)
+    # each split's unnormalised f32 partial: o [S, Hkv, ns, n_rep, Dh], then (m, l)
+    ws = torch.empty(S * H * ns * (Dh + 2), dtype=torch.float32, device=q.device)
+    tickets = _ticket_buffer(q.device, S * Hkv)
     rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(lengths),
             _build.ptr(page_table), max_pages, _build.ptr(cur_k), _build.ptr(cur_v),
             _build.ptr(staged_k), _build.ptr(staged_v), _build.ptr(staged_count), W,
-            _build.ptr(o), S, H, Hkv, Dh, T_len, int(window), _DTYPES[dtype],
-            _build.stream(q.device))
+            _build.ptr(o), _build.ptr(ws), _build.ptr(tickets), ns, S, H, Hkv, Dh, T_len, int(window),
+            _DTYPES[dtype], _build.stream(q.device))
     _build.check(rc, "decode_attention")
     return o
 
