@@ -20,7 +20,12 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    decode regime (8 slots at 140 positions, 4 of them staged), each decode
    case run twice for the same bits, with two planted faults (the longest
    slot one split shorter, the current token from another slot) that must
-   fail the limit the kernel passes;
+   fail the limit the kernel passes; B6 (``int8_matmul.cu``: its build
+   report, a spill fails the run) at M 8, 128 and 1024 on the five Llama-3-8B
+   weights, each twice for the same bits, with two planted faults (q's last
+   128 K rows zeroed, a column tile's scales from the next tile) that must
+   fail ``INT8_REL_TOL``, and its two paths timed against each other at M
+   16-96 (the crossover);
 3. serve: starts ``python -m tony_tpu_torch.models.serving_http --preset
    llama3-8b`` (full width, all 32 layers, seeded random weights, 8 slots,
    max_len 2048) three times — paged KV (the default), ``--int8``, and
@@ -30,7 +35,10 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    ``/stats`` (prefix hits on the paged runs, kernel launch counts > 0), and
    that SIGTERM drains to exit 0; then a decode-dominated batch (one 16-token
    prompt per slot, 128-token answers); prints tok/s of both batches, the
-   decode step time and the time to the first streamed token;
+   decode step time and the time to the first streamed token; then the
+   ``--int8`` engine in this process: one decode chunk of a full batch and
+   one 1000-token prefill (the 1024 bucket) under ``torch.profiler``, device
+   ms by kernel family (``int8`` is B6) and the busy share;
 4. whole step: ``loss_fn`` and every gradient through the flash kernels
    against ``attn_impl="reference"`` on the same params and batch (8B width,
    2 layers, B=1, T=2048); two planted faults (a query head dropped by B1,
@@ -116,6 +124,7 @@ INT8_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096), (4096, 
 ATTN_TOL = 2e-2    # bf16 output: ~2 ulps at |o| <= 1 (f32 maths in both, sums in another order)
 DECODE_BATCH_LEN, DECODE_BATCH_STAGED = 140, 4  # kernel case "decode_batch": the serve runs' decode regime
 INT8_REL_TOL = 2e-2  # max |kernel - plain| <= 2e-2 * max |plain|: ~2.5 bf16 ulps at the top of the range
+INT8_MS = (8, 128, 1024)  # B6 cases: a decode step, a short prompt, a 1000-token prompt's prefill bucket
 
 # Llama-3-8B training shapes of the flash kernels (B1-B3)
 FLASH_CASES = {
@@ -207,9 +216,12 @@ def check(cond: bool, what: str) -> None:
 
 # -- timing ------------------------------------------------------------------
 
-def time_ms(torch, fn, flush, iters: int = 20, warmup: int = 3) -> float:
+def time_ms(torch, fn, flush, iters: int = 20, warmup: int = 3, clean: bool = False) -> float:
     """Median device time of ``fn`` with CUDA events, L2 flushed before each
-    launch (the serving caller finds weights and KV cold)."""
+    launch (the serving caller finds weights and KV cold). The flush writes
+    the 64 MB buffer, so ``fn`` finds L2 full of dirty lines that it must write
+    back as it reads; ``clean`` flushes by reading the buffer instead (what a
+    decode step's matmul finds: the last one's clean weight lines)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -218,7 +230,10 @@ def time_ms(torch, fn, flush, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda._sleep(100_000_000)
     pairs = []
     for _ in range(iters):
-        flush.zero_()
+        if clean:
+            flush.view(torch.int64).max()
+        else:
+            flush.zero_()
         e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         e0.record()
         fn()
@@ -400,40 +415,92 @@ def kernel_phase(torch, DA, Q, flush) -> dict:
     del cases
     torch.cuda.empty_cache()
 
+    out["int8_matmul"] = int8_kernel_phase(torch, Q, flush)
+    return out
+
+
+def int8_case(torch, Q, qt, x, flush) -> dict:
+    """B6 on one (M, K, N) against its plain version: the same bits twice, and two
+    planted faults, from inputs outside the kernel, that must fail the limit the
+    kernel passes: q with its last 128 K rows zeroed (a missed K split) and the
+    first 128-column tile's scales taken from the next tile; then the times."""
+    M, (K, N) = x.shape[0], qt.q.shape
+    got = Q.int8_matmul(x, qt)
+    again = Q.int8_matmul(x, qt)
+    q_cut = qt.q.clone()
+    q_cut[-128:] = 0
+    s_bad = qt.scale.clone()
+    s_bad[:128] = qt.scale[128:256]
+    faults = {"missed_k_split": Q.int8_matmul(x, Q.QTensor(q_cut, qt.scale)),
+              "next_tile_scale": Q.int8_matmul(x, Q.QTensor(qt.q, s_bad))}
+    del q_cut, s_bad
+    torch.cuda.synchronize()
+    want = Q.int8_matmul_plain(x, qt).float()
+    name = f"M{M}_K{K}_N{N}"
+    check(bool(torch.isfinite(got.float()).all()), f"int8_matmul {name}: non-finite output")
+    err = (got.float() - want).abs().max().item()
+    tol = INT8_REL_TOL * want.abs().max().item()
+    fault = {f: (bad.float() - want).abs().max().item() for f, bad in faults.items()}
+    same = torch.equal(got, again)
+    print(f"[kernel] int8_matmul {name:22s} max_abs_err {err:.3e} (tol {tol:.3e}; planted faults "
+          + ", ".join(f"{f} {e:.3e}" for f, e in fault.items()) + f"); same bits twice: {same}", flush=True)
+    check(err <= tol, f"int8_matmul {name}: error {err} > {tol}")
+    check(same, f"int8_matmul {name}: two runs of the kernel differ in their bits")
+    for f, e in fault.items():
+        check(e > tol, f"int8_matmul {name}: the check passes the planted fault {f} ({e} <= {tol})")
+    del got, again, faults, want
+    rec = {"case": name, "M": M, "K": K, "N": N, "path": "decode" if M <= Q.DECODE_MAX_M else "prefill",
+           "max_abs_err": err, "tol": tol, "fault_max_abs_err": fault, "same_bits": same}
+    rec["ms"] = time_ms(torch, lambda: Q.int8_matmul(x, qt), flush)
+    rec["ms_clean_l2"] = time_ms(torch, lambda: Q.int8_matmul(x, qt), flush, clean=True)
+    rec["plain_ms"] = time_ms(torch, lambda: Q.int8_matmul_plain(x, qt), flush, iters=5)
+    w_bf16 = Q.dequantize(qt, torch.bfloat16)
+    rec["library_ms"] = time_ms(torch, lambda: x @ w_bf16, flush)
+    rec["library_ms_clean_l2"] = time_ms(torch, lambda: x @ w_bf16, flush, clean=True)
+    del w_bf16
+    b = K * N + 4 * N + 2 * M * K + 2 * M * N
+    f = 2 * M * K * N
+    rec["bound_ms"] = max(b / HBM_BYTES_PER_S, f / BF16_FLOPS) * 1e3
+    rec["bound_by"] = "bytes" if b / HBM_BYTES_PER_S >= f / BF16_FLOPS else "operations"
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    print(f"[kernel]   ms {rec['ms']:.4f} plain {rec['plain_ms']:.4f} x@W_bf16 {rec['library_ms']:.4f} "
+          f"bound {rec['bound_ms']:.4f} ({rec['bound_by']}, {rec['bound_share']:.0%} of it); "
+          f"{rec['path']} path; L2 flushed clean: ms {rec['ms_clean_l2']:.4f} x@W_bf16 "
+          f"{rec['library_ms_clean_l2']:.4f}", flush=True)
+    return rec
+
+
+def int8_kernel_phase(torch, Q, flush) -> dict:
+    """B6 (``csrc/int8_matmul.cu``): the build report, every ``INT8_SHAPES`` weight
+    at M 8 (a decode step), 128 and 1024 (the prefill bucket of a 1000-token
+    prompt) through ``int8_case``, then the crossover of the two paths: each forced
+    at M 16 .. 64 on the gate/up weight (K 4096, N 14336), the prefill path alone
+    above."""
+    build = int8_build_report()
     g = torch.Generator(device="cuda").manual_seed(1)
-    mm_recs = []
+    recs = []
     for K, N in INT8_SHAPES:
         w = torch.randn(K, N, generator=g, device="cuda") / K ** 0.5
         qt = Q.quantize_int8(w)
         del w
-        w_bf16 = Q.dequantize(qt, torch.bfloat16)
-        for M in (8, 128):
+        for M in INT8_MS:
             x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
-            got = Q.int8_matmul(x, qt)
-            torch.cuda.synchronize()
-            want = Q.int8_matmul_plain(x, qt)
-            check(bool(torch.isfinite(got.float()).all()), f"int8_matmul {M}x{K}x{N}: non-finite output")
-            err = (got.float() - want.float()).abs().max().item()
-            tol = INT8_REL_TOL * want.float().abs().max().item()
-            name = f"M{M}_K{K}_N{N}"
-            print(f"[kernel] int8_matmul {name:22s} max_abs_err {err:.3e} (tol {tol:.3e})", flush=True)
-            check(err <= tol, f"int8_matmul {name}: error {err} > {tol}")
-            rec = {"case": name, "max_abs_err": err, "tol": tol}
-            rec["ms"] = time_ms(torch, lambda: Q.int8_matmul(x, qt), flush)
-            rec["plain_ms"] = time_ms(torch, lambda: Q.int8_matmul_plain(x, qt), flush, iters=5)
-            rec["library_ms"] = time_ms(torch, lambda: x @ w_bf16, flush)
-            b = K * N + 4 * N + 2 * M * K + 2 * M * N
-            f = 2 * M * K * N
-            rec["bound_ms"] = max(b / HBM_BYTES_PER_S, f / BF16_FLOPS) * 1e3
-            rec["bound_by"] = "bytes" if b / HBM_BYTES_PER_S >= f / BF16_FLOPS else "operations"
-            print(f"[kernel]   ms {rec['ms']:.4f} plain {rec['plain_ms']:.4f} x@W_bf16 {rec['library_ms']:.4f} "
-                  f"bound {rec['bound_ms']:.4f} ({rec['bound_by']})", flush=True)
-            mm_recs.append(rec)
-        del qt, w_bf16
+            recs.append(int8_case(torch, Q, qt, x, flush))
+            del x
+        if (K, N) == (4096, 14336):
+            cross = []
+            for M in (16, 32, 48, 64, 80, 96):
+                x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+                row = {"M": M, "prefill_ms": time_ms(torch, lambda: Q._launch(x, qt, 1), flush)}
+                if M <= Q.DECODE_MAX_M:
+                    row["decode_ms"] = time_ms(torch, lambda: Q._launch(x, qt, 0), flush)
+                cross.append(row)
+                print(f"[kernel] int8_matmul crossover M {M}: "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in row.items() if k != "M"), flush=True)
+        del qt
         torch.cuda.empty_cache()
-    head = next(r for r in mm_recs if r["case"] == "M8_K4096_N14336")
-    out["int8_matmul"] = dict(head, cases=mm_recs)
-    return out
+    head = next(r for r in recs if r["case"] == "M8_K4096_N14336")
+    return dict(head, cases=recs, crossover=cross, build=build)
 
 
 # -- flash attention kernels (B1-B3) --------------------------------------------
@@ -441,6 +508,8 @@ def kernel_phase(torch, DA, Q, flush) -> dict:
 _PTXAS_KERNEL = re.compile(r"(hop|simt)\d+(attn_[a-z_]+?_kernel)ILi(\d+)ELb([01])E")
 _PTXAS_MOE = re.compile(r"moe_gemm_kernelILi(\d)E")
 _PTXAS_DECODE = re.compile(r"decode_attention_kernelI(13__nv_bfloat16|f)Li(\d+)E")
+_PTXAS_INT8 = re.compile(r"i8_(decode|prefill)_kernelILi(\d)E")
+INT8_KERNELS = [("decode", 1), ("decode", 2), ("decode", 4), ("decode", 8), ("prefill", 1), ("prefill", 2)]
 MOE_PASSES = ["up", "up_bwd", "down", "dx", "dw_gu", "dw_d"]  # moe_gemm.cu's Pass, in order
 
 
@@ -553,6 +622,36 @@ def decode_build_report() -> dict:
     check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in kernels if k["dtype"] == "bf16"),
           "decode build: a bf16 decode kernel spills: " + str([(k["D"], k["spill_stores"])
                                                              for k in kernels if k["dtype"] == "bf16"]))
+    return {"nvcc_s": secs, "kernels": kernels}
+
+
+def int8_build_report() -> dict:
+    """The kernels of ``csrc/int8_matmul.cu`` (B6): the decode path at MT 1, 2, 4
+    and 8 column tiles of 8 tokens, and the prefill path at TH 1 and 2 128-token
+    halves a block tile (``tile``); ptxas's registers (at entry: the prefill
+    consumers raise theirs to 240 with setmaxnreg) and spill bytes, the dynamic
+    shared memory a block asks for, the ``nvcc`` seconds. Any of them that
+    spills fails the run."""
+    import ctypes
+
+    from tony_tpu_torch.ops import _build
+
+    log = _build.build_all()["int8_matmul"].with_suffix(".log").read_text()
+    smem = _build.library("int8_matmul").tt_int8_smem_bytes
+    smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int] * 2
+    kernels = []
+    for (path, tile), rec in ptxas_entries(log, _PTXAS_INT8):
+        kernels.append({"kernel": f"i8_{path}_kernel", "path": path, "tile": int(tile),
+                        "smem_bytes": smem(int(path == "prefill"), int(tile)), **rec})
+    secs = nvcc_seconds("int8_matmul", log)
+    for k in kernels:
+        print(f"[build]   {k['kernel']}<{'MT' if k['path'] == 'decode' else 'TH'} {k['tile']}>: {k['registers']} "
+              f"registers, {k['smem_bytes']} B shared memory, spills {k['spill_stores']} / {k['spill_loads']} B",
+              flush=True)
+    check(sorted((k["path"], k["tile"]) for k in kernels) == INT8_KERNELS,
+          f"int8 build: ptxas reported {[(k['path'], k['tile']) for k in kernels]}")
+    check(all(k["spill_stores"] == 0 and k["spill_loads"] == 0 for k in kernels),
+          "int8 build: a B6 kernel spills: " + str([(k["kernel"], k["tile"], k["spill_stores"]) for k in kernels]))
     return {"nvcc_s": secs, "kernels": kernels}
 
 
@@ -853,10 +952,12 @@ def _union_us(ranges) -> float:
 
 def _kernel_family(name: str) -> str:
     """The port's kernels by source (``moe`` B7/B8, ``attention`` B1-B3 and
-    B9/B10, ``decode`` B4/B5), cuBLAS's products as ``gemm``, the rest
-    ``other``."""
+    B9/B10, ``decode`` B4/B5, ``int8`` B6), cuBLAS's products as ``gemm``, the
+    rest ``other``."""
     if "moe_gemm_kernel" in name:
         return "moe"
+    if re.search(r"i8_(decode|prefill)_kernel", name):
+        return "int8"
     if "decode_attention_kernel" in name:
         return "decode"
     if re.search(r"attn_(fwd|bwd_dq|bwd_dkv)_kernel", name):
@@ -1738,7 +1839,7 @@ def engine_batch(torch, eng, reqs: list[dict]):
     return [eng.done[rid] for rid in rids], ttft, wall
 
 
-def decode_chunk_profile(torch, eng, vocab: int) -> dict:
+def decode_chunk_profile(torch, eng, vocab: int, tag: str = "moe-serve") -> dict:
     """Decode chunks of the engine (``decode_chunk`` steps, every slot busy
     with a ``decode_requests`` answer, no prefill in them): one timed on the
     host clock, the next under ``torch.profiler`` for device ms by kernel
@@ -1759,15 +1860,63 @@ def decode_chunk_profile(torch, eng, vocab: int) -> dict:
     eng.run()
     check(all(len(eng.done[rid]) == DECODE_TOKENS for rid in rids), "decode chunk: a request came back short")
     if prof is None:
-        print("[moe-serve] decode chunk: the profiler recorded no device activity", flush=True)
+        print(f"[{tag}] decode chunk: the profiler recorded no device activity", flush=True)
         return {"device_ms_by_family": "not measured: the profiler recorded no device activity"}
     busy = prof["device_ms"] / wall_ms
-    print(f"[moe-serve] one decode chunk ({eng.decode_chunk} steps, {S} slots): device ms by kernel family "
+    print(f"[{tag}] one decode chunk ({eng.decode_chunk} steps, {S} slots): device ms by kernel family "
           f"{({k: round(v, 2) for k, v in prof['device_ms_by_family'].items()})}; device busy "
           f"{prof['device_ms']:.2f} ms of the chunk's {wall_ms:.2f} ms unprofiled wall ({busy:.3f}; "
           f"{prof['busy_share']:.3f} of the profiled wall, which the profiler stretches to "
           f"{prof['profiled_wall_ms']:.2f} ms)", flush=True)
     return dict(prof, steps=eng.decode_chunk, wall_ms=wall_ms, busy_share_unprofiled=busy)
+
+
+def int8_serve_profile(torch, Q) -> dict:
+    """Where an int8 serve step's device time goes: the engine the ``--int8`` server
+    builds (Llama-3-8B, all 32 layers, seeded random weights quantized to int8, 8
+    slots, max_len 2048, paged KV), in this process. One decode chunk of a full
+    batch (``decode_chunk_profile``), then one prefill of a 1000-token prompt
+    (its 1024 bucket) after an unprofiled one, each under ``torch.profiler``:
+    device ms by kernel family (``int8`` is B6) and the busy share. B6 must run
+    in both."""
+    import numpy as np
+
+    from tony_tpu_torch.models import serving_http
+
+    args = serving_http.parse_args(["--preset", "llama3-8b", "--int8", "--slots", str(S), "--max-len",
+                                    str(MAXT), "--decode-chunk", "8"])
+    with torch.no_grad():
+        eng = serving_http.build_engine(args)
+    eng.submit(list(range(1, 40)), 8)  # warm-up: first CUDA use of each path
+    eng.run()
+    Q.reset_launches()
+    chunk = decode_chunk_profile(torch, eng, eng.cfg.vocab_size, tag="int8-serve")
+    check(Q.launches["int8_matmul"] > 0, "int8 serve: the decode chunk never launched B6")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, eng.cfg.vocab_size, 1000).tolist() for _ in range(2)]
+    eng.submit(prompts[0], 1)
+    eng._stage_prefills(1)  # the 1024 bucket's first run, unprofiled
+    eng.run()
+    rid = eng.submit(prompts[1], 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill = profile_families(torch, lambda: eng._stage_prefills(1), 1)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.run()
+    check(len(eng.done[rid]) == 1, f"int8 serve: the prefill request returned {eng.done[rid]}")
+    if prefill is None:
+        prefill = {"device_ms_by_family": "not measured: the profiler recorded no device activity"}
+        print("[int8-serve] prefill: the profiler recorded no device activity", flush=True)
+    else:
+        print(f"[int8-serve] one prefill of a 1000-token prompt (bucket 1024): device ms by kernel family "
+              f"{({k: round(v, 2) for k, v in prefill['device_ms_by_family'].items()})}; device busy "
+              f"{prefill['device_ms']:.2f} ms of the profiled {wall_ms:.2f} ms wall "
+              f"({prefill['busy_share']:.3f})", flush=True)
+    rec = {"decode_chunk": chunk, "prefill_1024": prefill, "launches": dict(Q.launches)}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
 
 
 def moe_serve_phase(torch, mixtral, DA, MG) -> dict:
@@ -1909,6 +2058,7 @@ def main() -> int:
         # host-bound decode steps are measured as they were before those
         # minutes of load existed
         serve = {name: run_server(name, extra, out_dir) for name, extra in SERVE_RUNS}
+        serve["int8"]["profile"] = int8_serve_profile(torch, Q)
         step = whole_step_check(torch, llama, A)
         gc.collect()
         torch.cuda.empty_cache()
@@ -1971,7 +2121,8 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"], "cases": k["cases"],
         })
     builds = {"flash_attention": kern["flash_fwd"]["build"], "ring_attention": kern["ring_fwd"]["build"],
-              "moe_gemm": kern["moe_fwd"]["build"], "decode_attention": kern["paged_decode_attention"]["build"]}
+              "moe_gemm": kern["moe_fwd"]["build"], "decode_attention": kern["paged_decode_attention"]["build"],
+              "int8_matmul": kern["int8_matmul"]["build"]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "builds": builds, "whole_step": step, "train": train,
          "serve": serve,

@@ -149,7 +149,17 @@ def test_paged_decode_attention_replays_in_a_cuda_graph(gen):
         torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 64, 48), (3, 80, 272), (8, 256, 1024), (77, 512, 96), (130, 128, 4096)])
+# M 1 .. 1024 across both paths (the crossover Q.DECODE_MAX_M = 64 and 64 +- 1) and both
+# prefill tiles (128 tokens to M 128, 256 from 129), the N edges 48, 272 and 400 (no
+# multiple of the 128-column tile), K 80, 208 and 2960 (no multiple of the 128-row decode
+# stage or the 64-row prefill slab), and a wide N (8208 = 64 tiles + 16 columns) whose K is
+# split over blocks, the last split short
+INT8_CASES = [(1, 64, 48), (3, 80, 272), (8, 256, 1024), (77, 512, 96), (130, 128, 4096),
+              (63, 336, 272), (64, 336, 1040), (65, 336, 272), (1024, 4096, 1024),
+              (200, 208, 400), (129, 208, 400), (16, 2960, 8208)]
+
+
+@pytest.mark.parametrize("M,K,N", INT8_CASES)
 def test_int8_kernel_matches_plain_for_every_m(gen, M, K, N):
     w = torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5
     qt = Q.quantize_int8(w)
@@ -161,6 +171,45 @@ def test_int8_kernel_matches_plain_for_every_m(gen, M, K, N):
     tol = 2e-2 * want.float().abs().max().item()  # ~2.5 bf16 ulps at the top of the range
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
     assert Q.launches["int8_matmul"] == before + 1
+
+
+@pytest.mark.parametrize("M", [8, 64, 65, 1024])
+def test_int8_paths_agree_where_both_run(gen, M):
+    """Each path forced at M 8 .. 1024 (the decode path takes M <= 64) against the
+    plain version, on a K split over blocks."""
+    K, N = 1024, 1040
+    qt = Q.quantize_int8(torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5)
+    x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+    want = Q.int8_matmul_plain(x, qt).float()
+    tol = 2e-2 * want.abs().max().item()
+    for path in ((0, 1) if M <= Q.DECODE_MAX_M else (1,)):
+        torch.testing.assert_close(Q._launch(x, qt, path).float(), want, atol=tol, rtol=0)
+
+
+def test_int8_matmul_replays_in_a_cuda_graph(gen):
+    """Nothing is read on the host and the split merge resets its tickets: captured
+    once (decode path with K split, and prefill path), the calls follow new x
+    copied in before each replay."""
+    K, N = 4096, 1024
+    qt = Q.quantize_int8(torch.randn(K, N, generator=gen, device="cuda") / K ** 0.5)
+    xs = [torch.zeros(M, K, dtype=torch.bfloat16, device="cuda") for M in (8, 256)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x in xs:
+            Q.int8_matmul(x, qt)  # build, bind, make the tickets outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [Q.int8_matmul(x, qt) for x in xs]
+    for _ in range(3):
+        for x in xs:
+            x.copy_(torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        for x, out in zip(xs, outs):
+            want = Q.int8_matmul_plain(x, qt).float()
+            torch.testing.assert_close(out.float(), want, atol=2e-2 * want.abs().max().item(), rtol=0)
 
 
 def test_kernels_refuse_what_they_do_not_take(gen):
@@ -649,12 +698,18 @@ def _ring_compare(gen, dtype, B, H, Hkv, n, Tl, D, window, n_seg, seg_ids=None):
         assert _row_err(g, w) <= ROW_TOL[dtype], f"{name}: row err {_row_err(g, w)}"
 
 
-@pytest.mark.parametrize("path", ["flash", "ring", "moe", "decode"])
+@pytest.mark.parametrize("path", ["flash", "ring", "moe", "decode", "int8"])
 def test_kernels_give_the_same_bits_twice(gen, path):
-    """No atomics: two runs on the same inputs give the same bits, B1-B3
-    forward and backward, the whole ring pass (B9, B10), B7 and B8, and
-    B4/B5 with their split merge."""
-    if path == "decode":
+    """No float atomics: two runs on the same inputs give the same bits, B1-B3
+    forward and backward, the whole ring pass (B9, B10), B7 and B8, B4/B5
+    with their split merge, and B6 on both paths (decode with K split)."""
+    if path == "int8":
+        qt = Q.quantize_int8(torch.randn(4096, 1024, generator=gen, device="cuda") / 64)
+        xs = [torch.randn(M, 4096, generator=gen, device="cuda").to(torch.bfloat16) for M in (8, 1024)]
+
+        def run():
+            return tuple(Q.int8_matmul(x, qt) for x in xs)
+    elif path == "decode":
         a = _long_inputs(gen, torch.bfloat16, LONG_LENGTHS["edges"], 128, 4, 24)
         kw = dict(cur_k=a["cur_k"], cur_v=a["cur_v"], window=300)
 

@@ -33,6 +33,28 @@ def test_bf16_matches_jax_pallas_kernel():
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=1e-2, rtol=1e-2)
 
 
+@pytest.mark.parametrize("M,route", [(8, "xla_reference"), (256, "pallas")])
+def test_port_matches_both_jax_routes(M, route, monkeypatch):
+    """The port against JAX's ``int8_matmul`` with its default blocks, on the same
+    numpy inputs (bf16 x): at M 8 JAX takes its XLA reference (M < 64), at M 256 x K
+    512 x N 256 its Pallas kernel (interpret mode; the default blocks 256/256/512
+    tile it). The JAX function runs unjitted, so its route is decided on this call
+    and checked. Tolerance 1e-2 absolute and relative: both sides sum in f32 and
+    round once to bf16 (2^-8 relative), in another order."""
+    K, N = 512, 256
+    x = np.random.default_rng(5).standard_normal((M, K)).astype(np.float32)
+    jqt = JQ.quantize_int8(jnp.asarray(_weight(K, N, 6)))
+    refs = []
+    real_ref = JQ.int8_matmul_ref
+    monkeypatch.setattr(JQ, "int8_matmul_ref", lambda *a: refs.append(1) or real_ref(*a))
+    want = JQ.int8_matmul.__wrapped__(jnp.asarray(x, jnp.bfloat16), jqt)
+    assert bool(refs) == (route == "xla_reference")
+    tqt = TQ.QTensor(torch.from_numpy(np.array(jqt.q)), torch.from_numpy(np.array(jqt.scale)))
+    got = TQ.int8_matmul(torch.from_numpy(x).to(torch.bfloat16), tqt)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=1e-2, rtol=1e-2)
+
+
 def test_f32_matches_jax_reference():
     rng = np.random.default_rng(2)
     x = rng.standard_normal((8, 128)).astype(np.float32)

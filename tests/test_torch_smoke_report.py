@@ -1,7 +1,7 @@
 """``chip_smoke.py``'s build report and kernel families, on the CPU: the
-parser that reads ptxas's ``-v`` report (a bf16 MoE pass or decode
-instantiation that spills fails the on-card run) and the names by which a
-profiled step is split."""
+parser that reads ptxas's ``-v`` report (a bf16 MoE pass, decode
+instantiation or B6 kernel that spills fails the on-card run) and the names
+by which a profiled step is split."""
 
 import re
 import sys
@@ -20,6 +20,10 @@ ATTN = ("_ZN50_GLOBAL__N__5ad67ba7_17_ring_attention_cu_9de2b4463hop15attn_fwd_k
 
 
 DECODE = "_ZN52_GLOBAL__N__5088215c_19_decode_attention_cu_5787c4f323decode_attention_kernelI{}Li{}EEEvNS_4ArgsE"
+INT8_DECODE = ("_ZN47_GLOBAL__N__a5f2ff40_14_int8_matmul_cu_bc2b5f6116i8_decode_kernelILi{}EEEv14CUtensorMap_stS1_"
+               "PKfP13__nv_bfloat16PfPiiiii")
+INT8_PREFILL = ("_ZN47_GLOBAL__N__a5f2ff40_14_int8_matmul_cu_bc2b5f6117i8_prefill_kernelILi2EEEv14CUtensorMap_stS1_"
+                "PKfP13__nv_bfloat16iii")
 
 
 def _entry(name, regs, spill=0):
@@ -36,6 +40,28 @@ LOG = ("ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async inst
 DECODE_LOG = (_entry(DECODE.format("f", 64), 232) + _entry(DECODE.format("f", 128), 255, spill=136)
               + _entry(DECODE.format("13__nv_bfloat16", 128), 180) + _entry(ATTN, 168)
               + "nvcc wall seconds: 10.1\n")
+
+
+INT8_LOG = (_entry(INT8_DECODE.format(8), 168) + _entry(DECODE.format("f", 64), 232)
+            + _entry(INT8_DECODE.format(1), 54) + _entry(INT8_PREFILL, 168, spill=16)
+            + "nvcc wall seconds: 5.7\n")
+
+
+def test_ptxas_entries_reads_each_int8_kernel_and_only_those():
+    got = [(g, r["registers"], r["spill_stores"]) for g, r in cs.ptxas_entries(INT8_LOG, cs._PTXAS_INT8)]
+    assert got == [(("decode", "8"), 168, 0), (("decode", "1"), 54, 0), (("prefill", "2"), 168, 16)]
+
+
+def test_int8_kernels_match_the_source():
+    """The build report expects one decode instantiation per column-tile count the
+    launcher picks, and the prefill kernel; the wrapper's crossover is the source's."""
+    from tony_tpu_torch.ops import quant as Q
+
+    src = (ROOT / "tony_tpu_torch" / "csrc" / "int8_matmul.cu").read_text()
+    mts = sorted({int(m) for m in re.findall(r"launch_decode<(\d)>\(", src)})
+    wms = sorted({int(m) for m in re.findall(r"launch_prefill<(\d)>\(", src)})
+    assert [("decode", m) for m in mts] + [("prefill", m) for m in wms] == cs.INT8_KERNELS
+    assert int(re.search(r"constexpr int DECODE_MAX_M = (\d+);", src).group(1)) == Q.DECODE_MAX_M
 
 
 def test_ptxas_entries_reads_each_moe_pass_and_only_those():
@@ -71,6 +97,10 @@ def test_moe_passes_match_the_source_enum():
     ("void (anonymous namespace)::decode_attention_kernel<__nv_bfloat16, 128>((anonymous namespace)::Args)",
      "decode"),
     ("void (anonymous namespace)::decode_attention_kernel<float, 64>((anonymous namespace)::Args)", "decode"),
+    ("void (anonymous namespace)::i8_decode_kernel<1>(CUtensorMap_st, CUtensorMap_st, float const*, "
+     "__nv_bfloat16*, float*, int*, int, int, int, int)", "int8"),
+    ("void (anonymous namespace)::i8_prefill_kernel<2>(CUtensorMap_st, CUtensorMap_st, float const*, "
+     "__nv_bfloat16*, int, int, int)", "int8"),
     ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_TNT", "gemm"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "gemm"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),

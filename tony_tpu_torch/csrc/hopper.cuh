@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels of this package: the
-// attention kernels (attention_kernels.cuh) and the grouped expert GEMMs (moe_gemm.cu).
+// attention kernels (attention_kernels.cuh), the grouped expert GEMMs (moe_gemm.cu) and the
+// int8 matmul (int8_matmul.cu).
 //
 //   - shared-memory addresses and the dynamic shared memory aligned for the 128-byte swizzle;
 //   - mbarriers (init, arrive, arrive with expected TMA bytes, parity wait);

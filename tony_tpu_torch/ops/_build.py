@@ -118,6 +118,26 @@ def library(stem: str) -> ctypes.CDLL:
     return lib
 
 
+_tickets: dict = {}
+
+
+def tickets(device, n: int, what: str) -> torch.Tensor:
+    """The device's ticket buffer, at least ``n`` int32 zeros, for the kernels
+    whose last block to finish merges the others' partials (decode attention,
+    the int8 matmul's K splits): each merging block resets its ticket, so the
+    buffer is zero between calls. The kernels share it, so their calls must not
+    overlap on two streams (the port launches every kernel on the current
+    stream). It is made (or grown, keeping the old one alive for any CUDA graph
+    that holds it) outside a graph capture, so a captured call reuses it."""
+    bufs = _tickets.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{what}: call it once outside the CUDA graph capture "
+                               f"(its ticket buffer of {n} does not exist yet)")
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32, device=device))
+    return bufs[-1]
+
+
 def check(rc: int, what: str) -> None:
     """Raise when a C entry returned a non-zero ``cudaError_t``."""
     if rc != 0:

@@ -9,7 +9,7 @@ blocks (flash-decoding: each block one run of cache positions of one slot
 and kv head); the last split of a (slot, kv head) to finish merges them in
 split order. The split count comes from the cache's shape, so a call reads
 nothing on the host and can be captured in a CUDA graph once a first call
-has made the device's ticket buffer (``_ticket_buffer``).
+has made the device's ticket buffer (``_build.tickets``).
 
 Slot s attends its cache band ``[max(0, len_s + 1 - window), len_s - count_s)``
 (``window`` 0 → from 0), then the ``count_s`` staged entries (paged chunked
@@ -114,24 +114,6 @@ def _entry():
     return _bound["entry"]
 
 
-_tickets: dict = {}
-
-
-def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
-    """The device's (slot, kv head) tickets: zero between calls, because the
-    block that merges a (slot, kv head) resets its ticket. Calls on one
-    device share them, so they must not overlap on two streams (the port
-    launches every kernel on the current stream). Made (or grown) outside
-    any CUDA graph capture, so a captured call reuses it."""
-    t = _tickets.get(device)
-    if t is None or t.numel() < n:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("decode attention: call it once outside the CUDA graph capture "
-                               f"(its ticket buffer for {n} (slot, kv head) pairs does not exist yet)")
-        t = _tickets[device] = torch.zeros(n, dtype=torch.int32, device=device)
-    return t
-
-
 def _launch(q, k, v, lengths, *, cur_k, cur_v, window, T_len, page_table=None,
             staged_k=None, staged_v=None, staged_count=None) -> torch.Tensor:
     S, H, Dh = q.shape
@@ -168,7 +150,7 @@ def _launch(q, k, v, lengths, *, cur_k, cur_v, window, T_len, page_table=None,
     o = torch.empty_like(q)
     # each split's unnormalised f32 partial: o [S, Hkv, ns, n_rep, Dh], then (m, l)
     ws = torch.empty(S * H * ns * (Dh + 2), dtype=torch.float32, device=q.device)
-    tickets = _ticket_buffer(q.device, S * Hkv)
+    tickets = _build.tickets(q.device, S * Hkv, "decode attention")
     rc = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(lengths),
             _build.ptr(page_table), max_pages, _build.ptr(cur_k), _build.ptr(cur_v),
             _build.ptr(staged_k), _build.ptr(staged_v), _build.ptr(staged_count), W,

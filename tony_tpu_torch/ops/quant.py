@@ -3,10 +3,11 @@
 Counterpart of ``tony_tpu/ops/quant.py``. ``int8_matmul`` runs the CUDA
 kernel ``csrc/int8_matmul.cu`` (which replaces the Pallas
 ``_quant_matmul_kernel`` at ``tony_tpu/ops/quant.py:54``) for every CUDA
-tensor, at every M — decode-sized M is where a weight-only kernel earns its
-bytes, so nothing routes small shapes elsewhere — and the plain
-``int8_matmul_plain`` (the JAX ``int8_matmul_ref``: f32 maths, no bf16 cast
-of x) for CPU tensors.
+tensor, at every M, in one launch: its decode path (M <= 64, streaming the
+weight through ``mma.sync``) or its prefill path (TMA + ``wgmma``) —
+decode-sized M is where a weight-only kernel earns its bytes, so nothing
+routes small shapes elsewhere — and the plain ``int8_matmul_plain`` (the JAX
+``int8_matmul_ref``: f32 maths, no bf16 cast of x) for CPU tensors.
 
 Bound on the H100: max((K·N + 2·M·K + 2·M·N) B / 3.35 TB/s, 2·M·K·N / 989 TFLOP/s).
 """
@@ -23,6 +24,9 @@ from tony_tpu_torch.ops import _build
 
 #: kernel launches of ``int8_matmul`` (only a launch adds to the count)
 launches = {"int8_matmul": 0}
+
+#: the largest M the kernel's decode path takes (``DECODE_MAX_M`` in ``csrc/int8_matmul.cu``)
+DECODE_MAX_M = 64
 
 
 def reset_launches() -> None:
@@ -57,12 +61,31 @@ def int8_matmul_plain(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return ((x.float() @ qt.q.float()) * qt.scale).to(x.dtype)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# x q scale out ws tickets | M N K splits path | stream
+_ARGTYPES = [_P] * 6 + [_I] * 5 + [_P]
+
+
 @functools.lru_cache(maxsize=None)
-def _num_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _entry():
+    """(the C entry, the C function that plans its K splits), bound once per process."""
+    lib = _build.library("int8_matmul")
+    fn, plan = lib.tt_int8_matmul, lib.tt_int8_matmul_splits
+    fn.restype, fn.argtypes = _I, _ARGTYPES
+    plan.restype, plan.argtypes = _I, [_I] * 5
+    return fn, plan
 
 
-def _launch(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _splits(M: int, N: int, K: int, index: int, path: int) -> int:
+    """K splits of a call, from the shapes and the card alone (nothing read on the device)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return _entry()[1](M, N, K, sms, path)
+
+
+def _launch(x: torch.Tensor, qt: QTensor, path: int = -1) -> torch.Tensor:
+    """One launch of the kernel; ``path`` -1 chooses by M (0 forces the decode path,
+    M <= 64; 1 the prefill path: for measuring the crossover)."""
     K, N = qt.q.shape
     if x.dtype != torch.bfloat16:
         raise TypeError(f"int8_matmul kernel takes bfloat16 x (the serving dtype), got {x.dtype}")
@@ -81,16 +104,12 @@ def _launch(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     if M == 0:
         return out.reshape(*x.shape[:-1], N)
-    lib = _build.library("int8_matmul")
-    lib.tt_int8_matmul_splits.restype = ctypes.c_int
-    lib.tt_int8_matmul_splits.argtypes = [ctypes.c_int] * 4
-    splits = lib.tt_int8_matmul_splits(M, N, K, _num_sms(x.device.index or 0))
+    fn = _entry()[0]
+    splits = _splits(M, N, K, x.device.index or 0, path)
     ws = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) if splits > 1 else None
-    fn = lib.tt_int8_matmul
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    tickets = _build.tickets(x.device, -(-M // 128) * -(-N // 128), "int8_matmul") if splits > 1 else None
     rc = fn(_build.ptr(xm), _build.ptr(q), _build.ptr(scale), _build.ptr(out), _build.ptr(ws),
-            M, N, K, splits, _build.stream(x.device))
+            _build.ptr(tickets), M, N, K, splits, path, _build.stream(x.device))
     _build.check(rc, "int8_matmul")
     return out.reshape(*x.shape[:-1], N)
 
