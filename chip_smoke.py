@@ -51,6 +51,19 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    split with CUDA events into loss + gradients and the optimizer update,
    and its device time by kernel family from ``torch.profiler`` with the
    card's busy share of the profiled window;
+5a. gang: the training gang at the full ``llama-1b`` preset (16 layers,
+   bf16, remat "full", B=8, T=2048) on four ``*.tonytok`` shards written
+   from a seed: ``tony submit`` (run as ``python -m tony_tpu.cli.main``, a
+   subprocess) of ``python -m tony_tpu_torch.train.pretrain`` for 8 steps
+   with a checkpoint every 4 and a node loss at step 5: one restart, the
+   resume at step 4 with a validated cursor, every global slot consumed
+   once, ``tony top`` on the live worker and ``tony goodput`` after; the
+   same 8 steps in this process through B1-B3 (launches counted) with each
+   loss the worker's within ``GANG_LOSS_REL``; an urgent save on a drain
+   request and a ``torch.profiler`` window in this process; the bucketed
+   mean over a one-rank nccl group; prints ms/step, tok/s, MFU and peak
+   memory of both runs, the checkpoint's bytes, save and restore seconds,
+   and the time to recover (node loss to the restart's first step);
 5b. context parallelism (B9, B10): the ring kernels' build report, then
    the whole ring pass over a ``DeviceRing`` of 4 on the card at 8B
    widths, B=1, T=16384 (causal, 3 segments, window 1024) against the
@@ -89,7 +102,8 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    kernel family (``decode`` is B4/B5) and the card's busy share;
 10. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
 
-Imports only ``tony_tpu_torch``, torch, numpy and the standard library.
+Imports only ``tony_tpu_torch``, torch, numpy and the standard library; it
+runs the orchestrator, ``tony_tpu.cli.main``, as a subprocess only.
 """
 
 from __future__ import annotations
@@ -203,6 +217,16 @@ CP_STEP_LOSS_REL = 1.5e-5
 CP_STEP_GRAD_REL = 2e-2
 CP_TRAIN_LAYERS = 4
 CP_TRAIN_STEPS = 3
+
+# the training gang at the full llama-1b preset: B=8, T=2048 over 4 seeded
+# shards, 8 steps with a checkpoint every 4 and a node loss at step 5 under
+# ``tony submit``. Each step's loss of the gang's worker against the same
+# steps in this process: the same program on the same data, so the same
+# bits unless a kernel or library reduction on the path runs in another
+# order between the two (bf16, 8 steps: a few ulps of the loss)
+GANG_STEPS, GANG_CKPT_EVERY, GANG_LOSS_AT = 8, 4, 5
+GANG_B, GANG_T, GANG_SHARDS = 8, 2048, 4
+GANG_LOSS_REL = 2e-3
 
 
 class SmokeFailure(Exception):
@@ -1040,6 +1064,281 @@ def step_breakdown(torch, model, preset: str, layers: int, tag: str) -> dict:
 
 
 # -- context-parallel ring attention (B9, B10) ------------------------------------
+
+def _tony(args: list[str], env: dict, timeout: float = 60) -> subprocess.CompletedProcess:
+    """``python -m tony_tpu.cli.main <args>`` (the orchestrator, run and never
+    imported here)."""
+    return subprocess.run([sys.executable, "-m", "tony_tpu.cli.main", *args], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def _step_lines(text: str) -> dict:
+    """step -> the step report of a worker's stdout."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("{") and '"loss"' in line:
+            rec = json.loads(line)
+            out[rec["step"]] = rec
+    return out
+
+
+def _histogram(snap: list, name: str):
+    """(count, sum) of a histogram in a metrics snapshot, or None."""
+    for m in snap:
+        if m["name"] == name and m["samples"]:
+            return (sum(s["count"] for s in m["samples"]), sum(s["sum"] for s in m["samples"]))
+    return None
+
+
+def nccl_one_rank_check(torch) -> dict:
+    """``all_reduce_mean`` over a one-rank nccl group on the card: nccl's AVG,
+    the f32 buckets (one tensor past a bucket's size) and the copy back. More
+    than one rank needs more than one card and is not run here."""
+    import socket
+
+    import torch.distributed as dist
+    from tony_tpu_torch.parallel.collectives import BUCKET_NUMEL, all_reduce_mean
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        ts = [torch.randn(n, generator=gen, device="cuda").to(dt) for n, dt in
+              ((BUCKET_NUMEL + 5, torch.bfloat16), (4096 * 1024, torch.bfloat16), (333, torch.float32))]
+        want = [t.clone() for t in ts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_mean(ts, dist.group.WORLD)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(all(torch.equal(a, b) for a, b in zip(ts, want)), "gang: one-rank nccl mean changed a value")
+    finally:
+        dist.destroy_process_group()
+    print(f"[gang] nccl one-rank all_reduce_mean over {sum(t.numel() for t in ts)} elements: {ms:.2f} ms "
+          "(same values; more than one rank is not run on one card)", flush=True)
+    return {"elements": sum(t.numel() for t in ts), "ms": ms}
+
+
+def gang_phase(torch, llama, A, out_dir: Path) -> dict:
+    """The training gang at the full ``llama-1b`` preset (16 layers, d_model
+    2048, bf16, remat "full", B=8, T=2048) on ``*.tonytok`` shards written
+    here from a seed:
+
+    1. ``tony submit`` (framework pytorch, one worker) of ``python -m
+       tony_tpu_torch.train.pretrain --data_dir ...`` for 8 steps with a
+       checkpoint every 4 and ``node-loss:worker:0@step+5``: the job must
+       succeed after one gang restart that resumes at step 4 with a
+       validated cursor, and the global slots of the steps each attempt
+       trained must cover ``[0, 8*8)`` once; ``tony top`` reads the live
+       worker (which waits for a stop file after training) and ``tony
+       goodput`` the finished job; the time to recover runs from the node
+       loss to the first step of the restart;
+    2. ``run_lm_training`` in this process on the same shards, 8 steps: B1-B3
+       launched (counts set to 0 just before), and each step's loss that of
+       the gang's worker within ``GANG_LOSS_REL``;
+    3. in this process, 5 steps with the static ``StepProfiler`` window
+       (steps 1-2) and a drain request dropped once step 2 is reported: a
+       forced checkpoint at a later step, a ``.drain.done`` naming it, and a
+       non-empty ``torch.profiler`` trace with CUDA kernels;
+    4. ``all_reduce_mean`` over a one-rank nccl group."""
+    import numpy as np
+
+    from tony_tpu_torch.data.dataset import ConsumptionCursor, global_slots, write_token_shard
+    from tony_tpu_torch.obs import metrics as obs_metrics
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+
+    cfg = llama.config_from_dict("llama-1b")
+    work = out_dir / "gang"
+    shutil.rmtree(work, ignore_errors=True)
+    data, ck, stop, root = work / "data", work / "ckpt", work / "stop", work / "tony"
+    data.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    for i in range(GANG_SHARDS):  # 4 x 2^18 tokens: 511 windows of 2049, more than the 64 drawn
+        write_token_shard(data / f"shard-{i:02d}.tonytok", rng.integers(0, cfg.vocab_size, 1 << 18))
+    run = ["--preset", "llama-1b", "--data_dir", str(data), "--steps", str(GANG_STEPS),
+           "--batch_size", str(GANG_B), "--seq_len", str(GANG_T), "--log_every", "1",
+           "--warmup_steps", "2"]
+    cmd = (f"cd {ROOT} && PYTHONPATH={ROOT} {sys.executable} -m tony_tpu_torch.train.pretrain "
+           f"{' '.join(run)} && for i in $(seq 1200); do [ -e {stop} ] && break; sleep 0.1; done")
+    env = dict(os.environ, TONY_ROOT=str(root), PYTHONPATH=str(ROOT))
+    conf = {"tony.worker.instances": "1", "tony.application.framework": "pytorch",
+            "tony.task.restart-on-failure": "true", "tony.chaos.spec": f"node-loss:worker:0@step+{GANG_LOSS_AT}",
+            "tony.checkpoint.dir": str(ck), "tony.checkpoint.interval-steps": str(GANG_CKPT_EVERY),
+            "tony.task.metrics-interval-ms": "200", "tony.am.monitor-interval-ms": "50",
+            "tony.am.gang-timeout-ms": "300000",
+            "tony.trace.enabled": "true"}
+    argv = [sys.executable, "-m", "tony_tpu.cli.main", "submit", "--executes", cmd]
+    for k, v in conf.items():
+        argv += ["--conf", f"{k}={v}"]
+    submit_log = work / "submit.log"
+    t0 = time.perf_counter()
+    with open(submit_log, "w") as logf:
+        sub = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    top_frame, app = "", None
+    try:
+        deadline = time.time() + 600
+        while time.time() < deadline and sub.poll() is None:
+            time.sleep(1.0)
+            apps = sorted(p.name for p in root.glob("application_*")) if root.is_dir() else []
+            if not apps:
+                continue
+            app = apps[0]
+            frame = _tony(["top", app, "--staging", str(root), "--once"], env).stdout
+            m = re.search(rf"worker:0\s+RUNNING\s+{GANG_STEPS}\s+\S+\s+\S+\s+(\d+\.\d+)", frame)
+            if m and float(m.group(1)) > 0:
+                top_frame = frame
+                break
+    finally:
+        stop.touch()  # the worker's wait ends and the job finishes
+        try:
+            sub.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            sub.kill()
+            subprocess.run(["pkill", "-f", "tony_tpu.cluster"], check=False)  # the job's AM and executor
+            sub.wait()
+    wall = time.perf_counter() - t0
+    out = submit_log.read_text()
+    check(sub.returncode == 0, f"gang: tony submit exited {sub.returncode}:\n{out[-4000:]}")
+    check(bool(top_frame), "gang: tony top never showed the worker at the last step with a step rate")
+    staging = root / app
+    logs = staging / "logs"
+    first = (logs / "worker_0" / "stdout.log").read_text()
+    resumed = (logs / "worker_0_r1" / "stdout.log").read_text()
+    check(not (logs / "worker_0_r2").exists(), "gang: more than one restart")
+    check(f"resumed from checkpoint step {GANG_CKPT_EVERY}" in resumed,
+          f"gang: the restart did not resume at step {GANG_CKPT_EVERY}:\n{resumed[-3000:]}")
+    check(f"data cursor validated: resuming the global stream at batch {GANG_CKPT_EVERY}" in resumed,
+          f"gang: no validated cursor on resume:\n{resumed[-3000:]}")
+    a0, a1 = _step_lines(first), _step_lines(resumed)
+    check(set(range(1, GANG_CKPT_EVERY + 1)) <= set(a0), f"gang: attempt 0 steps {sorted(a0)}")
+    check(sorted(a1) == list(range(GANG_CKPT_EVERY + 1, GANG_STEPS + 1)), f"gang: attempt 1 steps {sorted(a1)}")
+    trained = list(range(GANG_CKPT_EVERY)) + list(range(GANG_CKPT_EVERY, GANG_STEPS))
+    slots = sorted(s for t in trained for s in global_slots(t, GANG_B, 0, 1))
+    check(slots == list(range(GANG_STEPS * GANG_B)), "gang: the consumed global slots are not [0, 64) once each")
+    check(ConsumptionCursor.load(ck, GANG_CKPT_EVERY) == ConsumptionCursor(GANG_CKPT_EVERY, GANG_B, 0, 1),
+          "gang: cursor of step 4")
+    gang_log = {**{k: v for k, v in a0.items() if k <= GANG_CKPT_EVERY}, **a1}
+
+    # time to recover: the node loss (the AM's injection record) to the first
+    # step report of the restart (the worker's JSON log record, epoch 1)
+    loss_ts = [json.loads(x)["ts_ms"] for p in (staging / "chaos").glob("injections-*.jsonl")
+               for x in p.read_text().splitlines() if json.loads(x)["kind"] == "node-loss"]
+    recs = [json.loads(x) for x in (logs / "worker_0_train.log.jsonl").read_text().splitlines()]
+    back = [r["ts_ms"] for r in recs if r.get("epoch") == 1 and "loss" in r]
+    check(len(loss_ts) == 1 and back, f"gang: node-loss records {loss_ts}, restart steps {len(back)}")
+    recover_s = (min(back) - loss_ts[0]) / 1e3
+    obs = json.loads((staging / "metrics" / "worker_0.json.obs").read_text())
+    restore = _histogram(obs, "tony_checkpoint_restore_seconds")
+    save = _histogram(obs, "tony_checkpoint_save_seconds")
+    peak = next((s["value"] for m in obs if m["name"] == "tony_device_memory_bytes"
+                 for s in m["samples"] if s["labels"]["stat"] == "peak"), 0.0)
+    check(restore is not None and save is not None and peak > 0, f"gang: worker .obs lacks instruments: "
+          f"{[m['name'] for m in obs]}")
+    ckpt_bytes = (ck / str(GANG_STEPS) / "state.pt").stat().st_size
+    good = _tony(["goodput", app, "--staging", str(root), "--json"], env)
+    check(good.returncode == 0, f"gang: tony goodput: {good.stderr[-2000:]}")
+    ledger = json.loads(good.stdout)
+    check(ledger["restarts"] == 1 and ledger["phases_ms"].get("checkpoint", 0) > 0,
+          f"gang: goodput ledger {ledger['phases_ms']}, restarts {ledger['restarts']}")
+
+    # 2. the same 8 steps in this process, through B1-B3
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    loop = dict(batch_size=GANG_B, seq_len=GANG_T, log_every=1, warmup_steps=2, data_dir=str(data))
+    A.reset_launches()
+    res = run_lm_training(llama, cfg, LoopConfig(steps=GANG_STEPS, **loop))
+    launches = dict(A.launches)
+    peak_inproc = torch.cuda.max_memory_allocated()
+    check(all(launches.values()), f"gang: a flash kernel was never launched: {launches}")
+    here = {x["step"]: x for x in res["log"]}
+    check(sorted(here) == sorted(gang_log), f"gang: steps {sorted(here)} vs {sorted(gang_log)}")
+    worst = max(abs(gang_log[s]["loss"] - here[s]["loss"]) / abs(here[s]["loss"]) for s in here)
+    same_bits = all(gang_log[s]["loss"] == here[s]["loss"] for s in here)
+    for s in sorted(here):
+        print(f"[gang] step {s} loss gang {gang_log[s]['loss']} in-process {here[s]['loss']} "
+              f"grad_norm {here[s]['grad_norm']}", flush=True)
+    check(worst <= GANG_LOSS_REL, f"gang: worker losses differ from the in-process run by {worst:.2e}")
+
+    # 3. urgent save and the static profiler window, in this process
+    metrics_file, prof_dir, ck2 = work / "m" / "worker_0.json", work / "profile", work / "ckpt_drain"
+    metrics_file.parent.mkdir(parents=True)
+    saves0 = _histogram(obs_metrics.REGISTRY.snapshot(), "tony_checkpoint_save_seconds") or (0, 0.0)
+    done_event = threading.Event()
+
+    def drop_drain():
+        while not done_event.is_set():
+            try:
+                if json.loads(metrics_file.read_text())["step"] >= 2:
+                    (metrics_file.parent / (metrics_file.name + ".drain")).write_text('{"req_id": "chip-drain"}')
+                    return
+            except (OSError, ValueError, KeyError):
+                pass
+            time.sleep(0.02)
+
+    watcher = threading.Thread(target=drop_drain, daemon=True)
+    watcher.start()
+    env3 = {"TONY_TRAIN_METRICS_FILE": str(metrics_file), "TONY_PROFILE_POLL_MS": "50",
+            "TONY_PROFILE_DIR": str(prof_dir), "TONY_PROFILE_START_STEP": "1", "TONY_PROFILE_NUM_STEPS": "2"}
+    try:
+        with mock.patch.dict(os.environ, env3):
+            run_lm_training(llama, cfg, LoopConfig(steps=5, checkpoint_dir=str(ck2), **loop))
+    finally:
+        done_event.set()
+        watcher.join(timeout=5)
+    done = json.loads((metrics_file.parent / (metrics_file.name + ".drain.done")).read_text())
+    steps_on_disk = sorted(int(p.name) for p in ck2.iterdir() if p.name.isdigit())
+    check(done["req_id"] == "chip-drain" and 2 < done["step"] < 5 and steps_on_disk == [done["step"], 5],
+          f"gang: drain answered {done}, checkpoints {steps_on_disk}")
+    saves1 = _histogram(obs_metrics.REGISTRY.snapshot(), "tony_checkpoint_save_seconds")
+    traces = list(prof_dir.glob("*.pt.trace.json"))
+    check(len(traces) == 1 and traces[0].stat().st_size > 0, f"gang: profiler traces {traces}")
+    text = traces[0].read_text()
+    check('"cat": "kernel"' in text, "gang: the profiler trace holds no CUDA kernel")
+    nccl = nccl_one_rank_check(torch)
+    shutil.rmtree(work, ignore_errors=True)
+
+    tokens = GANG_B * GANG_T
+
+    def med(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    def speed(log: dict) -> dict:  # steady state: every step but the first of each attempt
+        steady = [log[s] for s in log if s not in (1, GANG_CKPT_EVERY + 1)]
+        ms = med([x["step_time_ms"] for x in steady])
+        return {"step_ms": ms, "tok_per_s": tokens / ms * 1e3, "mfu": med([x["mfu"] for x in steady])}
+
+    rec = {
+        "preset": "llama-1b", "params": cfg.num_params(), "batch": GANG_B, "seq_len": GANG_T,
+        "launches": launches, "submit_wall_s": wall, "resumed_at": GANG_CKPT_EVERY,
+        "gang": speed(gang_log), "in_process": speed(here), "loss_worst_rel": worst, "same_bits": same_bits,
+        "peak_gib_worker": peak / 2**30, "peak_gib_in_process": peak_inproc / 2**30,
+        "ckpt_bytes": ckpt_bytes, "worker_save_s": save[1] / save[0], "worker_restore_s": restore[1] / restore[0],
+        "drain_save_s": (saves1[1] - saves0[1]) / (saves1[0] - saves0[0]), "drain_step": done["step"],
+        "time_to_recover_s": recover_s, "goodput_phases_ms": ledger["phases_ms"],
+        "goodput_fraction": ledger["goodput_fraction"], "nccl_one_rank": nccl,
+        "obs_instruments": sorted(m["name"] for m in obs), "top_frame": top_frame,
+    }
+    print(f"[gang] tony top while the worker waits:\n{top_frame}", flush=True)
+    print(f"[gang] worker .obs instruments: {rec['obs_instruments']}", flush=True)
+    print(f"[gang] tony goodput: restarts 1, goodput {ledger['goodput_fraction']:.3f}, phases ms "
+          f"{ledger['phases_ms']}", flush=True)
+    print(f"[gang] llama-1b B={GANG_B} T={GANG_T}: gang {rec['gang']['step_ms']:.1f} ms/step "
+          f"{rec['gang']['tok_per_s']:.0f} tok/s MFU {rec['gang']['mfu']:.3f}; in-process "
+          f"{rec['in_process']['step_ms']:.1f} ms/step {rec['in_process']['tok_per_s']:.0f} tok/s MFU "
+          f"{rec['in_process']['mfu']:.3f}; losses same bits {same_bits} (worst rel {worst:.2e}); "
+          f"peak memory worker {rec['peak_gib_worker']:.1f} GiB, in-process {rec['peak_gib_in_process']:.1f} GiB; "
+          f"launches {launches}", flush=True)
+    print(f"[gang] checkpoint {ckpt_bytes / 1e9:.2f} GB: save {rec['worker_save_s']:.2f} s (worker), "
+          f"{rec['drain_save_s']:.2f} s (in-process, mean of the drain's and the final); restore "
+          f"{rec['worker_restore_s']:.2f} s (worker); time to recover {recover_s:.1f} s (node loss to the "
+          f"restart's first step); urgent save at step {done['step']}; tony submit wall {wall:.1f} s", flush=True)
+    return rec
+
 
 def ring_inputs(torch, A, c):
     """q, k, v, do at Llama-3-8B widths over the whole T=16384, three packed
@@ -2068,6 +2367,9 @@ def main() -> int:
         train["breakdown"] = step_breakdown(torch, llama, "llama3-8b", TRAIN_LAYERS, "train")
         gc.collect()
         torch.cuda.empty_cache()
+        gang = gang_phase(torch, llama, A, out_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
         # context-parallel training through the ring kernels, after the
         # single-device Llama phases, with their state freed
         flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
@@ -2102,6 +2404,7 @@ def main() -> int:
         return 1
     path_launches = {run: rec["kernel_launches"] for run, rec in serve.items()}
     path_launches["train"] = train["launches"]
+    path_launches["gang"] = gang["launches"]
     path_launches["mixtral_train"] = moe_train["launches"]
     path_launches["cp_train"] = cp_train["launches"]
     kernels = []
@@ -2125,7 +2428,7 @@ def main() -> int:
               "int8_matmul": kern["int8_matmul"]["build"]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "builds": builds, "whole_step": step, "train": train,
-         "serve": serve,
+         "serve": serve, "gang": gang,
          "mixtral": {"whole_step": moe_step, "train": moe_train, "serve": moe_serve},
          "cp": {"whole_step": cp_step, "train": cp_train}}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

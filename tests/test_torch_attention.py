@@ -56,6 +56,16 @@ CASES = {
 }
 
 
+def _lse_report(got: np.ndarray, want: np.ndarray) -> str:
+    """Both sides' lse extremes and the first entries over ``FWD_ATOL``: the
+    evidence ROADMAP's C1 asks for when the causal case fails."""
+    over = np.argwhere(np.abs(got - want) > FWD_ATOL)[:8]
+    return (f"port lse min {got.min():.7g} max {got.max():.7g}; pallas lse min {want.min():.7g} "
+            f"max {want.max():.7g}; {int((np.abs(got - want) > FWD_ATOL).sum())} entries over "
+            f"{FWD_ATOL}, first at {[tuple(int(i) for i in ix) for ix in over]}: port "
+            f"{[float(got[tuple(ix)]) for ix in over]}, pallas {[float(want[tuple(ix)]) for ix in over]}")
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_flash_forward_and_lse_match_pallas(case):
     T, window, has_seg = CASES[case]
@@ -67,7 +77,8 @@ def test_flash_forward_and_lse_match_pallas(case):
     to, tl = TA.flash_fwd(tq, tk, tv, causal=True, window=window,
                           segment_ids=None if seg is None else torch.from_numpy(seg))
     np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=FWD_ATOL, rtol=0)
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=FWD_ATOL, rtol=0)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=FWD_ATOL, rtol=0,
+                               err_msg=_lse_report(tl.numpy(), np.asarray(jl)))
 
 
 def _jax_grads(q, k, v, seg, window):

@@ -214,7 +214,7 @@ def test_mesh_spec_builds_a_context_ring_and_refuses_other_axes():
     mesh = MeshSpec(context=4).build("cpu")
     assert mesh.shape == {"stage": 1, "data": 1, "fsdp": 1, "expert": 1, "context": 4, "model": 1}
     assert isinstance(mesh.ring, DeviceRing) and mesh.ring.n == 4 and mesh.device.type == "cpu"
-    for kw, item in ((dict(data=2), "A8"), (dict(model=2), "A8"), (dict(expert=2), "A11"),
+    for kw, item in ((dict(data=2), "A12"), (dict(model=2), "A8"), (dict(expert=2), "A11"),
                      (dict(stage=2), "A13")):
         with pytest.raises(NotImplementedError, match=item):
             MeshSpec(context=2, **kw).build("cpu")

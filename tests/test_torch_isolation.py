@@ -53,6 +53,14 @@ def test_training_import_loads_no_jax():
         "tony_tpu_torch.train.loop, tony_tpu_torch.ops.attention, tony_tpu_torch.train.pretrain")
 
 
+def test_gang_modules_import_loads_no_jax():
+    _assert_import_loads_no_jax(
+        "tony_tpu_torch.runtime, tony_tpu_torch.data.dataset, tony_tpu_torch.data.native, "
+        "tony_tpu_torch.obs.metrics, tony_tpu_torch.obs.trace, tony_tpu_torch.obs.logging, "
+        "tony_tpu_torch.obs.introspect, tony_tpu_torch.chaos.inject, "
+        "tony_tpu_torch.train.checkpoint, tony_tpu_torch.train.profiling")
+
+
 def test_mixtral_import_loads_no_jax():
     _assert_import_loads_no_jax(
         "tony_tpu_torch.models.mixtral, tony_tpu_torch.train.pretrain_mixtral, "

@@ -107,3 +107,21 @@ def test_moe_passes_match_the_source_enum():
 ])
 def test_kernel_family(name, family):
     assert cs._kernel_family(name) == family
+
+
+def test_gang_phase_reads_step_reports_and_the_obs_snapshot():
+    """The gang phase's readers of a worker's stdout and ``.obs`` snapshot,
+    on a snapshot of the port's own registry."""
+    from tony_tpu_torch.obs import metrics
+
+    reg = metrics.MetricsRegistry()
+    h = reg._register(metrics.Histogram, "tony_test_seconds", "", ())
+    reg._register(metrics.Gauge, "tony_test_empty", "", ())
+    for v in (0.5, 1.5, 4.0):
+        h.observe(v)
+    snap = reg.snapshot()
+    assert cs._histogram(snap, "tony_test_seconds") == (3, 6.0)
+    assert cs._histogram(snap, "tony_test_empty") is None
+    out = ('[train] resumed from checkpoint step 4\n{"step": 5, "loss": 10.75, "grad_norm": 1.2}\n'
+           'not json\n{"step": 6, "loss": 10.7, "grad_norm": 1.1}\n')
+    assert {k: v["loss"] for k, v in cs._step_lines(out).items()} == {5: 10.75, 6: 10.7}

@@ -227,12 +227,23 @@ def test_state_load_checks_every_leaf_before_copying():
 
 
 def test_unported_options_and_gangs_raise(monkeypatch):
-    for kw in (dict(model_axis=2), dict(stage_axis=2), dict(expert_axis=2), dict(data_dir="/data")):
+    """The axes still to port, a context axis across a gang (A12), a global
+    batch that does not divide by the gang, and a gang launched without the
+    torch.distributed rendezvous."""
+    for kw in (dict(model_axis=2), dict(stage_axis=2), dict(expert_axis=2)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", **kw))
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="gang of 2"):
+    with pytest.raises(NotImplementedError, match="A12"):
+        TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", steps=1, context_axis=2))
+    monkeypatch.delenv("WORLD_SIZE")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    with pytest.raises(RuntimeError, match="framework=pytorch"):
         TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", steps=1))
+    monkeypatch.delenv("JAX_NUM_PROCESSES")
+    monkeypatch.setattr(TLp, "process_count", lambda: 2)  # the loop sees a gang of 2
+    with pytest.raises(ValueError, match="must divide by the gang's 2 processes"):
+        TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", steps=1, batch_size=3))
 
 
 def test_pretrain_cli_runs_on_the_cpu(tmp_path):

@@ -26,6 +26,10 @@ its left neighbour's into another; returns something to ``wait()`` on),
 ``all_gather`` and ``all_to_all``. A size-1 ring moves nothing: its
 ``rotate`` and ``all_to_all`` return their input, as
 ``stop_transfer_if_single`` does.
+
+The data axis's reduction is ``all_reduce_mean`` (JAX's ``psum`` :37 over
+the gang, divided by its size): the gradients of every rank, packed into
+flat f32 buckets so a step makes a few calls instead of one a tensor.
 """
 
 from __future__ import annotations
@@ -218,3 +222,37 @@ class _AllToAll(torch.autograd.Function):
     def backward(ctx, g):
         split_dim, concat_dim = ctx.dims
         return ctx.ring._all_to_all(g, concat_dim, split_dim), None, None, None
+
+
+#: elements of one flat f32 bucket of ``all_reduce_mean`` (64 MiB)
+BUCKET_NUMEL = 16 << 20
+
+
+def all_reduce_mean(tensors: list[torch.Tensor], group=None) -> None:
+    """Replace each tensor, in place, by its mean over the ``group``'s ranks.
+
+    The tensors are packed in order into flat f32 buckets of at most
+    ``BUCKET_NUMEL`` elements (a larger tensor is a bucket of its own), one
+    collective a bucket; the mean is written back in each tensor's dtype.
+    nccl averages in the collective; gloo has no AVG, so it sums and
+    divides by the world size. Call it from the thread that runs the step:
+    collectives of one group must be issued in the same order on every
+    rank."""
+    world = dist.get_world_size(group)
+    nccl = dist.get_backend(group) == dist.Backend.NCCL
+    bucket: list[torch.Tensor] = []
+    filled = 0
+    for t in [*tensors, None]:
+        if bucket and (t is None or filled + t.numel() > BUCKET_NUMEL):
+            flat = torch.cat([b.reshape(-1).float() for b in bucket])
+            if nccl:
+                dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=group)
+            else:
+                dist.all_reduce(flat, group=group)
+                flat /= world
+            for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
+                b.copy_(part.view_as(b))
+            bucket, filled = [], 0
+        if t is not None:
+            bucket.append(t)
+            filled += t.numel()

@@ -1,13 +1,17 @@
 """Overlapped input pipeline: assemble batch N+1 while the device runs step N.
 
-Counterpart of ``tony_tpu/train/input_pipeline.py`` without its metrics
-instrument and trace spans (the port has no ``obs`` yet, ROADMAP queue A6).
-A background thread calls ``make_batch(step)`` for ``start_step,
-start_step+1, …`` in order, once each, at most ``depth`` batches ahead;
-``next`` is a queue pop. With ``depth <= 0`` there is no thread and
+Counterpart of ``tony_tpu/train/input_pipeline.py``. A background thread
+calls ``make_batch(step)`` for ``start_step, start_step+1, …`` in order,
+once each, at most ``depth`` batches ahead; ``next`` is a queue pop. With
+``depth <= 0`` there is no thread and
 ``next`` calls ``make_batch`` inline, so both paths feed the same batches.
 A producer failure is re-raised from ``next`` with the original as
-``__cause__``; ``close`` is idempotent and joins the thread.
+``__cause__``; ``close`` is idempotent and joins the thread. Every
+blocking ``next`` feeds the ``tony_train_input_wait_seconds`` histogram, and
+a wait of at least ``span_min_ms`` (``TONY_INPUT_WAIT_SPAN_MS``, 25 by
+default) emits a backdated ``train.input_wait`` span, which the goodput
+ledger charges to its ``input_wait`` phase. The producer issues no
+collective: ``make_batch`` only reads and draws.
 """
 
 from __future__ import annotations
@@ -15,9 +19,15 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import time
 from typing import Any, Callable
 
 from tony_tpu_torch import constants
+from tony_tpu_torch.obs import metrics as obs_metrics
+
+_INPUT_WAIT_SECONDS = obs_metrics.histogram(
+    "tony_train_input_wait_seconds",
+    "time the step loop blocked waiting on the input pipeline, per step")
 
 #: queue entries: ("batch", step, value) | ("error", step, exc) | ("end",)
 _BATCH, _ERROR, _END = "batch", "error", "end"
@@ -32,6 +42,14 @@ def depth_from_env(env: dict[str, str] | None = None) -> int:
         return 2
 
 
+def span_min_ms_from_env(env: dict[str, str] | None = None) -> float:
+    env = os.environ if env is None else env
+    try:
+        return float(env.get(constants.ENV_INPUT_WAIT_SPAN_MS, "25") or "25")
+    except ValueError:
+        return 25.0
+
+
 class InputPipelineError(RuntimeError):
     """A batch producer failure, re-raised on the step loop's thread."""
 
@@ -40,11 +58,13 @@ class InputPipeline:
     """Bounded-lookahead batch prefetcher over a ``make_batch(step)`` callable."""
 
     def __init__(self, make_batch: Callable[[int], Any], start_step: int, end_step: int,
-                 depth: int | None = None):
+                 depth: int | None = None, tracer=None):
         self.make_batch = make_batch
         self.start_step = start_step
         self.end_step = end_step
         self.depth = depth_from_env() if depth is None else depth
+        self.tracer = tracer
+        self.span_min_ms = span_min_ms_from_env()
         self._next_step = start_step
         self._closed = False
         self._thread: threading.Thread | None = None
@@ -87,7 +107,13 @@ class InputPipeline:
         self._next_step = step + 1
         if self._thread is None:
             return self.make_batch(step)
+        t0 = time.perf_counter()
         item = self._queue.get()
+        wait = time.perf_counter() - t0
+        _INPUT_WAIT_SECONDS.observe(wait)
+        if self.tracer is not None and wait * 1000.0 >= self.span_min_ms:
+            with self.tracer.span("train.input_wait", step=step) as sp:
+                sp.start_ms -= wait * 1000.0  # backdated: the span covers the stall
         if item[0] == _ERROR:
             raise InputPipelineError(f"input pipeline failed assembling batch {item[1]}") from item[2]
         if item[0] == _END:

@@ -17,6 +17,14 @@ Moments keep the parameter dtype (optax's default) unless ``mu_dtype``
 names one for μ; the arithmetic runs in f32 one tensor at a time, so the
 temporaries are one tensor's size. JAX updates a donated state; the port
 updates the state's tensors in place.
+
+In a gang (``group`` of more than one process) each rank computes the
+gradients of its rows of the global batch, and they are averaged over the
+gang before the global norm and the clip, as the JAX step, which sees
+global arrays, computes them; the loss and the ``moe_*`` metrics are
+averaged the same way and ``tokens`` summed, so every rank reports the
+global values. The mean of the ranks' means is the global mean because
+every rank holds as many rows, each with every target counted.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+
+from tony_tpu_torch.parallel.collectives import all_reduce_mean
 
 
 def _leaves(tree: dict, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
@@ -158,13 +168,15 @@ def make_train_step(
     loss_fn: Callable[[Any, Any], tuple[torch.Tensor, dict]],
     optimizer: AdamW,
     accum_steps: int = 1,
+    group=None,
 ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
     """loss_fn(params, batch) -> (loss, aux). Returns a step that updates the
     state in place and returns it with its metrics.
 
     With accum_steps > 1 the batch's leading dim is ``accum_steps ·
     microbatch``; gradients are summed in f32 over the microbatches and then
-    averaged, as the JAX scan does."""
+    averaged, as the JAX scan does. ``group``: the data axis's process group
+    (``Mesh.group``); its ranks' gradients and metrics are averaged."""
 
     def compute_grads(params, batch):
         leaves = _leaves(params)
@@ -185,8 +197,20 @@ def make_train_step(
         inv = 1.0 / accum_steps
         return loss_sum * inv, {}, {n: s * inv for (n, _), s in zip(leaves, sums)}
 
+    def reduce_over_gang(loss, aux, grads):
+        all_reduce_mean(list(grads.values()), group)
+        names = [k for k in aux if k.startswith("moe_") or k == "tokens"]
+        scalars = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=loss.device).detach()
+                               for v in [loss, *(aux[k] for k in names)]])
+        all_reduce_mean([scalars], group)
+        world = torch.distributed.get_world_size(group)
+        aux = {**aux, **{k: scalars[i + 1] * (world if k == "tokens" else 1) for i, k in enumerate(names)}}
+        return scalars[0], aux
+
     def train_step(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
         loss, aux, grads = compute_grads(state.params, batch)
+        if group is not None:
+            loss, aux = reduce_over_gang(loss, aux, grads)
         norm = global_norm(grads.values())
         optimizer.update(state.params, grads, state.opt_state, norm)
         state.step += 1
