@@ -51,20 +51,38 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    split with CUDA events into loss + gradients and the optimizer update,
    and its device time by kernel family from ``torch.profiler`` with the
    card's busy share of the profiled window;
+5r. remat policies: the train shape (8 layers, B=4, T=2048) under "full",
+   "dots" and "flash" from one state and batch: the loss and every gradient
+   of each against "full"'s within the whole-step limits (and whether the
+   bits are identical), B1 launched 2L / 2L / L times a forward and
+   backward and B2, B3 L times; then the mean ms/step of 3 train steps and
+   the peak memory under each;
 5a. gang: the training gang at the full ``llama-1b`` preset (16 layers,
    bf16, remat "full", B=8, T=2048) on four ``*.tonytok`` shards written
    from a seed: ``tony submit`` (run as ``python -m tony_tpu.cli.main``, a
-   subprocess) of ``python -m tony_tpu_torch.train.pretrain`` for 8 steps
-   with a checkpoint every 4 and a node loss at step 5: one restart, the
-   resume at step 4 with a validated cursor, every global slot consumed
-   once, ``tony top`` on the live worker and ``tony goodput`` after; the
-   same 8 steps in this process through B1-B3 (launches counted) with each
-   loss the worker's within ``GANG_LOSS_REL``; an urgent save on a drain
-   request and a ``torch.profiler`` window in this process; the bucketed
-   mean over a one-rank nccl group; prints ms/step, tok/s, MFU and peak
-   memory of both runs, the checkpoint's bytes, save and restore seconds,
-   and the time to recover (node loss to the restart's first step);
-5b. context parallelism (B9, B10): the ring kernels' build report, then
+   subprocess) of ``python -m tony_tpu_torch.train.pretrain`` for 12 steps
+   with an asynchronous checkpoint every 4 and a node loss at step 9: one
+   restart, the resume at the newest step attempt 0's log shows published
+   (4, since the save at step 8 joins step 4's write) with a validated
+   cursor, every global slot consumed once, ``tony top`` on the live worker
+   and ``tony goodput`` after; the same 12 steps in this process through
+   B1-B3 (launches counted) with each loss the worker's within
+   ``GANG_LOSS_REL``; an urgent save on a drain request and a
+   ``torch.profiler`` window in this process; the bucketed mean over a
+   one-rank nccl group; prints ms/step, tok/s, MFU and peak memory of both
+   runs, the checkpoint's bytes, its save dispatch, write and restore
+   seconds, goodput's ``checkpoint`` seconds, and the time to recover (node
+   loss to the restart's first step);
+5s. asynchronous save, in this process, at the gang's shape: 20 train
+   steps saved after steps 4 and 20, once with ``use_async=False`` and once
+   with ``use_async=True``: each save's dispatch and write seconds, the
+   steps during the first write against the steady step, the wall of each
+   run, and the same bytes restored from both (the async step 4 also the
+   state as it was at its save);
+5b. bench.py's ``1chip`` recipe (``llama-1b``, remat "flash", ce_chunk
+   1024, B=12, T=2048) through ``run_lm_training`` for 6 steps: ms/step,
+   tok/s, MFU, peak memory and B1-B3 launches (B1 L times a step);
+5c. context parallelism (B9, B10): the ring kernels' build report, then
    the whole ring pass over a ``DeviceRing`` of 4 on the card at 8B
    widths, B=1, T=16384 (causal, 3 segments, window 1024) against the
    plain steps, with two planted faults that must fail; the causal pass
@@ -91,7 +109,11 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    peak memory, and B7/B8 launches of exactly 2·layers·steps and
    layers·steps; then the same step on a fresh state split into loss +
    gradients and the optimizer, and its device time by kernel family
-   (``moe``, ``attention``, ``gemm``, ``other``) with the busy share;
+   (``moe``, ``attention``, ``gemm``, ``other``) with the busy share; the
+   same shape under remat "flash" against "full" as in 5r (B7 launched
+   L times a forward and backward, not 2L); then bench.py's ``moe`` recipe
+   (d1024, 8 layers, 8 experts top-2, F 2048, remat "flash", ce_chunk 512,
+   B=44, T=2048) as in 5b, MFU on the active parameters;
 9. Mixtral serve: the in-process ``ContinuousBatcher`` (paged KV, 8 slots,
    max_len 2048) at Mixtral-8x7B width cut to 27 of 32 layers, with the
    Llama serve runs' traffic: the mixed batch (prefill through B7, decode
@@ -219,12 +241,16 @@ CP_TRAIN_LAYERS = 4
 CP_TRAIN_STEPS = 3
 
 # the training gang at the full llama-1b preset: B=8, T=2048 over 4 seeded
-# shards, 8 steps with a checkpoint every 4 and a node loss at step 5 under
-# ``tony submit``. Each step's loss of the gang's worker against the same
-# steps in this process: the same program on the same data, so the same
-# bits unless a kernel or library reduction on the path runs in another
-# order between the two (bf16, 8 steps: a few ulps of the loss)
-GANG_STEPS, GANG_CKPT_EVERY, GANG_LOSS_AT = 8, 4, 5
+# shards, 12 steps with a checkpoint every 4 and a node loss at step 9 under
+# ``tony submit``. Saves are asynchronous and a 5.24 GB write outlasts four
+# steps, so the save at step 8 first joins step 4's write: step 4 is
+# published before step 9 is reported, and the restart resumes at the newest
+# step the worker's log shows published (4, or 8 if its write also ended).
+# Each step's loss of the gang's worker against the same steps in this
+# process: the same program on the same data, so the same bits unless a
+# kernel or library reduction on the path runs in another order between the
+# two (bf16, 12 steps: a few ulps of the loss)
+GANG_STEPS, GANG_CKPT_EVERY, GANG_LOSS_AT = 12, 4, 9
 GANG_B, GANG_T, GANG_SHARDS = 8, 2048, 4
 GANG_LOSS_REL = 2e-3
 
@@ -1063,6 +1089,268 @@ def step_breakdown(torch, model, preset: str, layers: int, tag: str) -> dict:
     return rec
 
 
+# -- remat policies, bench.py's recipes, asynchronous saves -------------------------
+
+# B1 (flash_fwd) and B7 (moe_fwd) launches a layer over one forward and
+# backward under each remat policy: "flash" keeps their outputs, the others
+# replay them; B2, B3 and B8 run once a layer under every policy
+REMAT_FWD_PER_LAYER = {"full": 2, "dots": 2, "flash": 1}
+REMAT_TIMED_STEPS = 3
+# bench.py's single-card training presets (its ``_build_presets``), field for
+# field: (model, config fields, batch, seq); the optimizer as bench.py's
+# (warmup 10 of 1000 steps at the default rate)
+BENCH_RECIPES = {
+    "1chip": ("llama", {"preset": "llama-1b", "max_seq": 2048, "remat": True, "remat_policy": "flash",
+                        "attn_impl": "auto", "ce_chunk": 1024}, 12, 2048),
+    "moe": ("mixtral", {"vocab_size": 32_000, "d_model": 1024, "n_layers": 8, "n_heads": 8, "n_kv_heads": 4,
+                        "d_ff": 2048, "max_seq": 2048, "num_experts": 8, "top_k": 2, "remat": True,
+                        "remat_policy": "flash", "ce_chunk": 512}, 44, 2048),
+}
+BENCH_STEPS = 6
+# the asynchronous save at the gang's shape (llama-1b, B=8, T=2048): saves
+# after step 4, whose write (~6 s: one torch.save at ~0.8 GB/s) the 16 steps after it
+# (~6.8 s) outlast, and after the last step
+ASYNC_STEPS, ASYNC_SAVE_AT = 20, (4, 20)
+
+
+def _expected_launches(counters, L: int, per: int, steps: int = 1) -> dict:
+    """The launch counts ``steps`` forward and backward passes of ``L``
+    layers should give, B1 and B7 ``per`` times a layer."""
+    want = {"flash_fwd": per * L, "flash_bwd_dq": L, "flash_bwd_dkv": L, "moe_fwd": per * L, "moe_bwd": L}
+    return {k: want[k] * steps for C in counters for k in C.launches}
+
+
+def remat_phase(torch, model, cfg, policies, counters, tag: str, loss_tol: float, grad_tol: float) -> dict:
+    """One train state and batch (B=4, T=2048) under each remat policy:
+    the loss and every gradient against the first policy's ("full") within
+    the whole-step limits ``loss_tol`` / ``grad_tol``, with B1-B3 (and B7,
+    B8: ``counters``) launched as ``REMAT_FWD_PER_LAYER`` schedules, and the
+    peak memory that forward and backward adds to the state (activations
+    kept and replayed, and the gradients); then a warm-up and
+    ``REMAT_TIMED_STEPS`` train steps (loss, gradients, AdamW) under each,
+    their mean ms/step on the host clock around synchronised steps, the
+    peak memory and the launches of those steps, and one more step's device
+    ms by kernel family (``torch.profiler``)."""
+    from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState, make_train_step
+
+    L = cfg.n_layers
+    opt = OptimizerConfig(learning_rate=3e-4, warmup_steps=2, total_steps=6).build()
+    state = TrainState.create(model.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda"), opt)
+    names, tensors = zip(*_leaves(state.params))
+    batch = model.synthetic_batch(torch.Generator(device="cuda").manual_seed(1), 4, 2048, cfg)
+
+    def count(fn):
+        for C in counters:
+            C.reset_launches()
+        fn()
+        torch.cuda.synchronize()
+        return {k: v for C in counters for k, v in C.launches.items()}
+
+    out, ref = {}, None
+    for policy in policies:
+        pcfg = dataclasses.replace(cfg, remat_policy=policy)
+        res = {}
+
+        def fwd_bwd():
+            loss, _ = model.loss_fn(state.params, batch, pcfg)
+            res["loss"], res["grads"] = loss.item(), torch.autograd.grad(loss, tensors)
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        n = count(fwd_bwd)
+        added = (torch.cuda.max_memory_allocated() - base) / 2**30
+        want = _expected_launches(counters, L, REMAT_FWD_PER_LAYER[policy])
+        check(n == want, f"{tag} {policy}: launches {n} of one forward and backward, want {want}")
+        if ref is None:
+            ref = res
+        grad_rel = {k: ((a.float() - b.float()).norm() / b.float().norm()).item()
+                    for k, a, b in zip(names, res["grads"], ref["grads"])}
+        worst = max(grad_rel, key=grad_rel.get)
+        rec = {"loss": res["loss"], "loss_rel": abs(res["loss"] - ref["loss"]) / abs(ref["loss"]),
+               "worst_leaf": worst, "worst_grad_rel": grad_rel[worst], "launches": n, "fwd_bwd_added_gib": added,
+               "same_bits": res["loss"] == ref["loss"] and all(
+                   torch.equal(a, b) for a, b in zip(res["grads"], ref["grads"]))}
+        del res
+        check(math.isfinite(rec["loss"]) and rec["loss_rel"] <= loss_tol and all(
+            math.isfinite(x) and x <= grad_tol for x in grad_rel.values()),
+            f"{tag} {policy}: loss rel {rec['loss_rel']:.2e} (tol {loss_tol}), gradient relative norms {grad_rel}")
+        out[policy] = rec
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    for policy in policies:
+        pcfg = dataclasses.replace(cfg, remat_policy=policy)
+        step_fn = make_train_step(lambda p, b, c=pcfg: model.loss_fn(p, b, c), opt)
+        torch.cuda.reset_peak_memory_stats()
+        state, m = step_fn(state, batch)  # warm-up
+        float(m["loss"])
+        t0 = [0.0]
+
+        def steps():
+            t0[0] = time.perf_counter()
+            for _ in range(REMAT_TIMED_STEPS):
+                step_fn(state, batch)
+
+        alloc0 = torch.cuda.memory_stats()
+        n = count(steps)
+        ms = (time.perf_counter() - t0[0]) * 1e3 / REMAT_TIMED_STEPS
+        alloc1 = torch.cuda.memory_stats()
+        want = _expected_launches(counters, L, REMAT_FWD_PER_LAYER[policy], REMAT_TIMED_STEPS)
+        check(n == want, f"{tag} {policy}: launches {n} of {REMAT_TIMED_STEPS} steps, want {want}")
+        rec = out[policy]
+        # the caching allocator's cudaMalloc and cudaFree calls over the timed steps
+        # (a cudaFree waits for the card): where a step's idle time could go
+        rec.update(step_ms=ms, max_memory_gib=torch.cuda.max_memory_allocated() / 2**30, step_launches=n,
+                   allocator={k: alloc1.get(k, 0) - alloc0.get(k, 0)
+                              for k in ("num_device_alloc", "num_device_free", "num_alloc_retries")})
+        prof = profile_families(torch, lambda: step_fn(state, batch), 1)
+        rec["profile"] = prof or "not measured: the profiler recorded no device activity"
+        fam = (f"{({k: round(v, 1) for k, v in prof['device_ms_by_family'].items()})}, busy "
+               f"{prof['device_ms']:.1f} ms of the profiled {prof['profiled_wall_ms']:.1f} ms" if prof
+               else "not measured")
+        print(f"[{tag}] {policy}: loss {rec['loss']:.6f} rel {rec['loss_rel']:.2e} (tol {loss_tol}); worst grad "
+              f"leaf {rec['worst_leaf']} rel norm {rec['worst_grad_rel']:.2e} (tol {grad_tol}); same bits as "
+              f"{policies[0]} {rec['same_bits']}; launches a forward and backward {rec['launches']}, which "
+              f"add {rec['fwd_bwd_added_gib']:.2f} GiB to the state; {ms:.1f} ms/step (mean of "
+              f"{REMAT_TIMED_STEPS}), peak memory {rec['max_memory_gib']:.1f} GiB, allocator calls "
+              f"{rec['allocator']}; device ms a step by kernel family {fam}", flush=True)
+    return out
+
+
+def bench_recipe_phase(torch, name: str, model, counters) -> dict:
+    """bench.py's ``name`` preset through ``run_lm_training`` for
+    ``BENCH_STEPS`` steps: ms/step and tok/s over the steady steps (all but
+    the first), MFU on 6N + causal attention at T (N active for a MoE), peak
+    memory and the kernel launches (counts set to 0 just before the call)."""
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+    from tony_tpu_torch.train.metrics import transformer_flops_per_token
+
+    _, fields, B, T = BENCH_RECIPES[name]
+    cfg = model.config_from_dict(fields)
+    loop = LoopConfig(steps=BENCH_STEPS, batch_size=B, seq_len=T, warmup_steps=10, schedule_steps=1000,
+                      log_every=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for C in counters:
+        C.reset_launches()
+    t0 = time.perf_counter()
+    res = run_lm_training(model, cfg, loop)
+    wall = time.perf_counter() - t0
+    launches = {k: v for C in counters for k, v in C.launches.items()}
+    log, L = res["log"], cfg.n_layers
+    check([x["step"] for x in log] == list(range(1, BENCH_STEPS + 1)) and all(
+        math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"]) for x in log), f"bench {name}: {log}")
+    check(abs(log[0]["loss"] - math.log(cfg.vocab_size)) <= 1.5,
+          f"bench {name}: first loss {log[0]['loss']} not within 1.5 of ln(V) {math.log(cfg.vocab_size):.2f}")
+    want = _expected_launches(counters, L, REMAT_FWD_PER_LAYER[cfg.remat_policy], BENCH_STEPS)
+    check(launches == want, f"bench {name}: launches {launches}, want {want}")
+    steady = sorted(x["step_time_ms"] for x in log[1:])
+    ms = steady[len(steady) // 2]
+    n_params = getattr(cfg, "active_params", cfg.num_params)()
+    fpt = transformer_flops_per_token(n_params, L, cfg.d_model, T)
+    rec = {"config": fields, "batch": B, "seq_len": T, "params": cfg.num_params(), "mfu_params": n_params,
+           "log": log, "launches": launches, "step_ms": ms, "tok_per_s": B * T / ms * 1e3,
+           "mfu": B * T / ms * 1e3 * fpt / BF16_FLOPS,
+           "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "wall_s": wall}
+    for x in log:
+        print(f"[bench-{name}] step {x['step']} loss {x['loss']} grad_norm {x['grad_norm']} "
+              f"{x['step_time_ms']} ms", flush=True)
+    print(f"[bench-{name}] bench.py's {name} recipe ({rec['params'] / 1e9:.3f} B params, MFU basis "
+          f"{n_params / 1e9:.3f} B), B={B} T={T}, remat {cfg.remat_policy}, ce_chunk {cfg.ce_chunk}: "
+          f"{ms:.1f} ms/step, {rec['tok_per_s']:.0f} tok/s, MFU {rec['mfu']:.3f} (6N + attention at T={T}), "
+          f"peak memory {rec['max_memory_gib']:.1f} GiB, wall {wall:.1f}s; launches {launches}", flush=True)
+    return rec
+
+
+def async_save_phase(torch, llama, out_dir: Path) -> dict:
+    """The same ``ASYNC_STEPS`` train steps at the gang's shape, saved after
+    the steps of ``ASYNC_SAVE_AT``, once with ``use_async=False`` and once
+    with ``use_async=True``: each save's dispatch and write seconds (the
+    first async dispatch allocates the pinned buffers), the median step
+    during the first write against the median steady step, the wall of each run
+    (its last write included), and that the two runs' steps restore the
+    same bytes, and the async step the state as it was at its save."""
+    from tony_tpu_torch.train.checkpoint import CheckpointManager
+    from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState, make_train_step
+
+    cfg = llama.config_from_dict("llama-1b")
+    opt = OptimizerConfig(learning_rate=3e-4, warmup_steps=2, total_steps=ASYNC_STEPS).build()
+    work = out_dir / "async_save"
+    shutil.rmtree(work, ignore_errors=True)
+    out, ref = {}, None
+    for mode in ("sync", "async"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        state = TrainState.create(llama.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda"), opt)
+        step_fn = make_train_step(lambda p, b: llama.loss_fn(p, b, cfg), opt)
+        mgr = CheckpointManager(str(work / mode), use_async=mode == "async")
+        writes, saves, steps = {}, {}, []
+        real_write = mgr._write
+
+        def timed_write(step, snapshot, real_write=real_write, writes=writes):
+            t0 = time.perf_counter()
+            real_write(step, snapshot)
+            writes[step] = (t0, time.perf_counter())
+
+        mgr._write = timed_write
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        for step in range(1, ASYNC_STEPS + 1):
+            batch = llama.synthetic_batch(torch.Generator(device="cuda").manual_seed(100 + step), GANG_B,
+                                          GANG_T, cfg)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            float(m["loss"])
+            steps.append((t0, time.perf_counter()))
+            if step in ASYNC_SAVE_AT:
+                if mode == "async" and step == ASYNC_SAVE_AT[0]:
+                    ref = {k: v.detach().clone() for k, v in _leaves(state.state_dict()) if torch.is_tensor(v)}
+                t0 = time.perf_counter()
+                mgr.save(step, state.state_dict())
+                saves[step] = (t0, time.perf_counter())
+        mgr.close()
+        wall = time.perf_counter() - t_run
+        first_end = writes[ASYNC_SAVE_AT[0]][1]
+        after = [i for i, (a, _) in enumerate(steps) if a >= saves[ASYNC_SAVE_AT[0]][1]]
+        during = [i for i in after if steps[i][0] < first_end]
+        steady = [i for i in range(1, ASYNC_STEPS) if i not in during]
+
+        def ms(ids):  # the median step of ``ids``, 0 for none
+            return 1e3 * sorted(steps[i][1] - steps[i][0] for i in ids)[len(ids) // 2] if ids else 0.0
+
+        rec = {"dispatch_s": {s: b - a for s, (a, b) in saves.items()},
+               "write_s": {s: b - a for s, (a, b) in writes.items()}, "wall_s": wall,
+               "steps_during_write": len(during), "during_write_ms": ms(during), "steady_ms": ms(steady),
+               "step_ms": [1e3 * (b - a) for a, b in steps]}
+        out[mode] = rec
+        print(f"[async-save] {mode}: llama-1b B={GANG_B} T={GANG_T}, {ASYNC_STEPS} steps, saves after steps "
+              f"{list(ASYNC_SAVE_AT)}: dispatch s {({k: round(v, 3) for k, v in rec['dispatch_s'].items()})}, "
+              f"write s {({k: round(v, 3) for k, v in rec['write_s'].items()})}; {len(during)} steps during "
+              f"the first write at {rec['during_write_ms']:.1f} ms against {rec['steady_ms']:.1f} ms steady (medians); "
+              f"wall {wall:.1f} s", flush=True)
+        del state, step_fn
+    same = True
+    for step in ASYNC_SAVE_AT:
+        a, b = ({k: v for k, v in _leaves(torch.load(work / mode / str(step) / "state.pt", map_location="cpu",
+                                                           weights_only=True, mmap=True))}
+                for mode in ("sync", "async"))
+        same &= a.keys() == b.keys() and all(
+            torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k] for k in a)
+        if step == ASYNC_SAVE_AT[0]:
+            check(all(torch.equal(b[k].to("cuda"), v) for k, v in ref.items()),
+                  f"async save: step {step} restores other bytes than the state at its save")
+        del a, b
+    del ref
+    shutil.rmtree(work, ignore_errors=True)
+    check(same, "async save: the sync and async runs restore different bytes")
+    out["same_bytes"] = same
+    print(f"[async-save] both runs restore the same bytes at steps {list(ASYNC_SAVE_AT)}: {same}; the async "
+          f"step {ASYNC_SAVE_AT[0]} is the state at its save; wall sync {out['sync']['wall_s']:.1f} s, async "
+          f"{out['async']['wall_s']:.1f} s", flush=True)
+    return out
+
+
 # -- context-parallel ring attention (B9, B10) ------------------------------------
 
 def _tony(args: list[str], env: dict, timeout: float = 60) -> subprocess.CompletedProcess:
@@ -1080,6 +1368,11 @@ def _step_lines(text: str) -> dict:
             rec = json.loads(line)
             out[rec["step"]] = rec
     return out
+
+
+def _published_steps(text: str) -> list[int]:
+    """The steps a worker's stdout shows published by its checkpoint writer."""
+    return [int(m) for m in re.findall(r"^\[ckpt\] step (\d+) published$", text, re.M)]
 
 
 def _histogram(snap: list, name: str):
@@ -1128,15 +1421,16 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
     here from a seed:
 
     1. ``tony submit`` (framework pytorch, one worker) of ``python -m
-       tony_tpu_torch.train.pretrain --data_dir ...`` for 8 steps with a
-       checkpoint every 4 and ``node-loss:worker:0@step+5``: the job must
-       succeed after one gang restart that resumes at step 4 with a
+       tony_tpu_torch.train.pretrain --data_dir ...`` for 12 steps with an
+       asynchronous checkpoint every 4 and ``node-loss:worker:0@step+9``:
+       the job must succeed after one gang restart that resumes at the
+       newest step attempt 0's log shows published (at least 4) with a
        validated cursor, and the global slots of the steps each attempt
-       trained must cover ``[0, 8*8)`` once; ``tony top`` reads the live
+       trained must cover ``[0, 12*8)`` once; ``tony top`` reads the live
        worker (which waits for a stop file after training) and ``tony
        goodput`` the finished job; the time to recover runs from the node
        loss to the first step of the restart;
-    2. ``run_lm_training`` in this process on the same shards, 8 steps: B1-B3
+    2. ``run_lm_training`` in this process on the same shards, 12 steps: B1-B3
        launched (counts set to 0 just before), and each step's loss that of
        the gang's worker within ``GANG_LOSS_REL``;
     3. in this process, 5 steps with the static ``StepProfiler`` window
@@ -1156,7 +1450,7 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
     data, ck, stop, root = work / "data", work / "ckpt", work / "stop", work / "tony"
     data.mkdir(parents=True)
     rng = np.random.default_rng(0)
-    for i in range(GANG_SHARDS):  # 4 x 2^18 tokens: 511 windows of 2049, more than the 64 drawn
+    for i in range(GANG_SHARDS):  # 4 x 2^18 tokens: 511 windows of 2049, more than the 96 drawn
         write_token_shard(data / f"shard-{i:02d}.tonytok", rng.integers(0, cfg.vocab_size, 1 << 18))
     run = ["--preset", "llama-1b", "--data_dir", str(data), "--steps", str(GANG_STEPS),
            "--batch_size", str(GANG_B), "--seq_len", str(GANG_T), "--log_every", "1",
@@ -1208,19 +1502,25 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
     first = (logs / "worker_0" / "stdout.log").read_text()
     resumed = (logs / "worker_0_r1" / "stdout.log").read_text()
     check(not (logs / "worker_0_r2").exists(), "gang: more than one restart")
-    check(f"resumed from checkpoint step {GANG_CKPT_EVERY}" in resumed,
-          f"gang: the restart did not resume at step {GANG_CKPT_EVERY}:\n{resumed[-3000:]}")
-    check(f"data cursor validated: resuming the global stream at batch {GANG_CKPT_EVERY}" in resumed,
+    # the restart resumes at the newest step attempt 0 published before the
+    # node loss killed it (a write still in flight then is lost)
+    published = _published_steps(first)
+    at = max(published, default=0)
+    check(at >= GANG_CKPT_EVERY, f"gang: attempt 0 published steps {published}; the save at step "
+          f"{2 * GANG_CKPT_EVERY} joins step {GANG_CKPT_EVERY}'s write before step {GANG_LOSS_AT}")
+    check(f"resumed from checkpoint step {at}" in resumed,
+          f"gang: the restart did not resume at step {at}, the newest published:\n{resumed[-3000:]}")
+    check(f"data cursor validated: resuming the global stream at batch {at}" in resumed,
           f"gang: no validated cursor on resume:\n{resumed[-3000:]}")
     a0, a1 = _step_lines(first), _step_lines(resumed)
-    check(set(range(1, GANG_CKPT_EVERY + 1)) <= set(a0), f"gang: attempt 0 steps {sorted(a0)}")
-    check(sorted(a1) == list(range(GANG_CKPT_EVERY + 1, GANG_STEPS + 1)), f"gang: attempt 1 steps {sorted(a1)}")
-    trained = list(range(GANG_CKPT_EVERY)) + list(range(GANG_CKPT_EVERY, GANG_STEPS))
+    check(set(range(1, at + 1)) <= set(a0), f"gang: attempt 0 steps {sorted(a0)}")
+    check(sorted(a1) == list(range(at + 1, GANG_STEPS + 1)), f"gang: attempt 1 steps {sorted(a1)}")
+    trained = list(range(at)) + list(range(at, GANG_STEPS))
     slots = sorted(s for t in trained for s in global_slots(t, GANG_B, 0, 1))
-    check(slots == list(range(GANG_STEPS * GANG_B)), "gang: the consumed global slots are not [0, 64) once each")
-    check(ConsumptionCursor.load(ck, GANG_CKPT_EVERY) == ConsumptionCursor(GANG_CKPT_EVERY, GANG_B, 0, 1),
-          "gang: cursor of step 4")
-    gang_log = {**{k: v for k, v in a0.items() if k <= GANG_CKPT_EVERY}, **a1}
+    check(slots == list(range(GANG_STEPS * GANG_B)),
+          f"gang: the consumed global slots are not [0, {GANG_STEPS * GANG_B}) once each")
+    check(ConsumptionCursor.load(ck, at) == ConsumptionCursor(at, GANG_B, 0, 1), f"gang: cursor of step {at}")
+    gang_log = {**{k: v for k, v in a0.items() if k <= at}, **a1}
 
     # time to recover: the node loss (the AM's injection record) to the first
     # step report of the restart (the worker's JSON log record, epoch 1)
@@ -1233,9 +1533,11 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
     obs = json.loads((staging / "metrics" / "worker_0.json.obs").read_text())
     restore = _histogram(obs, "tony_checkpoint_restore_seconds")
     save = _histogram(obs, "tony_checkpoint_save_seconds")
+    write = _histogram(obs, "tony_checkpoint_write_seconds")
     peak = next((s["value"] for m in obs if m["name"] == "tony_device_memory_bytes"
                  for s in m["samples"] if s["labels"]["stat"] == "peak"), 0.0)
-    check(restore is not None and save is not None and peak > 0, f"gang: worker .obs lacks instruments: "
+    check(restore is not None and save is not None and write is not None and peak > 0,
+          f"gang: worker .obs lacks instruments: "
           f"{[m['name'] for m in obs]}")
     ckpt_bytes = (ck / str(GANG_STEPS) / "state.pt").stat().st_size
     good = _tony(["goodput", app, "--staging", str(root), "--json"], env)
@@ -1308,16 +1610,17 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
         return xs[len(xs) // 2]
 
     def speed(log: dict) -> dict:  # steady state: every step but the first of each attempt
-        steady = [log[s] for s in log if s not in (1, GANG_CKPT_EVERY + 1)]
+        steady = [log[s] for s in log if s not in (1, at + 1)]
         ms = med([x["step_time_ms"] for x in steady])
         return {"step_ms": ms, "tok_per_s": tokens / ms * 1e3, "mfu": med([x["mfu"] for x in steady])}
 
     rec = {
         "preset": "llama-1b", "params": cfg.num_params(), "batch": GANG_B, "seq_len": GANG_T,
-        "launches": launches, "submit_wall_s": wall, "resumed_at": GANG_CKPT_EVERY,
+        "launches": launches, "submit_wall_s": wall, "resumed_at": at, "published_attempt0": published,
         "gang": speed(gang_log), "in_process": speed(here), "loss_worst_rel": worst, "same_bits": same_bits,
         "peak_gib_worker": peak / 2**30, "peak_gib_in_process": peak_inproc / 2**30,
-        "ckpt_bytes": ckpt_bytes, "worker_save_s": save[1] / save[0], "worker_restore_s": restore[1] / restore[0],
+        "ckpt_bytes": ckpt_bytes, "worker_save_s": save[1] / save[0], "worker_write_s": write[1] / write[0],
+        "worker_saves": save[0], "worker_restore_s": restore[1] / restore[0],
         "drain_save_s": (saves1[1] - saves0[1]) / (saves1[0] - saves0[0]), "drain_step": done["step"],
         "time_to_recover_s": recover_s, "goodput_phases_ms": ledger["phases_ms"],
         "goodput_fraction": ledger["goodput_fraction"], "nccl_one_rank": nccl,
@@ -1333,10 +1636,13 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
           f"{rec['in_process']['mfu']:.3f}; losses same bits {same_bits} (worst rel {worst:.2e}); "
           f"peak memory worker {rec['peak_gib_worker']:.1f} GiB, in-process {rec['peak_gib_in_process']:.1f} GiB; "
           f"launches {launches}", flush=True)
-    print(f"[gang] checkpoint {ckpt_bytes / 1e9:.2f} GB: save {rec['worker_save_s']:.2f} s (worker), "
+    print(f"[gang] checkpoint {ckpt_bytes / 1e9:.2f} GB: save dispatch {rec['worker_save_s']:.2f} s, "
+          f"write {rec['worker_write_s']:.2f} s (worker's last attempt, mean of {save[0]}); save dispatch "
           f"{rec['drain_save_s']:.2f} s (in-process, mean of the drain's and the final); restore "
-          f"{rec['worker_restore_s']:.2f} s (worker); time to recover {recover_s:.1f} s (node loss to the "
-          f"restart's first step); urgent save at step {done['step']}; tony submit wall {wall:.1f} s", flush=True)
+          f"{rec['worker_restore_s']:.2f} s (worker); goodput checkpoint "
+          f"{ledger['phases_ms'].get('checkpoint', 0) / 1e3:.1f} s; attempt 0 published steps {published}, "
+          f"resumed at {at}; time to recover {recover_s:.1f} s (node loss to the restart's first step); "
+          f"urgent save at step {done['step']}; tony submit wall {wall:.1f} s", flush=True)
     return rec
 
 
@@ -2367,7 +2673,17 @@ def main() -> int:
         train["breakdown"] = step_breakdown(torch, llama, "llama3-8b", TRAIN_LAYERS, "train")
         gc.collect()
         torch.cuda.empty_cache()
+        remat = remat_phase(torch, llama, llama.config_from_dict({"preset": "llama3-8b", "n_layers": TRAIN_LAYERS}),
+                            ("full", "dots", "flash"), (A,), "remat", STEP_LOSS_REL, STEP_GRAD_REL)
+        gc.collect()
+        torch.cuda.empty_cache()
         gang = gang_phase(torch, llama, A, out_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        async_save = async_save_phase(torch, llama, out_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bench = {"1chip": bench_recipe_phase(torch, "1chip", llama, (A,))}
         gc.collect()
         torch.cuda.empty_cache()
         # context-parallel training through the ring kernels, after the
@@ -2396,6 +2712,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         moe_train["breakdown"] = step_breakdown(torch, mixtral, "mixtral-8x7b", MOE_TRAIN_LAYERS, "moe-train")
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_remat = remat_phase(torch, mixtral,
+                                mixtral.config_from_dict({"preset": "mixtral-8x7b", "n_layers": MOE_TRAIN_LAYERS}),
+                                ("full", "flash"), (A, MG), "moe-remat", MOE_STEP_LOSS_REL, MOE_STEP_GRAD_REL)
+        gc.collect()
+        torch.cuda.empty_cache()
+        bench["moe"] = bench_recipe_phase(torch, "moe", mixtral, (A, MG))
         gc.collect()
         torch.cuda.empty_cache()
         moe_serve = moe_serve_phase(torch, mixtral, DA, MG)
@@ -2428,8 +2752,8 @@ def main() -> int:
               "int8_matmul": kern["int8_matmul"]["build"]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "builds": builds, "whole_step": step, "train": train,
-         "serve": serve, "gang": gang,
-         "mixtral": {"whole_step": moe_step, "train": moe_train, "serve": moe_serve},
+         "remat": remat, "serve": serve, "gang": gang, "async_save": async_save, "bench": bench,
+         "mixtral": {"whole_step": moe_step, "train": moe_train, "remat": moe_remat, "serve": moe_serve},
          "cp": {"whole_step": cp_step, "train": cp_train}}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -201,8 +201,11 @@ def test_remat_block_full_recomputes_and_other_policies_raise():
     ref = torch.autograd.grad(block(x, w).sum(), w)[0]
     torch.testing.assert_close(w.grad, ref)
     assert TA.remat_block(block, False) is block
-    for policy in ("dots", "flash"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TA.remat_block(block, True, policy)
-    with pytest.raises(ValueError, match="full\\|dots\\|flash"):
+    for policy in ("dots", "flash"):  # ported: the block replays, keeping what the policy names
+        calls.clear()
+        x.grad = w.grad = None
+        TA.remat_block(block, True, policy)(x, w).sum().backward()
+        assert len(calls) == 2
+        torch.testing.assert_close(w.grad, ref)
+    with pytest.raises(ValueError, match="full\\|dots\\|flash"):  # any other policy raises
         TA.remat_block(block, True, "nope")

@@ -125,3 +125,50 @@ def test_gang_phase_reads_step_reports_and_the_obs_snapshot():
     out = ('[train] resumed from checkpoint step 4\n{"step": 5, "loss": 10.75, "grad_norm": 1.2}\n'
            'not json\n{"step": 6, "loss": 10.7, "grad_norm": 1.1}\n')
     assert {k: v["loss"] for k, v in cs._step_lines(out).items()} == {5: 10.75, 6: 10.7}
+
+
+def test_gang_phase_reads_the_published_steps_of_a_worker_log():
+    """The newest step attempt 0 shows published is where the restart must
+    resume: only the checkpoint writer's own lines count, among step reports
+    and other log lines."""
+    out = ('{"step": 4, "loss": 10.8}\n[ckpt] step 4 published\n{"step": 5, "loss": 10.75}\n'
+           '[train] urgent pre-preemption checkpoint at step 6\n[ckpt] step 8 published\n'
+           'not [ckpt] step 9 published\n[ckpt] step 12 published later\n{"step": 9, "loss": 10.6}\n')
+    assert cs._published_steps(out) == [4, 8]
+    assert {k: v["loss"] for k, v in cs._step_lines(out).items()} == {4: 10.8, 5: 10.75, 9: 10.6}
+    assert cs._published_steps("[train] resumed from checkpoint step 4\n") == []
+    assert cs.GANG_CKPT_EVERY < cs.GANG_LOSS_AT - cs.GANG_CKPT_EVERY <= cs.GANG_STEPS - cs.GANG_CKPT_EVERY
+
+
+@pytest.mark.parametrize("policy,per", [("full", 2), ("dots", 2), ("flash", 1)])
+def test_remat_phases_expect_the_launch_schedule(policy, per):
+    """B1 and B7 ``per`` times a layer, B2, B3 and B8 once, over a forward
+    and backward; the counters a phase passes decide which kernels count."""
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import moe_gemm as MG
+
+    assert cs.REMAT_FWD_PER_LAYER[policy] == per
+    assert cs._expected_launches((A,), 8, per) == {"flash_fwd": 8 * per, "flash_bwd_dq": 8, "flash_bwd_dkv": 8}
+    assert cs._expected_launches((A, MG), 2, per, steps=3) == {
+        "flash_fwd": 6 * per, "flash_bwd_dq": 6, "flash_bwd_dkv": 6, "moe_fwd": 6 * per, "moe_bwd": 6}
+
+
+@pytest.mark.parametrize("name", ["1chip", "moe"])
+def test_bench_recipes_are_bench_pys_presets(name):
+    """Each recipe builds, in the port, the configuration, batch and length
+    of bench.py's preset of the same name (the JAX package's config, read
+    here and never by ``chip_smoke.py``)."""
+    import dataclasses
+
+    pytest.importorskip("jax")
+    import bench
+    from tony_tpu_torch.models import llama, mixtral
+
+    jmod, jcfg, jb, jt = bench._build_presets()[name]
+    model, fields, B, T = cs.BENCH_RECIPES[name]
+    cfg = {"llama": llama, "mixtral": mixtral}[model].config_from_dict(fields)
+    port, jax_side = dataclasses.asdict(cfg), dataclasses.asdict(jcfg)
+    assert jmod.__name__.rsplit(".", 1)[-1] == model and (B, T) == (jb, jt)
+    assert port == {k: v for k, v in jax_side.items() if k in port}
+    assert set(jax_side) - set(port) <= {"capacity_factor", "moe_dispatch"}  # the port runs the ragged dispatch
+    assert jax_side.get("moe_dispatch", "ragged") == "ragged"

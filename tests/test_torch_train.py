@@ -208,6 +208,7 @@ def test_torn_step_is_quarantined_and_the_previous_one_restored(tmp_path):
     mgr.save(1, good)
     mgr.save(2, dict(good, step=2))
     mgr.save(3, dict(good, step=3))
+    mgr.wait()  # saves are asynchronous: step 3 is on disk after the wait
     assert mgr.all_steps() == [2, 3]  # max_to_keep
     (ck / "3" / TC.STATE_FILE).write_bytes(b"torn")
     state, got_mgr, step = TC.restore_or_init(str(ck), lambda: {"w": torch.zeros(4)},

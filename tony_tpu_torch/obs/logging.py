@@ -68,7 +68,11 @@ def _log(level: int, msg: str, fields: dict[str, Any]) -> None:
     if lg is not None and level >= lg.level:
         lg.emit(level, msg, fields)
     if level >= INFO:
-        print(msg, file=sys.stdout if level < WARNING else sys.stderr, flush=True)
+        # one write a line: the checkpoint writer thread logs too, and
+        # print's separate write of the newline could split a line
+        stream = sys.stdout if level < WARNING else sys.stderr
+        stream.write(f"{msg}\n")
+        stream.flush()
 
 
 def info(msg: str, **fields: Any) -> None:

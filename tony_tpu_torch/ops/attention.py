@@ -9,7 +9,15 @@ kernel). Each wrapper (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``)
 launches its kernel for CUDA tensors and runs its plain PyTorch version
 (``*_plain``) for CPU tensors, never the plain version for a CUDA tensor.
 ``FlashAttention`` is the one ``torch.autograd.Function`` in place of the
-JAX custom VJPs ``_flash_trainable`` and ``_flash_trainable_seg``.
+JAX custom VJPs ``_flash_trainable`` and ``_flash_trainable_seg``; its
+forward calls B1 through the dispatcher op ``tony::flash_fwd``, so that a
+remat policy can see the launch and keep its outputs (the ctypes launch
+alone is invisible to ``torch.utils.checkpoint``'s selective mode).
+
+``remat_block`` wraps a decoder block in JAX's three remat policies:
+"full", "dots" (keep the products with no batch dimension) and "flash"
+(keep the outputs of B1, of the MoE kernel B7 and the values named with
+``checkpoint_name``, JAX's ``checkpoint_name`` counterpart).
 
 Layouts follow the JAX package: q ``[B, H, Tq, D]``, k/v ``[B, Hkv, Tk, D]``
 (query head h reads kv head h // n_rep, never broadcast on the kernel path),
@@ -25,9 +33,12 @@ the kernels take goes to them, and any other raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+import os
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from tony_tpu_torch.ops import _build
 
@@ -249,6 +260,21 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal=True, segment_ids=None, win
     return dk, dv
 
 
+@torch.library.custom_op("tony::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, segment_ids: torch.Tensor | None,
+                 causal: bool, window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """B1 as a dispatcher op, so that selective checkpointing sees it: the
+    "flash" policy keeps its (o, lse), JAX's ``flash_o`` and ``flash_lse``.
+    It calls ``flash_fwd`` (the kernel for CUDA tensors, the plain version
+    for CPU tensors)."""
+    return flash_fwd(q, k, v, causal=causal, segment_ids=segment_ids, window=window)
+
+
+@flash_fwd_op.register_fake
+def _(q, k, v, segment_ids, causal, window):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
 class FlashAttention(torch.autograd.Function):
     """Trainable flash attention: B1 forward, B2 + B3 backward.
 
@@ -261,7 +287,7 @@ class FlashAttention(torch.autograd.Function):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if segment_ids is not None:
             segment_ids = segment_ids.to(torch.int32).contiguous()
-        o, lse = flash_fwd(q, k, v, causal=causal, segment_ids=segment_ids, window=window)
+        o, lse = flash_fwd_op(q, k, v, segment_ids, causal, window)
         ctx.save_for_backward(q, k, v, o, lse, segment_ids)
         ctx.causal, ctx.window = causal, window
         return o
@@ -291,25 +317,73 @@ def flash_attention(q, k, v, *, causal: bool = True, segment_ids=None, window: i
     return FlashAttention.apply(q, k, v, segment_ids, causal, window)
 
 
-def remat_block(block_fn, remat: bool, policy: str = "full"):
-    """Wrap a decoder block in the configured remat policy.
+@torch.library.custom_op("tony::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``jax.ad_checkpoint.checkpoint_name``: ``x`` under ``name``, which the
+    "flash" remat policy reads. The value is a copy of ``x`` (a dispatcher
+    op may not return its input) and passes the gradient through."""
+    return x.clone()
 
-    "full" recomputes the whole block in the backward
-    (``torch.utils.checkpoint``, non-reentrant), so the forward kernel runs
-    twice per layer per step. "dots" and "flash" (save matmul or kernel
-    outputs) need the kernels visible to selective checkpointing and are
-    not ported yet."""
+
+@checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(lambda ctx, grad: (grad, None))
+
+
+#: the values the "flash" policy keeps, as JAX names them: B1's outputs, the
+#: routing and B7's output (the kernel ops stand for their names)
+FLASH_SAVE_NAMES = ("flash_o", "flash_lse", "moe_route", "moe_gemm")
+_KERNEL_OPS = {"tony::flash_fwd": "flash_o", "tony::moe_fwd": "moe_gemm"}
+_DOTS_OPS = {"aten::mm", "aten::addmm"}
+
+
+def _dots_policy(ctx, func, *args, **kwargs):
+    """JAX's ``dots_with_no_batch_dims_saveable``: a ``[B, T, D] @ [D, F]``
+    reaches the dispatcher as ``mm``; ``bmm``, ``baddbmm``, the kernels and
+    every other op are recomputed."""
+    if func._schema.name in _DOTS_OPS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _names_policy(names: frozenset, ctx, func, *args, **kwargs):
+    """JAX's ``save_only_these_names(*names)``."""
+    op = func._schema.name
+    name = args[1] if op == "tony::checkpoint_name" else _KERNEL_OPS.get(op)
+    return CheckpointPolicy.MUST_SAVE if name in names else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_block(block_fn, remat: bool, policy: str = "full"):
+    """Wrap a decoder block in the configured remat policy (non-reentrant
+    ``torch.utils.checkpoint``).
+
+    "full" recomputes the whole block in the backward, so B1 and B7 run
+    twice per layer per step. "dots" keeps the outputs of the products with
+    no batch dimension (``_dots_policy``) and recomputes the rest, B1 and B7
+    among it. "flash" keeps only B1's (o, lse), B7's output and the routing
+    (``FLASH_SAVE_NAMES``), plus the names listed in
+    ``TONY_REMAT_EXTRA_NAMES`` ("a,b", for example ``moe_disp,moe_combine``):
+    the backward never replays B1 or B7. A name the block does not produce
+    keeps nothing."""
     if not remat:
         return block_fn
-    if policy in ("dots", "flash"):
-        raise NotImplementedError(
-            f"remat_policy {policy!r} is not ported yet (ROADMAP queue A: selective "
-            "checkpointing of the flash kernel outputs); use 'full'")
-    if policy != "full":
+    if policy == "full":
+        context_fn = noop_context_fn
+    elif policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    elif policy == "flash":
+        extra = os.environ.get("TONY_REMAT_EXTRA_NAMES", "")
+        names = frozenset(FLASH_SAVE_NAMES) | {n.strip() for n in extra.split(",") if n.strip()}
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       functools.partial(_names_policy, names))
+    else:
         raise ValueError(f"remat_policy must be full|dots|flash, got {policy!r}")
 
     def wrapped(*args, **kwargs):
-        return checkpoint(block_fn, *args, use_reentrant=False, **kwargs)
+        return checkpoint(block_fn, *args, use_reentrant=False, context_fn=context_fn, **kwargs)
 
     return wrapped
 

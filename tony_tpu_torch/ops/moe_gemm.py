@@ -6,7 +6,9 @@ forward ``_fwd_kernel`` (B7, ``moe_fwd``) and the backward ``_bwd_kernel``
 (B8, ``moe_bwd``). Each wrapper launches its kernel for CUDA tensors and runs
 its plain PyTorch version (``moe_fwd_plain`` / ``moe_bwd_plain``) for CPU
 tensors, never the plain version for a CUDA tensor. ``MoESwiGLU`` is the
-``torch.autograd.Function`` in place of the JAX custom VJP.
+``torch.autograd.Function`` in place of the JAX custom VJP; its forward calls
+B7 through the dispatcher op ``tony::moe_fwd``, which the "flash" remat
+policy keeps (JAX's ``moe_gemm`` name).
 
 Rows arrive sorted by expert with every expert's span padded to whole row
 tiles of ``TILE`` = 128 rows (``parallel/expert.route_ragged``), and
@@ -174,6 +176,20 @@ def moe_bwd(xs, dy, wg, wu, wd, tile_group, tile: int = TILE):
     return dxs, dwg, dwu, dwd
 
 
+@torch.library.custom_op("tony::moe_fwd", mutates_args=())
+def moe_fwd_op(xs: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor,
+               tile_group: torch.Tensor, tile: int) -> torch.Tensor:
+    """B7 as a dispatcher op, so that selective checkpointing sees it. It
+    calls ``moe_fwd`` (the kernel for CUDA tensors, the plain version for
+    CPU tensors)."""
+    return moe_fwd(xs, wg, wu, wd, tile_group, tile)
+
+
+@moe_fwd_op.register_fake
+def _(xs, wg, wu, wd, tile_group, tile):
+    return torch.empty_like(xs)
+
+
 class MoESwiGLU(torch.autograd.Function):
     """Trainable grouped SwiGLU: B7 forward, B8 backward (which recomputes
     g and u from the saved inputs, as the TPU kernel does)."""
@@ -181,7 +197,7 @@ class MoESwiGLU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xs, wg, wu, wd, tile_group, tile: int):
         xs, wg, wu, wd = xs.contiguous(), wg.contiguous(), wu.contiguous(), wd.contiguous()
-        ys = moe_fwd(xs, wg, wu, wd, tile_group, tile)
+        ys = moe_fwd_op(xs, wg, wu, wd, tile_group, tile)
         ctx.save_for_backward(xs, wg, wu, wd, tile_group)
         ctx.tile = tile
         return ys

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from tony_tpu_torch.ops import moe_gemm
+from tony_tpu_torch.ops.attention import checkpoint_name
 
 
 @dataclass(frozen=True)
@@ -172,9 +173,14 @@ def _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, token_
     tile = moe_gemm.TILE
     sort_tok, dest, gate_vals, gate_sorted, group_sizes, aux = route_ragged(
         x, router_w, cfg, token_mask, tile=tile)
-    xs = _DispatchGather.apply(x.reshape(B * T, D), sort_tok, dest)
+    # named as JAX names them: the "flash" remat policy keeps the routing;
+    # moe_disp and moe_combine only when TONY_REMAT_EXTRA_NAMES lists them
+    sort_tok, dest, gate_vals, gate_sorted, group_sizes = (
+        checkpoint_name(t, "moe_route") for t in (sort_tok, dest, gate_vals, gate_sorted, group_sizes))
+    xs = checkpoint_name(_DispatchGather.apply(x.reshape(B * T, D), sort_tok, dest), "moe_disp")
     ys = _expert_swiglu(xs, w_gate, w_up, w_down, group_sizes, tile)
     y = _CombineGather.apply(ys, dest, sort_tok, gate_vals.reshape(B * T, K), gate_sorted)
+    y = checkpoint_name(y, "moe_combine")
     return y.reshape(B, T, D).to(x.dtype), aux
 
 

@@ -3,12 +3,22 @@
 Counterpart of ``tony_tpu/train/checkpoint.py`` on ``torch.save``: a step
 is written to a private temporary directory and published by renaming it
 to ``<dir>/<step>``, so a reader never sees a half-written step under its
-final name; ``max_to_keep`` prunes the oldest steps. Saves are synchronous
-(the JAX manager's are async through Orbax).
+final name; ``max_to_keep`` prunes the oldest steps.
+
+Saves are asynchronous by default (``use_async``, as the JAX manager's
+through Orbax): ``save`` copies the state into host buffers (pinned for a
+CUDA state, allocated once per manager and reused: the optimizer updates
+the state in place, so the copy is complete before ``save`` returns) and
+hands the write, the rename and the pruning to one background thread; at
+most one write is in flight, and the next ``save`` first joins it. ``wait``
+joins the write and raises any error it hit, and ``close`` does the same at
+the end. Only the main thread calls collectives. ``use_async=False`` writes
+in ``save`` itself.
 
 In a gang every rank holds the whole state (the data axis replicates it),
-so rank 0 writes and every rank passes a barrier before it goes on: a save
-has returned on every rank only once the step is on the shared directory.
+so rank 0 writes. ``wait`` ends in a barrier, so once it has returned on
+every rank the step is on the shared directory; a synchronous ``save``
+ends in ``wait``.
 ``restore_or_init`` keeps the JAX function's corruption tolerance: a step
 that fails to load is quarantined as ``.corrupt-<step>`` and the
 next-newest step is tried, down to a fresh init; every rank of a gang hits
@@ -25,6 +35,7 @@ from __future__ import annotations
 
 import os
 import shutil
+import threading
 import time
 from typing import Any, Callable
 
@@ -45,11 +56,15 @@ _SAVE_SECONDS = obs_metrics.histogram(
     "checkpoint save-dispatch latency (async saves exclude background writes)")
 _RESTORE_SECONDS = obs_metrics.histogram(
     "tony_checkpoint_restore_seconds", "checkpoint restore latency")
+_WRITE_SECONDS = obs_metrics.histogram(
+    "tony_checkpoint_write_seconds",
+    "checkpoint write latency (torch.save, publishing rename and pruning; in the background when async)")
 
 
 class CheckpointManager:
     """Numbered step directories under ``directory``. ``group``: the gang's
     process group (None for one process); its rank 0 writes.
+    ``use_async``: write in a background thread (the default, as JAX's).
 
     ``saved_step`` is the newest step this manager saved or restored. Every
     rank keeps it in memory and decides from it alone whether a save
@@ -57,12 +72,16 @@ class CheckpointManager:
     0's write of the very step it asks about and skip the barrier the
     others wait in."""
 
-    def __init__(self, directory: str, *, max_to_keep: int = 3, group=None):
+    def __init__(self, directory: str, *, max_to_keep: int = 3, group=None, use_async: bool = True):
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.group = group
+        self.use_async = use_async
         self.writer = group is None or dist.get_rank(group) == 0
         self.saved_step: int | None = None
+        self._host: dict[str, torch.Tensor] = {}  # leaf name → host buffer of the snapshot
+        self._thread: threading.Thread | None = None
+        self._error: tuple[int, Exception] | None = None
         os.makedirs(self.directory, exist_ok=True)
 
     def all_steps(self) -> list[int]:
@@ -74,22 +93,70 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state: dict, *, force: bool = False) -> bool:
-        """Write ``state`` (a nested dict of tensors and ints) as step
+        """Save ``state`` (a nested dict of tensors and ints) as step
         ``step``, unless ``step`` is not past ``saved_step`` and ``force``
-        is not set. Returns whether it wrote; on every rank once the step
-        is on disk (``wait``)."""
+        is not set. Returns whether it saved. Async: once the state is
+        copied to the host and its write handed to the writer thread (after
+        joining the previous write and raising its error); the step is on
+        disk after ``wait``. Sync: once the step is on disk on every rank."""
         if not force and self.saved_step is not None and step <= self.saved_step:
             return False
         t0 = time.perf_counter()
         with obs_trace.maybe_span("ckpt.save", step=step):
-            if self.writer:
-                self._write(step, state)
-            self.wait()
+            if not self.use_async:
+                if self.writer:
+                    self._write(step, state)
+                self.wait()
+            else:
+                self.join()
+                self._raise_write_error()
+                if self.writer:
+                    snapshot = self._snapshot(state)
+                    self._thread = threading.Thread(target=self._write_in_background,
+                                                    args=(step, snapshot), name=f"ckpt-write-{step}")
+                    self._thread.start()
         _SAVE_SECONDS.observe(time.perf_counter() - t0)
         self.saved_step = step
         return True
 
+    def _snapshot(self, state: dict) -> dict:
+        """``state`` with every tensor copied into this manager's host
+        buffer for its leaf (made at the first save, or when a leaf's shape
+        or dtype changes); the copies are complete on return."""
+        devices = set()
+
+        def copy(tree: dict, prefix: str) -> dict:
+            out = {}
+            for key, val in tree.items():
+                name = f"{prefix}{key}"
+                if isinstance(val, dict):
+                    out[key] = copy(val, name + "/")
+                elif torch.is_tensor(val):
+                    buf = self._host.get(name)
+                    if buf is None or buf.shape != val.shape or buf.dtype != val.dtype:
+                        buf = self._host[name] = torch.empty(val.shape, dtype=val.dtype,
+                                                             pin_memory=val.is_cuda)
+                    buf.copy_(val.detach(), non_blocking=val.is_cuda)
+                    if val.is_cuda:
+                        devices.add(val.device)
+                    out[key] = buf
+                else:
+                    out[key] = val
+            return out
+
+        snapshot = copy(state, "")
+        for device in devices:
+            torch.cuda.current_stream(device).synchronize()
+        return snapshot
+
+    def _write_in_background(self, step: int, snapshot: dict) -> None:
+        try:
+            self._write(step, snapshot)
+        except Exception as e:  # noqa: BLE001 — raised on the main thread by the next save or wait
+            self._error = (step, e)
+
     def _write(self, step: int, state: dict) -> None:
+        t0 = time.perf_counter()
         final = os.path.join(self.directory, str(step))
         tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
@@ -99,12 +166,34 @@ class CheckpointManager:
         os.rename(tmp, final)
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+        _WRITE_SECONDS.observe(time.perf_counter() - t0)
+        obs_logging.info(f"[ckpt] step {step} published", step=step)
+
+    def _raise_write_error(self) -> None:
+        if self._error is not None:
+            step, err = self._error
+            self._error = None
+            raise RuntimeError(f"the checkpoint write of step {step} failed: {err}") from err
+
+    def join(self) -> None:
+        """Return once the write in flight (if any) has ended; no barrier,
+        and its error stays for the next ``save`` or ``wait`` to raise."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
 
     def wait(self) -> None:
-        """Return once every rank's saves are on disk: a barrier over the
-        gang (the writes themselves are synchronous)."""
+        """Return once every rank's saves are on disk: join the write in
+        flight, raise the error it hit, then a barrier over the gang."""
+        self.join()
+        self._raise_write_error()
         if self.group is not None:
             dist.barrier(group=self.group)
+
+    def close(self) -> None:
+        """``wait``, then release the host buffers."""
+        self.wait()
+        self._host.clear()
 
     def restore(self, step: int | None = None) -> dict:
         """The saved state of ``step`` (default: the newest), memory-mapped on
@@ -143,6 +232,7 @@ def restore_or_init(
     *,
     max_to_keep: int = 3,
     group=None,
+    use_async: bool = True,
 ) -> tuple[Any, CheckpointManager | None, int]:
     """The resume path: (state, manager, start_step).
 
@@ -153,11 +243,13 @@ def restore_or_init(
     or to apply is quarantined and the previous one is tried. In a gang
     (``group``) every rank restores, then the ranks gather their steps and
     check that they agree; the gather is also the barrier that keeps a rank
-    from pruning a step a peer still reads."""
+    from pruning a step a peer still reads. The manager saves in the
+    background unless ``use_async`` is False. Steps still being written
+    (``.tmp-*``) are never read."""
     state = init_fn()
     if not ckpt_dir:
         return state, None, 0
-    mgr = CheckpointManager(ckpt_dir, max_to_keep=max_to_keep, group=group)
+    mgr = CheckpointManager(ckpt_dir, max_to_keep=max_to_keep, group=group, use_async=use_async)
     if mgr.writer:
         maybe_corrupt_checkpoint(mgr.directory)  # no-op unless a chaos fault is armed
     mgr.wait()

@@ -352,9 +352,14 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
                 if not saved_this_step:
                     drop_cursor(step + 1)
                     ckpt_mgr.save(step + 1, state.state_dict(), force=True)
+                ckpt_mgr.wait()  # the step is on disk before the answer: the gang dies on it
                 if drain_req:
                     urgent.acknowledge(drain_req, step + 1)
     finally:
+        if ckpt_mgr is not None:
+            # a write in flight ends before the loop returns or raises; no
+            # barrier: a failing rank must not wait for its peers
+            ckpt_mgr.join()
         # pipeline first: its producer calls the loader
         producer_dead = pipeline.close()
         if loader is not None:
@@ -366,9 +371,11 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
                 obs_logging.warning("[train] input-pipeline producer did not exit within the "
                                     "close deadline; leaving the data loader open")
         profiler.stop()
-    if ckpt_mgr is not None and ckpt_mgr.saved_step != loop.steps:  # not already saved or resumed at
-        drop_cursor(loop.steps)
-        ckpt_mgr.save(loop.steps, state.state_dict(), force=True)
+    if ckpt_mgr is not None:
+        if ckpt_mgr.saved_step != loop.steps:  # not already saved or resumed at
+            drop_cursor(loop.steps)
+            ckpt_mgr.save(loop.steps, state.state_dict(), force=True)
+        ckpt_mgr.close()  # the final write is on disk on every rank
     _drop_obs_metrics(device)  # the last window and the final checkpoint's sample
     out = {k: float(v) for k, v in metrics.items() if torch.is_tensor(v) or isinstance(v, (int, float))}
     return {**out, "start_step": start_step, "log": log}
