@@ -39,6 +39,28 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    ``--int8`` engine in this process: one decode chunk of a full batch and
    one 1000-token prefill (the 1024 bucket) under ``torch.profiler``, device
    ms by kernel family (``int8`` is B6) and the busy share;
+3h. kv-handoff: the disaggregated KV handoff in this process at Llama-3-8B
+   (all 32 layers, bf16, paged, page_len 256): two ``EngineServer``s on one
+   set of weights behind their own HTTP servers, one in the prefill role; a
+   1280-token prompt (5 pages) through ``/v1/prefill`` with the decode
+   server's URL: 5 pages adopted, the decode pool's pages the exported
+   payload's bytes exactly, a re-ship all ``already_resident``, a wrong
+   ``shape`` answered 400, prefix hits on the decode tier's continuation
+   (its agreement with the prefill server's is printed, not held: bf16);
+   prints the handoff ms, the export ms and the payload's bytes;
+3f. fleet: ``tony serve`` through ``python -m tony_tpu_torch_launch.serve``
+   (a subprocess, as is ``tony loadtest``) twice on the card, Llama-3-8B
+   paged, 8 slots, max_len 2048: ``disagg`` (a prefill and a decode
+   replica) and ``colocated`` (one replica), each under the same streamed
+   ``tony loadtest`` traffic (8 sessions x 3 turns, prompts of 768 or 1280
+   tokens sharing 512, 64 tokens a turn): 24/24 requests ok, prefix hits,
+   B5 launched by the decode replica during the load, pages exported and
+   adopted (``disagg``); SIGINT to the launcher kills the job, every
+   replica logs its drain and exits, the launcher within 120 s; prints the
+   startup seconds, TTFT p50/p95/p99, the gap between tokens, latency
+   p50/p99, tok/s and the handoff's p50 and pages with the card line. Both
+   tiers share the one card: the handoff's mechanics and cost, not the gain
+   of separate tiers;
 4. whole step: ``loss_fn`` and every gradient through the flash kernels
    against ``attn_impl="reference"`` on the same params and batch (8B width,
    2 layers, B=1, T=2048); two planted faults (a query head dropped by B1,
@@ -122,10 +144,12 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    batch; tok/s of both, the decode step time and peak memory; then one
    decode chunk of a full batch under ``torch.profiler``: device ms by
    kernel family (``decode`` is B4/B5) and the card's busy share;
-10. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+10. prints ``{"kernels": [...]}`` (B5 with its fleet launches) and, last,
+    ``{"ok": true, "device": {...}}``.
 
 Imports only ``tony_tpu_torch``, torch, numpy and the standard library; it
-runs the orchestrator, ``tony_tpu.cli.main``, as a subprocess only.
+runs the orchestrator (``tony_tpu.cli.main``, and ``tony_tpu_torch_launch``,
+which imports it) as subprocesses only.
 """
 
 from __future__ import annotations
@@ -145,6 +169,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from pathlib import Path
 
@@ -2099,6 +2124,300 @@ def run_server(name: str, extra: list[str], out_dir: Path) -> dict:
         log.close()
 
 
+# -- fleet phases: the KV handoff in process, then `tony serve` fleets ----------
+
+HANDOFF_PROMPT = 1280  # 5 full pages of 256: the [kv-handoff] prompt
+HANDOFF_TOKENS = 32    # greedy continuation compared between the tiers
+# the engine of every fleet replica: Llama-3-8B, all 32 layers, paged KV
+FLEET_ENGINE = ["--preset", "llama3-8b", "--kv", "paged", "--page_len", str(PLEN), "--slots", str(S),
+                "--max_len", str(MAXT), "--decode_chunk", "8"]
+FLEETS = {"disagg": ["--disagg", "--replicas", "1", "--prefill_replicas", "1"],
+          "colocated": ["--replicas", "1"]}
+# `tony loadtest` traffic, the same for both fleets: 8 sessions x 3 turns =
+# 24 streamed requests; the longest conversation is 1280 + 2 x (64 + 8) + 64
+# = 1488 of the 2048 positions
+LOADTEST = ["--rate", "2", "--sessions", "8", "--turns", "3", "--prompt-mix", "768:1,1280:1",
+            "--shared-prefix", "512", "--max-tokens", "64", "--seed", "0"]
+LOADTEST_REQUESTS = 24
+_ROUTER_LINE = re.compile(r"^\[tony-serve\] fleet router (http://\S+) ", re.M)
+_REPLICA_LINE = re.compile(r"^\[tony-serve\] (http://\S+) role=(serve|prefill) ", re.M)
+_DRAINED_LINE = re.compile(r"^\[tony-serve\] drained: (\d+) request\(s\) completed, exit 0$", re.M)
+
+
+def _replica(engine, role: str):
+    """An EngineServer behind its own HTTP server on an ephemeral port."""
+    from http.server import ThreadingHTTPServer
+
+    from tony_tpu_torch.models import serving_http as SH
+
+    srv = SH.EngineServer(engine, role=role).start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), type("Handler", (SH._Handler,), {"server_ref": srv}))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return srv, httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def _post_status(url: str, body: dict, timeout: float = 600) -> tuple[int, dict]:
+    try:
+        with _post(url, body, timeout) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def kv_handoff_phase(torch, llama, DA) -> dict:
+    """The disaggregated KV handoff in this process at Llama-3-8B (all 32
+    layers, bf16, paged, page_len 256): two EngineServers on one set of
+    weights, each behind its own HTTP server, one in the prefill role. A
+    1280-token prompt (5 full pages) goes through the prefill server's
+    ``/v1/prefill`` with the decode server's URL: 5 pages adopted, the decode
+    pool's pages the exported payload's bytes exactly (k and v), a re-ship all
+    ``already_resident``, a payload with a wrong ``shape`` answered 400, and
+    the decode tier's greedy continuation of the prompt served from prefix
+    hits. Its agreement with the prefill server's own continuation is printed
+    and not held: bf16 greedy agreement is rounding luck."""
+    import base64
+
+    import numpy as np
+
+    from tony_tpu_torch.models.paged_cache import gather_pages, prefix_keys
+    from tony_tpu_torch.models.serving import ContinuousBatcher
+    from tony_tpu_torch.serve import disagg
+
+    cfg = llama.PRESETS["llama3-8b"]
+    with torch.no_grad():
+        params = llama.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    made = []
+    try:
+        for role in ("prefill", "serve"):
+            eng = ContinuousBatcher(params, cfg, num_slots=S, max_len=MAXT, decode_chunk=8, kv="paged",
+                                    page_len=PLEN)
+            made.append(_replica(eng, role))
+        (pre, _, pre_url), (dec, _, dec_url) = made
+        warm = {"prompt_tokens": list(range(1000, 1040)), "max_tokens": 8}  # first CUDA use of each path
+        for url in (pre_url, dec_url):
+            check(_post_status(url + "/v1/completions", warm)[0] == 200, "kv-handoff: warm-up failed")
+        prompt = np.random.default_rng(5).integers(2000, cfg.vocab_size, HANDOFF_PROMPT).tolist()
+        pages = HANDOFF_PROMPT // PLEN
+        st, leg = _post_status(pre_url + "/v1/prefill", {"prompt_tokens": prompt, "decode_url": dec_url})
+        check(st == 200 and "ship_error" not in leg and (leg["pages"], leg["adopted"], leg["already_resident"])
+              == (pages, pages, 0), f"kv-handoff: the prefill leg answered {st} {leg}")
+        # the exported payload (the prefill pool still holds the pages) against
+        # the decode pool's adopted pages, byte for byte; on the way, the host
+        # stages of one ship: the export on the engine thread (gather, copy to
+        # the host, base64), the wait for the idle engine loop to take it, and
+        # the JSON encode, JSON parse and base64 decode of the wire payload
+        def timed_export():
+            t = time.perf_counter()
+            return disagg.export_prefix_pages(pre, prompt), time.perf_counter() - t
+
+        t0 = time.perf_counter()
+        payload, export_s = pre.run_on_engine(timed_export)
+        pickup_s = time.perf_counter() - t0 - export_s
+        t0 = time.perf_counter()
+        body = json.dumps(payload).encode()
+        dumps_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        json.loads(body)
+        loads_s = time.perf_counter() - t0
+        wire_bytes = len(body)
+        del body
+        t0 = time.perf_counter()
+        want_k, want_v = base64.b64decode(payload["k"]), base64.b64decode(payload["v"])
+        b64decode_s = time.perf_counter() - t0
+
+        def adopted_bytes():
+            got = dec.engine.allocator.match_prefix(prefix_keys(prompt, PLEN))
+            try:
+                pk, pv = gather_pages(dec.engine.cache.k, dec.engine.cache.v, got)
+                return len(got), disagg.tensor_bytes(pk.cpu()), disagg.tensor_bytes(pv.cpu())
+            finally:
+                for p in got:
+                    dec.engine.allocator.release(p)
+
+        n, k_bytes, v_bytes = dec.run_on_engine(adopted_bytes)
+        same = n == pages and k_bytes == want_k and v_bytes == want_v
+        check(same, f"kv-handoff: the decode pool's {n} adopted pages differ from the exported payload")
+        st, again = _post_status(pre_url + "/v1/prefill", {"prompt_tokens": prompt, "decode_url": dec_url})
+        check(st == 200 and (again["adopted"], again["already_resident"]) == (0, pages),
+              f"kv-handoff: the re-ship answered {st} {again}")
+        bad = dict(payload, shape=[*payload["shape"][:-1], payload["shape"][-1] + 1])
+        st, refused = _post_status(dec_url + "/v1/kv/adopt", bad)
+        check(st == 400 and "geometry mismatch" in refused.get("error", ""),
+              f"kv-handoff: a wrong shape was answered {st} {refused}")
+        hits0 = _get(dec_url + "/stats")["prefix_hit_tokens"]
+        b5 = DA.launches["paged_decode_attention"]
+        body = {"prompt_tokens": prompt, "max_tokens": HANDOFF_TOKENS}
+        st, dec_out = _post_status(dec_url + "/v1/completions", body)
+        b5 = DA.launches["paged_decode_attention"] - b5
+        hits = _get(dec_url + "/stats")["prefix_hit_tokens"] - hits0
+        check(st == 200 and len(dec_out["tokens"]) == HANDOFF_TOKENS and hits > 0 and b5 > 0,
+              f"kv-handoff: the decode tier's continuation {st} {dec_out!r:.200}, prefix hits {hits}, "
+              f"B5 launches {b5}")
+        st, pre_out = _post_status(pre_url + "/v1/completions", body)
+        check(st == 200, f"kv-handoff: the prefill server's continuation answered {st}")
+        agree = next((i for i, (a, b) in enumerate(zip(dec_out["tokens"], pre_out["tokens"])) if a != b),
+                     HANDOFF_TOKENS)
+        rec = {"pages": pages, "handoff_ms": leg["handoff_ms"], "reship_ms": again["handoff_ms"],
+               "export_s": export_s, "pickup_s": pickup_s, "json_encode_s": dumps_s, "json_parse_s": loads_s,
+               "b64decode_s": b64decode_s, "wire_bytes": wire_bytes, "same_bytes": same,
+               "prefix_hit_tokens": hits, "b5_launches": b5, "tokens_agree": agree,
+               "first_token": leg["first_token"]}
+        print(f"[kv-handoff] llama3-8b bf16 page_len {PLEN}: {pages} pages of a {HANDOFF_PROMPT}-token prompt "
+              f"shipped in {leg['handoff_ms']:.1f} ms (prefill leg: one token, export, ship, adopt; re-ship "
+              f"{again['handoff_ms']:.1f} ms, already resident {pages}); {wire_bytes / 1e6:.1f} MB of JSON; "
+              f"the adopted pages are the payload's bytes: {same}; wrong shape → 400", flush=True)
+        print(f"[kv-handoff] host stages of one ship: export {export_s * 1e3:.1f} ms on the engine thread "
+              f"(gather, copy to the host, base64) after {pickup_s * 1e3:.1f} ms for the idle loop to take it; "
+              f"JSON encode {dumps_s * 1e3:.1f} ms, JSON parse {loads_s * 1e3:.1f} ms, base64 decode "
+              f"{b64decode_s * 1e3:.1f} ms", flush=True)
+        print(f"[kv-handoff] the decode tier's greedy continuation: {hits} prefix-hit tokens, B5 launched "
+              f"{b5} times; {agree} of its {HANDOFF_TOKENS} tokens agree with the prefill server's own "
+              "(bf16: not held)", flush=True)
+        return rec
+    finally:
+        for srv, httpd, _ in made:
+            httpd.shutdown()
+            httpd.server_close()
+            srv.stop(timeout_s=30)
+
+
+def _replica_urls(root: Path) -> dict:
+    """role → URL of the replicas whose stdout the staging dir holds."""
+    out = {}
+    for log in root.glob("application_*/logs/*_0/stdout.log"):
+        for url, role in _REPLICA_LINE.findall(log.read_text(errors="replace")):
+            out[role] = url
+    return out
+
+
+def _serving_processes() -> list[str]:
+    ps = subprocess.run(["pgrep", "-f", "tony_tpu_torch.models.serving_http"], capture_output=True, text=True)
+    return ps.stdout.split()
+
+
+def run_fleet(name: str, extra: list[str], out_dir: Path, card: str) -> dict:
+    """One ``tony serve`` fleet through the port's launcher, driven by ``tony
+    loadtest`` (both run as subprocesses), then SIGINT to the launcher."""
+    work = out_dir / "fleet" / name
+    shutil.rmtree(work, ignore_errors=True)
+    root = work / "tony"
+    root.mkdir(parents=True)
+    env = dict(os.environ, TONY_ROOT=str(root), PYTHONPATH=str(ROOT))
+    cmd = [sys.executable, "-m", "tony_tpu_torch_launch.serve", *FLEET_ENGINE, *extra,
+           "--conf", "tony.task.metrics-interval-ms=500"]
+    log_path = work / "launcher.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    roles = {"serve", "prefill"} if "--disagg" in extra else {"serve"}
+    try:
+        router = urls = None
+        deadline = time.time() + 400
+        while time.time() < deadline and proc.poll() is None:
+            m = _ROUTER_LINE.search(log_path.read_text(errors="replace"))
+            urls = _replica_urls(root)
+            if m and set(urls) == roles:
+                router = m.group(1)
+                break
+            time.sleep(0.5)
+        check(router is not None, f"fleet {name}: no router and replicas {sorted(urls or {})} (launcher rc "
+                                  f"{proc.poll()}):\n{log_path.read_text(errors='replace')[-3000:]}")
+        # the first request through the router: a prompt of 300 tokens outside
+        # the load's, so a disaggregated fleet fires (and must complete) a leg
+        warm = {"prompt_tokens": list(range(2000, 2300)), "max_tokens": 8}
+        while True:
+            st, out = _post_status(router + "/v1/completions", warm)
+            check(st == 200 and len(out.get("tokens", [])) == 8, f"fleet {name}: warm-up answered {st} {out}")
+            legs = (_get(router + "/stats").get("disagg") or {}).get("legs_ok", 0)
+            if "prefill" not in roles or legs:
+                break
+            check(time.time() < deadline, f"fleet {name}: the router never fired a prefill leg")
+            time.sleep(1.0)
+        startup_s = time.perf_counter() - t0
+        before = {role: _get(url + "/stats") for role, url in urls.items()}
+        report_path, record_path = work / "loadtest.json", work / "SERVE_BENCH_fleet.json"
+        lt = _tony(["loadtest", "--url", router, *LOADTEST, "--out", str(report_path),
+                    "--bench-record", str(record_path)], env, timeout=600)
+        check(lt.returncode == 0 and report_path.exists(),
+              f"fleet {name}: tony loadtest exited {lt.returncode}:\n{lt.stdout[-3000:]}\n{lt.stderr[-2000:]}")
+        rep = json.loads(report_path.read_text())
+        after = {role: _get(url + "/stats") for role, url in urls.items()}
+        b5 = (after["serve"]["kernel_launches"]["paged_decode_attention"]
+              - before["serve"]["kernel_launches"]["paged_decode_attention"])
+        check(rep["requests_ok"] == LOADTEST_REQUESTS and rep["requests_failed"] == 0 and rep["stream"],
+              f"fleet {name}: {rep['requests_ok']} ok, {rep['requests_failed']} failed: {rep.get('first_errors')}")
+        check(rep.get("prefix_hit_tokens", 0) > 0, f"fleet {name}: no prefix hits in {rep}")
+        check(b5 > 0, f"fleet {name}: the decode replica never launched B5: {after['serve']['kernel_launches']}")
+        if "prefill" in roles:
+            exported = after["prefill"]["kv_handoff_exported"] - before["prefill"]["kv_handoff_exported"]
+            adopted = after["serve"]["kv_handoff_adopted"] - before["serve"]["kv_handoff_adopted"]
+            check(rep.get("kv_handoff_pages", 0) > 0 and rep.get("handoff_p50_ms", 0) > 0
+                  and exported > 0 and adopted > 0,
+                  f"fleet {name}: handoff pages {rep.get('kv_handoff_pages')}, p50 {rep.get('handoff_p50_ms')} "
+                  f"ms, exported {exported}, adopted {adopted}")
+        # SIGINT to the launcher: the job is killed, every replica drains
+        t_int = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        stop_s = time.perf_counter() - t_int
+        check(rc == 0, f"fleet {name}: the launcher exited {rc} after SIGINT")
+        drained = {}
+        for log in root.glob("application_*/logs/*_0/stdout.log"):
+            m = _DRAINED_LINE.search(log.read_text(errors="replace"))
+            drained[log.parent.name] = int(m.group(1)) if m else None
+        check(len(drained) == len(roles) and all(v is not None for v in drained.values()),
+              f"fleet {name}: replica drains {drained}")
+        check(_wait_gone(60), f"fleet {name}: replica processes outlived the job: {_serving_processes()}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+            subprocess.run(["pkill", "-f", "tony_tpu.cluster"], check=False)  # the job's AM and executors
+            subprocess.run(["pkill", "-f", "tony_tpu_torch.models.serving_http"], check=False)
+    rec = {"fleet": name, "args": extra, "startup_s": startup_s, "stop_s": stop_s, "b5_launches": b5,
+           "drained": drained, **{k: rep.get(k) for k in (
+               "requests_ok", "requests_failed", "tokens_total", "tokens_per_sec", "wall_s", "ttft_p50_ms",
+               "ttft_p95_ms", "ttft_p99_ms", "token_latency_p50_ms", "latency_p50_ms", "latency_p99_ms",
+               "prefix_hit_tokens", "kv_handoff_pages", "handoff_p50_ms", "handoff_p95_ms")}}
+    print(fleet_line(rec, card), flush=True)
+    return rec
+
+
+def _wait_gone(timeout_s: float) -> bool:
+    deadline = time.time() + timeout_s
+    while _serving_processes():
+        if time.time() > deadline:
+            return False
+        time.sleep(0.5)
+    return True
+
+
+def fleet_line(rec: dict, card: str) -> str:
+    line = (f"[fleet] {rec['fleet']}: startup {rec['startup_s']:.1f} s; {rec['requests_ok']}/{LOADTEST_REQUESTS} "
+            f"ok, {rec['tokens_per_sec']:.1f} tok/s; TTFT p50/p95/p99 {rec['ttft_p50_ms']:.1f} / "
+            f"{rec['ttft_p95_ms']:.1f} / {rec['ttft_p99_ms']:.1f} ms; gap between tokens p50 "
+            f"{rec['token_latency_p50_ms']:.2f} ms; latency p50/p99 {rec['latency_p50_ms']:.1f} / "
+            f"{rec['latency_p99_ms']:.1f} ms; prefix hits {rec['prefix_hit_tokens']}; B5 {rec['b5_launches']}")
+    if rec.get("kv_handoff_pages"):
+        line += f"; handoff p50 {rec['handoff_p50_ms']:.1f} ms, {rec['kv_handoff_pages']} pages moved"
+    return line + f"; stop {rec['stop_s']:.1f} s; {card}"
+
+
+def fleet_phase(out_dir: Path, card: str) -> dict:
+    """``tony serve`` through ``python -m tony_tpu_torch_launch.serve`` twice,
+    each fleet Llama-3-8B (all 32 layers, paged, page_len 256, 8 slots,
+    max_len 2048) on the one card: ``disagg`` (one prefill and one decode
+    replica, the KV handoff between them) and ``colocated`` (one replica),
+    each driven by the same ``tony loadtest`` traffic (``LOADTEST``, streamed).
+    Holds 24/24 requests ok, prefix hits, B5 launched by the decode replica
+    during the load, and for ``disagg`` pages moved and adopted; SIGINT to the
+    launcher ends the job, every replica logs a drain and exits, and the
+    launcher within 120 s. Both tiers share the card, so ``disagg`` measures
+    the handoff's mechanics and cost, not the gain of separate tiers."""
+    check(not _serving_processes(), f"fleet: serving processes already running: {_serving_processes()}")
+    return {name: run_fleet(name, extra, out_dir, card) for name, extra in FLEETS.items()}
+
+
 # -- MoE grouped SwiGLU kernels (B7, B8) and the Mixtral path --------------------
 
 def moe_inputs(torch, MG, expert, c):
@@ -2664,6 +2983,12 @@ def main() -> int:
         # minutes of load existed
         serve = {name: run_server(name, extra, out_dir) for name, extra in SERVE_RUNS}
         serve["int8"]["profile"] = int8_serve_profile(torch, Q)
+        # the fleet after the serve runs and before the Mixtral phases, whose
+        # in-process serve needs the card's memory with every replica gone
+        handoff = kv_handoff_phase(torch, llama, DA)
+        gc.collect()
+        torch.cuda.empty_cache()
+        fleet = fleet_phase(out_dir, card)
         step = whole_step_check(torch, llama, A)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2747,12 +3072,15 @@ def main() -> int:
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"], "cases": k["cases"],
         })
+        if name == "paged_decode_attention":  # B5 on the decode tier of each fleet, during its load
+            kernels[-1]["launches_fleet"] = {f: rec["b5_launches"] for f, rec in fleet.items()}
     builds = {"flash_attention": kern["flash_fwd"]["build"], "ring_attention": kern["ring_fwd"]["build"],
               "moe_gemm": kern["moe_fwd"]["build"], "decode_attention": kern["paged_decode_attention"]["build"],
               "int8_matmul": kern["int8_matmul"]["build"]}
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": kernels, "builds": builds, "whole_step": step, "train": train,
-         "remat": remat, "serve": serve, "gang": gang, "async_save": async_save, "bench": bench,
+         "remat": remat, "serve": serve, "kv_handoff": handoff, "fleet": fleet, "gang": gang,
+         "async_save": async_save, "bench": bench,
          "mixtral": {"whole_step": moe_step, "train": moe_train, "remat": moe_remat, "serve": moe_serve},
          "cp": {"whole_step": cp_step, "train": cp_train}}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

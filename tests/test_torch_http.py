@@ -1,5 +1,6 @@
 """The port's HTTP server on the CPU: /v1/completions (JSON and SSE),
-/healthz, /stats, the 501 routes, drain on stop(), and SIGTERM → exit 0."""
+/healthz, /stats, the disaggregated routes (a prefill leg with no decode
+replica, a malformed adopt), drain on stop(), and SIGTERM → exit 0."""
 
 import json
 import os
@@ -60,10 +61,12 @@ def test_completions_json_sse_stats_and_drain(server):
         st = json.load(r)
     assert st["requests_done"] == 3 and st["prefix_hit_tokens"] > 0
     assert st["kernel_launches"]["paged_decode_attention"] == 0  # CPU: plain path only
-    for path in ("/v1/prefill", "/v1/kv/adopt"):
-        with pytest.raises(urllib.error.HTTPError) as e:
-            _post(url + path, body)
-        assert e.value.code == 501
+    with _post(url + "/v1/prefill", body) as r:  # no decode_url: pages exported, none shipped
+        leg = json.load(r)
+    assert leg["first_token"] == a["tokens"][0] and (leg["pages"], leg["adopted"]) == (1, 0)
+    with pytest.raises(urllib.error.HTTPError) as e:
+        _post(url + "/v1/kv/adopt", body)  # not a page payload
+    assert e.value.code == 400
     with pytest.raises(urllib.error.HTTPError) as e:
         _post(url + "/v1/completions", {"prompt_tokens": [1] * 60, "max_tokens": 10})
     assert e.value.code == 400

@@ -1,7 +1,9 @@
 """``chip_smoke.py``'s build report and kernel families, on the CPU: the
 parser that reads ptxas's ``-v`` report (a bf16 MoE pass, decode
-instantiation or B6 kernel that spills fails the on-card run) and the names
-by which a profiled step is split."""
+instantiation or B6 kernel that spills fails the on-card run), the names
+by which a profiled step is split, and the fleet phases' readers of the
+lines ``tony serve`` and its replicas print, its ``tony loadtest`` traffic
+and the jobs the launcher builds from its flags."""
 
 import re
 import sys
@@ -172,3 +174,92 @@ def test_bench_recipes_are_bench_pys_presets(name):
     assert port == {k: v for k, v in jax_side.items() if k in port}
     assert set(jax_side) - set(port) <= {"capacity_factor", "moe_dispatch"}  # the port runs the ragged dispatch
     assert jax_side.get("moe_dispatch", "ragged") == "ragged"
+
+
+def test_fleet_phase_reads_the_lines_the_fleet_prints(tmp_path):
+    """The router line of ``tony serve``, a replica's start and drain lines:
+    the formats in the two packages' sources, and the phase's readers of
+    them, on a staging dir laid out as the executor lays it out."""
+    serve_src = (ROOT / "tony_tpu_torch" / "models" / "serving_http.py").read_text()
+    assert 'f"[tony-serve] {url} role={args.role} preset=' in serve_src
+    assert 'f"[tony-serve] drained: {srv.requests_done} request(s) completed, exit 0"' in serve_src
+    assert 'f"[tony-serve] fleet router {endpoint} → {replicas} replica(s)"' in (
+        ROOT / "tony_tpu" / "cli" / "serve.py").read_text()
+    launcher = ("[tony-serve] submitted application_1_0001 (1 replica(s))\n"
+                "[tony-serve] fleet router http://127.0.0.1:41234 → 1 replica(s) + 1 prefill (POST ...)\n")
+    assert cs._ROUTER_LINE.search(launcher).group(1) == "http://127.0.0.1:41234"
+    logs = tmp_path / "application_1_0001" / "logs"
+    for role, task, port in (("serve", "serve_0", 5001), ("prefill", "prefill_0", 5002)):
+        (logs / task).mkdir(parents=True)
+        (logs / task / "stdout.log").write_text(
+            f"[tony-serve] http://127.0.0.1:{port} role={role} preset=llama3-8b device=cuda:0 kv=paged "
+            "int8=False slots=8 max_len=2048\n[tony-serve] draining (budget 10s)\n"
+            "[tony-serve] drained: 25 request(s) completed, exit 0\n")
+    assert cs._replica_urls(tmp_path) == {"serve": "http://127.0.0.1:5001", "prefill": "http://127.0.0.1:5002"}
+    text = (logs / "serve_0" / "stdout.log").read_text()
+    assert cs._DRAINED_LINE.search(text).group(1) == "25"
+    assert cs._DRAINED_LINE.search(text.replace("exit 0", "exit 1")) is None
+
+
+@pytest.mark.parametrize("handoff", [True, False], ids=["disagg", "colocated"])
+def test_fleet_line_names_every_number_and_the_card(handoff):
+    rec = {"fleet": "disagg" if handoff else "colocated", "startup_s": 31.2, "requests_ok": 24,
+           "tokens_per_sec": 120.5, "ttft_p50_ms": 250.0, "ttft_p95_ms": 600.0, "ttft_p99_ms": 700.0,
+           "token_latency_p50_ms": 38.1, "latency_p50_ms": 2600.0, "latency_p99_ms": 3900.0,
+           "prefix_hit_tokens": 5120, "b5_launches": 4096, "stop_s": 6.0,
+           "kv_handoff_pages": 60 if handoff else None, "handoff_p50_ms": 900.0 if handoff else None}
+    line = cs.fleet_line(rec, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert line.startswith(f"[fleet] {rec['fleet']}: startup 31.2 s; 24/24 ok, 120.5 tok/s")
+    for part in ("TTFT p50/p95/p99 250.0 / 600.0 / 700.0 ms", "gap between tokens p50 38.10 ms",
+                 "latency p50/p99 2600.0 / 3900.0 ms", "B5 4096", "NVIDIA H100 80GB HBM3, 700.00 W"):
+        assert part in line
+    assert ("handoff p50 900.0 ms, 60 pages moved" in line) == handoff
+
+
+def test_fleet_traffic_is_tony_loadtests_and_fits_the_engine():
+    """``LOADTEST`` as ``tony loadtest`` parses it: 24 streamed requests, the
+    shared prefix inside every first prompt, and the longest conversation
+    (first prompt, then each turn's answer and fresh tokens) inside max_len."""
+    pytest.importorskip("jax")
+    from tony_tpu.cli.loadtest import build_spec
+
+    spec, _ = build_spec(["--url", "http://127.0.0.1:1", *cs.LOADTEST])
+    assert spec.sessions * spec.turns == cs.LOADTEST_REQUESTS == 24 and spec.stream
+    assert sorted(n for n, _ in spec.prompt_mix) == [768, 1280] and spec.shared_prefix == 512
+    longest = max(n for n, _ in spec.prompt_mix) + (spec.turns - 1) * (spec.max_tokens + spec.turn_tokens)
+    assert longest + spec.max_tokens == 1488 < 1500 < cs.MAXT
+    assert spec.vocab <= 128_256  # prompt ids inside Llama-3's vocabulary
+
+
+@pytest.mark.parametrize("fleet", sorted(cs.FLEETS))
+def test_fleet_jobs_run_the_port_on_the_card(fleet):
+    """The launcher turns each fleet's flags into a job whose replicas run the
+    port's server on the card, paged at the serve runs' geometry, with a
+    prefill tier exactly when disaggregated."""
+    pytest.importorskip("jax")
+    from tony_tpu.config import keys
+    from tony_tpu_torch_launch.serve import build_config
+
+    config, _ = build_config([*cs.FLEET_ENGINE, *cs.FLEETS[fleet]])
+    serve = config.get(keys.jobtype_key("serve", keys.COMMAND_SUFFIX))
+    assert " -m tony_tpu_torch.models.serving_http --device cuda --preset llama3-8b " in serve
+    for flag in ("--kv paged", f"--page-len {cs.PLEN}", f"--slots {cs.S}", f"--max-len {cs.MAXT}",
+                 "--decode-chunk 8"):
+        assert flag in serve
+    prefill = config.get(keys.jobtype_key("prefill", keys.COMMAND_SUFFIX))
+    if fleet == "disagg":
+        assert prefill == serve + " --role prefill" and config.instances("prefill") == 1
+    else:
+        assert not config.get_bool(keys.SERVE_DISAGG_ENABLED, False)
+    assert config.instances("serve") == 1
+
+
+def test_kv_handoff_prompt_is_five_full_pages():
+    """The [kv-handoff] prompt fills 5 pages, so a 5-page payload of
+    2 x 32 x 5 x 8 x 256 x 128 x 2 bytes (k and v, bf16) crosses the wire."""
+    from tony_tpu_torch.models.llama import PRESETS
+
+    cfg = PRESETS["llama3-8b"]
+    pages = cs.HANDOFF_PROMPT // cs.PLEN
+    assert cs.HANDOFF_PROMPT % cs.PLEN == 0 and pages == 5
+    assert 2 * cfg.n_layers * pages * cfg.n_kv_heads * cs.PLEN * cfg.head_dim * 2 == 167_772_160

@@ -13,6 +13,15 @@ ENV_JOB_NAME = "JOB_NAME"                # task type, e.g. "worker"
 ENV_TASK_INDEX = "TASK_INDEX"            # index within the type
 ENV_RESTART_ATTEMPT = "TONY_RESTART_ATTEMPT"  # gang epoch (whole-gang restarts)
 
+# the AM's RPC endpoint, exported to every task: a serving replica registers
+# its URL there (register_task_url)
+ENV_AM_HOST = "TONY_AM_HOST"
+ENV_AM_PORT = "TONY_AM_PORT"
+ENV_AM_SECRET = "TONY_AM_SECRET"
+# the serve TTFT objective's threshold (tony.slo.serve-ttft-threshold-ms):
+# a replica aligns a TTFT histogram bucket edge to it
+ENV_SLO_TTFT_MS = "TONY_SLO_TTFT_MS"
+
 # training child: where the executor wants the latest step report, and the
 # tony.checkpoint.* / tony.train.* keys of the frozen job conf
 ENV_TRAIN_METRICS_FILE = "TONY_TRAIN_METRICS_FILE"

@@ -6,10 +6,10 @@ lives in physical page ``page_table[s, j]``. Full prompt pages are
 content-addressed by their exact token prefix and shared, refcounted, by
 later requests with the same prefix. ``PageAllocator`` and ``prefix_keys``
 are host code, copied as they are. The device updates write the pool in
-place (the JAX versions donate the pool and alias it).
-
-``gather_pages``/``scatter_pages`` (the disaggregated KV handoff) come with
-the port's disaggregated-serving slice.
+place (the JAX versions donate the pool and alias it). ``gather_pages`` and
+``scatter_pages`` are the two device halves of the disaggregated KV handoff
+(``serve/disagg.py``); in JAX they are plain jitted XLA, not Pallas, so
+plain tensor indexing is their counterpart.
 """
 
 from __future__ import annotations
@@ -76,6 +76,10 @@ class PageAllocator:
 
     def available(self) -> int:
         return len(self._free) + len(self._reusable)
+
+    def free_pages(self) -> int:
+        """Pages that an alloc() takes without evicting the reuse pool."""
+        return len(self._free)
 
     def live_pages(self) -> int:
         return self.num_pages - 1 - self.available()  # page 0 never counts
@@ -176,4 +180,23 @@ def insert_paged_prefill(
             dst[:, idx] = span.reshape(L, Hkv, n, page_len, Dh).permute(0, 2, 1, 3, 4)
     cache.lengths[slot] = true_len
     cache.page_table[slot] = torch.tensor(pt_row, dtype=torch.int32, device=cache.page_table.device)
+    return cache
+
+
+def gather_pages(pk: torch.Tensor, pv: torch.Tensor, pages: list[int]) -> tuple[torch.Tensor, torch.Tensor]:
+    """Read physical ``pages`` out of the pools ([L, P, Hkv, page_len, Dh])
+    into one [L, n, Hkv, page_len, Dh] pair, on the pools' device: the
+    export half of the handoff. The caller copies them to the host."""
+    idx = torch.tensor(pages, dtype=torch.long, device=pk.device)
+    return pk.index_select(1, idx), pv.index_select(1, idx)
+
+
+def scatter_pages(cache: PagedCache, pages: list[int], vals_k: torch.Tensor,
+                  vals_v: torch.Tensor) -> PagedCache:
+    """Write received pages ([L, n, Hkv, page_len, Dh], any device) into
+    physical ``pages`` of the pools, in place: the adopt half of the
+    handoff. The caller has alloc()'d the pages, so nothing live is hit."""
+    idx = torch.tensor(pages, dtype=torch.long, device=cache.k.device)
+    cache.k.index_copy_(1, idx, vals_k.to(cache.k.device, cache.k.dtype))
+    cache.v.index_copy_(1, idx, vals_v.to(cache.v.device, cache.v.dtype))
     return cache

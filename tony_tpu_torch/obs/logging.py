@@ -1,9 +1,9 @@
-"""JSON log records of the training child.
+"""JSON log records of the training child and the serving replica.
 
 Own copy of the subset of ``tony_tpu/obs/logging.py`` the child writes:
 under ``tony submit`` the executor exports ``TONY_LOG_DIR`` and
 ``TONY_LOG_LEVEL``, and each record at or above the level is appended as
-one JSON object to ``<TONY_LOG_DIR>/<job>_<index>_train.log.jsonl`` (with
+one JSON object to ``<TONY_LOG_DIR>/<job>_<index>_<role>.log.jsonl`` (with
 the gang ``epoch`` and the span open on the thread), where ``tony logs``
 merges it with the AM's and the executors'. Every record at ``info`` or
 above is also echoed, to stdout (stderr from ``warning``), as the
@@ -83,9 +83,15 @@ def warning(msg: str, **fields: Any) -> None:
     _log(WARNING, msg, fields)
 
 
-def init_from_env(env: Mapping[str, str] | None = None) -> "JsonLogger | None":
+def error(msg: str, **fields: Any) -> None:
+    _log(ERROR, msg, fields)
+
+
+def init_from_env(env: Mapping[str, str] | None = None, role: str = "train") -> "JsonLogger | None":
     """Install the process logger when the executor exported a log dir
-    (and the level is not ``off``); None otherwise (echo only)."""
+    (and the level is not ``off``); None otherwise (echo only). ``role`` is
+    the identity's suffix: the training loop keeps "train", a serving
+    replica passes "serve"."""
     global _logger
     env = os.environ if env is None else env
     log_dir = env.get(constants.ENV_LOG_DIR, "")
@@ -93,7 +99,7 @@ def init_from_env(env: Mapping[str, str] | None = None) -> "JsonLogger | None":
     if not log_dir or level >= OFF:
         return None
     job, idx = env.get(constants.ENV_JOB_NAME), env.get(constants.ENV_TASK_INDEX)
-    identity = f"{job}:{idx}:train" if job and idx is not None else "proc"
+    identity = f"{job}:{idx}:{role}" if job and idx is not None else "proc"
     shutdown()
     _logger = JsonLogger(identity, log_dir, level=level,
                          epoch=int(env.get(constants.ENV_RESTART_ATTEMPT, "0") or 0))

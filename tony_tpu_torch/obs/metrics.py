@@ -1,9 +1,10 @@
-"""Process-wide metrics registry of the training child.
+"""Process-wide metrics registry of the training child and the serving replica.
 
 Own copy of the subset of ``tony_tpu/obs/metrics.py`` the port records
-into: named counters, gauges and fixed-bucket histograms in one
-``REGISTRY``, and ``snapshot()`` in the JSON shape the JAX registry gives.
-The training loop drops that snapshot at ``<train-metrics-file>.obs``; the
+into: named counters, gauges and fixed-bucket histograms (with an SLO
+bucket edge and worst-value exemplars) in one ``REGISTRY``, and
+``snapshot()`` in the JSON shape the JAX registry gives. The training loop
+and the serving replica drop that snapshot at ``<train-metrics-file>.obs``; the
 executor merges it into its metrics push, so the instruments reach the
 AM's ``get_metrics``, ``tony top``, ``tony goodput`` and the portal's
 ``/metrics``. ``set_enabled(False)`` (``tony.metrics.enabled=false``)
@@ -74,6 +75,10 @@ class Gauge(_Metric):
             self._children[key] = float(value)
 
 
+#: worst-offender exemplars kept per histogram child (highest values)
+EXEMPLAR_K = 5
+
+
 class Histogram(_Metric):
     """Fixed-bucket histogram: per-bucket counts plus an overflow bucket."""
 
@@ -87,7 +92,25 @@ class Histogram(_Metric):
             raise ValueError(f"{name}: buckets must be finite and non-empty")
         self.buckets = tuple(bs)
 
-    def observe(self, value: float, **labels: Any) -> None:
+    def ensure_bucket(self, bound: float) -> None:
+        """Insert a bucket edge (idempotent), e.g. the SLO's TTFT threshold,
+        so good/bad counts are exact. Call at startup: values observed
+        before stay in their coarser bucket."""
+        b = float(bound)
+        if not math.isfinite(b) or b <= 0:
+            raise ValueError(f"{self.name}: SLO bucket bound must be finite and > 0")
+        with self._lock:
+            if b in self.buckets:
+                return
+            merged = sorted(self.buckets + (b,))
+            idx = merged.index(b)
+            self.buckets = tuple(merged)
+            for child in self._children.values():
+                child["counts"].insert(idx, 0)
+
+    def observe(self, value: float, exemplar: Any = None, **labels: Any) -> None:
+        """Count ``value``; an ``exemplar`` (a request id) joins the
+        child's worst-``EXEMPLAR_K`` list by value."""
         if not _enabled:
             return
         key = self._key(labels)
@@ -95,17 +118,24 @@ class Histogram(_Metric):
             child = self._children.get(key)
             if child is None:
                 child = self._children[key] = {"counts": [0] * (len(self.buckets) + 1),
-                                               "sum": 0.0, "count": 0}
+                                               "sum": 0.0, "count": 0, "exemplars": []}
             i = next((i for i, ub in enumerate(self.buckets) if value <= ub), len(self.buckets))
             child["counts"][i] += 1
             child["sum"] += value
             child["count"] += 1
+            if exemplar is not None:
+                ex = child["exemplars"]
+                ex.append((float(value), str(exemplar)))
+                ex.sort(key=lambda t: -t[0])
+                del ex[EXEMPLAR_K:]
 
-    def _samples(self) -> list[dict[str, Any]]:
+    def _snapshot(self) -> tuple[list[float], list[dict[str, Any]]]:
+        # buckets and counts under one lock: ensure_bucket resizes counts
         with self._lock:
-            return [{"labels": dict(zip(self.labelnames, k)), "counts": list(v["counts"]),
-                     "sum": v["sum"], "count": v["count"], "exemplars": []}
-                    for k, v in self._children.items()]
+            return list(self.buckets), [
+                {"labels": dict(zip(self.labelnames, k)), "counts": list(v["counts"]),
+                 "sum": v["sum"], "count": v["count"], "exemplars": [list(e) for e in v["exemplars"]]}
+                for k, v in self._children.items()]
 
 
 class MetricsRegistry:
@@ -134,8 +164,9 @@ class MetricsRegistry:
             entry: dict[str, Any] = {"name": m.name, "type": m.kind, "help": m.help,
                                      "labelnames": list(m.labelnames)}
             if isinstance(m, Histogram):
-                entry["buckets"] = list(m.buckets)
-            entry["samples"] = m._samples()
+                entry["buckets"], entry["samples"] = m._snapshot()
+            else:
+                entry["samples"] = m._samples()
             out.append(entry)
         return out
 

@@ -1,12 +1,14 @@
-"""Spans of the training child, in the control plane's span JSONL.
+"""Spans of the training child and the serving replica, in the control
+plane's span JSONL.
 
 Own copy of the subset of ``tony_tpu/obs/trace.py`` the child writes: one
 job is one trace (``trace_id`` is the application id); the child's tracer
 appends finished spans to ``<TONY_TRACE_DIR>/<job>_<index>_train.spans.jsonl``
 with its root span under the executor's (``TONY_TRACE_PARENT``), so ``tony
 trace`` and the goodput ledger (``train.first_step``, ``train.input_wait``,
-``ckpt.save`` spans) read a port job as a JAX one. Off by default: ``get()``
-is None and ``maybe_span`` hands out a shared no-op context.
+``ckpt.save`` spans; a replica's ``serve.request`` chain) read a port job as
+a JAX one. Off by default: ``get()`` is None, ``maybe_span`` hands out a
+shared no-op context and ``start_manual`` returns None.
 """
 
 from __future__ import annotations
@@ -51,6 +53,33 @@ def maybe_span(name: str, **attrs: Any):
     """A real span when tracing is on, else the shared no-op context."""
     tr = _tracer
     return _NOOP if tr is None else tr.span(name, **attrs)
+
+
+def start_manual(name: str, parent_id: str | None = None, **attrs: Any) -> "Span | None":
+    """A span not bound to the thread's context, for a lifecycle that
+    crosses engine-loop iterations (one serve request's queue → prefill →
+    decode chain). None when tracing is off, so the disabled path is one
+    None check. Pair with ``end_manual``."""
+    tr = _tracer
+    if tr is None:
+        return None
+    if parent_id is None:
+        cur = _CURRENT.get()
+        parent_id = cur.span_id if cur is not None else tr.root_parent
+    span = Span(name, tr.trace_id, os.urandom(8).hex(), parent_id, "internal", tr.identity)
+    span.attrs.update(attrs)
+    return span
+
+
+def end_manual(span: "Span | None", status: str = "ok", **attrs: Any) -> None:
+    """Finish and write a ``start_manual`` span (no-op on None)."""
+    tr = _tracer
+    if tr is None or span is None:
+        return
+    span.attrs.update(attrs)
+    span.end_ms = time.time() * 1000.0
+    span.status = status
+    tr.write(span)
 
 
 class Span:
@@ -113,6 +142,10 @@ class Tracer:
             _CURRENT.reset(token)
         except ValueError:
             pass  # ended from another context than it started in
+        self.write(span)
+
+    def write(self, span: Span) -> None:
+        """Append one finished span to the sink."""
         line = json.dumps(span.to_dict())
         with self._lock:
             try:
