@@ -144,8 +144,25 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    batch; tok/s of both, the decode step time and peak memory; then one
    decode chunk of a full batch under ``torch.profiler``: device ms by
    kernel family (``decode`` is B4/B5) and the card's busy share;
-10. prints ``{"kernels": [...]}`` (B5 with its fleet launches) and, last,
+10. BERT-base MLM (last, with every earlier phase's state freed): B1-B3 on
+    BERT's shapes (non-causal, H = Hkv = 12, Dh 64, T=512: bench.py's B=384,
+    and B=64 rows of three packed segments and a padded tail), held, faulted
+    and timed as the Llama cases, each also twice for the same bits and with
+    a query head dropped by B1 and by B3; ``[bert-step]``: ``loss_fn`` and
+    every gradient through the kernels against ``attn_impl="reference"``
+    (12 layers, bf16, B=8, T=512) on the gathered layout and on a dense
+    packed batch, with a query head dropped by B1 that must fail;
+    ``[bench-bert]``: bench.py's bert recipe (remat, B=384, T=512) through
+    ``run_lm_training`` as in 5b, MFU with the head at the masked fraction,
+    B1/B2/B3 24/12/12 launches a step; ``[bert-pack]``: ``pack_ab.py``'s
+    seeded documents padded one a row against packed by ``pack_sequences``,
+    content tokens/s of both and the pack ratio;
+11. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
+    their ``[bench-bert]`` launches and BERT cases) and, last,
     ``{"ok": true, "device": {...}}``.
+
+Each phase prints ``[phase] <name> start`` and ``[phase] <name> <s>s``, so a
+failure is named by the last start line.
 
 Imports only ``tony_tpu_torch``, torch, numpy and the standard library; it
 runs the orchestrator (``tony_tpu.cli.main``, and ``tony_tpu_torch_launch``,
@@ -187,13 +204,23 @@ DECODE_BATCH_LEN, DECODE_BATCH_STAGED = 140, 4  # kernel case "decode_batch": th
 INT8_REL_TOL = 2e-2  # max |kernel - plain| <= 2e-2 * max |plain|: ~2.5 bf16 ulps at the top of the range
 INT8_MS = (8, 128, 1024)  # B6 cases: a decode step, a short prompt, a 1000-token prompt's prefill bucket
 
-# Llama-3-8B training shapes of the flash kernels (B1-B3)
+# training shapes of the flash kernels (B1-B3): Llama-3-8B's (causal GQA, Dh
+# 128) and BERT-base's (non-causal MHA, Dh 64: bench.py's bert recipe, and
+# packed rows of three documents and a padded tail, segment 0)
+_LLAMA_HEADS = dict(H=H, Hkv=HKV, Dh=DH, causal=True)
+_BERT_HEADS = dict(H=12, Hkv=12, Dh=64, causal=False)
 FLASH_CASES = {
-    "train": dict(B=4, T=2048, window=0, n_seg=1),      # the train run's shape
-    "long": dict(B=1, T=8192, window=0, n_seg=1),       # where JAX streams dk/dv
-    "segments": dict(B=4, T=2048, window=0, n_seg=3),   # 3 packed segments a row
-    "window": dict(B=4, T=2048, window=1024, n_seg=1),  # sliding window 1024
+    "train": dict(B=4, T=2048, window=0, n_seg=1, **_LLAMA_HEADS),      # the train run's shape
+    "long": dict(B=1, T=8192, window=0, n_seg=1, **_LLAMA_HEADS),       # where JAX streams dk/dv
+    "segments": dict(B=4, T=2048, window=0, n_seg=3, **_LLAMA_HEADS),   # 3 packed segments a row
+    "window": dict(B=4, T=2048, window=1024, n_seg=1, **_LLAMA_HEADS),  # sliding window 1024
+    "bert": dict(B=384, T=512, window=0, n_seg=1, **_BERT_HEADS),       # bench.py's bert recipe
+    "bert_packed": dict(B=64, T=512, window=0, n_seg=3, pad=True, **_BERT_HEADS),
 }
+LLAMA_FLASH_CASES = ("train", "long", "segments", "window")
+#: run in the BERT phases, after the others; also held to the same bits twice
+#: and to a query head dropped by B1 and by B3 (each must fail the row limit)
+BERT_FLASH_CASES = ("bert", "bert_packed")
 # o, dq, dk and dv of the bf16 kernels against their f32 plain versions, held
 # row by row (``row_rel_err``): the kernels round P and dS to bf16 for the
 # tensor cores, so a sound row is off by a few bf16 ulps of the row (H100:
@@ -278,6 +305,22 @@ CP_TRAIN_STEPS = 3
 GANG_STEPS, GANG_CKPT_EVERY, GANG_LOSS_AT = 12, 4, 9
 GANG_B, GANG_T, GANG_SHARDS = 8, 2048, 4
 GANG_LOSS_REL = 2e-3
+
+# BERT-base MLM (bench.py's bert recipe: B=384, T=512, remat): [bert-step] at
+# B=8 against attn_impl="reference", the loss within BERT_STEP_LOSS_REL
+# relative and every gradient leaf within BERT_STEP_GRAD_REL in relative norm.
+# The sound readings (H100, gathered / dense packed): loss 1.9e-5 / 3.1e-5,
+# worst leaf 1.7e-2 / 1.6e-2 (pos_embed: rows summed over every token, which
+# the reference's bf16 probabilities round). A query head dropped by B1
+# reads loss 1.2e-3 / 9.9e-5 and worst leaf 0.87 / 1.08: the gradient limit
+# sits between the two on both batches, the loss limit on the gathered one
+# (one head of twelve, where only 15% of the positions score, barely moves
+# the dense loss). [bert-pack] on pack_ab.py's seeded stream of 384 documents
+BERT_T, BERT_STEP_B = 512, 8
+BERT_STEP_LOSS_REL = 2e-4
+BERT_STEP_GRAD_REL = 0.2
+BERT_DOC_LEN = (48, 512)
+BERT_PACK_ROWS, BERT_PACK_WARMUP, BERT_PACK_STEPS = 384, 2, 4
 
 
 class SmokeFailure(Exception):
@@ -755,18 +798,26 @@ def skipped_tile(A):
 
 
 def flash_inputs(torch, A, c):
+    """q, k, v, do (bf16), segment ids and the [B, T, T] visible mask of a
+    flash case. Segments: ``n_seg`` a row from random cuts, numbered from 0;
+    with ``pad`` numbered from 1 and followed by a padded tail of 16-64
+    positions (segment 0), as ``pack_sequences`` lays out rows."""
     g = torch.Generator(device="cuda").manual_seed(2)
-    B, T = c["B"], c["T"]
+    B, T, Hq, Hkv, Dh = c["B"], c["T"], c["H"], c["Hkv"], c["Dh"]
     rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
-    q, k, v, do = rnd(B, H, T, DH), rnd(B, HKV, T, DH), rnd(B, HKV, T, DH), rnd(B, H, T, DH)
+    q, k, v, do = rnd(B, Hq, T, Dh), rnd(B, Hkv, T, Dh), rnd(B, Hkv, T, Dh), rnd(B, Hq, T, Dh)
     seg = None
     if c["n_seg"] > 1:
         rows = []
         for _ in range(B):
-            cuts = torch.randperm(T - 1, generator=g, device="cuda")[: c["n_seg"] - 1].sort().values + 1
-            rows.append(torch.searchsorted(cuts, torch.arange(T, device="cuda"), right=True))
+            tail = int(torch.randint(16, 65, (1,), generator=g, device="cuda")) if c.get("pad") else 0
+            cuts = torch.randperm(T - tail - 1, generator=g, device="cuda")[: c["n_seg"] - 1].sort().values + 1
+            ids = torch.searchsorted(cuts, torch.arange(T, device="cuda"), right=True)
+            if c.get("pad"):
+                ids = torch.where(torch.arange(T, device="cuda") < T - tail, ids + 1, 0)
+            rows.append(ids)
         seg = torch.stack(rows).to(torch.int32).contiguous()
-    visible = torch.stack([A._visible(T, T, True, c["window"], None if seg is None else seg[b], "cuda")
+    visible = torch.stack([A._visible(T, T, c["causal"], c["window"], None if seg is None else seg[b], "cuda")
                            for b in range(B)])
     return q, k, v, do, seg, visible
 
@@ -775,24 +826,30 @@ def flash_cost(c, pairs: int, seg) -> dict:
     """Operations and bytes of each kernel on this run's data: ``pairs``
     visible (query, key) positions per head; each input read once, each
     output written once (bf16 tensors, f32 lse / delta, int32 segment ids)."""
-    B, T = c["B"], c["T"]
-    qb, kvb, row = B * H * T * DH * 2, B * HKV * T * DH * 2, B * H * T * 4
+    B, T, Hq, Hkv, Dh = c["B"], c["T"], c["H"], c["Hkv"], c["Dh"]
+    qb, kvb, row = B * Hq * T * Dh * 2, B * Hkv * T * Dh * 2, B * Hq * T * 4
     segb = B * T * 4 if seg is not None else 0
     return {
-        "flash_fwd": (4 * H * DH * pairs, 2 * qb + 2 * kvb + row + segb),
-        "flash_bwd_dq": (6 * H * DH * pairs, 3 * qb + 2 * kvb + 2 * row + segb),
-        "flash_bwd_dkv": (8 * H * DH * pairs, 2 * qb + 4 * kvb + 2 * row + segb),
+        "flash_fwd": (4 * Hq * Dh * pairs, 2 * qb + 2 * kvb + row + segb),
+        "flash_bwd_dq": (6 * Hq * Dh * pairs, 3 * qb + 2 * kvb + 2 * row + segb),
+        "flash_bwd_dkv": (8 * Hq * Dh * pairs, 2 * qb + 4 * kvb + 2 * row + segb),
     }
 
 
-def flash_kernel_phase(torch, A, flush) -> dict:
+def flash_kernel_phase(torch, A, flush, cases) -> dict:
+    """B1-B3 against their plain versions on the ``FLASH_CASES`` named by
+    ``cases``, with planted faults, timed against their bound and SDPA."""
     import torch.nn.functional as F
 
     build = attention_build_report("flash_attention")
     recs = {"flash_fwd": [], "flash_bwd_dq": [], "flash_bwd_dkv": []}
-    for name, c in FLASH_CASES.items():
+    for name in cases:
+        c = FLASH_CASES[name]
+        print(f"[kernel] flash case {name}: B={c['B']} T={c['T']} H={c['H']} Hkv={c['Hkv']} Dh={c['Dh']} "
+              f"causal={c['causal']} window={c['window']} segments={c['n_seg']}"
+              + (" + padded tail" if c.get("pad") else ""), flush=True)
         q, k, v, do, seg, visible = flash_inputs(torch, A, c)
-        kw = dict(causal=True, segment_ids=seg, window=c["window"])
+        kw = dict(causal=c["causal"], segment_ids=seg, window=c["window"])
         o, lse = A.flash_fwd(q, k, v, **kw)
         o_p, lse_p = A.flash_fwd_plain(q, k, v, **kw)
         delta = (do.float() * o_p.float()).sum(-1)
@@ -809,16 +866,30 @@ def flash_kernel_phase(torch, A, flush) -> dict:
             dk_f, dv_f = A.flash_bwd_dkv_plain(*bwd, **kw)
         outs = {"flash_fwd": [(o, o_p, o_f)], "flash_bwd_dq": [(dq, dq_p, dq_f)],
                 "flash_bwd_dkv": [(dk, dk_p, dk_f), (dv, dv_p, dv_f)]}
+        head_faults, same_bits = {}, None
+        if name in BERT_FLASH_CASES:
+            # the same bits from a second launch of each kernel; a query head
+            # dropped by B1 (its o) and by B3 (its do and delta) must fail too
+            o2, lse2 = A.flash_fwd(q, k, v, **kw)
+            dk2, dv2 = A.flash_bwd_dkv(*bwd, **kw)
+            same_bits = all(torch.equal(a, b) for a, b in (
+                (o, o2), (lse, lse2), (dq, A.flash_bwd_dq(*bwd, **kw)), (dk, dk2), (dv, dv2)))
+            del o2, lse2, dk2, dv2
+            o_h = dropped_head_fwd(A)(q, k, v, **kw)[0]
+            dk_h, dv_h = dropped_head_dkv(A)(*bwd, **kw)
+            head_faults = {"flash_fwd": row_rel_err(o_h, o_p),
+                           "flash_bwd_dkv": max(row_rel_err(dk_h, dk_p), row_rel_err(dv_h, dv_p))}
+            del o_h, dk_h, dv_h
         # the library yardstick: SDPA on head-expanded K/V (a boolean mask for
         # segments and the window), its forward, and its backward alone from
         # a saved forward (which covers B2 and B3 together)
-        rep = H // HKV
+        rep = c["H"] // c["Hkv"]
         kk = k.repeat_interleave(rep, 1).requires_grad_(True)
         vv = v.repeat_interleave(rep, 1).requires_grad_(True)
         qq = q.detach().clone().requires_grad_(True)
         mask = visible[:, None] if seg is not None or c["window"] else None
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qq, kk, vv, attn_mask=mask, is_causal=mask is None)
+            qq, kk, vv, attn_mask=mask, is_causal=mask is None and c["causal"])
         with torch.no_grad():
             lib_err = (sdpa().float() - o_p.float()).abs().max().item()
             lib_fwd = time_ms(torch, sdpa, flush)
@@ -845,15 +916,24 @@ def flash_kernel_phase(torch, A, flush) -> dict:
             print(f"[kernel] {kname} {name:9s} row err {err:.3e} (tol {FLASH_ROW_TOL}; planted fault "
                   f"{fault:.3e}), max_abs_err {abs_err:.3e}"
                   + (f"; lse err {lse_err:.2e} (tol {LSE_ATOL}); sdpa max_abs_err {lib_err:.2e}"
-                     if kname == "flash_fwd" else ""), flush=True)
+                     if kname == "flash_fwd" else "")
+                  + (f"; dropped query head {head_faults[kname]:.3e}" if kname in head_faults else ""),
+                  flush=True)
         check(lse_err <= LSE_ATOL, f"flash_fwd {name}: lse error {lse_err} > {LSE_ATOL}")
         for kname, (err, fault, _) in errs.items():
             check(err <= FLASH_ROW_TOL, f"{kname} {name}: row error {err} > {FLASH_ROW_TOL}")
             check(fault > FLASH_ROW_TOL, f"{kname} {name}: the check passes a planted fault ({fault})")
+        for kname, fault in head_faults.items():
+            check(fault > FLASH_ROW_TOL, f"{kname} {name}: the check passes a dropped query head ({fault})")
+        if same_bits is not None:
+            print(f"[kernel] flash {name}: a second launch of B1-B3 gives the same bits: {same_bits}", flush=True)
+            check(same_bits, f"flash {name}: a second launch of B1-B3 gave other bits")
         for kname, (err, fault, abs_err) in errs.items():
             flops, nbytes = cost[kname]
             rec = {"case": name, "max_abs_err": abs_err, "row_err": err, "tol": FLASH_ROW_TOL,
                    "fault_row_err": fault, "pairs": pairs, "flops": flops, "bytes": nbytes,
+                   **({"fault_head_row_err": head_faults[kname]} if kname in head_faults else {}),
+                   **({"same_bits": same_bits} if same_bits is not None else {}),
                    "ms": time_ms(torch, kernels[kname], flush),
                    "plain_ms": time_ms(torch, plains[kname], flush, iters=3, warmup=1),
                    "library_ms": lib_fwd if kname == "flash_fwd" else lib_bwd,
@@ -880,6 +960,13 @@ def _leaves(tree: dict, prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
+def _dropped_heads(q, k) -> slice:
+    """Query head 0 of every kv group; head 0 alone where each group is one
+    head (MHA)."""
+    n_rep = q.shape[1] // k.shape[1]
+    return slice(None, None, n_rep) if n_rep > 1 else slice(0, 1)
+
+
 def dropped_head_fwd(A):
     """B1 with a planted fault: query head 0 of every kv group gives zeros."""
     real = A.flash_fwd
@@ -887,7 +974,7 @@ def dropped_head_fwd(A):
     def fwd(q, k, v, **kw):
         o, lse = real(q, k, v, **kw)
         o = o.clone()
-        o[:, ::q.shape[1] // k.shape[1]] = 0
+        o[:, _dropped_heads(q, k)] = 0
         return o, lse
 
     return fwd
@@ -900,8 +987,8 @@ def dropped_head_dkv(A):
 
     def dkv(q, k, v, do, lse, delta, **kw):
         do, delta = do.clone(), delta.clone()
-        do[:, ::q.shape[1] // k.shape[1]] = 0
-        delta[:, ::q.shape[1] // k.shape[1]] = 0
+        do[:, _dropped_heads(q, k)] = 0
+        delta[:, _dropped_heads(q, k)] = 0
         return real(q, k, v, do, lse, delta, **kw)
 
     return dkv
@@ -1043,10 +1130,11 @@ def _kernel_family(name: str) -> str:
 
 def profile_families(torch, run, reps: int):
     """``reps`` calls of ``run`` under ``torch.profiler``: device ms a call by
-    kernel family, device-busy ms a call (the union of the kernels' spans),
-    the host wall a call, and the busy share (busy over the host wall, which
-    the profiler's own host cost stretches). None if the profiler recorded
-    no device activity."""
+    kernel family, the five kernels with the most device ms a call (name, ms,
+    launches), device-busy ms a call (the union of the kernels' spans), the
+    host wall a call, and the busy share (busy over the host wall, which the
+    profiler's own host cost stretches). None if the profiler recorded no
+    device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1060,17 +1148,23 @@ def profile_families(torch, run, reps: int):
     if not kernels:
         return None
     fam: dict = {}
+    names: dict = {}
     for e in kernels:
+        ms = (e.time_range.end - e.time_range.start) / 1e3 / reps
         f = _kernel_family(e.name)
-        fam[f] = fam.get(f, 0.0) + (e.time_range.end - e.time_range.start) / 1e3 / reps
+        fam[f] = fam.get(f, 0.0) + ms
+        rec = names.setdefault(e.name[:120], [0.0, 0])
+        rec[0] += ms
+        rec[1] += 1
     busy_us = _union_us((e.time_range.start, e.time_range.end) for e in kernels)
-    return {"device_ms_by_family": fam, "device_ms": busy_us / 1e3 / reps,
+    top_kernels = [(n, ms, count // reps) for n, (ms, count) in sorted(names.items(), key=lambda kv: -kv[1][0])[:5]]
+    return {"device_ms_by_family": fam, "top_kernels": top_kernels, "device_ms": busy_us / 1e3 / reps,
             "profiled_wall_ms": wall_us / 1e3 / reps, "busy_share": busy_us / wall_us}
 
 
-def step_breakdown(torch, model, preset: str, layers: int, tag: str) -> dict:
-    """Where the train step's time goes, on the train run's shapes (B=4,
-    T=2048, ``preset`` cut to ``layers``): the step as ``make_train_step``
+def step_breakdown(torch, model, cfg, tag: str, B: int = 4, T: int = 2048) -> dict:
+    """Where the train step's time goes, at ``cfg`` on B rows of T (the train
+    runs' B=4, T=2048 by default): the step as ``make_train_step``
     runs it (``loss_fn``, gradients, global norm, AdamW), timed with CUDA
     events in two parts, then two more steps under ``torch.profiler`` for
     device time by kernel family and the busy share (device time over the
@@ -1078,14 +1172,13 @@ def step_breakdown(torch, model, preset: str, layers: int, tag: str) -> dict:
     stretches)."""
     from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState, global_norm
 
-    cfg = model.config_from_dict({"preset": preset, "n_layers": layers})
     opt = OptimizerConfig(learning_rate=3e-4, warmup_steps=2, total_steps=6).build()
     state = TrainState.create(model.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda"), opt)
     names, tensors = zip(*_leaves(state.params))
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def step():
-        batch = model.synthetic_batch(gen, 4, 2048, cfg)
+        batch = model.synthetic_batch(gen, B, T, cfg)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         ev[0].record()
         loss, _ = model.loss_fn(state.params, batch, cfg)
@@ -1107,6 +1200,8 @@ def step_breakdown(torch, model, preset: str, layers: int, tag: str) -> dict:
         print(f"[{tag}] step split: loss+grads {rec['grads_ms']:.1f} ms, optimizer {rec['optimizer_ms']:.1f} ms; "
               f"device ms a step by kernel family {({k: round(v, 1) for k, v in fam.items()})}, "
               f"busy {rec['busy_share']:.3f} of the profiled wall", flush=True)
+        for name, ms, n in prof["top_kernels"]:
+            print(f"[{tag}]   {ms:8.1f} ms {n:5d}x  {name}", flush=True)
     else:
         rec["device_ms_by_family"] = "not measured: the profiler recorded no device activity"
         print(f"[{tag}] step split: loss+grads {rec['grads_ms']:.1f} ms, optimizer {rec['optimizer_ms']:.1f} ms; "
@@ -1130,6 +1225,7 @@ BENCH_RECIPES = {
     "moe": ("mixtral", {"vocab_size": 32_000, "d_model": 1024, "n_layers": 8, "n_heads": 8, "n_kv_heads": 4,
                         "d_ff": 2048, "max_seq": 2048, "num_experts": 8, "top_k": 2, "remat": True,
                         "remat_policy": "flash", "ce_chunk": 512}, 44, 2048),
+    "bert": ("bert", {"preset": "bert-base", "remat": True, "attn_impl": "auto"}, 384, 512),
 }
 BENCH_STEPS = 6
 # the asynchronous save at the gang's shape (llama-1b, B=8, T=2048): saves
@@ -1242,11 +1338,21 @@ def remat_phase(torch, model, cfg, policies, counters, tag: str, loss_tol: float
     return out
 
 
+def bench_line(name: str, rec: dict) -> str:
+    return (f"[bench-{name}] bench.py's {name} recipe ({rec['params'] / 1e9:.3f} B params, MFU basis "
+            f"{rec['mfu_params'] / 1e9:.3f} B), B={rec['batch']} T={rec['seq_len']}, remat {rec['remat']}, "
+            f"ce_chunk {rec['ce_chunk']}: {rec['step_ms']:.1f} ms/step, {rec['tok_per_s']:.0f} tok/s, MFU "
+            f"{rec['mfu']:.3f} ({rec['mfu_basis']}), peak memory {rec['max_memory_gib']:.1f} GiB, wall "
+            f"{rec['wall_s']:.1f}s; launches {rec['launches']}, a step {rec['launches_per_step']}")
+
+
 def bench_recipe_phase(torch, name: str, model, counters) -> dict:
     """bench.py's ``name`` preset through ``run_lm_training`` for
     ``BENCH_STEPS`` steps: ms/step and tok/s over the steady steps (all but
-    the first), MFU on 6N + causal attention at T (N active for a MoE), peak
-    memory and the kernel launches (counts set to 0 just before the call)."""
+    the first), MFU on 6N + causal attention at T (N active for a MoE; for
+    BERT 6N + bidirectional attention with the MLM head at the gathered
+    batch's masked fraction, the loop's basis), peak memory and the kernel
+    launches (counts set to 0 just before the call)."""
     from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
     from tony_tpu_torch.train.metrics import transformer_flops_per_token
 
@@ -1268,23 +1374,27 @@ def bench_recipe_phase(torch, name: str, model, counters) -> dict:
         math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"]) for x in log), f"bench {name}: {log}")
     check(abs(log[0]["loss"] - math.log(cfg.vocab_size)) <= 1.5,
           f"bench {name}: first loss {log[0]['loss']} not within 1.5 of ln(V) {math.log(cfg.vocab_size):.2f}")
-    want = _expected_launches(counters, L, REMAT_FWD_PER_LAYER[cfg.remat_policy], BENCH_STEPS)
+    policy = getattr(cfg, "remat_policy", "full")  # BERT's remat is JAX's plain checkpoint: "full"
+    want = _expected_launches(counters, L, REMAT_FWD_PER_LAYER[policy], BENCH_STEPS)
     check(launches == want, f"bench {name}: launches {launches}, want {want}")
     steady = sorted(x["step_time_ms"] for x in log[1:])
     ms = steady[len(steady) // 2]
-    n_params = getattr(cfg, "active_params", cfg.num_params)()
-    fpt = transformer_flops_per_token(n_params, L, cfg.d_model, T)
+    if hasattr(cfg, "remat_policy"):
+        n_params = getattr(cfg, "active_params", cfg.num_params)()
+        fpt, basis = transformer_flops_per_token(n_params, L, cfg.d_model, T), f"6N + attention at T={T}"
+    else:
+        n_params, masked = cfg.num_params(), max(1, round(T * 0.15))
+        fpt = cfg.flops_per_token(masked / T)
+        basis = f"6N + bidirectional attention at T={T}, the head at {masked} of {T} positions"
     rec = {"config": fields, "batch": B, "seq_len": T, "params": cfg.num_params(), "mfu_params": n_params,
-           "log": log, "launches": launches, "step_ms": ms, "tok_per_s": B * T / ms * 1e3,
-           "mfu": B * T / ms * 1e3 * fpt / BF16_FLOPS,
-           "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "wall_s": wall}
+           "remat": policy, "ce_chunk": getattr(cfg, "ce_chunk", None), "log": log, "launches": launches,
+           "launches_per_step": {k: v // BENCH_STEPS for k, v in launches.items()},
+           "step_ms": ms, "tok_per_s": B * T / ms * 1e3, "mfu": B * T / ms * 1e3 * fpt / BF16_FLOPS,
+           "mfu_basis": basis, "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30, "wall_s": wall}
     for x in log:
         print(f"[bench-{name}] step {x['step']} loss {x['loss']} grad_norm {x['grad_norm']} "
               f"{x['step_time_ms']} ms", flush=True)
-    print(f"[bench-{name}] bench.py's {name} recipe ({rec['params'] / 1e9:.3f} B params, MFU basis "
-          f"{n_params / 1e9:.3f} B), B={B} T={T}, remat {cfg.remat_policy}, ce_chunk {cfg.ce_chunk}: "
-          f"{ms:.1f} ms/step, {rec['tok_per_s']:.0f} tok/s, MFU {rec['mfu']:.3f} (6N + attention at T={T}), "
-          f"peak memory {rec['max_memory_gib']:.1f} GiB, wall {wall:.1f}s; launches {launches}", flush=True)
+    print(bench_line(name, rec), flush=True)
     return rec
 
 
@@ -1618,7 +1728,10 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
         watcher.join(timeout=5)
     done = json.loads((metrics_file.parent / (metrics_file.name + ".drain.done")).read_text())
     steps_on_disk = sorted(int(p.name) for p in ck2.iterdir() if p.name.isdigit())
-    check(done["req_id"] == "chip-drain" and 2 < done["step"] < 5 and steps_on_disk == [done["step"], 5],
+    # the request is written once step 2's report is out; the loop polls for
+    # it after that report, so the save lands at step 2 when the watcher wins
+    # that race or at a later step
+    check(done["req_id"] == "chip-drain" and 2 <= done["step"] < 5 and steps_on_disk == [done["step"], 5],
           f"gang: drain answered {done}, checkpoints {steps_on_disk}")
     saves1 = _histogram(obs_metrics.REGISTRY.snapshot(), "tony_checkpoint_save_seconds")
     traces = list(prof_dir.glob("*.pt.trace.json"))
@@ -2898,7 +3011,200 @@ def moe_serve_phase(torch, mixtral, DA, MG) -> dict:
     return rec
 
 
+# -- BERT ------------------------------------------------------------------------
+
+def bert_docs(n_docs: int, seed: int = 0) -> list:
+    """``examples/bert/pack_ab.py``'s document stream: lengths uniform in
+    [48, 512] (a mean of ~280 of a 512 row), token ids uniform in [1, 30000)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lo, hi = BERT_DOC_LEN
+    return [rng.integers(1, 30_000, size=rng.integers(lo, hi + 1)).astype(np.int32) for _ in range(n_docs)]
+
+
+def padded_rows(docs: list, T: int):
+    """One document a row: (tokens, segment ids 1 on the document, 0 after)."""
+    import numpy as np
+
+    tok, seg = np.zeros((len(docs), T), np.int32), np.zeros((len(docs), T), np.int32)
+    for i, d in enumerate(docs):
+        tok[i, :len(d)], seg[i, :len(d)] = d[:T], 1
+    return tok, seg
+
+
+def masked_positions(rng, seg, m: int):
+    """``pack_ab.py``'s: m mask positions a row drawn with replacement from
+    the row's real (non-pad) positions, sorted."""
+    import numpy as np
+
+    pos = np.zeros((seg.shape[0], m), np.int32)
+    for b in range(seg.shape[0]):
+        pos[b] = rng.choice(np.flatnonzero(seg[b] != 0), size=m, replace=True)
+    return np.sort(pos, axis=1)
+
+
+def bert_gathered_batch(torch, tok, seg, seed: int = 1) -> dict:
+    """A gathered-MLM batch on the card, M = round(0.15·T) ``masked_positions``
+    a row."""
+    import numpy as np
+
+    pos = masked_positions(np.random.default_rng(seed), seg, max(1, round(tok.shape[1] * 0.15)))
+    batch = {"tokens": torch.from_numpy(tok).cuda().long(), "segment_ids": torch.from_numpy(seg).cuda(),
+             "masked_pos": torch.from_numpy(pos).cuda().long()}
+    batch["masked_targets"] = torch.gather(batch["tokens"], 1, batch["masked_pos"])
+    return batch
+
+
+def bert_whole_step_check(torch, bert, A) -> dict:
+    """``[bert-step]``: one ``loss_fn`` value and gradient through B1-B3 (BERT-
+    base, 12 layers, bf16, remat as bench.py's recipe) against
+    ``attn_impl="reference"`` on the same params, on two batches of
+    B=8, T=512: the gathered layout (no segments) and a dense packed batch
+    (``pack_sequences`` rows of the seeded documents, 15% of the real
+    positions masked, padding never scored). A query head dropped by B1 must
+    fail the limits the kernels pass."""
+    import numpy as np
+    from tony_tpu_torch.data.dataset import pack_sequences
+
+    cfg = bert.config_from_dict(BENCH_RECIPES["bert"][1])
+    params = bert.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    names, tensors = zip(*_leaves(params))
+    for t in tensors:
+        t.requires_grad_(True)
+    tok, seg = pack_sequences(bert_docs(40, seed=2), BERT_T)
+    tok, seg = tok[:BERT_STEP_B], seg[:BERT_STEP_B]
+    check(len(tok) == BERT_STEP_B and (seg == 0).any(), f"bert-step: {len(tok)} packed rows")
+    rng = np.random.default_rng(3)
+    targets = np.where((rng.random(tok.shape) < 0.15) & (seg != 0), tok, -100)
+    batches = {
+        "gathered": bert.synthetic_batch(torch.Generator(device="cuda").manual_seed(1), BERT_STEP_B, BERT_T, cfg),
+        "dense_packed": {"tokens": torch.from_numpy(tok).cuda().long(), "segment_ids": torch.from_numpy(seg).cuda(),
+                         "targets": torch.from_numpy(targets).cuda().long()},
+    }
+
+    def run(batch, impl):
+        A.reset_launches()
+        loss, aux = bert.loss_fn(params, batch, dataclasses.replace(cfg, attn_impl=impl))
+        return loss.item(), int(aux["tokens"]), torch.autograd.grad(loss, tensors), dict(A.launches)
+
+    out = {}
+    for layout, batch in batches.items():
+        lr, n, gr, nr = run(batch, "reference")
+        check(not any(nr.values()), f"bert-step {layout}: the reference launched kernels {nr}")
+        recs = {"loss_reference": lr, "targets": n}
+        for variant, patch in (("kernels", None), ("fault_b1_head", ("flash_fwd", dropped_head_fwd(A)))):
+            with mock.patch.object(A, *patch) if patch else contextlib.nullcontext():
+                lk, _, gk, nk = run(batch, "auto")
+            grad_rel = {k: ((a.float() - b.float()).norm() / b.float().norm()).item()
+                        for k, a, b in zip(names, gk, gr)}
+            del gk
+            worst = max(grad_rel, key=grad_rel.get)
+            rec = {"loss": lk, "loss_rel": abs(lk - lr) / abs(lr), "worst_leaf": worst,
+                   "worst_grad_rel": grad_rel[worst], "grad_rel": grad_rel, "launches": nk}
+            recs[variant] = rec
+            print(f"[bert-step] {layout} {variant}: loss {lk:.6f} reference {lr:.6f} ({n} targets) rel "
+                  f"{rec['loss_rel']:.2e} (tol {BERT_STEP_LOSS_REL}); worst grad leaf {worst} rel norm "
+                  f"{grad_rel[worst]:.2e} (tol {BERT_STEP_GRAD_REL}); kernel launches {nk}", flush=True)
+            check(nk == _expected_launches((A,), cfg.n_layers, 2),
+                  f"bert-step {layout} {variant}: kernel launches {nk}")
+        del gr
+        k, f = recs["kernels"], recs["fault_b1_head"]
+        check(math.isfinite(k["loss"]) and k["loss_rel"] <= BERT_STEP_LOSS_REL,
+              f"bert-step {layout}: loss {k['loss']} vs {lr}")
+        check(all(math.isfinite(x) and x <= BERT_STEP_GRAD_REL for x in k["grad_rel"].values()),
+              f"bert-step {layout}: gradient relative norms {k['grad_rel']}")
+        check(f["loss_rel"] > BERT_STEP_LOSS_REL or f["worst_grad_rel"] > BERT_STEP_GRAD_REL,
+              f"bert-step {layout}: the limits pass a query head dropped by B1 (loss {f['loss_rel']}, "
+              f"worst leaf {f['worst_grad_rel']})")
+        out[layout] = recs
+    return out
+
+
+def bert_pack_line(rec: dict, card: str) -> str:
+    pad, pk = rec["padded"], rec["packed"]
+    return (f"[bert-pack] padded {pad['rows']} rows {pad['step_ms']:.1f} ms/step, {pad['content_tok_per_s']:.0f} "
+            f"content tok/s; packed {pk['rows']} rows {pk['step_ms']:.1f} ms/step, {pk['content_tok_per_s']:.0f} "
+            f"content tok/s; pack ratio {rec['pack_ratio']:.3f} ({rec['docs']} documents), content speedup "
+            f"{rec['speedup']:.3f}x; {card}")
+
+
+def bert_pack_phase(torch, bert, A, card: str) -> dict:
+    """``[bert-pack]``, ``examples/bert/pack_ab.py`` in the port: the seeded
+    document stream one document a row (padded) and first-fit packed by
+    ``pack_sequences`` (rows cut to a multiple of 8), each a gathered-MLM
+    batch (masks on real positions) through the train step at bench.py's
+    bert configuration on a fresh state: ``BERT_PACK_WARMUP`` steps, then
+    ``BERT_PACK_STEPS`` timed on the host clock around synchronised steps;
+    content (non-pad) tokens/s of both arms, the pack ratio and B1-B3's
+    launches (2L / L / L a step)."""
+    from tony_tpu_torch.data.dataset import pack_sequences
+    from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState, make_train_step
+
+    cfg = bert.config_from_dict(BENCH_RECIPES["bert"][1])
+    docs = bert_docs(BERT_PACK_ROWS)
+    tok_pk, seg_pk = pack_sequences(docs, BERT_T)
+    keep = (len(tok_pk) // 8) * 8 or len(tok_pk)
+    arms = {"padded": padded_rows(docs, BERT_T), "packed": (tok_pk[:keep], seg_pk[:keep])}
+    out = {"docs": len(docs)}
+    for arm, (tok, seg) in arms.items():
+        batch = bert_gathered_batch(torch, tok, seg)
+        opt = OptimizerConfig(warmup_steps=10, total_steps=1000).build()
+        state = TrainState.create(bert.init(torch.Generator(device="cuda").manual_seed(0), cfg, "cuda"), opt)
+        step_fn = make_train_step(lambda p, b: bert.loss_fn(p, b, cfg), opt)
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(BERT_PACK_WARMUP):
+            state, m = step_fn(state, batch)
+            float(m["loss"])
+        A.reset_launches()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(BERT_PACK_STEPS):
+            state, m = step_fn(state, batch)
+            losses.append(m["loss"])
+        losses = [float(x) for x in losses]  # synchronises the card before the clock is read
+        dt = (time.perf_counter() - t0) / BERT_PACK_STEPS
+        launches = dict(A.launches)
+        check(all(math.isfinite(x) for x in losses), f"bert-pack {arm}: losses {losses}")
+        want = _expected_launches((A,), cfg.n_layers, 2, BERT_PACK_STEPS)
+        check(launches == want, f"bert-pack {arm}: launches {launches}, want {want}")
+        real = int((seg != 0).sum())
+        out[arm] = {"rows": len(tok), "real_tokens": real, "step_ms": dt * 1e3, "content_tok_per_s": real / dt,
+                    "losses": losses, "launches": launches,
+                    "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del state, step_fn, batch, opt, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["pack_ratio"] = out["padded"]["rows"] / out["packed"]["rows"]
+    out["speedup"] = out["packed"]["content_tok_per_s"] / out["padded"]["content_tok_per_s"]
+    print(bert_pack_line(out, card), flush=True)
+    return out
+
+
 # -- main ----------------------------------------------------------------------
+
+class Phases:
+    """``with phases(name):`` runs one phase between a start line and its
+    seconds, so a failure is named by the last start line (and by
+    ``current``); the caching allocator is emptied after each phase."""
+
+    def __init__(self, torch):
+        self.torch, self.current, self.seconds = torch, None, {}
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        self.current = name
+        print(f"[phase] {name} start", flush=True)
+        t0 = time.perf_counter()
+        yield
+        self.seconds[name] = time.perf_counter() - t0
+        print(f"[phase] {name} {self.seconds[name]:.1f}s", flush=True)
+        gc.collect()
+        self.torch.cuda.empty_cache()
+
+    def total_s(self) -> float:
+        return sum(self.seconds.values())
+
 
 KERNELS = {
     "flash_fwd": ("tony_tpu_torch/csrc/flash_attention.cu",
@@ -2930,6 +3236,35 @@ KERNELS = {
                  "tony_tpu/ops/ring.py:380 (_ring_bwd_kernel via _ring_bwd :720; the dq and dk/dv step "
                  "kernels, launches of both)", "cp_train"),
 }
+def kernel_rows(kern: dict, path_launches: dict, fleet_b5: dict, bert_launches: dict, bert_kern: dict) -> list:
+    """The ``kernels`` line: one row a kernel of ``KERNELS``, its launches
+    those of its main-path run (a kernel never launched there fails the run),
+    its times those of its first case; B5 adds its launches on each fleet's
+    decode tier, and B1-B3 their ``[bench-bert]`` launches (``launches_bert``)
+    and the BERT cases after their own."""
+    rows = []
+    for name, (source, replaces, run) in KERNELS.items():
+        k = kern[name]
+        launches = path_launches[run][name]
+        check(launches > 0, f"{name} was not launched by the {run} run")
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "launches_run": run, "case": k["case"],
+            "max_abs_err": k["max_abs_err"], "tol": k["tol"],
+            **{x: k[x] for x in ("row_err", "fault_row_err", "w_err", "fault_w_err", "library_call",
+                                 "step_ms", "tflops") if x in k},
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"], "cases": k["cases"],
+        })
+        if name == "paged_decode_attention":  # B5 on the decode tier of each fleet, during its load
+            rows[-1]["launches_fleet"] = fleet_b5
+        if name in bert_kern:
+            check(bert_launches.get(name, 0) > 0, f"{name} was not launched by the bench-bert run")
+            rows[-1]["launches_bert"] = bert_launches[name]
+            rows[-1]["cases"] = k["cases"] + bert_kern[name]["cases"]
+    return rows
+
+
 SERVE_RUNS = [("paged", []), ("int8", ["--int8"]), ("dense_ragged", ["--kv", "dense", "--attn", "ragged"])]
 
 
@@ -2948,7 +3283,7 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, str(ROOT))
-    from tony_tpu_torch.models import llama, mixtral
+    from tony_tpu_torch.models import bert, llama, mixtral
     from tony_tpu_torch.ops import _build
     from tony_tpu_torch.ops import moe_gemm as MG
     from tony_tpu_torch.parallel import expert
@@ -2965,115 +3300,114 @@ def main() -> int:
     print(card, flush=True)
     print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} {torch.cuda.get_device_name(0)}",
           flush=True)
+    phase = Phases(torch)
     try:
-        t0 = time.perf_counter()
-        libs = _build.build_all()
-        print(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f}s", flush=True)
-        for stem, path in libs.items():
-            for line in path.with_suffix(".log").read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[ptxas] {stem}: {line.strip()}", flush=True)
+        with phase("build"):
+            t0 = time.perf_counter()
+            libs = _build.build_all()
+            print(f"[build] {len(libs)} libraries in {time.perf_counter() - t0:.1f}s", flush=True)
+            for stem, path in libs.items():
+                for line in path.with_suffix(".log").read_text().splitlines():
+                    if "registers" in line or "spill" in line:
+                        print(f"[ptxas] {stem}: {line.strip()}", flush=True)
         flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")  # > 50 MB L2
-        kern = kernel_phase(torch, DA, Q, flush)
-        kern.update(flash_kernel_phase(torch, A, flush))
+        with phase("kernels"):
+            kern = kernel_phase(torch, DA, Q, flush)
+        with phase("flash-kernels"):
+            kern.update(flash_kernel_phase(torch, A, flush, LLAMA_FLASH_CASES))
         del flush
         torch.cuda.empty_cache()
         # serving before training and the MoE kernel phase: the serve runs'
         # host-bound decode steps are measured as they were before those
         # minutes of load existed
-        serve = {name: run_server(name, extra, out_dir) for name, extra in SERVE_RUNS}
-        serve["int8"]["profile"] = int8_serve_profile(torch, Q)
+        serve = {}
+        for name, extra in SERVE_RUNS:
+            with phase(f"serve-{name}"):
+                serve[name] = run_server(name, extra, out_dir)
+        with phase("int8-serve"):
+            serve["int8"]["profile"] = int8_serve_profile(torch, Q)
         # the fleet after the serve runs and before the Mixtral phases, whose
         # in-process serve needs the card's memory with every replica gone
-        handoff = kv_handoff_phase(torch, llama, DA)
-        gc.collect()
-        torch.cuda.empty_cache()
-        fleet = fleet_phase(out_dir, card)
-        step = whole_step_check(torch, llama, A)
-        gc.collect()
-        torch.cuda.empty_cache()
-        train = train_phase(torch, llama, A, out_dir)
-        gc.collect()
-        torch.cuda.empty_cache()
-        train["breakdown"] = step_breakdown(torch, llama, "llama3-8b", TRAIN_LAYERS, "train")
-        gc.collect()
-        torch.cuda.empty_cache()
-        remat = remat_phase(torch, llama, llama.config_from_dict({"preset": "llama3-8b", "n_layers": TRAIN_LAYERS}),
-                            ("full", "dots", "flash"), (A,), "remat", STEP_LOSS_REL, STEP_GRAD_REL)
-        gc.collect()
-        torch.cuda.empty_cache()
-        gang = gang_phase(torch, llama, A, out_dir)
-        gc.collect()
-        torch.cuda.empty_cache()
-        async_save = async_save_phase(torch, llama, out_dir)
-        gc.collect()
-        torch.cuda.empty_cache()
-        bench = {"1chip": bench_recipe_phase(torch, "1chip", llama, (A,))}
-        gc.collect()
-        torch.cuda.empty_cache()
+        with phase("kv-handoff"):
+            handoff = kv_handoff_phase(torch, llama, DA)
+        with phase("fleet"):
+            fleet = fleet_phase(out_dir, card)
+        with phase("whole-step"):
+            step = whole_step_check(torch, llama, A)
+        with phase("train"):
+            train = train_phase(torch, llama, A, out_dir)
+        with phase("train-breakdown"):
+            train["breakdown"] = step_breakdown(
+                torch, llama, llama.config_from_dict({"preset": "llama3-8b", "n_layers": TRAIN_LAYERS}), "train")
+        with phase("remat"):
+            remat = remat_phase(torch, llama, llama.config_from_dict({"preset": "llama3-8b", "n_layers": TRAIN_LAYERS}),
+                                ("full", "dots", "flash"), (A,), "remat", STEP_LOSS_REL, STEP_GRAD_REL)
+        with phase("gang"):
+            gang = gang_phase(torch, llama, A, out_dir)
+        with phase("async-save"):
+            async_save = async_save_phase(torch, llama, out_dir)
+        with phase("bench-1chip"):
+            bench = {"1chip": bench_recipe_phase(torch, "1chip", llama, (A,))}
         # context-parallel training through the ring kernels, after the
         # single-device Llama phases, with their state freed
-        flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
-        kern.update(ring_kernel_phase(torch, A, TR, flush))
-        del flush
-        gc.collect()
-        torch.cuda.empty_cache()
-        cp_step = cp_whole_step_check(torch, llama, A, TR)
-        gc.collect()
-        torch.cuda.empty_cache()
-        cp_train = cp_train_phase(torch, llama, A, TR)
-        gc.collect()
-        torch.cuda.empty_cache()
+        with phase("ring-kernels"):
+            flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+            kern.update(ring_kernel_phase(torch, A, TR, flush))
+            del flush
+        with phase("cp-step"):
+            cp_step = cp_whole_step_check(torch, llama, A, TR)
+        with phase("cp-train"):
+            cp_train = cp_train_phase(torch, llama, A, TR)
         # Mixtral after the Llama phases, with their state freed
-        flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
-        kern.update(moe_kernel_phase(torch, MG, expert, flush))
-        del flush
-        gc.collect()
-        torch.cuda.empty_cache()
-        moe_step = moe_whole_step_check(torch, mixtral, MG)
-        gc.collect()
-        torch.cuda.empty_cache()
-        moe_train = moe_train_phase(torch, mixtral, A, MG)
-        gc.collect()
-        torch.cuda.empty_cache()
-        moe_train["breakdown"] = step_breakdown(torch, mixtral, "mixtral-8x7b", MOE_TRAIN_LAYERS, "moe-train")
-        gc.collect()
-        torch.cuda.empty_cache()
-        moe_remat = remat_phase(torch, mixtral,
-                                mixtral.config_from_dict({"preset": "mixtral-8x7b", "n_layers": MOE_TRAIN_LAYERS}),
-                                ("full", "flash"), (A, MG), "moe-remat", MOE_STEP_LOSS_REL, MOE_STEP_GRAD_REL)
-        gc.collect()
-        torch.cuda.empty_cache()
-        bench["moe"] = bench_recipe_phase(torch, "moe", mixtral, (A, MG))
-        gc.collect()
-        torch.cuda.empty_cache()
-        moe_serve = moe_serve_phase(torch, mixtral, DA, MG)
+        with phase("moe-kernels"):
+            flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+            kern.update(moe_kernel_phase(torch, MG, expert, flush))
+            del flush
+        with phase("moe-step"):
+            moe_step = moe_whole_step_check(torch, mixtral, MG)
+        with phase("moe-train"):
+            moe_train = moe_train_phase(torch, mixtral, A, MG)
+        with phase("moe-train-breakdown"):
+            moe_train["breakdown"] = step_breakdown(
+                torch, mixtral, mixtral.config_from_dict({"preset": "mixtral-8x7b", "n_layers": MOE_TRAIN_LAYERS}),
+                "moe-train")
+        with phase("moe-remat"):
+            moe_remat = remat_phase(torch, mixtral,
+                                    mixtral.config_from_dict({"preset": "mixtral-8x7b", "n_layers": MOE_TRAIN_LAYERS}),
+                                    ("full", "flash"), (A, MG), "moe-remat", MOE_STEP_LOSS_REL, MOE_STEP_GRAD_REL)
+        with phase("bench-moe"):
+            bench["moe"] = bench_recipe_phase(torch, "moe", mixtral, (A, MG))
+        with phase("moe-serve"):
+            moe_serve = moe_serve_phase(torch, mixtral, DA, MG)
+        # BERT last, after every earlier phase ran as it did before and freed
+        # its state: B1-B3 at BERT-base's shapes (non-causal, Dh 64, packed)
+        with phase("bert-kernels"):
+            flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
+            bert_kern = flash_kernel_phase(torch, A, flush, BERT_FLASH_CASES)
+            del flush
+        with phase("bert-step"):
+            bert_step = bert_whole_step_check(torch, bert, A)
+        with phase("bench-bert"):
+            bench["bert"] = bench_recipe_phase(torch, "bert", bert, (A,))
+            _, fields, B, T = BENCH_RECIPES["bert"]
+            bench["bert"]["breakdown"] = step_breakdown(torch, bert, bert.config_from_dict(fields), "bench-bert", B, T)
+        with phase("bert-pack"):
+            bert_pack = bert_pack_phase(torch, bert, A, card)
     except SmokeFailure as e:
-        print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
+        print(f"chip_smoke FAILED in phase {phase.current}: {e}", file=sys.stderr, flush=True)
         return 1
+    print(f"[phase] all phases {phase.total_s():.1f}s", flush=True)
     path_launches = {run: rec["kernel_launches"] for run, rec in serve.items()}
     path_launches["train"] = train["launches"]
     path_launches["gang"] = gang["launches"]
     path_launches["mixtral_train"] = moe_train["launches"]
     path_launches["cp_train"] = cp_train["launches"]
-    kernels = []
-    for name, (source, replaces, run) in KERNELS.items():
-        k = kern[name]
-        launches = path_launches[run][name]
-        if not launches:
-            print(f"chip_smoke FAILED: {name} was not launched by the {run} run", file=sys.stderr)
-            return 1
-        kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, "launches_run": run, "case": k["case"],
-            "max_abs_err": k["max_abs_err"], "tol": k["tol"],
-            **{x: k[x] for x in ("row_err", "fault_row_err", "w_err", "fault_w_err", "library_call",
-                                 "step_ms", "tflops") if x in k},
-            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": k["bound_by"], "library_ms": k["library_ms"], "cases": k["cases"],
-        })
-        if name == "paged_decode_attention":  # B5 on the decode tier of each fleet, during its load
-            kernels[-1]["launches_fleet"] = {f: rec["b5_launches"] for f, rec in fleet.items()}
+    try:
+        kernels = kernel_rows(kern, path_launches, {f: rec["b5_launches"] for f, rec in fleet.items()},
+                              bench["bert"]["launches"], bert_kern)
+    except SmokeFailure as e:
+        print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
     builds = {"flash_attention": kern["flash_fwd"]["build"], "ring_attention": kern["ring_fwd"]["build"],
               "moe_gemm": kern["moe_fwd"]["build"], "decode_attention": kern["paged_decode_attention"]["build"],
               "int8_matmul": kern["int8_matmul"]["build"]}
@@ -3082,7 +3416,8 @@ def main() -> int:
          "remat": remat, "serve": serve, "kv_handoff": handoff, "fleet": fleet, "gang": gang,
          "async_save": async_save, "bench": bench,
          "mixtral": {"whole_step": moe_step, "train": moe_train, "remat": moe_remat, "serve": moe_serve},
-         "cp": {"whole_step": cp_step, "train": cp_train}}, indent=1))
+         "cp": {"whole_step": cp_step, "train": cp_train},
+         "bert": {"whole_step": bert_step, "pack": bert_pack}}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -246,6 +246,91 @@ def test_gang_resumed_on_one_rank_replays_the_stream(shards, tmp_path):
     assert TD.ConsumptionCursor.load(ck, 6).world_size == 1
 
 
+# three train steps of the f32 tiny BERT on dense MLM batches (each position
+# masked with probability 0.15, so the ranks' halves hold unequal counts of
+# targets); ``run(rank, world, group)`` trains on this rank's rows of each
+# global batch and returns every step's loss and the reduced gradients the
+# optimizer received. Run as a gang rank and, with world 1, in process
+_BERT_STEPS = """
+import dataclasses, torch
+from tony_tpu_torch.models import bert
+from tony_tpu_torch.train import trainer as TT
+
+CFG = dataclasses.replace(bert.BERT_TINY, dtype="float32")
+B, T, STEPS = 4, 64, 3
+
+
+class Recording(TT.AdamW):
+    def update(self, params, grads, state, norm):
+        self.seen.append({k: g.clone() for k, g in grads.items()})
+        super().update(params, grads, state, norm)
+
+
+def global_batch(step):
+    return bert.dense_synthetic_batch(torch.Generator().manual_seed(100 + step), B, T, CFG)
+
+
+def run(rank, world, group):
+    opt = Recording(TT.OptimizerConfig(learning_rate=1e-2, warmup_steps=1, total_steps=STEPS))
+    opt.seen = []
+    state = TT.TrainState.create(bert.init(torch.Generator().manual_seed(0), CFG, "cpu"), opt)
+    step = TT.make_train_step(lambda p, b: bert.loss_fn(p, b, CFG), opt, group=group)
+    rows = B // world
+    losses = []
+    for i in range(STEPS):
+        batch = {k: v[rank * rows:(rank + 1) * rows] for k, v in global_batch(i).items()}
+        state, m = step(state, batch)
+        losses.append((float(m["loss"]), float(m["tokens"])))
+    return losses, opt.seen
+"""
+
+_BERT_RANK = _BERT_STEPS + """
+import sys, torch.distributed as dist
+from tony_tpu_torch.runtime import init_distributed, shutdown_distributed
+init_distributed(torch.device("cpu"))
+torch.save(run(dist.get_rank(), dist.get_world_size(), dist.group.WORLD), sys.argv[1])
+shutdown_distributed()
+"""
+
+
+def test_gloo_gang_weighs_ranks_by_their_targets_as_one_process(tmp_path):
+    """A gloo gang of 2 on BERT batches whose halves hold unequal counts of
+    MLM targets equals one process on the global batch: the loss within
+    1e-5 and every reduced gradient within 1e-4 relative, each step. A plain
+    mean of the ranks' token means would weigh the ranks' targets unequally."""
+    ns: dict = {}
+    exec(_BERT_STEPS, ns)
+    counts = [[int((ns["global_batch"](i)["targets"][r * 2:(r + 1) * 2] != -100).sum()) for r in (0, 1)]
+              for i in range(ns["STEPS"])]
+    assert all(a != b for a, b in counts), counts
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=str(ROOT), RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen([sys.executable, "-c", _BERT_RANK, str(tmp_path / f"r{rank}.pt")],
+                                      cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    try:
+        outs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    want_losses, want_grads = ns["run"](0, 1, None)
+    for rank in range(2):
+        losses, grads = torch.load(tmp_path / f"r{rank}.pt", weights_only=True)
+        for (gl, gn), (wl, wn), c in zip(losses, want_losses, counts):
+            assert gn == wn == sum(c) and abs(gl - wl) <= 1e-5, (losses, want_losses)
+        for got, want in zip(grads, want_grads):
+            for name, w in want.items():
+                err = float((got[name] - w).abs().max() / w.abs().max().clamp_min(1e-12))
+                assert err <= 1e-4, (rank, name, err)
+
+
 # -- chaos, urgent save, obs --------------------------------------------------------
 
 def _task_env(monkeypatch, tmp_path) -> Path:

@@ -96,6 +96,11 @@ def test_mixtral_import_loads_no_jax():
         "tony_tpu_torch.ops.moe_gemm, tony_tpu_torch.parallel.expert")
 
 
+def test_bert_import_loads_no_jax():
+    _assert_import_loads_no_jax(
+        "tony_tpu_torch.models.bert, tony_tpu_torch.data.dataset, tony_tpu_torch.train.pretrain_bert")
+
+
 def test_cuda_is_the_default_device():
     from tony_tpu_torch.device import resolve_device
 

@@ -155,7 +155,7 @@ def test_remat_phases_expect_the_launch_schedule(policy, per):
         "flash_fwd": 6 * per, "flash_bwd_dq": 6, "flash_bwd_dkv": 6, "moe_fwd": 6 * per, "moe_bwd": 6}
 
 
-@pytest.mark.parametrize("name", ["1chip", "moe"])
+@pytest.mark.parametrize("name", ["1chip", "moe", "bert"])
 def test_bench_recipes_are_bench_pys_presets(name):
     """Each recipe builds, in the port, the configuration, batch and length
     of bench.py's preset of the same name (the JAX package's config, read
@@ -164,11 +164,11 @@ def test_bench_recipes_are_bench_pys_presets(name):
 
     pytest.importorskip("jax")
     import bench
-    from tony_tpu_torch.models import llama, mixtral
+    from tony_tpu_torch.models import bert, llama, mixtral
 
     jmod, jcfg, jb, jt = bench._build_presets()[name]
     model, fields, B, T = cs.BENCH_RECIPES[name]
-    cfg = {"llama": llama, "mixtral": mixtral}[model].config_from_dict(fields)
+    cfg = {"llama": llama, "mixtral": mixtral, "bert": bert}[model].config_from_dict(fields)
     port, jax_side = dataclasses.asdict(cfg), dataclasses.asdict(jcfg)
     assert jmod.__name__.rsplit(".", 1)[-1] == model and (B, T) == (jb, jt)
     assert port == {k: v for k, v in jax_side.items() if k in port}
@@ -263,3 +263,127 @@ def test_kv_handoff_prompt_is_five_full_pages():
     pages = cs.HANDOFF_PROMPT // cs.PLEN
     assert cs.HANDOFF_PROMPT % cs.PLEN == 0 and pages == 5
     assert 2 * cfg.n_layers * pages * cfg.n_kv_heads * cs.PLEN * cfg.head_dim * 2 == 167_772_160
+
+
+def test_llama_flash_cases_keep_their_values_and_bert_cases_read_theirs():
+    """The four Llama-3-8B cases keep their shapes (causal GQA, Dh 128) and
+    run in the early kernel phase; the BERT cases (bench.py's shape and packed
+    rows, non-causal MHA, Dh 64) only in the BERT phases."""
+    heads = dict(H=32, Hkv=8, Dh=128, causal=True)
+    assert {n: cs.FLASH_CASES[n] for n in cs.LLAMA_FLASH_CASES} == {
+        "train": dict(B=4, T=2048, window=0, n_seg=1, **heads),
+        "long": dict(B=1, T=8192, window=0, n_seg=1, **heads),
+        "segments": dict(B=4, T=2048, window=0, n_seg=3, **heads),
+        "window": dict(B=4, T=2048, window=1024, n_seg=1, **heads),
+    }
+    bert_heads = dict(H=12, Hkv=12, Dh=64, causal=False, window=0)
+    assert cs.FLASH_CASES["bert"] == dict(B=384, T=512, n_seg=1, **bert_heads)
+    assert cs.FLASH_CASES["bert_packed"] == dict(B=64, T=512, n_seg=3, pad=True, **bert_heads)
+    assert set(cs.LLAMA_FLASH_CASES) | set(cs.BERT_FLASH_CASES) == set(cs.FLASH_CASES)
+    pairs = 384 * 512 * 512  # non-causal: every pair of a row
+    flops = {k: f for k, (f, _) in cs.flash_cost(cs.FLASH_CASES["bert"], pairs, None).items()}
+    assert flops == {"flash_fwd": 4 * 12 * 64 * pairs, "flash_bwd_dq": 6 * 12 * 64 * pairs,
+                     "flash_bwd_dkv": 8 * 12 * 64 * pairs}
+
+
+def test_dropped_head_faults_drop_one_head_a_kv_group():
+    import torch
+
+    class FakeA:
+        @staticmethod
+        def flash_fwd(q, k, v, **kw):
+            return q.clone(), None
+
+    for H, Hkv, want in ((32, 8, [0, 4, 8, 12, 16, 20, 24, 28]), (12, 12, [0])):
+        q = torch.ones(1, H, 2, 4)
+        o, _ = cs.dropped_head_fwd(FakeA)(q, torch.ones(1, Hkv, 2, 4), None)
+        assert [h for h in range(H) if not o[0, h].any()] == want
+
+
+def test_bert_pack_documents_are_pack_abs():
+    """The document stream and mask positions of ``examples/bert/pack_ab.py``."""
+    import importlib.util
+
+    import numpy as np
+
+    pytest.importorskip("jax")
+    spec = importlib.util.spec_from_file_location("pack_ab", ROOT / "examples" / "bert" / "pack_ab.py")
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    docs = cs.bert_docs(64)
+    want = ab.doc_stream(np.random.default_rng(0), 64)
+    assert len(docs) == len(want) and all(np.array_equal(a, b) for a, b in zip(docs, want))
+    assert all(cs.BERT_DOC_LEN[0] <= len(d) <= cs.BERT_DOC_LEN[1] for d in docs)
+    tok, seg = cs.padded_rows(docs, cs.BERT_T)
+    assert all(seg[i].sum() == len(d) and np.array_equal(tok[i, :len(d)], d) for i, d in enumerate(docs))
+    np.testing.assert_array_equal(cs.masked_positions(np.random.default_rng(1), seg, 77),
+                                  ab.masked_positions(np.random.default_rng(1), seg, 77))
+
+
+def test_bench_and_bert_pack_lines_name_every_number():
+    rec = {"params": 132_363_066, "mfu_params": 132_363_066, "batch": 384, "seq_len": 512, "remat": "full",
+           "ce_chunk": None, "step_ms": 1047.4, "tok_per_s": 187_718.0, "mfu": 0.139,
+           "mfu_basis": "6N + bidirectional attention at T=512, the head at 77 of 512 positions",
+           "max_memory_gib": 22.7, "wall_s": 6.3,
+           "launches": {"flash_fwd": 144, "flash_bwd_dq": 72, "flash_bwd_dkv": 72},
+           "launches_per_step": {"flash_fwd": 24, "flash_bwd_dq": 12, "flash_bwd_dkv": 12}}
+    line = cs.bench_line("bert", rec)
+    for part in ("[bench-bert] bench.py's bert recipe (0.132 B params", "B=384 T=512, remat full",
+                 "1047.4 ms/step, 187718 tok/s, MFU 0.139 (6N + bidirectional", "peak memory 22.7 GiB",
+                 "a step {'flash_fwd': 24, 'flash_bwd_dq': 12, 'flash_bwd_dkv': 12}"):
+        assert part in line
+    arm = lambda rows, ms, tps: {"rows": rows, "step_ms": ms, "content_tok_per_s": tps}  # noqa: E731
+    pack = {"padded": arm(384, 1142.3, 92934.2), "packed": arm(216, 613.8, 169720.4), "docs": 384,
+            "pack_ratio": 384 / 216, "speedup": 1.826}
+    line = cs.bert_pack_line(pack, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert line == ("[bert-pack] padded 384 rows 1142.3 ms/step, 92934 content tok/s; packed 216 rows "
+                    "613.8 ms/step, 169720 content tok/s; pack ratio 1.778 (384 documents), content speedup "
+                    "1.826x; NVIDIA H100 80GB HBM3, 700.00 W")
+
+
+def _kernel(case):
+    return {"case": case, "max_abs_err": 1e-3, "tol": 1e-2, "ms": 1.0, "plain_ms": 9.0, "bound_ms": 0.5,
+            "bound_by": "operations", "library_ms": 1.1, "cases": [{"case": case}]}
+
+
+def test_kernel_rows_carry_the_bert_launches_and_cases_on_b1_b3_only():
+    kern = {name: _kernel("train") for name in cs.KERNELS}
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    bert_kern = {name: _kernel("bert") for name in flash}
+    path = {run: {name: 3 for name in cs.KERNELS} for _, _, run in cs.KERNELS.values()}
+    bert_launches = {"flash_fwd": 144, "flash_bwd_dq": 72, "flash_bwd_dkv": 72}
+    rows = cs.kernel_rows(kern, path, {"disagg": 7}, bert_launches, bert_kern)
+    assert [r["name"] for r in rows] == list(cs.KERNELS)
+    for r in rows:
+        for key in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms"):
+            assert key in r
+        assert r["case"] == "train" and r["launches"] == 3
+        assert ("launches_bert" in r) == (r["name"] in flash)
+        if r["name"] in flash:
+            assert r["launches_bert"] == bert_launches[r["name"]]
+            assert [c["case"] for c in r["cases"]] == ["train", "bert"]
+    assert rows[[r["name"] for r in rows].index("paged_decode_attention")]["launches_fleet"] == {"disagg": 7}
+    with pytest.raises(cs.SmokeFailure, match="flash_bwd_dq was not launched by the bench-bert run"):
+        cs.kernel_rows(kern, path, {}, {**bert_launches, "flash_bwd_dq": 0}, bert_kern)
+    path["train"]["flash_fwd"] = 0
+    with pytest.raises(cs.SmokeFailure, match="flash_fwd was not launched by the train run"):
+        cs.kernel_rows(kern, path, {}, bert_launches, bert_kern)
+
+
+def test_phases_print_a_start_line_and_seconds_and_name_a_failure(capsys):
+    class FakeTorch:
+        class cuda:
+            @staticmethod
+            def empty_cache():
+                pass
+
+    phases = cs.Phases(FakeTorch)
+    with phases("one"):
+        pass
+    with pytest.raises(cs.SmokeFailure):
+        with phases("two"):
+            cs.check(False, "bad")
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "[phase] one start" and re.fullmatch(r"\[phase\] one \d+\.\ds", out[1])
+    assert out[2:] == ["[phase] two start"] and phases.current == "two" and list(phases.seconds) == ["one"]

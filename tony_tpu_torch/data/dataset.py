@@ -10,6 +10,8 @@ is the rule of which global sample slots a rank owns in a global batch;
 ``ConsumptionCursor`` is how far the stream was consumed, written beside
 each checkpoint. Together they make "no sample dropped or consumed twice
 across a resume at another world size" a property a test can check.
+``pack_sequences`` lays variable-length documents into fixed rows with
+segment ids, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -125,3 +127,30 @@ class ConsumptionCursor:
             raise ValueError(
                 f"loader resume position {start_index} disagrees with the "
                 f"checkpoint's consumption cursor {self.global_batch_index}")
+
+
+def pack_sequences(sequences, seq_len: int, pad_id: int = 0) -> tuple[np.ndarray, np.ndarray]:
+    """First-fit pack variable-length sequences into [N, seq_len] rows.
+
+    Returns (tokens, segment_ids), both [N, seq_len] int32. Each row holds
+    one or more whole sequences back to back; segment_ids number them 1, 2,
+    ... within the row, with 0 marking trailing padding. Sequences longer
+    than seq_len are split into seq_len-sized pieces."""
+    rows: list[tuple[list[int], list[int]]] = []  # (tokens, segs), filled in place
+    for seq in sequences:
+        seq = [int(t) for t in np.asarray(seq, dtype=np.int32)]
+        for off in range(0, len(seq), seq_len):
+            piece = seq[off:off + seq_len]
+            for toks, segs in rows:
+                if len(toks) + len(piece) <= seq_len:
+                    segs.extend([segs[-1] + 1] * len(piece))
+                    toks.extend(piece)
+                    break
+            else:
+                rows.append((list(piece), [1] * len(piece)))
+    tokens = np.full((len(rows), seq_len), pad_id, dtype=np.int32)
+    segment_ids = np.zeros((len(rows), seq_len), dtype=np.int32)
+    for i, (toks, segs) in enumerate(rows):
+        tokens[i, :len(toks)] = toks
+        segment_ids[i, :len(segs)] = segs
+    return tokens, segment_ids

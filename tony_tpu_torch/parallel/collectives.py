@@ -228,12 +228,14 @@ class _AllToAll(torch.autograd.Function):
 BUCKET_NUMEL = 16 << 20
 
 
-def all_reduce_mean(tensors: list[torch.Tensor], group=None) -> None:
+def all_reduce_mean(tensors: list[torch.Tensor], group=None, scale: torch.Tensor | None = None) -> None:
     """Replace each tensor, in place, by its mean over the ``group``'s ranks.
 
     The tensors are packed in order into flat f32 buckets of at most
     ``BUCKET_NUMEL`` elements (a larger tensor is a bucket of its own), one
     collective a bucket; the mean is written back in each tensor's dtype.
+    ``scale`` (a 0-dim f32 tensor, this rank's own) multiplies the bucket
+    before the collective: the mean of the ranks' scaled tensors.
     nccl averages in the collective; gloo has no AVG, so it sums and
     divides by the world size. Call it from the thread that runs the step:
     collectives of one group must be issued in the same order on every
@@ -245,6 +247,8 @@ def all_reduce_mean(tensors: list[torch.Tensor], group=None) -> None:
     for t in [*tensors, None]:
         if bucket and (t is None or filled + t.numel() > BUCKET_NUMEL):
             flat = torch.cat([b.reshape(-1).float() for b in bucket])
+            if scale is not None:
+                flat *= scale
             if nccl:
                 dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=group)
             else:

@@ -140,7 +140,12 @@ def _drop_obs_metrics(device: torch.device) -> None:
         pass
 
 
-def _refuse_unported(loop: LoopConfig) -> None:
+def _refuse_unported(model_module, loop: LoopConfig) -> None:
+    if loop.data_dir and getattr(model_module, "__name__", "").rsplit(".", 1)[-1] == "bert":
+        raise ValueError(
+            "--data_dir with BERT: the shard loader yields next-token LM rows, and BERT's "
+            "loss_fn takes MLM batches (masked_pos/masked_targets or targets); train BERT on "
+            "synthetic batches")
     asked = {name: getattr(loop, name) for name in
              ("model_axis", "expert_axis", "stage_axis") if getattr(loop, name) > 1}
     if asked:
@@ -162,12 +167,15 @@ def _batch_generator(device: torch.device, data_seed: int, step: int) -> torch.G
 
 
 def run_lm_training(model_module, model_cfg, loop: LoopConfig) -> dict:
-    """Decoder-LM pretraining loop (the llama and mixtral modules).
+    """Pretraining loop of the llama, mixtral and bert modules.
 
     model_module exposes init(gen, cfg, device), loss_fn(params, batch, cfg,
-    mesh) and synthetic_batch; the config flops_per_token(). Each logged step
-    report carries the loss's ``moe_*`` metrics when it has them. Returns the
-    final metrics plus ``start_step`` and ``log`` (every logged step report).
+    mesh) and synthetic_batch; the config flops_per_token(), read on a probe
+    batch (a gathered-MLM batch counts the head at its masked fraction only).
+    ``data_dir`` feeds next-token rows, so it serves the decoders only. Each
+    logged step report carries the loss's ``moe_*`` metrics when it has them.
+    Returns the final metrics plus ``start_step`` and ``log`` (every logged
+    step report).
 
     Under a traced tony job (TONY_TRACE_* from the executor) the run is one
     ``train.run`` span; under TONY_LOG_DIR its records are JSON lines there."""
@@ -194,7 +202,7 @@ def run_lm_training(model_module, model_cfg, loop: LoopConfig) -> dict:
 
 
 def _run_gang(model_module, model_cfg, loop: LoopConfig, tracer) -> dict:
-    _refuse_unported(loop)
+    _refuse_unported(model_module, loop)
     device = init_distributed(resolve_device(loop.device))
     try:
         return _train(model_module, model_cfg, loop, tracer, device)

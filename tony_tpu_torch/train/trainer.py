@@ -19,12 +19,14 @@ temporaries are one tensor's size. JAX updates a donated state; the port
 updates the state's tensors in place.
 
 In a gang (``group`` of more than one process) each rank computes the
-gradients of its rows of the global batch, and they are averaged over the
-gang before the global norm and the clip, as the JAX step, which sees
-global arrays, computes them; the loss and the ``moe_*`` metrics are
-averaged the same way and ``tokens`` summed, so every rank reports the
-global values. The mean of the ranks' means is the global mean because
-every rank holds as many rows, each with every target counted.
+gradients of its rows of the global batch, and the gang reduces them
+before the global norm and the clip to the gradients of the JAX step,
+which takes one token mean over the global arrays: rank r, whose loss is
+the mean over its ``n_r`` valid targets, weighs its loss and gradients by
+``n_r · world / Σn`` before the mean over the ranks, so the result is
+Σ n_r·loss_r / Σn. With equal counts (every Llama and Mixtral batch) the
+weight is exactly 1.0. ``tokens`` is summed and the ``moe_*`` metrics are
+averaged, so every rank reports the global values.
 """
 
 from __future__ import annotations
@@ -198,14 +200,25 @@ def make_train_step(
         return loss_sum * inv, {}, {n: s * inv for (n, _), s in zip(leaves, sums)}
 
     def reduce_over_gang(loss, aux, grads):
-        all_reduce_mean(list(grads.values()), group)
-        names = [k for k in aux if k.startswith("moe_") or k == "tokens"]
-        scalars = torch.stack([torch.as_tensor(v, dtype=torch.float32, device=loss.device).detach()
-                               for v in [loss, *(aux[k] for k in names)]])
+        """The token-weighted mean over the gang: one collective of the
+        scalars (this rank's count, its loss times the count, the ``moe_*``
+        metrics) gives the weight, which scales the gradients in the f32
+        buckets of their mean. Without a count (accumulated microbatches)
+        the ranks weigh the same."""
+        def f32(v):
+            return torch.as_tensor(v, dtype=torch.float32, device=loss.device).detach()
+
+        n = f32(aux.get("tokens", 1))
+        names = [k for k in aux if k.startswith("moe_")]
+        scalars = torch.stack([n, f32(loss) * n, *(f32(aux[k]) for k in names)])
         all_reduce_mean([scalars], group)
         world = torch.distributed.get_world_size(group)
-        aux = {**aux, **{k: scalars[i + 1] * (world if k == "tokens" else 1) for i, k in enumerate(names)}}
-        return scalars[0], aux
+        total = torch.round(scalars[0] * world)  # Σn, exact: the counts are integers
+        all_reduce_mean(list(grads.values()), group, scale=n * world / total)
+        aux = {**aux, **{k: scalars[i + 2] for i, k in enumerate(names)}}
+        if "tokens" in aux:
+            aux["tokens"] = total
+        return scalars[1] / scalars[0], aux
 
     def train_step(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
         loss, aux, grads = compute_grads(state.params, batch)
