@@ -157,7 +157,21 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
     B1/B2/B3 24/12/12 launches a step; ``[bert-pack]``: ``pack_ab.py``'s
     seeded documents padded one a row against packed by ``pack_sequences``,
     content tokens/s of both and the pack ratio;
-11. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
+11. the MNIST MLP and ResNet-50 (after BERT, with its state freed; no
+    kernel of the port on their path: cuDNN's convolutions, BatchNorm and
+    cuBLAS): ``[mnist]``: ``tony submit`` (framework pytorch, one worker) of
+    ``python -m tony_tpu_torch.train.train_mnist`` on the card, the job
+    SUCCEEDED and its four step lines finite and near ln 10; ``[resnet-step]``:
+    ResNet-50 at full width in f32 with TF32 off, B=4, the logits, loss,
+    every running statistic and every gradient on the card against the CPU
+    from the same weights and batch, the stride-2 convolutions padded
+    symmetrically failing the limits, then a finite bf16 loss near ln 1000;
+    ``[bench-resnet]``: ``bench_resnet`` (bf16, B=512, SGD with momentum):
+    images/s, ms/step, MFU on the JAX program's basis, peak memory and a
+    profiled step by kernel family (``conv``, ``norm``, ``gemm``,
+    ``other``); ``[resnet-train]``: ``train_resnet`` for 4 steps of 64, every
+    running mean moved and every statistic finite;
+12. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
     their ``[bench-bert]`` launches and BERT cases) and, last,
     ``{"ok": true, "device": {...}}``.
 
@@ -321,6 +335,33 @@ BERT_STEP_LOSS_REL = 2e-4
 BERT_STEP_GRAD_REL = 0.2
 BERT_DOC_LEN = (48, 512)
 BERT_PACK_ROWS, BERT_PACK_WARMUP, BERT_PACK_STEPS = 384, 2, 4
+
+# The MNIST MLP (BASELINE config #1) under ``tony submit``: train_mnist's
+# step lines (200 steps, one every 50); its labels are random every step,
+# so each loss stays within MNIST_LOSS_BAND of ln 10
+MNIST_LOG_STEPS = [50, 100, 150, 200]
+MNIST_LOSS_BAND = 0.5
+# ResNet-50 (BASELINE config #3). [resnet-step]: full width, B=4, the same
+# weights and batch three ways: in f64 on the CPU (the reference), in f32 on
+# the CPU and in f32 on the card with TF32 off. At B=4 the backward through
+# 53 BatchNorms is ill-conditioned: each BN's backward removes the mean and
+# the normalised-input part of a gradient that varies over only 4 images,
+# so f32 rounding leaves 2-3% in most gradient leaves (an H100 run read the
+# CPU's f32 at 2.2e-2 to 3.2e-2 from f64, the card's at 2.6e-2 to 3.5e-2;
+# the logits 2.2e-5 and 2.1e-5). So each array (logits, loss, every
+# running statistic, every gradient leaf) is held, as ||x - f64|| / ||f64||,
+# to RESNET_STEP_NOISE_X times the CPU's own f32 error plus
+# RESNET_STEP_FLOOR: the card must be as exact as f32 on the CPU. The
+# stride-2 convolutions padded symmetrically must fail. Then the same
+# weights in bf16 on the card: a finite loss within 1.5 of ln 1000
+RESNET_STEP_B = 4
+RESNET_STEP_NOISE_X = 3.0
+RESNET_STEP_FLOOR = 1e-6
+RESNET_BF16_LOSS_BAND = 1.5
+# [bench-resnet]: bench_resnet's flags (examples/resnet/bench_resnet.py's
+# defaults); [resnet-train]: train_resnet at resnet50 for 4 steps of 64
+RESNET_BENCH_B, RESNET_BENCH_STEPS, RESNET_BENCH_WARMUP = 512, 10, 3
+RESNET_TRAIN_B, RESNET_TRAIN_STEPS = 64, 4
 
 
 class SmokeFailure(Exception):
@@ -1114,7 +1155,10 @@ def _union_us(ranges) -> float:
 
 def _kernel_family(name: str) -> str:
     """The port's kernels by source (``moe`` B7/B8, ``attention`` B1-B3 and
-    B9/B10, ``decode`` B4/B5, ``int8`` B6), cuBLAS's products as ``gemm``, the
+    B9/B10, ``decode`` B4/B5, ``int8`` B6), cuDNN's convolutions (forward,
+    data and weight gradients; many are implicit GEMMs) as ``conv`` and
+    BatchNorm's kernels as ``norm`` (both before ``gemm``, so no name of the
+    transformer phases changes family), cuBLAS's products as ``gemm``, the
     rest ``other``."""
     if "moe_gemm_kernel" in name:
         return "moe"
@@ -1125,6 +1169,10 @@ def _kernel_family(name: str) -> str:
     if re.search(r"attn_(fwd|bwd_dq|bwd_dkv)_kernel", name):
         return "attention"
     low = name.lower()
+    if re.search(r"fprop|dgrad|wgrad|implicit|conv(?!ert)", low):
+        return "conv"
+    if "batch_norm" in low or "bn_" in low:
+        return "norm"
     return "gemm" if any(w in low for w in ("gemm", "nvjet", "cutlass", "xmma")) else "other"
 
 
@@ -3181,6 +3229,192 @@ def bert_pack_phase(torch, bert, A, card: str) -> dict:
     return out
 
 
+# -- ResNet-50 and the MNIST MLP ------------------------------------------------
+
+_STEP_LINE = re.compile(r"^step (\d+) loss=(\S+) acc=(\S+)$", re.M)
+
+
+def mnist_phase(out_dir: Path) -> dict:
+    """``[mnist]``: ``tony submit`` (framework pytorch, one worker) of ``python
+    -m tony_tpu_torch.train.train_mnist`` on the card: the job must succeed,
+    the worker's log name the CUDA device and show the steps of
+    ``MNIST_LOG_STEPS``, each loss finite and within ``MNIST_LOSS_BAND`` of
+    ln 10; prints the job's wall."""
+    work = out_dir / "mnist"
+    shutil.rmtree(work, ignore_errors=True)
+    root = work / "tony"
+    cmd = f"cd {ROOT} && PYTHONPATH={ROOT} {sys.executable} -m tony_tpu_torch.train.train_mnist"
+    argv = [sys.executable, "-m", "tony_tpu.cli.main", "submit", "--executes", cmd,
+            "--conf", "tony.worker.instances=1", "--conf", "tony.application.framework=pytorch"]
+    env = dict(os.environ, TONY_ROOT=str(root), PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    try:
+        sub = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        subprocess.run(["pkill", "-f", "tony_tpu.cluster"], check=False)  # the job's AM and executor
+        raise SmokeFailure("mnist: tony submit did not finish in 300 s")
+    wall = time.perf_counter() - t0
+    out = sub.stdout + sub.stderr
+    check(sub.returncode == 0 and "SUCCEEDED" in out, f"mnist: tony submit exited {sub.returncode}:\n{out[-4000:]}")
+    apps = sorted(root.glob("application_*"))
+    check(len(apps) == 1, f"mnist: applications {apps}")
+    log = (apps[0] / "logs" / "worker_0" / "stdout.log").read_text()
+    check("[train_mnist] device cuda" in log, f"mnist: the worker did not train on the card:\n{log[-2000:]}")
+    steps = [(int(a), float(b), float(c)) for a, b, c in _STEP_LINE.findall(log)]
+    check([x[0] for x in steps] == MNIST_LOG_STEPS, f"mnist: step lines {steps}")
+    check(all(math.isfinite(x[1]) and abs(x[1] - math.log(10)) <= MNIST_LOSS_BAND for x in steps),
+          f"mnist: losses {steps} not within {MNIST_LOSS_BAND} of ln 10")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[mnist] tony submit of train_mnist (784-512-512-10, f32, 200 steps of 64) SUCCEEDED on cuda in "
+          f"{wall:.1f} s; step/loss/accuracy {steps}", flush=True)
+    return {"submit_wall_s": wall, "steps": steps}
+
+
+def _rel_norm(got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def resnet_step_check(torch, resnet) -> dict:
+    """``[resnet-step]``: ResNet-50 at full width (224², 1000 classes), B=4:
+    the logits, loss, running statistics and every gradient leaf of f32 on
+    the card (TF32 off) and of f32 on the CPU, each against f64 on the CPU
+    from the same weights and batch; the card's error within
+    ``RESNET_STEP_NOISE_X`` times the CPU's plus ``RESNET_STEP_FLOOR``. The
+    stride-2 convolutions padded symmetrically (same shapes, wrong pixels)
+    must fail; then the same weights in bf16 on the card."""
+    F = torch.nn.functional
+    cfg = resnet.config_from_dict({"preset": "resnet50", "dtype": "float32"})
+    cfg64 = resnet.config_from_dict({"preset": "resnet50", "dtype": "float64"})
+    params, state = resnet.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = resnet.synthetic_batch(torch.Generator().manual_seed(1), RESNET_STEP_B, cfg)
+
+    def to(tree, dev, dt=None):
+        return {k: to(v, dev, dt) if isinstance(v, dict) else
+                v.to(dev, dtype=dt if dt and v.is_floating_point() else v.dtype) for k, v in tree.items()}
+
+    def run(c, dev, dt=None):
+        """(logits, loss, {name: running statistic or gradient}) of ``loss_fn``'s
+        arithmetic (the mean of -log_softmax at the labels in f32, here in
+        f64 for the reference); the running statistics stay f32 but there."""
+        wide = torch.float64 if dt is torch.float64 else torch.float32
+        p, s, b = to(params, dev, dt), to(state, dev, wide), to(batch, dev, dt)
+        names, tensors = zip(*_leaves(p))
+        for t in tensors:
+            t.requires_grad_(True)
+        logits, new_s = resnet.forward(p, s, b["image"], c)
+        loss = F.cross_entropy(logits.to(wide), b["label"].long())
+        grads = torch.autograd.grad(loss, tensors)
+        return logits.detach(), loss.detach(), {**{f"state/{n}": v for n, v in _leaves(new_s)},
+                                                **{f"grad/{n}": g for n, g in zip(names, grads)}}
+
+    ref = run(cfg64, "cpu", torch.float64)
+
+    def errors(got) -> dict:
+        return {"logits": _rel_norm(got[0], ref[0]), "loss": _rel_norm(got[1], ref[1]),
+                **{n: _rel_norm(v, ref[2][n]) for n, v in got[2].items()}}
+
+    cpu = errors(run(cfg, "cpu"))
+    limit = {n: RESNET_STEP_NOISE_X * e + RESNET_STEP_FLOOR for n, e in cpu.items()}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        card = errors(run(cfg, "cuda"))
+        with mock.patch.object(resnet, "_conv", lambda x, w, stride: F.conv2d(
+                x, w, stride=stride, padding=w.shape[-1] // 2)):
+            fault = errors(run(cfg, "cuda"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    over = {n: card[n] / limit[n] for n in card}
+    worst = sorted(over, key=over.get, reverse=True)[:3]
+    grads = [n for n in card if n.startswith("grad/")]
+    print(f"[resnet-step] f32 against f64 (card / CPU): logits {card['logits']:.2e} / {cpu['logits']:.2e}, loss "
+          f"{card['loss']:.2e} / {cpu['loss']:.2e}; gradient leaves {min(card[n] for n in grads):.2e} to "
+          f"{max(card[n] for n in grads):.2e} / {min(cpu[n] for n in grads):.2e} to {max(cpu[n] for n in grads):.2e}; "
+          f"nearest the limit ({RESNET_STEP_NOISE_X} x the CPU's + {RESNET_STEP_FLOOR}): "
+          + ", ".join(f"{n} {card[n]:.2e} of {limit[n]:.2e}" for n in worst), flush=True)
+    print(f"[resnet-step] symmetric padding planted: logits {fault['logits']:.2e}, loss {fault['loss']:.2e}, worst "
+          f"gradient leaf {max(fault[n] for n in grads):.2e}", flush=True)
+    check(all(math.isfinite(x) and x <= limit[n] for n, x in card.items()),
+          f"resnet-step: beyond the CPU's f32 error: {[(n, card[n], limit[n]) for n in worst]}")
+    check(fault["logits"] > limit["logits"], f"resnet-step: symmetric padding passes ({fault['logits']:.2e})")
+
+    bf = resnet.config_from_dict("resnet50")
+    logits, loss, out = run(bf, "cuda", torch.bfloat16)
+    check(math.isfinite(loss.item()) and abs(loss.item() - math.log(bf.num_classes)) <= RESNET_BF16_LOSS_BAND,
+          f"resnet-step: bf16 loss {loss.item()} not within {RESNET_BF16_LOSS_BAND} of ln 1000")
+    check(all(torch.isfinite(v).all() for v in out.values()), "resnet-step: a bf16 gradient or statistic not finite")
+    print(f"[resnet-step] bf16 on the card: loss {loss.item():.4f} (f64 {ref[1].item():.4f}, ln 1000 "
+          f"{math.log(1000):.4f}); logits {_rel_norm(logits, ref[0]):.2e} from f64", flush=True)
+    return {"card": card, "cpu": cpu, "fault_symmetric_pad": fault, "loss_f64": ref[1].item(),
+            "loss_bf16": loss.item()}
+
+
+def bench_resnet_phase(torch, card: str) -> dict:
+    """``[bench-resnet]``: ``bench_resnet`` at ``resnet50``, B=``RESNET_BENCH_B``
+    (its JSON line: images/s, ms/step, MFU on the JAX program's basis of 3 ×
+    4.1 GFLOP an image), the peak memory of the run, then two more steps of
+    a fresh bench state under ``torch.profiler``: device ms a step by kernel
+    family and the busy share."""
+    from tony_tpu_torch.models import resnet
+    from tony_tpu_torch.train import bench_resnet
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rec = bench_resnet.run(["--preset", "resnet50", "--batch", str(RESNET_BENCH_B), "--steps",
+                            str(RESNET_BENCH_STEPS), "--warmup", str(RESNET_BENCH_WARMUP)])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(rec["batch"] == RESNET_BENCH_B and rec["value"] > 0 and math.isfinite(rec["mfu"]), f"bench-resnet: {rec}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = bench_resnet.make_step(resnet.RESNET50, RESNET_BENCH_B, torch.device("cuda"))
+    float(step())
+    prof = profile_families(torch, step, 2)
+    out = {**rec, "max_memory_gib": peak, "wall_s": wall}
+    if prof:
+        out.update(prof)
+        fam = {k: round(v, 1) for k, v in prof["device_ms_by_family"].items()}
+        print(f"[bench-resnet] device ms a step by kernel family {fam}, busy {prof['busy_share']:.3f} of the "
+              "profiled wall", flush=True)
+        for name, ms, n in prof["top_kernels"]:
+            print(f"[bench-resnet]   {ms:8.1f} ms {n:5d}x  {name}", flush=True)
+    else:
+        out["device_ms_by_family"] = "not measured: the profiler recorded no device activity"
+        print("[bench-resnet] the profiler recorded no device activity", flush=True)
+    print(f"[bench-resnet] ResNet-50 bf16 224² B={RESNET_BENCH_B}: {rec['value']} images/s, {rec['step_time_ms']} "
+          f"ms/step, MFU {rec['mfu']} (3 x 4.1 GFLOP an image, the JAX program's basis), peak memory {peak:.1f} GiB, "
+          f"wall {wall:.1f}s; {card}", flush=True)
+    return out
+
+
+def resnet_train_phase(torch) -> dict:
+    """``[resnet-train]``: ``train_resnet`` at ``resnet50`` (AdamW, the BN
+    state through batch and metrics) for ``RESNET_TRAIN_STEPS`` steps of
+    ``RESNET_TRAIN_B``: every loss finite, every running mean moved from 0,
+    every running statistic finite."""
+    from tony_tpu_torch.train import train_resnet
+
+    t0 = time.perf_counter()
+    res = train_resnet.run(["--preset", "resnet50", "--batch_size", str(RESNET_TRAIN_B), "--steps",
+                            str(RESNET_TRAIN_STEPS), "--log_every", "1"])
+    wall = time.perf_counter() - t0
+    log = res["log"]
+    check([x["step"] for x in log] == list(range(1, RESNET_TRAIN_STEPS + 1)) and
+          all(math.isfinite(x["loss"]) for x in log), f"resnet-train: {log}")
+    stats = dict(_leaves(res["bn_state"]))
+    means = {n: v for n, v in stats.items() if n.endswith("/mean")}
+    check(len(stats) == 106 and all(torch.isfinite(v).all() for v in stats.values()),
+          f"resnet-train: {len(stats)} running statistics, or one not finite")
+    still = [n for n, v in means.items() if not (v != 0).any()]
+    check(not still, f"resnet-train: running means still 0: {still}")
+    print(f"[resnet-train] ResNet-50 B={RESNET_TRAIN_B}, {RESNET_TRAIN_STEPS} steps: losses "
+          f"{[round(x['loss'], 4) for x in log]}; all {len(means)} running means moved, all 106 statistics finite; "
+          f"wall {wall:.1f}s", flush=True)
+    return {"log": log, "wall_s": wall,
+            "mean_abs_running_mean": {n: v.abs().mean().item() for n, v in means.items()}}
+
+
 # -- main ----------------------------------------------------------------------
 
 class Phases:
@@ -3283,7 +3517,7 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, str(ROOT))
-    from tony_tpu_torch.models import bert, llama, mixtral
+    from tony_tpu_torch.models import bert, llama, mixtral, resnet
     from tony_tpu_torch.ops import _build
     from tony_tpu_torch.ops import moe_gemm as MG
     from tony_tpu_torch.parallel import expert
@@ -3393,6 +3627,16 @@ def main() -> int:
             bench["bert"]["breakdown"] = step_breakdown(torch, bert, bert.config_from_dict(fields), "bench-bert", B, T)
         with phase("bert-pack"):
             bert_pack = bert_pack_phase(torch, bert, A, card)
+        # the MNIST MLP and ResNet-50 after BERT, with its state freed: cuDNN's
+        # convolutions and BatchNorm, no kernel of the port on their path
+        with phase("mnist"):
+            mnist = mnist_phase(out_dir)
+        with phase("resnet-step"):
+            resnet_step = resnet_step_check(torch, resnet)
+        with phase("bench-resnet"):
+            bench["resnet"] = bench_resnet_phase(torch, card)
+        with phase("resnet-train"):
+            resnet_train = resnet_train_phase(torch)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED in phase {phase.current}: {e}", file=sys.stderr, flush=True)
         return 1
@@ -3417,7 +3661,8 @@ def main() -> int:
          "async_save": async_save, "bench": bench,
          "mixtral": {"whole_step": moe_step, "train": moe_train, "remat": moe_remat, "serve": moe_serve},
          "cp": {"whole_step": cp_step, "train": cp_train},
-         "bert": {"whole_step": bert_step, "pack": bert_pack}}, indent=1))
+         "bert": {"whole_step": bert_step, "pack": bert_pack}, "mnist": mnist,
+         "resnet": {"whole_step": resnet_step, "train": resnet_train}}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -5,6 +5,7 @@ by which a profiled step is split, and the fleet phases' readers of the
 lines ``tony serve`` and its replicas print, its ``tony loadtest`` traffic
 and the jobs the launcher builds from its flags."""
 
+import math
 import re
 import sys
 from pathlib import Path
@@ -106,6 +107,17 @@ def test_moe_passes_match_the_source_enum():
     ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_TNT", "gemm"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "gemm"),
     ("void at::native::vectorized_elementwise_kernel<4, ...>", "other"),
+    ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<float, float>(...)", "other"),
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x128x64_warpgroupsize1x1x1_"
+     "execute_segment_k_off_kernel__5x_cudnn", "conv"),
+    ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize128x256x64", "conv"),
+    ("sm80_xmma_wgrad_implicit_gemm_indexed_bf16bf16_bf16f32_f32_nhwckrsc_nhwc_tilesize64x64x64", "conv"),
+    ("void cudnn::cnn::conv2d_grouped_direct_kernel<false, true, false, 0, 0, int, float, float>(...)", "conv"),
+    ("void cudnn::bn_fw_tr_1C11_kernel_NCHW<__nv_bfloat16, float, 512, true, 1>(...)", "norm"),
+    ("void at::native::batch_norm_collect_statistics_channels_last_kernel<at::native::Var, c10::BFloat16, "
+     "float, 4>(...)", "norm"),
+    ("void cutlass::Kernel2<cutlass::gemm::kernel::GemmUniversal<cutlass::NumericConverter<float, "
+     "cutlass::bfloat16_t> > >(...)", "gemm"),
 ])
 def test_kernel_family(name, family):
     assert cs._kernel_family(name) == family
@@ -387,3 +399,32 @@ def test_phases_print_a_start_line_and_seconds_and_name_a_failure(capsys):
     out = capsys.readouterr().out.splitlines()
     assert out[0] == "[phase] one start" and re.fullmatch(r"\[phase\] one \d+\.\ds", out[1])
     assert out[2:] == ["[phase] two start"] and phases.current == "two" and list(phases.seconds) == ["one"]
+
+
+def test_resnet_and_mnist_constants_are_the_entry_points_and_the_jax_programs():
+    """[bench-resnet] runs bench_resnet at its defaults, which are
+    examples/resnet/bench_resnet.py's (read as text, never run); [mnist]
+    reads train_mnist's step lines, whose steps, batch and interval are
+    examples/mnist/train_mnist.py's."""
+    from tony_tpu_torch.train import bench_resnet, train_mnist
+
+    assert (cs.RESNET_BENCH_B, cs.RESNET_BENCH_STEPS, cs.RESNET_BENCH_WARMUP) == (
+        bench_resnet.BATCH, bench_resnet.STEPS, bench_resnet.WARMUP)
+    jax_bench = (ROOT / "examples" / "resnet" / "bench_resnet.py").read_text()
+    defaults = dict(re.findall(r'add_argument\("--(\w+)", type=int, default=(\d+)\)', jax_bench))
+    assert defaults == {"batch": str(bench_resnet.BATCH), "steps": str(bench_resnet.STEPS),
+                        "warmup": str(bench_resnet.WARMUP)}
+    assert f"FWD_GFLOP_PER_IMAGE = {bench_resnet.FWD_GFLOP_PER_IMAGE}" in jax_bench
+    assert cs.MNIST_LOG_STEPS == list(range(train_mnist.LOG_EVERY, train_mnist.STEPS + 1, train_mnist.LOG_EVERY))
+    jax_mnist = (ROOT / "examples" / "mnist" / "train_mnist.py").read_text()
+    assert (f"range({train_mnist.STEPS})" in jax_mnist and f"total_steps={train_mnist.STEPS}" in jax_mnist
+            and f", {train_mnist.BATCH}, cfg)" in jax_mnist and f"% {train_mnist.LOG_EVERY} == 0" in jax_mnist)
+
+
+def test_mnist_phase_reads_train_mnists_step_lines(capsys):
+    from tony_tpu_torch.train import train_mnist
+
+    assert train_mnist.main(["--device", "cpu"]) == 0
+    steps = [(int(a), float(b)) for a, b, _ in cs._STEP_LINE.findall(capsys.readouterr().out)]
+    assert [s for s, _ in steps] == cs.MNIST_LOG_STEPS
+    assert all(abs(loss - math.log(10)) <= cs.MNIST_LOSS_BAND for _, loss in steps)

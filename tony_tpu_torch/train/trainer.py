@@ -166,6 +166,26 @@ class AdamW:
         state["count"] = t
 
 
+class SGD:
+    """``optax.sgd(lr, momentum)``: the trace t ← g + momentum·t, kept in the
+    parameter dtype (optax's ``accumulator_dtype=None``), and p ← p − lr·t,
+    cast back to the parameter dtype; no clip and no schedule."""
+
+    def __init__(self, learning_rate: float, momentum: float = 0.0):
+        self.learning_rate, self.momentum = learning_rate, momentum
+
+    def init(self, params: dict) -> dict:
+        return {"trace": {n: torch.zeros_like(p) for n, p in _leaves(params)}}
+
+    @torch.no_grad()
+    def update(self, params: dict, grads: dict[str, torch.Tensor], state: dict) -> None:
+        """Apply one update in place; ``grads`` maps leaf names to gradients."""
+        for name, p in _leaves(params):
+            t = state["trace"][name]
+            t.mul_(self.momentum).add_(grads[name])
+            p.copy_(p + t * -self.learning_rate)
+
+
 def make_train_step(
     loss_fn: Callable[[Any, Any], tuple[torch.Tensor, dict]],
     optimizer: AdamW,
@@ -187,6 +207,12 @@ def make_train_step(
             loss, aux = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, tensors)
             return loss.detach(), aux, dict(zip((n for n, _ in leaves), grads))
+        nested = [k for k, v in batch.items() if isinstance(v, dict)]
+        if nested:
+            raise ValueError(
+                f"accum_steps={accum_steps} splits every batch value along its leading dim, and "
+                f"{nested} hold a tree (ResNet's BatchNorm state rides in the batch as 'bn_state'): "
+                "neither package splits it; train such a model with accum_steps=1")
         micro = {k: v.reshape(accum_steps, v.shape[0] // accum_steps, *v.shape[1:])
                  for k, v in batch.items()}
         loss_sum = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
