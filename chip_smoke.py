@@ -171,9 +171,26 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
     profiled step by kernel family (``conv``, ``norm``, ``gemm``,
     ``other``); ``[resnet-train]``: ``train_resnet`` for 4 steps of 64, every
     running mean moved and every statistic finite;
-12. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
-    their ``[bench-bert]`` launches and BERT cases) and, last,
-    ``{"ok": true, "device": {...}}``.
+12. Hugging Face checkpoints and the Mixtral gang (last): ``[hf-load]``
+    writes two HF checkpoint directories from seeded bf16 trees (Llama-3-8B
+    widths cut to 2 layers as safetensors shards with their index,
+    Mixtral-8x7B widths cut to 1 layer as ``pytorch_model.bin``), loads each
+    onto the card through ``convert.load_hf_dir`` with every leaf the
+    source's bit for bit, and a third with layer 0's ``o_proj`` written
+    untransposed must fail that check; prints load seconds and GB/s;
+    ``[hf-serve]``: ``serving_http --hf <llama dir> --int8 --kv paged`` (B5,
+    B6) answers four greedy requests one at a time with the tokens of the
+    in-process engine on the source tree quantized the same way, and the
+    Mixtral directory through ``build_engine`` in process (B7 in prefill)
+    gives the source tree's tokens; ``[mixtral-gang]``: ``tony submit``
+    (framework pytorch, one worker) of ``pretrain_mixtral`` at Mixtral-8x7B
+    width cut to 1 layer, B=1, T=2048, 3 steps: SUCCEEDED, finite steps with
+    their ``moe_*`` metrics, the first loss near ln V, and the worker's
+    B1-B3, B7, B8 launches as remat "full" schedules them;
+13. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
+    their ``[bench-bert]`` launches and BERT cases, and the launches of the
+    phases of 12 as ``launches_hf_serve`` and ``launches_mixtral_gang``)
+    and, last, ``{"ok": true, "device": {...}}``.
 
 Each phase prints ``[phase] <name> start`` and ``[phase] <name> <s>s``, so a
 failure is named by the last start line.
@@ -3415,6 +3432,330 @@ def resnet_train_phase(torch) -> dict:
             "mean_abs_running_mean": {n: v.abs().mean().item() for n, v in means.items()}}
 
 
+# -- Hugging Face checkpoints and the Mixtral gang ------------------------------
+
+HF_LLAMA_LAYERS = 2    # Llama-3-8B widths, ~3.0 GB in bf16
+HF_MIXTRAL_LAYERS = 1  # Mixtral-8x7B widths, ~3.4 GB in bf16
+HF_SERVE_PROMPTS = (17, 300, 1000, 64)  # prompt lengths of the [hf-serve] requests, 32 tokens each
+HF_SERVE_ARGS = ["--kv", "paged", "--slots", str(S), "--max-len", str(MAXT), "--decode-chunk", "8"]
+MIXTRAL_GANG_STEPS, MIXTRAL_GANG_T = 3, 2048
+#: the config fields a checkpoint's config.json carries (the rest are training choices)
+HF_CONFIG_FIELDS = ("vocab_size", "d_model", "n_layers", "n_heads", "n_kv_heads", "d_ff", "max_seq", "rope_theta",
+                    "norm_eps", "dtype", "sliding_window", "rope_scaling", "num_experts", "top_k")
+
+
+def hf_config(cfg) -> dict:
+    """The ``config.json`` of an HF checkpoint of the port's ``cfg``."""
+    d = {"model_type": "llama", "architectures": ["LlamaForCausalLM"], "vocab_size": cfg.vocab_size,
+         "hidden_size": cfg.d_model, "intermediate_size": cfg.d_ff, "num_hidden_layers": cfg.n_layers,
+         "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads,
+         "head_dim": cfg.head_dim, "max_position_embeddings": cfg.max_seq, "rope_theta": cfg.rope_theta,
+         "rms_norm_eps": cfg.norm_eps, "rope_scaling": None, "attention_bias": False, "mlp_bias": False,
+         "tie_word_embeddings": False, "torch_dtype": cfg.dtype}
+    if hasattr(cfg, "num_experts"):
+        d.update(model_type="mixtral", architectures=["MixtralForCausalLM"], sliding_window=None,
+                 num_local_experts=cfg.num_experts, num_experts_per_tok=cfg.top_k)
+    return d
+
+
+def hf_state_dicts(cfg, params, fault: bool = False) -> list[dict]:
+    """The port's tree under HF's names in HF's ``[out, in]`` layout (the
+    inverse of ``convert``'s map), on the CPU, as one state dict a shard:
+    the embedding, each layer, then the final norm and the head. ``fault``
+    writes layer 0's ``o_proj`` untransposed: square, so its shape passes."""
+    def cpu(t, transpose=True):
+        return (t.T if transpose else t).contiguous().cpu()
+
+    lp = params["layers"]
+    shards = [{"model.embed_tokens.weight": cpu(params["embed"], False)}]
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}."
+        sd = {pre + "input_layernorm.weight": cpu(lp["attn_norm"][i], False),
+              pre + "post_attention_layernorm.weight": cpu(lp["mlp_norm"][i], False)}
+        for name, key in (("q_proj", "wq"), ("k_proj", "wk"), ("v_proj", "wv"), ("o_proj", "wo")):
+            sd[pre + f"self_attn.{name}.weight"] = cpu(lp[key][i], not (fault and i == 0 and key == "wo"))
+        if "router" in lp:
+            sd[pre + "block_sparse_moe.gate.weight"] = cpu(lp["router"][i])  # f32, as the port keeps it
+            for e in range(cfg.num_experts):
+                for w, key in (("w1", "we_gate"), ("w3", "we_up"), ("w2", "we_down")):
+                    sd[pre + f"block_sparse_moe.experts.{e}.{w}.weight"] = cpu(lp[key][i, e])
+        else:
+            for name, key in (("gate_proj", "w_gate"), ("up_proj", "w_up"), ("down_proj", "w_down")):
+                sd[pre + f"mlp.{name}.weight"] = cpu(lp[key][i])
+        shards.append(sd)
+    shards.append({"model.norm.weight": cpu(params["final_norm"], False), "lm_head.weight": cpu(params["lm_head"])})
+    return shards
+
+
+def write_safetensors(path: Path, tensors: dict) -> None:
+    """The safetensors format: an 8-byte little-endian header length, the
+    JSON header (``dtype``, ``shape``, ``data_offsets``), the raw bytes."""
+    import struct
+
+    import torch
+
+    names = {torch.bfloat16: "BF16", torch.float32: "F32"}
+    header, at = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [at, at + n]}
+        at += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.view(-1).view(torch.uint8).numpy())
+
+
+def write_hf_dir(d: Path, cfg, shards: list[dict], layout: str) -> int:
+    """An HF checkpoint directory: ``config.json`` and the weights as
+    safetensors shards with their index (``layout`` "safetensors") or one
+    ``pytorch_model.bin`` ("bin"). Returns the weight files' bytes."""
+    import torch
+
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    (d / "config.json").write_text(json.dumps(hf_config(cfg)))
+    if layout == "bin":
+        torch.save({k: v for sd in shards for k, v in sd.items()}, d / "pytorch_model.bin")
+        return (d / "pytorch_model.bin").stat().st_size
+    weight_map = {}
+    for j, sd in enumerate(shards):
+        name = f"model-{j + 1:05d}-of-{len(shards):05d}.safetensors"
+        write_safetensors(d / name, sd)
+        weight_map.update(dict.fromkeys(sd, name))
+    size = sum((d / f).stat().st_size for f in set(weight_map.values()))
+    (d / "model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": size}, "weight_map": weight_map}))
+    return size
+
+
+def tree_mismatches(torch, got: dict, want: dict) -> list[str]:
+    """The leaves of ``got`` that are not ``want``'s bit for bit (or differ in
+    name, shape or dtype)."""
+    g, w = dict(_leaves(got)), dict(_leaves(want))
+    bad = sorted(g.keys() ^ w.keys())
+    for name in sorted(g.keys() & w.keys()):
+        a, b = g[name], w[name]
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            bad.append(name)
+    return bad
+
+
+def hf_load_phase(torch, llama, mixtral, out_dir: Path) -> tuple[dict, dict]:
+    """``[hf-load]``: two HF checkpoint directories written here from the
+    port's seeded bf16 trees through ``hf_state_dicts``: Llama-3-8B widths cut
+    to ``HF_LLAMA_LAYERS`` layers as safetensors shards with their index, and
+    Mixtral-8x7B widths cut to ``HF_MIXTRAL_LAYERS`` as ``pytorch_model.bin``.
+    Each loads onto the card through ``convert.load_hf_dir`` with every leaf
+    the source's bit for bit and the source's ``HF_CONFIG_FIELDS``; a third directory
+    (layer 0's ``o_proj`` written untransposed, its other shards the Llama
+    directory's) must fail that check on ``layers/wo`` alone. Prints each
+    load's seconds and GB/s (the files were just written: a warm read).
+    Returns the record and the directories with their source trees."""
+    from tony_tpu_torch.models.convert import load_hf_dir
+
+    work = out_dir / "hf"
+    shutil.rmtree(work, ignore_errors=True)
+    with torch.no_grad():
+        lcfg = llama.config_from_dict({"preset": "llama3-8b", "n_layers": HF_LLAMA_LAYERS})
+        mcfg = mixtral.config_from_dict({"preset": "mixtral-8x7b", "n_layers": HF_MIXTRAL_LAYERS})
+        sources = {"llama": (lcfg, llama.init(torch.Generator(device="cuda").manual_seed(11), lcfg, "cuda")),
+                   "mixtral": (mcfg, mixtral.init(torch.Generator(device="cuda").manual_seed(12), mcfg, "cuda"))}
+    dirs = {"llama": work / "llama", "mixtral": work / "mixtral", "fault": work / "llama_o_proj_untransposed"}
+    sizes, write_s = {}, {}
+    for name, layout in (("llama", "safetensors"), ("mixtral", "bin")):
+        cfg, params = sources[name]
+        t0 = time.perf_counter()
+        sizes[name] = write_hf_dir(dirs[name], cfg, hf_state_dicts(cfg, params), layout)
+        write_s[name] = time.perf_counter() - t0
+    cfg, params = sources["llama"]
+    shutil.copytree(dirs["llama"], dirs["fault"], copy_function=os.link)  # the same shards, hard-linked
+    shard = dirs["fault"] / f"model-00002-of-{cfg.n_layers + 2:05d}.safetensors"
+    shard.unlink()
+    write_safetensors(shard, hf_state_dicts(cfg, params, fault=True)[1])
+    sizes["fault"] = sizes["llama"]
+    rec = {}
+    for name in ("llama", "mixtral", "fault"):
+        cfg, params = sources["mixtral" if name == "mixtral" else "llama"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, got_cfg = load_hf_dir(dirs[name], "cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        bad = tree_mismatches(torch, got, params)
+        del got
+        if name == "fault":
+            check(bad == ["layers/wo"], f"hf-load: the untransposed o_proj was not caught alone: {bad}")
+        else:
+            check(not bad, f"hf-load: {name}: leaves unlike the source: {bad}")
+            arch = [f for f in HF_CONFIG_FIELDS if hasattr(cfg, f)]
+            check(all(getattr(got_cfg, f) == getattr(cfg, f) for f in arch),
+                  f"hf-load: {name}: config {got_cfg} is not the source's {cfg} in {arch}")
+        rec[name] = {"bytes": sizes[name], "write_s": write_s.get(name), "load_s": load_s,
+                     "load_gb_per_s": sizes[name] / load_s / 1e9, "mismatched": bad}
+        print(f"[hf-load] {name}: {sizes[name] / 1e9:.2f} GB ({'pytorch_model.bin' if name == 'mixtral' else 'safetensors shards'}"
+              f"{', written in %.1f s' % write_s[name] if name in write_s else ''}) loaded onto the card in "
+              f"{load_s:.2f} s = {rec[name]['load_gb_per_s']:.2f} GB/s (warm page cache); "
+              f"{'mismatched leaves ' + str(bad) + ' (planted, must fail)' if bad else 'every leaf the source bit for bit'}",
+              flush=True)
+    return rec, {"dirs": dirs, "sources": sources}
+
+
+def hf_requests(vocab: int) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    return [rng.integers(1, vocab, n).tolist() for n in HF_SERVE_PROMPTS]
+
+
+def engine_one_at_a_time(eng, prompts: list, max_tokens: int = 32) -> list:
+    """Each prompt alone through the in-process engine, to its end."""
+    out = []
+    for p in prompts:
+        rid = eng.submit(p, max_tokens)
+        eng.run()
+        out.append(eng.done[rid])
+    return out
+
+
+def hf_serve_phase(torch, Q, DA, MG, hf: dict, out_dir: Path) -> dict:
+    """``[hf-serve]``: ``python -m tony_tpu_torch.models.serving_http --hf
+    <llama dir> --int8 --kv paged`` (B5, B6): ``HF_SERVE_PROMPTS`` sent one
+    at a time, greedy, each answer equal to that of an in-process
+    ``ContinuousBatcher`` with the same settings on the source tree quantized
+    the same way, also one at a time; the server's launches from its
+    ``/stats``; SIGTERM exits 0. Then the Mixtral directory through
+    ``build_engine(--hf)`` in this process (B7 in its prefills; launches set
+    to 0 just before) with the tokens of the engine on the source tree."""
+    from tony_tpu_torch.models import serving_http
+
+    lcfg, lparams = hf["sources"]["llama"]
+    prompts = hf_requests(lcfg.vocab_size)
+    url_file = out_dir / "hf-serve.url"
+    url_file.unlink(missing_ok=True)
+    logf = open(out_dir / "hf-serve.log", "w")
+    argv = ["--hf", str(hf["dirs"]["llama"]), "--int8", *HF_SERVE_ARGS]
+    proc = subprocess.Popen([sys.executable, "-m", "tony_tpu_torch.models.serving_http", *argv,
+                             "--url-file", str(url_file)], cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                            stdout=logf, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+    try:
+        deadline = time.time() + 300
+        while not url_file.exists():
+            if proc.poll() is not None or time.time() > deadline:
+                logf.flush()
+                raise SmokeFailure(f"hf-serve: server did not come up (rc={proc.poll()}); log:\n"
+                                   + (out_dir / "hf-serve.log").read_text()[-4000:])
+            time.sleep(0.5)
+        startup_s = time.perf_counter() - t0
+        url = url_file.read_text()
+        served = []
+        for p in prompts:
+            with _post(url + "/v1/completions", {"prompt_tokens": p, "max_tokens": 32}) as r:
+                served.append(json.load(r)["tokens"])
+        st = _get(url + "/stats")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"hf-serve: SIGTERM exit code {rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        logf.close()
+    args = serving_http.parse_args(HF_SERVE_ARGS)
+    with torch.no_grad():
+        eng = serving_http.engine_for(Q.quantize_tree(lparams)[0], lcfg, args, torch.device("cuda"))
+        want = engine_one_at_a_time(eng, prompts)
+    del eng
+    check(all(len(t) == 32 for t in served), f"hf-serve: short answers {[len(t) for t in served]}")
+    check(served == want, "hf-serve: the --hf --int8 server's tokens differ from the engine on the source "
+                          f"tree:\n{served}\n{want}")
+    launches = st["kernel_launches"]
+    check(launches["paged_decode_attention"] > 0 and launches["int8_matmul"] > 0,
+          f"hf-serve: the server's launches {launches}")
+    mcfg, mparams = hf["sources"]["mixtral"]
+    mprompts = hf_requests(mcfg.vocab_size)
+    with torch.no_grad():
+        eng = serving_http.build_engine(serving_http.parse_args(["--hf", str(hf["dirs"]["mixtral"]), *HF_SERVE_ARGS]))
+        MG.reset_launches()
+        mixtral_tokens = engine_one_at_a_time(eng, mprompts)
+        moe_launches = dict(MG.launches)
+        del eng
+        want_m = engine_one_at_a_time(serving_http.engine_for(mparams, mcfg, args, torch.device("cuda")), mprompts)
+    check(moe_launches["moe_fwd"] > 0 and moe_launches["moe_bwd"] == 0,
+          f"hf-serve: the Mixtral engine's MoE launches {moe_launches}")
+    check(mixtral_tokens == want_m, f"hf-serve: the Mixtral directory's tokens differ from the source tree's:\n"
+                                    f"{mixtral_tokens}\n{want_m}")
+    shutil.rmtree(out_dir / "hf", ignore_errors=True)
+    rec = {"startup_s": startup_s, "prompts": list(HF_SERVE_PROMPTS), "tokens": served, "launches": launches,
+           "mixtral_tokens": mixtral_tokens, "mixtral_launches": moe_launches}
+    print(f"[hf-serve] serving_http --hf (Llama-3-8B widths, {lcfg.n_layers} layers) --int8 --kv paged: up in "
+          f"{startup_s:.1f} s; {len(prompts)} greedy requests one at a time, tokens equal to the engine on the "
+          f"source tree; launches {launches}; Mixtral directory ({mcfg.n_layers} layer) in process: tokens "
+          f"equal to the source tree's, launches {moe_launches}", flush=True)
+    return rec
+
+
+_LAUNCHES_LINE = re.compile(r"^\[train\] kernel launches (\{.*\})$", re.M)
+
+
+def mixtral_gang_phase(out_dir: Path) -> dict:
+    """``[mixtral-gang]``: ``tony submit`` (framework pytorch, one worker) of
+    ``python -m tony_tpu_torch.train.pretrain_mixtral`` at Mixtral-8x7B
+    width cut to 1 layer (bf16, remat "full"), B=1, T=2048, 3 steps: the job
+    must succeed, every step line be finite with its ``moe_*`` metrics, the
+    first loss within 1.5 of ln V, and the worker's kernel launches (its
+    ``[train] kernel launches`` line) B1 and B7 2·L·steps, B2, B3 and B8
+    L·steps. One rank: more than one needs more than one card."""
+    work = out_dir / "mixtral_gang"
+    shutil.rmtree(work, ignore_errors=True)
+    root = work / "tony"
+    run = ["--preset", "mixtral-8x7b", "--n_layers", "1", "--steps", str(MIXTRAL_GANG_STEPS), "--batch_size", "1",
+           "--seq_len", str(MIXTRAL_GANG_T), "--log_every", "1", "--warmup_steps", "1"]
+    cmd = f"cd {ROOT} && PYTHONPATH={ROOT} {sys.executable} -m tony_tpu_torch.train.pretrain_mixtral {' '.join(run)}"
+    argv = [sys.executable, "-m", "tony_tpu.cli.main", "submit", "--executes", cmd,
+            "--conf", "tony.worker.instances=1", "--conf", "tony.application.framework=pytorch"]
+    env = dict(os.environ, TONY_ROOT=str(root), PYTHONPATH=str(ROOT))
+    t0 = time.perf_counter()
+    try:
+        sub = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        subprocess.run(["pkill", "-f", "tony_tpu.cluster"], check=False)  # the job's AM and executor
+        raise SmokeFailure("mixtral-gang: tony submit did not finish in 300 s")
+    wall = time.perf_counter() - t0
+    out = sub.stdout + sub.stderr
+    check(sub.returncode == 0 and "SUCCEEDED" in out,
+          f"mixtral-gang: tony submit exited {sub.returncode}:\n{out[-4000:]}")
+    apps = sorted(root.glob("application_*"))
+    check(len(apps) == 1, f"mixtral-gang: applications {apps}")
+    log = (apps[0] / "logs" / "worker_0" / "stdout.log").read_text()
+    steps = _step_lines(log)
+    check(sorted(steps) == list(range(1, MIXTRAL_GANG_STEPS + 1)), f"mixtral-gang: steps {sorted(steps)}:\n{log[-3000:]}")
+    keys = ("loss", "grad_norm", "moe_balance_loss", "moe_z_loss", "moe_dropped_frac")
+    for rec in steps.values():
+        check(all(k in rec and math.isfinite(rec[k]) for k in keys), f"mixtral-gang: step line {rec}")
+    V = 32_000
+    check(abs(steps[1]["loss"] - math.log(V)) <= 1.5,
+          f"mixtral-gang: first loss {steps[1]['loss']} not within 1.5 of ln(V) {math.log(V):.2f}")
+    m = _LAUNCHES_LINE.search(log)
+    check(m is not None, f"mixtral-gang: no kernel launches line in the worker's log:\n{log[-3000:]}")
+    launches = json.loads(m.group(1))
+    L, n = 1, MIXTRAL_GANG_STEPS
+    want = {"flash_fwd": 2 * L * n, "flash_bwd_dq": L * n, "flash_bwd_dkv": L * n, "moe_fwd": 2 * L * n,
+            "moe_bwd": L * n}
+    check({k: launches.get(k) for k in want} == want, f"mixtral-gang: worker launches {launches}, want {want}")
+    shutil.rmtree(work, ignore_errors=True)
+    step_ms = [steps[i]["step_time_ms"] for i in sorted(steps)]
+    print(f"[mixtral-gang] tony submit of pretrain_mixtral (Mixtral-8x7B width, 1 layer, bf16, B=1 T={MIXTRAL_GANG_T}, "
+          f"{n} steps) SUCCEEDED in {wall:.1f} s; losses {[steps[i]['loss'] for i in sorted(steps)]}, balance "
+          f"{[round(steps[i]['moe_balance_loss'], 6) for i in sorted(steps)]}, step ms {step_ms}; worker launches "
+          f"{launches}", flush=True)
+    return {"submit_wall_s": wall, "steps": [steps[i] for i in sorted(steps)], "launches": launches}
+
+
 # -- main ----------------------------------------------------------------------
 
 class Phases:
@@ -3470,12 +3811,15 @@ KERNELS = {
                  "tony_tpu/ops/ring.py:380 (_ring_bwd_kernel via _ring_bwd :720; the dq and dk/dv step "
                  "kernels, launches of both)", "cp_train"),
 }
-def kernel_rows(kern: dict, path_launches: dict, fleet_b5: dict, bert_launches: dict, bert_kern: dict) -> list:
+def kernel_rows(kern: dict, path_launches: dict, fleet_b5: dict, bert_launches: dict, bert_kern: dict,
+                more: dict | None = None) -> list:
     """The ``kernels`` line: one row a kernel of ``KERNELS``, its launches
     those of its main-path run (a kernel never launched there fails the run),
     its times those of its first case; B5 adds its launches on each fleet's
     decode tier, and B1-B3 their ``[bench-bert]`` launches (``launches_bert``)
-    and the BERT cases after their own."""
+    and the BERT cases after their own. ``more`` maps a kernel to the
+    launches of later phases, ``{phase: n}``, each added to its row as
+    ``launches_<phase>`` and each required to be more than 0."""
     rows = []
     for name, (source, replaces, run) in KERNELS.items():
         k = kern[name]
@@ -3496,6 +3840,9 @@ def kernel_rows(kern: dict, path_launches: dict, fleet_b5: dict, bert_launches: 
             check(bert_launches.get(name, 0) > 0, f"{name} was not launched by the bench-bert run")
             rows[-1]["launches_bert"] = bert_launches[name]
             rows[-1]["cases"] = k["cases"] + bert_kern[name]["cases"]
+        for phase_name, n in (more or {}).get(name, {}).items():
+            check(n > 0, f"{name} was not launched by the {phase_name} phase")
+            rows[-1][f"launches_{phase_name}"] = n
     return rows
 
 
@@ -3637,6 +3984,15 @@ def main() -> int:
             bench["resnet"] = bench_resnet_phase(torch, card)
         with phase("resnet-train"):
             resnet_train = resnet_train_phase(torch)
+        # Hugging Face checkpoints (written from seeded trees, loaded, served)
+        # and the Mixtral gang under tony submit, after every earlier phase
+        with phase("hf-load"):
+            hf_load, hf = hf_load_phase(torch, llama, mixtral, out_dir)
+        with phase("hf-serve"):
+            hf_serve = hf_serve_phase(torch, Q, DA, MG, hf, out_dir)
+            del hf
+        with phase("mixtral-gang"):
+            mixtral_gang = mixtral_gang_phase(out_dir)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED in phase {phase.current}: {e}", file=sys.stderr, flush=True)
         return 1
@@ -3647,8 +4003,13 @@ def main() -> int:
     path_launches["mixtral_train"] = moe_train["launches"]
     path_launches["cp_train"] = cp_train["launches"]
     try:
+        gang_launches = mixtral_gang["launches"]
+        more = {k: {"mixtral_gang": gang_launches[k]} for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "moe_bwd")}
+        more["moe_fwd"] = {"mixtral_gang": gang_launches["moe_fwd"], "hf_serve": hf_serve["mixtral_launches"]["moe_fwd"]}
+        for k in ("paged_decode_attention", "int8_matmul"):
+            more[k] = {"hf_serve": hf_serve["launches"][k]}
         kernels = kernel_rows(kern, path_launches, {f: rec["b5_launches"] for f, rec in fleet.items()},
-                              bench["bert"]["launches"], bert_kern)
+                              bench["bert"]["launches"], bert_kern, more)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr, flush=True)
         return 1
@@ -3662,7 +4023,8 @@ def main() -> int:
          "mixtral": {"whole_step": moe_step, "train": moe_train, "remat": moe_remat, "serve": moe_serve},
          "cp": {"whole_step": cp_step, "train": cp_train},
          "bert": {"whole_step": bert_step, "pack": bert_pack}, "mnist": mnist,
-         "resnet": {"whole_step": resnet_step, "train": resnet_train}}, indent=1))
+         "resnet": {"whole_step": resnet_step, "train": resnet_train},
+         "hf": {"load": hf_load, "serve": hf_serve}, "mixtral_gang": mixtral_gang}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

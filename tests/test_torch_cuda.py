@@ -784,3 +784,30 @@ def test_ragged_and_short_lengths_match_plain(gen, path, Tl, D):
         _flash_compare(gen, torch.bfloat16, B=1, H=8, Hkv=2, T=Tl, D=D, causal=True, window=0, n_seg=3)
     else:
         _ring_compare(gen, torch.bfloat16, B=1, H=8, Hkv=2, n=4, Tl=Tl, D=D, window=0, n_seg=3)
+
+
+@pytest.mark.parametrize("model", ["llama", "mixtral"])
+@pytest.mark.parametrize("layout", ["safetensors", "bin"])
+@pytest.mark.parametrize("source", ["bfloat16", "float32"])
+def test_hf_dir_loads_straight_onto_the_card_as_on_the_cpu(gen, tmp_path, model, layout, source):
+    """``convert.load_hf_dir`` onto ``cuda:0``: the tensors move in their
+    stored dtype and are transposed and cast on the card, with the bits of
+    the CPU's load; an f32 checkpoint served in bf16 rounds on the card as
+    the CPU rounds it (to nearest even)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    from tony_tpu_torch.models import convert, llama, mixtral
+
+    mod = llama if model == "llama" else mixtral
+    cfg = mod.config_from_dict({"preset": "tiny", "dtype": source})
+    params = mod.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    cs.write_hf_dir(tmp_path, cfg, cs.hf_state_dicts(cfg, params), layout)
+    for dtype in (None, "bfloat16"):
+        card, _ = convert.load_hf_dir(tmp_path, "cuda:0", dtype)
+        host, _ = convert.load_hf_dir(tmp_path, "cpu", dtype)
+        assert all(t.is_cuda for _, t in cs._leaves(card))
+        assert cs.tree_mismatches(torch, {k: v for k, v in cs._leaves(card)},
+                                  {k: v.cuda() for k, v in cs._leaves(host)}) == []

@@ -14,6 +14,12 @@ contract.
   is above the clip (1.0), so the clip on the global norm is exercised.
 - 2 ranks for 3 steps, resumed on 1 rank to 6, equals 6 uninterrupted
   steps; a changed global batch or seed on resume raises.
+- The gang's reductions against one process on the global batch: BERT with
+  unequal target counts per rank; Mixtral's router losses taken over the
+  whole batch (plain rows, packed rows whose router and CE counts differ,
+  a rank with no targets); accumulated microbatches of BERT and Mixtral in
+  gangs of 2 and 4 laid out as JAX's scan lays them (and against JAX's
+  ``make_train_step``), a straddling layout refused.
 - ``ckpt-corrupt`` chaos, the urgent save, and the ``.obs`` snapshot, spans
   and log records read by the JAX package's readers.
 - The headline (``e2e``): ``tony submit`` of a 2-worker gang of
@@ -29,12 +35,15 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import pytest
 
 jax = pytest.importorskip("jax")
 torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
 
 from tony_tpu.data import dataset as JD  # noqa: E402
 from tony_tpu.data import native as JN  # noqa: E402
@@ -284,13 +293,57 @@ def run(rank, world, group):
     return losses, opt.seen
 """
 
-_BERT_RANK = _BERT_STEPS + """
+# the tail of a gang rank's script: join the gloo group as the torch runtime
+# adapter's env describes it, save run(rank, world, group)'s result
+_GANG_RUN = """
 import sys, torch.distributed as dist
 from tony_tpu_torch.runtime import init_distributed, shutdown_distributed
 init_distributed(torch.device("cpu"))
 torch.save(run(dist.get_rank(), dist.get_world_size(), dist.group.WORLD), sys.argv[1])
 shutdown_distributed()
 """
+
+
+def _start_gang(script: str, out_dir: Path, n: int) -> Callable[[], list]:
+    """Start ``script + _GANG_RUN`` as ``n`` gloo ranks (one intra-op thread
+    each); returns a function that waits for them and gives every rank's
+    saved result."""
+    port = _free_port()
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, PYTHONPATH=str(ROOT), RANK=str(rank), WORLD_SIZE=str(n), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen([sys.executable, "-c", script + _GANG_RUN, str(out_dir / f"r{rank}.pt")],
+                                      cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+
+    def finish() -> list:
+        try:
+            outs = [p.communicate(timeout=180)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, out in zip(procs, outs):
+            assert p.returncode == 0, out[-3000:]
+        return [torch.load(out_dir / f"r{rank}.pt", weights_only=True) for rank in range(n)]
+
+    return finish
+
+
+def _spawn_gang(script: str, tmp_path: Path, n: int = 2) -> list:
+    return _start_gang(script, tmp_path, n)()
+
+
+def _assert_grads_close(got: dict, want: dict, what) -> None:
+    """Every leaf within 1e-4 of the want's largest magnitude."""
+    assert got.keys() == want.keys(), what
+    for name, w in want.items():
+        g = torch.as_tensor(np.array(got[name])).float()
+        w = torch.as_tensor(np.array(w)).float()
+        err = float((g - w).abs().max() / w.abs().max().clamp_min(1e-12))
+        assert err <= 1e-4, (what, name, err)
 
 
 def test_gloo_gang_weighs_ranks_by_their_targets_as_one_process(tmp_path):
@@ -303,32 +356,195 @@ def test_gloo_gang_weighs_ranks_by_their_targets_as_one_process(tmp_path):
     counts = [[int((ns["global_batch"](i)["targets"][r * 2:(r + 1) * 2] != -100).sum()) for r in (0, 1)]
               for i in range(ns["STEPS"])]
     assert all(a != b for a, b in counts), counts
-    port = _free_port()
-    procs = []
-    for rank in range(2):
-        env = dict(os.environ, PYTHONPATH=str(ROOT), RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen([sys.executable, "-c", _BERT_RANK, str(tmp_path / f"r{rank}.pt")],
-                                      cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True))
-    try:
-        outs = [p.communicate(timeout=180)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-3000:]
+    ranks = _spawn_gang(_BERT_STEPS, tmp_path)
     want_losses, want_grads = ns["run"](0, 1, None)
-    for rank in range(2):
-        losses, grads = torch.load(tmp_path / f"r{rank}.pt", weights_only=True)
+    for rank, (losses, grads) in enumerate(ranks):
         for (gl, gn), (wl, wn), c in zip(losses, want_losses, counts):
             assert gn == wn == sum(c) and abs(gl - wl) <= 1e-5, (losses, want_losses)
         for got, want in zip(grads, want_grads):
-            for name, w in want.items():
-                err = float((got[name] - w).abs().max() / w.abs().max().clamp_min(1e-12))
-                assert err <= 1e-4, (rank, name, err)
+            _assert_grads_close(got, want, rank)
+
+
+# The gang's reductions on global batches of 8 rows, the loss a partial as
+# the training loop passes it (make_train_step hands Mixtral's the ranks
+# that share its rows); run(rank, world, group) gives, for each case, every
+# step's metrics and the reduced gradients the optimizer received:
+# - "mixtral 1" (C2): three Mixtral steps without accumulation, on plain
+#   rows, on packed rows whose ranks hold unequal router (valid input) and
+#   CE (valid target) counts, and with the second half all padding (ranks
+#   with no targets);
+# - "bert A", "mixtral A" (C3): one step with accum_steps A, on BERT's C3
+#   reading (dense_synthetic_batch seed 100: 7 11 8 11 4 7 7 7 targets a
+#   row) and on the packed Mixtral rows, where rows 2-3 (a rank, or a
+#   microbatch) hold no targets;
+# and, in a gang, the refusal of accum_steps 3, which straddles.
+_REDUCTIONS = """
+import dataclasses, functools, torch
+from tony_tpu_torch.models import bert, mixtral
+from tony_tpu_torch.train import trainer as TT
+
+CFG = dataclasses.replace(bert.BERT_TINY, dtype="float32")
+MCFG = dataclasses.replace(mixtral.MIXTRAL_TINY, dtype="float32")
+B, T, ACCUM = 8, 64, (2, 4)
+# per Mixtral row: (segment, length) runs of the T+1 ids; 0 is padding
+PAD = ((0, 65),)
+PACKED = [((1, 45), (0, 20)), ((1, 30), (2, 35)), PAD, PAD,
+          ((1, 10), (2, 40), (0, 15)), ((1, 65),), ((1, 20), (0, 45)), ((1, 50), (2, 15))]
+RUNS = {1: PACKED, 2: PACKED[:2] + PACKED[4:6] + [PAD] * 4}
+KEYS = ("loss", "tokens", "moe_balance_loss", "moe_z_loss")
+
+
+class Recording(TT.AdamW):
+    def update(self, params, grads, state, norm):
+        self.seen.append({k: g.clone() for k, g in grads.items()})
+        super().update(params, grads, state, norm)
+
+
+def global_batch(model, step):
+    if model is bert:
+        return bert.dense_synthetic_batch(torch.Generator().manual_seed(100), B, T, CFG)
+    batch = mixtral.synthetic_batch(torch.Generator().manual_seed(7 + step), B, T, MCFG)
+    if step in RUNS:
+        batch["segment_ids"] = torch.tensor([sum(([s] * n for s, n in row), []) for row in RUNS[step]])
+    return batch
+
+
+def train(model, cfg, steps, accum, rank, world, group):
+    opt = Recording(TT.OptimizerConfig(learning_rate=1e-2, warmup_steps=1, total_steps=len(steps)))
+    opt.seen = []
+    state = TT.TrainState.create(model.init(torch.Generator().manual_seed(0), cfg, "cpu"), opt)
+    loss_fn = functools.partial(model.loss_fn, cfg=cfg, mesh=None)
+    step = TT.make_train_step(loss_fn, opt, accum_steps=accum, group=group)
+    rows = B // world
+    log = []
+    for i in steps:
+        state, m = step(state, {k: v[rank * rows:(rank + 1) * rows] for k, v in global_batch(model, i).items()})
+        log.append((sorted(m), {k: float(m[k]) for k in KEYS if k in m}))
+    return log, opt.seen
+
+
+def run(rank, world, group):
+    out = {"mixtral 1": train(mixtral, MCFG, (0, 1, 2), 1, rank, world, group)}
+    for accum in ACCUM:
+        out[f"bert {accum}"] = train(bert, CFG, (0,), accum, rank, world, group)
+        out[f"mixtral {accum}"] = train(mixtral, MCFG, (1,), accum, rank, world, group)
+    if group is not None:
+        try:
+            TT.make_train_step(functools.partial(bert.loss_fn, cfg=CFG), None, accum_steps=3, group=group)
+        except ValueError as e:
+            out["straddle"] = str(e)
+    return out
+"""
+
+
+@pytest.fixture(scope="module")
+def reductions(tmp_path_factory) -> dict:
+    """``_REDUCTIONS`` in this process (world 1) and as gloo gangs of 2 and
+    4, the gangs run at once: {world: [each rank's result]}."""
+    gangs = {}
+    for world in (2, 4):
+        d = tmp_path_factory.mktemp(f"gang{world}")
+        gangs[world] = _start_gang(_REDUCTIONS, d, world)
+    ns: dict = {}
+    exec(_REDUCTIONS, ns)
+    threads = torch.get_num_threads()  # a module fixture runs outside the per-test _one_thread
+    torch.set_num_threads(1)
+    try:
+        one = ns["run"](0, 1, None)
+    finally:
+        torch.set_num_threads(threads)
+    return {1: [one], **{world: finish() for world, finish in gangs.items()}}
+
+
+def _assert_same_case(got, want, what) -> None:
+    """The same metric keys, the listed values within 1e-5 (the token
+    count exactly) and every gradient within 1e-4 relative, each step."""
+    (got_log, got_grads), (want_log, want_grads) = got, want
+    assert len(got_log) == len(want_log) == len(got_grads) == len(want_grads), what
+    for step, ((gk, gv), (wk, wv)) in enumerate(zip(got_log, want_log)):
+        assert gk == wk and gv.keys() == wv.keys(), (what, step, gk, wk)
+        assert gv.get("tokens") == wv.get("tokens"), (what, step, gv, wv)
+        for k in wv:
+            assert abs(gv[k] - wv[k]) <= 1e-5, (what, step, k, gv, wv)
+    for step, (g, w) in enumerate(zip(got_grads, want_grads)):
+        _assert_grads_close(g, w, (what, step))
+
+
+def test_gloo_gang_takes_mixtrals_router_losses_over_the_global_batch(reductions):
+    """C2: gloo gangs of 2 and 4 of the tiny Mixtral in f32 equal one process
+    on the global batch: the loss, the balance and z losses within 1e-5 and
+    every reduced gradient within 1e-4 relative, on plain rows, on packed
+    rows with unequal router and target counts, and with ranks whose rows
+    are all padding (no targets: they weigh 0, and nothing turns NaN). Each
+    rank's own balance statistic, averaged over the ranks, is off in the
+    loss and in the router's gradient."""
+    ns: dict = {}
+    exec(_REDUCTIONS, ns)
+    seg = ns["global_batch"](ns["mixtral"], 1)["segment_ids"]
+    router = [int((seg[r * 4:(r + 1) * 4, :-1] != 0).sum()) for r in (0, 1)]
+    assert router[0] != router[1]
+    assert not ns["global_batch"](ns["mixtral"], 2)["segment_ids"][4:].any()
+    want = reductions[1][0]["mixtral 1"]
+    assert all(set(ns["KEYS"]) <= set(keys) for keys, _ in want[0])
+    for world in (2, 4):
+        for rank, out in enumerate(reductions[world]):
+            _assert_same_case(out["mixtral 1"], want, (world, rank))
+
+
+def test_accumulated_microbatches_in_a_gang_weigh_as_jaxs_scan(reductions):
+    """C3: gloo gangs of 2 and 4 with ``accum_steps`` 2 and 4 equal one
+    process with the same ``accum_steps`` on the global batch, and BERT's
+    one process equals JAX's ``make_train_step`` (its scan over global
+    microbatches): the loss within 1e-5, every gradient within 1e-4
+    relative, and no aux in the metrics. The layouts: each rank holds whole
+    microbatches (2 ranks, accum 2 and 4; 4 ranks, accum 4), or a microbatch
+    spans two ranks (4 ranks, accum 2), whose ranks weigh ``n_r / N_i`` and
+    pool Mixtral's router losses over their subgroup. A rank's rows split
+    into ``accum_steps`` microbatches of their own are off by 1.7e-2 in
+    BERT's loss. ``accum_steps`` 3 raises naming C3."""
+    import optax
+
+    from tony_tpu.models import bert as JB
+    from tony_tpu.train import trainer as JT
+
+    ns: dict = {}
+    exec(_REDUCTIONS, ns)
+    one = reductions[1][0]
+    batch = {k: jnp.asarray(v.numpy()) for k, v in ns["global_batch"](ns["bert"], 0).items()}
+    init = torch.Generator().manual_seed(0)
+    jparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()), ns["bert"].init(init, ns["CFG"], "cpu"))
+    jcfg = dataclasses.replace(JB.BERT_TINY, dtype="float32")
+    # an optimizer whose state after one update is the gradients it was given
+    keep = optax.GradientTransformation(lambda p: jax.tree.map(jnp.zeros_like, p),
+                                        lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
+    for accum in ns["ACCUM"]:
+        jstep = JT.make_train_step(lambda p, b: JB.loss_fn(p, b, jcfg), keep, accum_steps=accum)
+        jstate, jm = jstep(JT.TrainState.create(jax.tree.map(jnp.array, jparams), keep), batch)  # donated
+        jgrads = dict(_leaves(jax.tree.map(np.asarray, jstate.opt_state)))
+        [(keys, values)], [grads] = one[f"bert {accum}"]
+        assert abs(values["loss"] - float(jm["loss"])) <= 1e-5, (accum, values, float(jm["loss"]))
+        _assert_grads_close(grads, jgrads, ("one process", accum))
+    for world in (2, 4):
+        for rank, out in enumerate(reductions[world]):
+            for model in ("bert", "mixtral"):
+                for accum in ns["ACCUM"]:
+                    case = f"{model} {accum}"
+                    assert one[case][0][0][0] == ["grad_norm", "loss", "step"], case
+                    _assert_same_case(out[case], one[case], (world, rank, case))
+            assert f"C3: accum_steps 3 over a gang of {world} ranks" in out["straddle"]
+
+
+@pytest.mark.parametrize("accum, world, want", [
+    (1, 2, (1, 1)), (2, 2, (1, 2)), (4, 2, (2, 2)), (2, 4, (1, 2)), (8, 1, (8, 1)), (3, 2, None), (2, 3, None),
+])
+def test_gang_slots_cover_whole_microbatches_or_raise(accum, world, want):
+    from tony_tpu_torch.train.trainer import gang_slots
+
+    if want is None:
+        with pytest.raises(ValueError, match=f"C3: accum_steps {accum} over a gang of {world} ranks"):
+            gang_slots(accum, world)
+    else:
+        assert gang_slots(accum, world) == want
 
 
 # -- chaos, urgent save, obs --------------------------------------------------------

@@ -61,6 +61,13 @@ def test_serving_http_import_loads_no_jax():
     _assert_import_loads_no_jax("tony_tpu_torch.models.serving_http, tony_tpu_torch.models.convert")
 
 
+def test_hf_loading_imports_neither_transformers_nor_safetensors():
+    """The card has neither package: the checkpoint reader and the server
+    that uses it load none of them, nor jax."""
+    _assert_import_loads_none_of("tony_tpu_torch.models.convert, tony_tpu_torch.models.serving_http",
+                                 ("jax", "tony_tpu", "transformers", "safetensors"))
+
+
 def test_training_import_loads_no_jax():
     _assert_import_loads_no_jax(
         "tony_tpu_torch.train.loop, tony_tpu_torch.ops.attention, tony_tpu_torch.train.pretrain")

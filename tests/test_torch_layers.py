@@ -89,6 +89,21 @@ def test_cross_entropy_value_and_gradient_match_jax():
     _close(z.grad, jg)
 
 
+def test_cross_entropy_with_no_targets_is_zero_and_counts_none():
+    """Every target ignored: both losses are 0, as JAX's, and the count is
+    0 where JAX reports max(n, 1), so a gang rank with no targets weighs 0."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 6, 16)).astype(np.float32)
+    head = rng.standard_normal((16, 40)).astype(np.float32)
+    tgt = np.full((2, 6), -100, np.int32)
+    jl, jn = JL.cross_entropy_loss(jnp.asarray(x @ head), jnp.asarray(tgt))
+    assert float(jl) == 0.0 and int(jn) == 1
+    for loss, n in (TL.cross_entropy_loss(torch.from_numpy(x @ head), torch.from_numpy(tgt)),
+                    TL.chunked_cross_entropy_loss(torch.from_numpy(x), torch.from_numpy(head),
+                                                  torch.from_numpy(tgt), chunk=4)):
+        assert float(loss) == 0.0 and int(n) == 0
+
+
 @pytest.mark.parametrize("T,chunk", [(12, 4), (13, 4), (12, 0), (5, 8)],
                          ids=["even", "padded", "one-chunk", "chunk-over-T"])
 def test_chunked_cross_entropy_value_and_gradients_match_jax(T, chunk):

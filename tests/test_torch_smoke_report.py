@@ -45,6 +45,19 @@ DECODE_LOG = (_entry(DECODE.format("f", 64), 232) + _entry(DECODE.format("f", 12
               + "nvcc wall seconds: 10.1\n")
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread, as each gang rank has: tier-1 runs this file
+    beside other workers, and a tiny model's step on a full thread pool
+    only waits for CPUs."""
+    import torch
+
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 INT8_LOG = (_entry(INT8_DECODE.format(8), 168) + _entry(DECODE.format("f", 64), 232)
             + _entry(INT8_DECODE.format(1), 54) + _entry(INT8_PREFILL, 168, spill=16)
             + "nvcc wall seconds: 5.7\n")
@@ -428,3 +441,70 @@ def test_mnist_phase_reads_train_mnists_step_lines(capsys):
     steps = [(int(a), float(b)) for a, b, _ in cs._STEP_LINE.findall(capsys.readouterr().out)]
     assert [s for s, _ in steps] == cs.MNIST_LOG_STEPS
     assert all(abs(loss - math.log(10)) <= cs.MNIST_LOSS_BAND for _, loss in steps)
+
+
+def test_hf_and_mixtral_gang_phases_run_last_in_main():
+    src = (ROOT / "chip_smoke.py").read_text()
+    main = src[src.index("def main() -> int:"):]
+    order = [main.index(f'phase("{name}")') for name in ("resnet-train", "hf-load", "hf-serve", "mixtral-gang")]
+    assert order == sorted(order)
+    load = src[src.index("def hf_load_phase("):src.index("def hf_requests(")]
+    assert "fault=True" in load and 'check(bad == ["layers/wo"]' in load
+
+
+@pytest.mark.parametrize("model", ["llama", "mixtral"])
+def test_hf_dirs_the_phase_writes_load_bit_for_bit_and_the_planted_fault_fails(tmp_path, model):
+    """``hf_state_dicts`` (the inverse map) and ``write_hf_dir`` in both
+    layouts, read back by ``convert.load_hf_dir`` on the CPU: every leaf the
+    source's; layer 0's ``o_proj`` untransposed differs in ``layers/wo``
+    alone, with its shape unchanged."""
+    import torch
+
+    from tony_tpu_torch.models import convert, llama, mixtral
+
+    mod = llama if model == "llama" else mixtral
+    cfg = mod.config_from_dict({"preset": "tiny", "dtype": "bfloat16"})
+    params = mod.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    for layout in ("safetensors", "bin"):
+        d = tmp_path / layout
+        size = cs.write_hf_dir(d, cfg, cs.hf_state_dicts(cfg, params), layout)
+        assert size == sum(p.stat().st_size for p in d.iterdir() if p.suffix in (".safetensors", ".bin"))
+        got, got_cfg = convert.load_hf_dir(d, "cpu")
+        assert cs.tree_mismatches(torch, got, params) == []
+        assert all(getattr(got_cfg, f) == getattr(cfg, f) for f in cs.HF_CONFIG_FIELDS if hasattr(cfg, f))
+        cs.write_hf_dir(d, cfg, cs.hf_state_dicts(cfg, params, fault=True), layout)
+        got, _ = convert.load_hf_dir(d, "cpu")
+        assert cs.tree_mismatches(torch, got, params) == ["layers/wo"]
+        assert got["layers"]["wo"].shape == params["layers"]["wo"].shape
+
+
+def test_mixtral_gang_phase_reads_the_workers_step_and_launch_lines(capsys):
+    """``pretrain_mixtral`` (cut by ``--n_layers``) prints the step reports
+    with their ``moe_*`` metrics and the ``[train] kernel launches`` line the
+    phase reads (all 0 on the CPU: the kernels launch on the card only)."""
+    import json
+
+    from tony_tpu_torch.train import pretrain_mixtral
+
+    assert pretrain_mixtral.main(["--preset", "tiny", "--n_layers", "1", "--device", "cpu", "--steps", "2",
+                                  "--batch_size", "2", "--seq_len", "16", "--log_every", "1"]) == 0
+    out = capsys.readouterr().out
+    steps = cs._step_lines(out)
+    assert sorted(steps) == [1, 2] and all("moe_balance_loss" in s for s in steps.values())
+    launches = json.loads(cs._LAUNCHES_LINE.search(out).group(1))
+    assert set(launches) >= {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "moe_fwd", "moe_bwd"}
+    assert not any(launches.values())
+
+
+def test_kernel_rows_carry_the_later_phases_launches():
+    kern = {name: _kernel("train") for name in cs.KERNELS}
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    bert_kern = {name: _kernel("bert") for name in flash}
+    path = {run: {name: 3 for name in cs.KERNELS} for _, _, run in cs.KERNELS.values()}
+    bert = dict.fromkeys(flash, 5)
+    more = {"moe_fwd": {"mixtral_gang": 6, "hf_serve": 9}, "int8_matmul": {"hf_serve": 40}}
+    rows = {r["name"]: r for r in cs.kernel_rows(kern, path, {}, bert, bert_kern, more)}
+    assert rows["moe_fwd"]["launches_mixtral_gang"] == 6 and rows["moe_fwd"]["launches_hf_serve"] == 9
+    assert rows["int8_matmul"]["launches_hf_serve"] == 40 and "launches_hf_serve" not in rows["moe_bwd"]
+    with pytest.raises(cs.SmokeFailure, match="int8_matmul was not launched by the hf_serve phase"):
+        cs.kernel_rows(kern, path, {}, bert, bert_kern, {"int8_matmul": {"hf_serve": 0}})

@@ -9,7 +9,9 @@ stacked over layers. Single device only: a mesh raises (a context axis
 waits for a later slice); ``sharding_rules`` and ``pp_value_and_grad`` wait for
 ROADMAP A8 and A13. The MoE is JAX's default ragged dispatch, so the config
 has no ``moe_dispatch`` or ``capacity_factor``; ``config_from_dict`` refuses
-a dict that asks for another dispatch (ROADMAP A11).
+a dict that asks for another dispatch (ROADMAP A11). In a gang,
+``loss_fn(..., group=)`` takes the router losses over the whole group's
+batch, as JAX does over a data-parallel mesh's global arrays.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from dataclasses import dataclass
 from functools import partial
 
 import torch
+import torch.distributed as dist
 
 from tony_tpu_torch.models import llama as llama_mod
 from tony_tpu_torch.ops import attention as attn_ops
@@ -108,7 +111,7 @@ def init(gen: torch.Generator, cfg: MixtralConfig, device: torch.device | str) -
 
 
 def _layer(x, lp: dict, cos, sin, cfg: MixtralConfig, mesh, segment_ids=None, positions=None,
-           token_mask=None):
+           token_mask=None, group=None):
     """One Mixtral decoder layer (pre-norm GQA attention + MoE FFN) →
     (x, moe_balance_loss, moe_z_loss, moe_dropped_frac)."""
     B, T = x.shape[0], x.shape[1]
@@ -123,17 +126,18 @@ def _layer(x, lp: dict, cos, sin, cfg: MixtralConfig, mesh, segment_ids=None, po
     x = x + o.transpose(1, 2).reshape(B, T, H * Dh) @ lp["wo"]
     h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     y, aux = moe_ffn(h, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"], cfg.moe,
-                     mesh, token_mask=token_mask)
+                     mesh, token_mask=token_mask, group=group)
     return (x + y, *(aux[k] for k in _AUX))
 
 
 def hidden_states(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=None,
-                  segment_ids=None) -> tuple[torch.Tensor, dict]:
+                  segment_ids=None, group=None) -> tuple[torch.Tensor, dict]:
     """tokens [B, T] → (final-norm hidden states [B, T, D], moe aux losses:
     balance and z summed over layers, dropped fraction averaged).
     ``segment_ids`` [B, T] (packed sequences): segment-confined attention,
     per-segment RoPE positions, and padding (segment 0) routed with zero
-    gates and left out of the router losses."""
+    gates and left out of the router losses. ``group``: the ranks sharing
+    the batch, over which the router losses are taken (``moe_ffn``)."""
     if mesh is not None:
         raise NotImplementedError(
             "Mixtral under a device mesh is not ported yet (a context axis: ROADMAP queue A12, "
@@ -146,7 +150,7 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=N
     x = llama_mod.embed_lookup(params["embed"], tokens, mesh)
     block_fn = attn_ops.remat_block(
         partial(_layer, cos=cos, sin=sin, cfg=cfg, mesh=mesh, segment_ids=segment_ids,
-                positions=positions, token_mask=token_mask),
+                positions=positions, token_mask=token_mask, group=group),
         cfg.remat, cfg.remat_policy,
     )
     aux = {k: torch.zeros((), dtype=torch.float32, device=tokens.device) for k in _AUX}
@@ -160,25 +164,51 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=N
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=None,
-            segment_ids=None) -> tuple[torch.Tensor, dict]:
+            segment_ids=None, group=None) -> tuple[torch.Tensor, dict]:
     """tokens [B, T] → (logits [B, T, V], moe aux losses)."""
-    x, aux = hidden_states(params, tokens, cfg, mesh, segment_ids=segment_ids)
+    x, aux = hidden_states(params, tokens, cfg, mesh, segment_ids=segment_ids, group=group)
     return x @ params["lm_head"], aux
 
 
-def loss_fn(params: dict, batch: dict, cfg: MixtralConfig, mesh=None) -> tuple[torch.Tensor, dict]:
+def _scale_grad(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``t``'s value, bit for bit, with its gradient multiplied by ``s``."""
+    return t.detach() + s * (t - t.detach())
+
+
+def loss_fn(params: dict, batch: dict, cfg: MixtralConfig, mesh=None,
+            group=None) -> tuple[torch.Tensor, dict]:
     """batch: {"tokens": [B, T+1], optional "segment_ids"} → (ce + balance +
     z loss, {"loss", "ce_loss", "tokens", moe aux}). ``cfg.ce_chunk > 0``
-    fuses the lm head and CE per chunk so the [B, T, V] logits never exist."""
+    fuses the lm head and CE per chunk so the [B, T, V] logits never exist.
+
+    ``group``: the ranks that each hold a contiguous slice of this batch
+    (``make_train_step`` passes those that share one microbatch). The
+    balance and z losses are then JAX's over the whole batch, the same value
+    on every rank, while CE stays this rank's token mean over its ``n``
+    targets. The trainer weighs rank r's gradient by ``n_r / Σn``, so the
+    router losses' gradients are scaled here by ``Σn / n_r``: the gang's
+    reduction then counts each rank's share of them once. A rank with no
+    targets weighs 0 and scales them by 0: exact when its rows are all
+    padding, while a rank whose rows hold only one-token segments loses its
+    share of the router gradient. One process (or a group of one) keeps the
+    single-process path."""
+    if group is not None and dist.get_world_size(group) == 1:
+        group = None
     tokens = batch["tokens"]
     targets, seg_in = llama_mod.mask_packed_targets(tokens, batch.get("segment_ids"))
     if cfg.ce_chunk > 0:
-        x, aux = hidden_states(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in)
+        x, aux = hidden_states(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in, group=group)
         ce, n = L.chunked_cross_entropy_loss(x, params["lm_head"], targets, chunk=cfg.ce_chunk)
     else:
-        logits, aux = forward(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in)
+        logits, aux = forward(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in, group=group)
         ce, n = L.cross_entropy_loss(logits, targets)
-    loss = ce + aux["moe_balance_loss"] + aux["moe_z_loss"]
+    balance, z = aux["moe_balance_loss"], aux["moe_z_loss"]
+    if group is not None:
+        total = n.detach().clone()
+        dist.all_reduce(total, group=group)
+        s = torch.where(n > 0, total.float() / n.float().clamp_min(1.0), 0.0)
+        balance, z = _scale_grad(balance, s), _scale_grad(z, s)
+    loss = ce + balance + z
     return loss, {"loss": loss, "ce_loss": ce, "tokens": n, **aux}
 
 

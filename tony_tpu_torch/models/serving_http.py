@@ -1,9 +1,10 @@
 """HTTP front end for the port's continuous-batching engine.
 
 Counterpart of ``tony_tpu/models/serving_http.py``. It boots a
-``ContinuousBatcher`` over a model preset with seeded random weights
-(optionally int8) on ``--device`` (``cuda`` unless asked otherwise) and
-serves, on the stdlib ``ThreadingHTTPServer``:
+``ContinuousBatcher`` over a model preset with seeded random weights, or
+over a Hugging Face checkpoint directory (``--hf``), optionally int8, on
+``--device`` (``cuda`` unless asked otherwise) and serves, on the stdlib
+``ThreadingHTTPServer``:
 
     POST /v1/completions   {"prompt_tokens": [...], "max_tokens": N,
                             "stream": true|false, "temperature": ..,
@@ -24,10 +25,19 @@ tracing is on, and drains on a cooperative-preemption notice
 (``<metrics-file>.drain``, answered with ``.drain.done``) as on SIGTERM:
 admission stops, in-flight requests finish, exit 0. HTTP handler threads
 touch only thread-safe queues; ONE engine thread owns the batcher and the
-page pool. HF checkpoints and tokenizers are not ported (ROADMAP A9.2):
-``--hf`` and ``--tokenizer`` are refused by name.
+page pool.
 
-Run: ``python -m tony_tpu_torch.models.serving_http --preset llama3-8b``.
+``--hf <dir>`` reads a Llama or Mixtral checkpoint directory (``config.json``
+and ``model.safetensors``, sharded safetensors with their index, or
+``pytorch_model.bin``) through ``convert.load_hf_dir``, in its own dtype
+(float32 stays float32, anything else is served as bfloat16); ``--preset``
+is then ignored, and a Mixtral directory serves through the engine's MoE
+branch. Prompts are token ids: text prompts need a tokenizer (the
+``tokenizers`` package), which the port does not use, so ``--tokenizer`` is
+refused by name.
+
+Run: ``python -m tony_tpu_torch.models.serving_http --preset llama3-8b``, or
+``--hf <checkpoint dir> [--int8]``.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ import torch
 from tony_tpu_torch import constants
 from tony_tpu_torch.cluster.rpc import RpcClient, RpcError, own_host
 from tony_tpu_torch.device import resolve_device
+from tony_tpu_torch.models.convert import load_hf_dir
 from tony_tpu_torch.models.llama import PRESETS, init
 from tony_tpu_torch.models.serving import ContinuousBatcher
 from tony_tpu_torch.obs import introspect
@@ -482,8 +493,8 @@ class _Handler(BaseHTTPRequestHandler):
                 raise ValueError("request body must be a JSON object")
             prompt = req.get("prompt_tokens")
             if prompt is None and "prompt" in req:
-                raise ValueError("text prompts need a tokenizer, which is not ported "
-                                 "(ROADMAP A9.2); send prompt_tokens")
+                raise ValueError("text prompts need a tokenizer (the tokenizers package), which the "
+                                 "port does not use; send prompt_tokens")
             if not prompt:
                 raise ValueError("empty prompt")
             max_tokens = int(req.get("max_tokens", 16))
@@ -754,16 +765,28 @@ def _resolve_kv(args) -> str:
 
 
 def build_engine(args) -> ContinuousBatcher:
-    args.kv = _resolve_kv(args)
+    """The engine ``args`` describe: a preset's seeded weights or ``--hf``'s
+    checkpoint, int8 where asked."""
     device = resolve_device(args.device)
-    cfg = PRESETS[args.preset]
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    params = init(gen, cfg, device)
+    if args.hf:
+        t0 = time.perf_counter()
+        params, cfg = load_hf_dir(args.hf, device)
+        obs_logging.info(f"[tony-serve] loaded {args.hf} ({type(cfg).__name__}, {cfg.n_layers} layers, "
+                         f"{cfg.dtype}) in {time.perf_counter() - t0:.1f}s; --preset is ignored")
+    else:
+        cfg = PRESETS[args.preset]
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed)
+        params = init(gen, cfg, device)
     if args.int8:
-        from tony_tpu_torch.ops.quant import quantize_tree
+        params, _, _ = quant.quantize_tree(params)
+    return engine_for(params, cfg, args, device)
 
-        params, _, _ = quantize_tree(params)
+
+def engine_for(params: dict, cfg, args, device) -> ContinuousBatcher:
+    """The ``ContinuousBatcher`` of ``args``'s settings over ``params`` (as
+    given: ``--int8`` is ``build_engine``'s)."""
+    args.kv = _resolve_kv(args)
     sample_gen = torch.Generator(device=device)
     sample_gen.manual_seed(args.seed + 1)
     return ContinuousBatcher(
@@ -780,10 +803,15 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="tony-serve-torch",
                                 description="continuous-batching HTTP inference server (PyTorch/CUDA)")
     p.add_argument("--preset", default="tiny", choices=sorted(PRESETS),
-                   help="model preset (seeded random init)")
+                   help="model preset (seeded random init unless --hf)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--hf", default="", help="not ported (ROADMAP A9.2): refused")
-    p.add_argument("--tokenizer", default="", help="not ported (ROADMAP A9.2): refused")
+    p.add_argument("--hf", default="",
+                   help="HuggingFace checkpoint dir to load (Llama or Mixtral: config.json and "
+                        "model.safetensors, sharded safetensors with their index, or "
+                        "pytorch_model.bin); served in its dtype, float32 or else bfloat16")
+    p.add_argument("--tokenizer", default="",
+                   help="refused: text prompts need the tokenizers package, which the port does "
+                        "not use; send prompt_tokens")
     p.add_argument("--int8", action="store_true", help="int8 weight-only quantization")
     p.add_argument("--slots", type=int, default=8)
     p.add_argument("--max-len", type=int, default=512)
@@ -819,10 +847,9 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                    help="align a TTFT histogram bucket edge to this SLO threshold "
                         "(default from TONY_SLO_TTFT_MS, 0 = off)")
     args = p.parse_args(argv)
-    for flag in ("hf", "tokenizer"):
-        if getattr(args, flag):
-            p.error(f"--{flag}: HF checkpoints and tokenizers are not ported to the PyTorch "
-                    "server (ROADMAP A9.2); serve a --preset with seeded weights")
+    if args.tokenizer:
+        p.error("--tokenizer: text prompts need the tokenizers package, which the PyTorch server "
+                "does not use; send prompt_tokens (token ids)")
     return args
 
 

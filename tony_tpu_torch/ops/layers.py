@@ -93,15 +93,17 @@ def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: tor
 def cross_entropy_loss(
     logits: torch.Tensor, targets: torch.Tensor, ignore_index: int = -100
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Token-mean CE in f32; returns (loss, n_valid_tokens)."""
+    """Token-mean CE in f32; returns (loss, n_valid_tokens). The mean divides
+    by max(n, 1), as JAX's does; n itself is the true count (JAX reports
+    max(n, 1)), so that a gang rank with no targets weighs 0."""
     mask = targets != ignore_index
     safe = torch.where(mask, targets, 0)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, safe[..., None].long())[..., 0]
     nll = (logz - gold) * mask
-    n = mask.sum().clamp_min(1)
-    return nll.sum() / n, n
+    n = mask.sum()
+    return nll.sum() / n.clamp_min(1), n
 
 
 def _chunk_nll(xc: torch.Tensor, tc: torch.Tensor, lm_head: torch.Tensor, ignore_index: int) -> torch.Tensor:
@@ -137,5 +139,5 @@ def chunked_cross_entropy_loss(
     for c0 in range(0, T, chunk):
         total = total + checkpoint(_chunk_nll, x[:, c0:c0 + chunk], targets[:, c0:c0 + chunk],
                                    lm_head, ignore_index, use_reentrant=False)
-    n = (targets != ignore_index).sum().clamp_min(1)
-    return total / n, n
+    n = (targets != ignore_index).sum()  # the true count, as ``cross_entropy_loss``'s
+    return total / n.clamp_min(1), n

@@ -9,6 +9,12 @@ on the CPU) with spans padded to ``moe_gemm.TILE``. ``MoEConfig`` has no
 ``dispatch`` or ``capacity_factor``: the capacity dispatches (``"gather"``,
 ``"dense"``) and ``"ragged_xla"`` are not ported, and an expert mesh axis
 raises (ROADMAP queue A11).
+
+JAX takes the router's statistics over the global arrays of a data-parallel
+mesh. In a gang each process holds a slice of the batch, so with a data
+``group`` the gating sums its statistics over the group's ranks inside the
+forward (``_GangSum``): the balance and z losses are those of the whole
+batch, on every rank.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from tony_tpu_torch.ops import moe_gemm
@@ -38,14 +45,35 @@ def _top_k(probs: torch.Tensor, k: int):
     return probs.gather(-1, idx), idx
 
 
+class _GangSum(torch.autograd.Function):
+    """The sum of ``x`` over ``group``'s ranks. The gradient goes to this
+    rank's own summand unchanged: each rank's loss holds the sum, and the
+    caller scales the gradient of the terms built on it so that the gang's
+    reduction counts them once (``mixtral.loss_fn``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.detach().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def _gating(x: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,
-            token_mask: torch.Tensor | None = None):
+            token_mask: torch.Tensor | None = None, group=None):
     """Router softmax, top-k gates renormalised over the k (Mixtral
     convention), and the aux losses over valid tokens. ``token_mask`` [B, T]
     zeroes the gates of padding and leaves it out of the losses.
 
     The router is cast to x's dtype before the product and the product
     summed in f32, as JAX does (``preferred_element_type=f32``).
+
+    ``group`` (a process group of more than one rank, each holding a slice
+    of the batch): ``me``, ``ce`` and the z loss come from the sums over the
+    group's valid tokens, one all-reduce of ``2E + 2`` f32 values.
 
     Returns (gate_vals [B,T,K] mask-zeroed, gate_idx [B,T,K], choice_onehot
     [B,T,K,E] f32, aux)."""
@@ -56,19 +84,23 @@ def _gating(x: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
     choice_onehot = F.one_hot(gate_idx, E).float()
     lse_sq = torch.logsumexp(logits, dim=-1) ** 2
-    if token_mask is None:
+    if token_mask is None and group is None:
         B, T, _ = x.shape
         n_valid = torch.tensor(float(B * T), device=x.device)
         me = probs.mean(dim=(0, 1))
         z = lse_sq.mean()
+        ce = choice_onehot.sum(dim=2).sum(dim=(0, 1)) / n_valid
     else:
-        m = token_mask.float()
+        m = torch.ones(x.shape[:2], device=x.device) if token_mask is None else token_mask.float()
         gate_vals = gate_vals * m[:, :, None]
         choice_onehot = choice_onehot * m[:, :, None, None]
-        n_valid = torch.clamp(m.sum(), min=1.0)
-        me = (probs * m[:, :, None]).sum(dim=(0, 1)) / n_valid
-        z = (lse_sq * m).sum() / n_valid
-    ce = choice_onehot.sum(dim=2).sum(dim=(0, 1)) / n_valid
+        sums = torch.cat([(probs * m[:, :, None]).sum(dim=(0, 1)),
+                          choice_onehot.sum(dim=2).sum(dim=(0, 1)),
+                          (lse_sq * m).sum()[None], m.sum()[None]])
+        if group is not None:
+            sums = _GangSum.apply(sums, group)
+        n_valid = torch.clamp(sums[-1], min=1.0)
+        me, ce, z = sums[:E] / n_valid, sums[E:2 * E] / n_valid, sums[2 * E] / n_valid
     aux = {
         "moe_balance_loss": cfg.aux_loss_coef * E * (me * ce).sum() * (1.0 / cfg.top_k),
         "moe_z_loss": cfg.router_z_coef * z,
@@ -78,21 +110,21 @@ def _gating(x: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,
 
 
 def route_ragged(x, router_w, cfg: MoEConfig, token_mask: torch.Tensor | None = None,
-                 tile: int | None = None):
+                 tile: int | None = None, group=None):
     """Capacity-free routing for the grouped-GEMM dispatch: a counting sort
     of all N = B·T·K choices by expert (rank within (batch row, expert) by
     cumsum over t·K + k, then earlier rows, then earlier experts), so the
     order is b-major inside each expert's span. With ``tile`` every span is
     padded up to a multiple of it (at least one tile) and the row count is
     the static bound ``PN = (ceil(N/tile) + E)·tile``; pad rows keep token 0
-    and gate 0.
+    and gate 0. ``group``: as ``_gating``'s.
 
     Returns (sort_tok [N or PN] int32, dest [N] int64, gate_vals [B,T,K],
     gate_sorted [N or PN] f32, group_sizes [E] int64, aux)."""
     B, T, _ = x.shape
     E, K = cfg.num_experts, cfg.top_k
     N = B * T * K
-    gate_vals, gate_idx, _, aux = _gating(x, router_w, cfg, token_mask)
+    gate_vals, gate_idx, _, aux = _gating(x, router_w, cfg, token_mask, group)
     oh = F.one_hot(gate_idx.reshape(B, T * K), E)                       # [B, TK, E] int64
     pos_b = torch.cumsum(oh, dim=1) - oh
     counts_b = oh.sum(dim=1)                                            # [B, E]
@@ -164,7 +196,7 @@ def _expert_swiglu(xs, w_gate, w_up, w_down, group_sizes, tile: int):
     return moe_gemm.moe_swiglu_grouped(xs, w_gate, w_up, w_down, tg, tile)
 
 
-def _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, token_mask):
+def _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, token_mask, group=None):
     """Grouped-GEMM MoE on one device: route, gather the rows, run the expert
     MLP over expert-sorted spans, gather back to choice order and sum with
     the gates."""
@@ -172,7 +204,7 @@ def _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, token_
     K = cfg.top_k
     tile = moe_gemm.TILE
     sort_tok, dest, gate_vals, gate_sorted, group_sizes, aux = route_ragged(
-        x, router_w, cfg, token_mask, tile=tile)
+        x, router_w, cfg, token_mask, tile=tile, group=group)
     # named as JAX names them: the "flash" remat policy keeps the routing;
     # moe_disp and moe_combine only when TONY_REMAT_EXTRA_NAMES lists them
     sort_tok, dest, gate_vals, gate_sorted, group_sizes = (
@@ -186,13 +218,14 @@ def _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, token_
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             w_down: torch.Tensor, cfg: MoEConfig, mesh=None,
-            token_mask: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
+            token_mask: torch.Tensor | None = None, group=None) -> tuple[torch.Tensor, dict]:
     """SwiGLU mixture-of-experts FFN: the capacity-free ragged dispatch on one device.
 
     x [B, T, D]; router_w [D, E]; w_gate/w_up [E, D, F]; w_down [E, F, D] →
-    (y [B, T, D], aux losses)."""
+    (y [B, T, D], aux losses). ``group``: the data group whose ranks share
+    the batch (``_gating``); the experts run on this rank's rows."""
     if mesh is not None:
         raise NotImplementedError(
             "an expert (or any) mesh axis is not ported yet (ROADMAP queue A8, A11); "
             "the port's MoE runs on one device")
-    return _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg, token_mask)
+    return _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg, token_mask, group)

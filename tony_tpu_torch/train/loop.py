@@ -27,6 +27,8 @@ and at the end, and resume after a gang restart.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import functools
 import json
 import os
 import sys
@@ -44,6 +46,7 @@ from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.obs import logging as obs_logging
 from tony_tpu_torch.obs import metrics as obs_metrics
 from tony_tpu_torch.obs import trace as obs_trace
+from tony_tpu_torch.ops import attention, moe_gemm, ring
 from tony_tpu_torch.parallel.mesh import MeshSpec
 from tony_tpu_torch.runtime import (init_distributed, process_count, process_index,
                                     shutdown_distributed, world_size_from_env)
@@ -237,10 +240,9 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
         obs_logging.info(f"[train] resumed from checkpoint step {start_step}", step=start_step)
 
     model_mesh = mesh if loop.context_axis > 1 else None  # the data axis is the trainer's
-
-    def loss_fn(params, batch):
-        return model_module.loss_fn(params, batch, model_cfg, model_mesh)
-
+    # a partial keeps the loss's keywords in sight: make_train_step hands a
+    # loss that takes ``group`` (Mixtral's router losses) the ranks sharing its batch
+    loss_fn = functools.partial(model_module.loss_fn, cfg=model_cfg, mesh=model_mesh)
     step_fn = make_train_step(loss_fn, opt, group=mesh.group)
     probe = model_module.synthetic_batch(_batch_generator(device, 0, 0), 1, loop.seq_len, model_cfg)
     meter = Throughput(
@@ -385,6 +387,10 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
             ckpt_mgr.save(loop.steps, state.state_dict(), force=True)
         ckpt_mgr.close()  # the final write is on disk on every rank
     _drop_obs_metrics(device)  # the last window and the final checkpoint's sample
+    # this process's launches of each kernel wrapper, as serving's /stats
+    # reports them: a worker's log shows which kernels its steps ran
+    launches = {**attention.launches, **moe_gemm.launches, **ring.launches}
+    obs_logging.info(f"[train] kernel launches {json.dumps(launches)}", **launches)
     out = {k: float(v) for k, v in metrics.items() if torch.is_tensor(v) or isinstance(v, (int, float))}
     return {**out, "start_step": start_step, "log": log}
 
@@ -422,6 +428,16 @@ def parse_loop_args(argv: list[str] | None = None) -> tuple[LoopConfig, dict]:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default) or cpu (the kernels' plain versions)")
     p.add_argument("--preset", default="tiny")
+    p.add_argument("--n_layers", type=int, default=0,
+                   help="cut the preset to this many layers (0 = the preset's): a full-width "
+                        "model that fits one card")
     d = vars(p.parse_args(argv if argv is not None else sys.argv[1:]))
-    preset = d.pop("preset")
-    return LoopConfig(**d), {"preset": preset}
+    extra = {"preset": d.pop("preset"), "n_layers": d.pop("n_layers")}
+    return LoopConfig(**d), extra
+
+
+def model_config(model_module, extra: dict):
+    """The config ``parse_loop_args``'s extra args name: the preset, cut to
+    ``n_layers`` when that is set."""
+    cfg = model_module.config_from_dict(extra["preset"])
+    return dataclasses.replace(cfg, n_layers=extra["n_layers"]) if extra["n_layers"] else cfg

@@ -8,12 +8,12 @@
 import sys
 
 from tony_tpu_torch.models import llama
-from tony_tpu_torch.train.loop import parse_loop_args, run_lm_training
+from tony_tpu_torch.train.loop import model_config, parse_loop_args, run_lm_training
 
 
 def main(argv: list[str] | None = None) -> int:
     loop, extra = parse_loop_args(argv)
-    cfg = llama.config_from_dict(extra["preset"])
+    cfg = model_config(llama, extra)
     run_lm_training(llama, cfg, loop)
     return 0
 

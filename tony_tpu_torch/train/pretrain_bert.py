@@ -9,12 +9,12 @@ synthetic gathered-MLM batches (15% of each row masked) through
 import sys
 
 from tony_tpu_torch.models import bert
-from tony_tpu_torch.train.loop import parse_loop_args, run_lm_training
+from tony_tpu_torch.train.loop import model_config, parse_loop_args, run_lm_training
 
 
 def main(argv: list[str] | None = None) -> int:
     loop, extra = parse_loop_args(argv)
-    cfg = bert.config_from_dict(extra["preset"])
+    cfg = model_config(bert, extra)
     run_lm_training(bert, cfg, loop)
     return 0
 

@@ -1,19 +1,21 @@
-"""Mixtral (MoE) pretraining on one device, the port's counterpart of
-``examples/mixtral/pretrain.py``:
+"""Mixtral (MoE) pretraining, the port's counterpart of ``examples/mixtral/pretrain.py``:
+one process on one device, or a data-parallel gang under ``tony submit``
+(framework pytorch), whose router losses are taken over the gang's global
+batch (``mixtral.loss_fn``'s ``group``):
 
-    python -m tony_tpu_torch.train.pretrain_mixtral --preset mixtral-8x7b [--steps N ...]
+    python -m tony_tpu_torch.train.pretrain_mixtral --preset mixtral-8x7b [--n_layers 1] [--steps N ...]
     python -m tony_tpu_torch.train.pretrain_mixtral --preset tiny --device cpu --steps 3
 """
 
 import sys
 
 from tony_tpu_torch.models import mixtral
-from tony_tpu_torch.train.loop import parse_loop_args, run_lm_training
+from tony_tpu_torch.train.loop import model_config, parse_loop_args, run_lm_training
 
 
 def main(argv: list[str] | None = None) -> int:
     loop, extra = parse_loop_args(argv)
-    cfg = mixtral.config_from_dict(extra["preset"])
+    cfg = model_config(mixtral, extra)
     run_lm_training(mixtral, cfg, loop)
     return 0
 

@@ -27,16 +27,36 @@ the mean over its ``n_r`` valid targets, weighs its loss and gradients by
 Σ n_r·loss_r / Σn. With equal counts (every Llama and Mixtral batch) the
 weight is exactly 1.0. ``tokens`` is summed and the ``moe_*`` metrics are
 averaged, so every rank reports the global values.
+
+With ``accum_steps`` A > 1 the gang computes JAX's scan over the global
+batch: microbatch i is global rows i·mb … (i+1)·mb, one token mean each,
+and the loss and gradients are the mean over the A microbatches. Rank r
+holds a contiguous block of the global rows, so with W ranks either each
+rank holds A / W whole microbatches (A % W == 0: it accumulates them, and
+the ranks weigh the same) or each microbatch spans W / A whole ranks
+(W % A == 0: rank r weighs ``n_r / N_i``, N_i its microbatch's count, from
+the same one collective). A layout that straddles a microbatch boundary
+raises.
+
+A loss that takes a ``group`` keyword pools statistics over the rows of a
+whole microbatch (Mixtral's router losses). ``make_train_step`` hands it
+the ranks that share the microbatch: the whole group without accumulation,
+none where each rank holds whole microbatches, else the rank's slot (a
+subgroup). Its ranks are weighed by ``n_r / N_i`` as above, so such a loss
+scales the gradient of its pooled terms by ``N_i / n_r``.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
 import math
 import time
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 from tony_tpu_torch.parallel.collectives import all_reduce_mean
 
@@ -186,6 +206,35 @@ class SGD:
             p.copy_(p + t * -self.learning_rate)
 
 
+def gang_slots(accum_steps: int, world: int) -> tuple[int, int]:
+    """How a gang of ``world`` ranks, each holding a contiguous block of the
+    global rows, covers ``accum_steps`` global microbatches: (microbatches
+    each rank accumulates, slots), where a slot is a group of ranks whose
+    rows form whole microbatches and rank r is in slot ``r·slots // world``.
+    Any other layout would straddle a microbatch boundary: ValueError."""
+    if accum_steps % world == 0:
+        return accum_steps // world, world
+    if world % accum_steps == 0:
+        return 1, accum_steps
+    raise ValueError(
+        f"C3: accum_steps {accum_steps} over a gang of {world} ranks puts a microbatch boundary "
+        "inside a rank's rows; JAX's microbatch i is global rows i·mb…(i+1)·mb, so use an "
+        "accum_steps that divides the gang's size or is a multiple of it")
+
+
+def _microbatch_group(group, slots: int, slot: int):
+    """The ranks of ``group`` that share this rank's microbatch: all of them
+    (one slot), none (a slot of one rank), or this rank's slot, a subgroup
+    that every rank makes, all slots in the same order."""
+    world = dist.get_world_size(group)
+    if slots == 1:
+        return group
+    if slots == world:
+        return None
+    ranks, per = dist.get_process_group_ranks(group), world // slots
+    return [dist.new_group(ranks[i * per:(i + 1) * per]) for i in range(slots)][slot]
+
+
 def make_train_step(
     loss_fn: Callable[[Any, Any], tuple[torch.Tensor, dict]],
     optimizer: AdamW,
@@ -198,58 +247,75 @@ def make_train_step(
     With accum_steps > 1 the batch's leading dim is ``accum_steps ·
     microbatch``; gradients are summed in f32 over the microbatches and then
     averaged, as the JAX scan does. ``group``: the data axis's process group
-    (``Mesh.group``); its ranks' gradients and metrics are averaged."""
+    (``Mesh.group``); its ranks' gradients and metrics are reduced to those
+    of the global batch (the module docstring), ``accum_steps`` counting
+    the global batch's microbatches. A ``loss_fn`` with a ``group`` keyword
+    is given the ranks that share its microbatch (the module docstring)."""
+    world = dist.get_world_size(group) if group is not None else 1
+    local_steps, slots = gang_slots(accum_steps, world) if group is not None else (accum_steps, 1)
+    slot = dist.get_rank(group) * slots // world if group is not None else 0
+    if group is not None and "group" in inspect.signature(loss_fn).parameters:
+        loss_fn = functools.partial(loss_fn, group=_microbatch_group(group, slots, slot))
 
     def compute_grads(params, batch):
         leaves = _leaves(params)
         tensors = [p for _, p in leaves]
-        if accum_steps == 1:
+        if accum_steps > 1:
+            nested = [k for k, v in batch.items() if isinstance(v, dict)]
+            if nested:
+                raise ValueError(
+                    f"accum_steps={accum_steps} splits every batch value along its leading dim, and "
+                    f"{nested} hold a tree (ResNet's BatchNorm state rides in the batch as 'bn_state'): "
+                    "neither package splits it; train such a model with accum_steps=1")
+        if local_steps == 1:
             loss, aux = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, tensors)
             return loss.detach(), aux, dict(zip((n for n, _ in leaves), grads))
-        nested = [k for k, v in batch.items() if isinstance(v, dict)]
-        if nested:
-            raise ValueError(
-                f"accum_steps={accum_steps} splits every batch value along its leading dim, and "
-                f"{nested} hold a tree (ResNet's BatchNorm state rides in the batch as 'bn_state'): "
-                "neither package splits it; train such a model with accum_steps=1")
-        micro = {k: v.reshape(accum_steps, v.shape[0] // accum_steps, *v.shape[1:])
+        micro = {k: v.reshape(local_steps, v.shape[0] // local_steps, *v.shape[1:])
                  for k, v in batch.items()}
         loss_sum = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
         sums = [torch.zeros_like(p, dtype=torch.float32) for p in tensors]
-        for i in range(accum_steps):
+        for i in range(local_steps):
             loss, _ = loss_fn(params, {k: v[i] for k, v in micro.items()})
             for s, g in zip(sums, torch.autograd.grad(loss, tensors)):
                 s += g
             loss_sum += loss.detach().float()
-        inv = 1.0 / accum_steps
+        inv = 1.0 / local_steps
         return loss_sum * inv, {}, {n: s * inv for (n, _), s in zip(leaves, sums)}
 
     def reduce_over_gang(loss, aux, grads):
-        """The token-weighted mean over the gang: one collective of the
-        scalars (this rank's count, its loss times the count, the ``moe_*``
-        metrics) gives the weight, which scales the gradients in the f32
-        buckets of their mean. Without a count (accumulated microbatches)
-        the ranks weigh the same."""
+        """The weighted mean over the gang: one collective of the scalars
+        (per slot: the counts and the losses times the counts, this rank's
+        in its own slot; the ``moe_*`` metrics) gives each slot's count
+        N_i, and rank r's weight ``n_r · world / (slots · N_i)`` scales its
+        gradients in the f32 buckets of their mean. A rank that holds whole
+        microbatches counts 1: its loss is already their mean. A rank with
+        no targets weighs 0, and a microbatch with none adds 0 to the loss."""
         def f32(v):
             return torch.as_tensor(v, dtype=torch.float32, device=loss.device).detach()
 
-        n = f32(aux.get("tokens", 1))
+        n = f32(1 if accum_steps > 1 and slots == world else aux.get("tokens", 1))
         names = [k for k in aux if k.startswith("moe_")]
-        scalars = torch.stack([n, f32(loss) * n, *(f32(aux[k]) for k in names)])
+        counts = torch.zeros(slots, dtype=torch.float32, device=loss.device)
+        sums = torch.zeros_like(counts)
+        counts[slot], sums[slot] = n, f32(loss) * n
+        scalars = torch.cat([counts, sums, *(f32(aux[k]).reshape(1) for k in names)])
         all_reduce_mean([scalars], group)
-        world = torch.distributed.get_world_size(group)
-        total = torch.round(scalars[0] * world)  # Σn, exact: the counts are integers
-        all_reduce_mean(list(grads.values()), group, scale=n * world / total)
-        aux = {**aux, **{k: scalars[i + 2] for i, k in enumerate(names)}}
+        counts = scalars[:slots]
+        # N_i, exact: the counts are integers; at least 1, as JAX's token count
+        totals = torch.round(counts * world).clamp_min(1.0)
+        all_reduce_mean(list(grads.values()), group, scale=n * world / (totals[slot] * slots))
+        aux = {**aux, **{k: scalars[2 * slots + i] for i, k in enumerate(names)}}
         if "tokens" in aux:
-            aux["tokens"] = total
-        return scalars[1] / scalars[0], aux
+            aux["tokens"] = totals.sum()
+        return (scalars[slots:2 * slots] / torch.where(counts > 0, counts, 1.0)).mean(), aux
 
     def train_step(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
         loss, aux, grads = compute_grads(state.params, batch)
         if group is not None:
             loss, aux = reduce_over_gang(loss, aux, grads)
+        if accum_steps > 1:
+            aux = {}  # the scan's metrics carry no aux, as in JAX
         norm = global_norm(grads.values())
         optimizer.update(state.params, grads, state.opt_state, norm)
         state.step += 1
