@@ -187,10 +187,24 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
     width cut to 1 layer, B=1, T=2048, 3 steps: SUCCEEDED, finite steps with
     their ``moe_*`` metrics, the first loss near ln V, and the worker's
     B1-B3, B7, B8 launches as remat "full" schedules them;
-13. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
+13. ``[fsdp]`` (last): a gang of two processes on the one card over gloo
+    (nccl refuses two ranks on one card), on the mesh's fsdp axis
+    (``MeshSpec.auto``'s fill): ``run_lm_training`` at the full ``llama-1b``
+    preset, B=8, T=2048, 3 steps with sharded asynchronous saves after step
+    2 and at the end; each rank's losses and grad norms against one process
+    on the global batch within ``FSDP_REL``, each rank holding half of every
+    split leaf and its moments, B1-B3 launched on each, the newest step
+    restored into one process bit for bit against the blocks the ranks
+    saved, each rank's blocks of the step-3 parameters and moments against
+    one process's within ``FSDP_STATE_REL``, and two planted faults, one
+    step each at 2 layers, that must fail: a rank whose gradients skip the
+    reduce-scatter (the grad norm) and a rank that skips its moment update
+    (the blocks); prints per-rank bytes, peak memory and ms/step;
+14. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
     their ``[bench-bert]`` launches and BERT cases, and the launches of the
-    phases of 12 as ``launches_hf_serve`` and ``launches_mixtral_gang``)
-    and, last, ``{"ok": true, "device": {...}}``.
+    phases of 12 and 13 as ``launches_hf_serve``, ``launches_mixtral_gang``
+    and ``launches_fsdp``, the last the sum over the two ranks) and, last,
+    ``{"ok": true, "device": {...}}``.
 
 Each phase prints ``[phase] <name> start`` and ``[phase] <name> <s>s``, so a
 failure is named by the last start line.
@@ -3756,6 +3770,355 @@ def mixtral_gang_phase(out_dir: Path) -> dict:
     return {"submit_wall_s": wall, "steps": [steps[i] for i in sorted(steps)], "launches": launches}
 
 
+# [fsdp]: a gang of FSDP_RANKS processes on the one card, on the mesh's fsdp
+# axis, over gloo: torch 2.11's gloo carries all_gather_into_tensor,
+# reduce_scatter_tensor, all_reduce and a torch.distributed.checkpoint save
+# and load on CUDA tensors (``python -m tony_tpu_torch.parallel.gloo_cuda_probe``
+# on an H100), and nccl refuses two ranks on one card, so the phase's form
+# rests on this recorded finding
+FSDP_BACKEND = "gloo"
+FSDP_RANKS, FSDP_STEPS, FSDP_SAVE_EVERY = 2, 3, 2
+FSDP_FAULT_RANK = 1
+#: the planted faults' runs: one step at the preset cut to this depth (the
+#: embedding and the head, most of llama-1b's gloo traffic, stay whole)
+FSDP_FAULT_LAYERS = 2
+#: the gang's loss and grad norm of each step against one process's on the
+#: global batch (the blocks' gradients summed over the ranks in f32, the
+#: whole batch's in one product: a few bf16 ulps); a rank whose gradients
+#: skip the reduce-scatter holds its own half of them, which moves the global
+#: norm of the first step by tens of percent
+FSDP_REL = GANG_LOSS_REL
+#: each rank's blocks of the last step's parameters and moments against the
+#: same blocks of one process's, ‖a − b‖ / ‖b‖ per block: bf16 gradients
+#: summed in another order, through Adam's normalised update and the bf16
+#: rounding of the stored values. The sound run on an H100 read at worst
+#: 6.65e-4 (params), 1.44e-2 (mu), 1.38e-2 (nu): the limit is 3.5x the
+#: worst; a rank that skips its moment update keeps zero moments, 1.0 on
+#: each of its blocks
+FSDP_STATE_REL = 5e-2
+
+
+def fingerprint(torch, t) -> list:
+    """Two integer sums of a tensor's bits (its words as int64, plain and
+    weighted by position mod 65521): equal bits give equal sums."""
+    w = t.detach().contiguous().view(-1)
+    bits = w.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[w.element_size()]).to(torch.int64)
+    idx = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return [int(bits.sum()), int((bits * idx).sum())]
+
+
+def skip_reduce_scatter(collectives, rank: int) -> None:
+    """A planted fault: this rank's gradient blocks skip the reduce-scatter
+    (each keeps its own block of its own gradient); the collective still
+    runs, so its peer is not left waiting."""
+    real = collectives._scatter
+
+    def own_block(x, group, dim):
+        real(x, group, dim)
+        return x.chunk(FSDP_RANKS, dim)[rank].contiguous()
+
+    collectives._scatter = own_block
+
+
+def skip_moment_update(trainer) -> None:
+    """A planted fault: this rank's AdamW keeps its moments as they were (the
+    update itself reads the new ones, so the parameters move as they should)."""
+    real = trainer.AdamW.update
+
+    def update(self, params, grads, state, norm):
+        kept = {part: {n: t.clone() for n, t in state[part].items()} for part in ("mu", "nu")}
+        real(self, params, grads, state, norm)
+        for part, tree in kept.items():
+            for n, t in tree.items():
+                state[part][n].copy_(t)
+
+    trainer.AdamW.update = update
+
+
+def hold_final_state(trainer) -> tuple:
+    """While installed, the AdamW updates of this process leave their
+    parameters and moments (the live tensors) in the dict returned; the
+    function returned uninstalls it."""
+    held, real = {}, trainer.AdamW.update
+
+    def update(self, params, grads, state, norm):
+        real(self, params, grads, state, norm)
+        held.update(params=dict(_leaves(params)), mu=state["mu"], nu=state["nu"])
+
+    trainer.AdamW.update = update
+    return held, lambda: setattr(trainer.AdamW, "update", real)
+
+
+def fsdp_rank(spec_json: str) -> None:
+    """One rank of the ``[fsdp]`` gang (``RANK`` in the env): ``run_lm_training``
+    three times, each in a gloo group of its own (a file store under the
+    spec's directory), each step report's loss and grad norm and the rank's
+    state bytes recorded: "ok" with checkpoints (the fingerprint of each
+    block the rank hands each save, and its shape), then the planted faults'
+    runs, where rank ``FSDP_FAULT_RANK`` skips the reduce-scatter
+    ("fault") or its moment update ("moments", saved). Writes
+    ``rank<r>.json`` there."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from tony_tpu_torch.models import llama
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.parallel import collectives
+    from tony_tpu_torch.train import checkpoint as C
+    from tony_tpu_torch.train import trainer
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+
+    spec = json.loads(spec_json)
+    rank, work = int(os.environ["RANK"]), Path(spec["dir"])
+    cuda = spec["device"] == "cuda"
+    real_save, real_scatter, real_update = C.CheckpointManager.save, collectives._scatter, trainer.AdamW.update
+    out = {}
+    for run in ("ok", "fault", "moments"):
+        saves: dict = {}
+
+        def save(self, step, state, force=False):
+            local = {name: t.to_local() if hasattr(t, "to_local") else t for name, t in _leaves(state)}
+            saves[step] = {name: {"shape": list(t.shape), "fp": fingerprint(torch, t)}
+                           for name, t in local.items() if hasattr(t, "shape")}
+            return real_save(self, step, state, force=force)
+
+        if cuda:
+            torch.cuda.set_device(0)
+            torch.cuda.reset_peak_memory_stats()
+        dist.init_process_group(FSDP_BACKEND, init_method=f"file://{work / ('store-' + run)}",
+                                world_size=FSDP_RANKS, rank=rank)
+        C.CheckpointManager.save = save
+        if run == "fault" and rank == FSDP_FAULT_RANK:
+            skip_reduce_scatter(collectives, rank)
+        if run == "moments" and rank == FSDP_FAULT_RANK:
+            skip_moment_update(trainer)
+        A.reset_launches()
+        try:
+            cfg = llama.config_from_dict(spec["cfg"] if run == "ok" else spec["fault_cfg"])
+            res = run_lm_training(llama, cfg, LoopConfig(**spec[run]))  # leaves the group at its end
+        finally:
+            C.CheckpointManager.save, collectives._scatter, trainer.AdamW.update = (real_save, real_scatter,
+                                                                                    real_update)
+        out[run] = {"log": res["log"], "launches": dict(A.launches), "saves": saves,
+                    "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def fsdp_gang(work: Path, cfg: dict, fault_cfg: dict, loop: dict, device: str, timeout: float = 600) -> list:
+    """Run the ``[fsdp]`` gang's ranks (``fsdp_rank``) as processes, all
+    waited for (killed past ``timeout``); each rank's record."""
+    work = work.resolve()  # the ranks' file store takes an absolute path
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ok = dict(loop, steps=FSDP_STEPS, checkpoint_dir=str(work / "ckpt"), checkpoint_every=FSDP_SAVE_EVERY,
+              device=device)
+    spec = json.dumps({"dir": str(work), "cfg": cfg, "fault_cfg": fault_cfg, "device": device, "ok": ok,
+                       "fault": dict(loop, steps=1, device=device),
+                       "moments": dict(loop, steps=1, device=device, checkpoint_dir=str(work / "ckpt-moments"))})
+    procs = []
+    for rank in range(FSDP_RANKS):
+        env = dict(os.environ, PYTHONPATH=str(ROOT), RANK=str(rank), WORLD_SIZE=str(FSDP_RANKS),
+                   LOCAL_RANK="0", OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.fsdp_rank({spec!r})"],
+                                      cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        outs = None
+    finally:
+        for p in procs:  # a rank left waiting on a collective
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(outs is not None, f"fsdp: the gang did not finish in {timeout:.0f} s")
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"fsdp: rank {rank} exited {p.returncode}:\n{text[-4000:]}")
+    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(FSDP_RANKS)]
+
+
+def fsdp_check(ranks: list, one: list, run: str = "ok") -> float:
+    """Every rank's step reports of ``run`` against one process's on the
+    global batch: the same steps, each loss and grad norm within
+    ``FSDP_REL`` relative. Returns the worst."""
+    worst = 0.0
+    want = {x["step"]: x for x in one}
+    for rank, rec in enumerate(ranks):
+        got = {x["step"]: x for x in rec[run]["log"]}
+        check(set(got) <= set(want) and got, f"fsdp: rank {rank} steps {sorted(got)}, one process {sorted(want)}")
+        for s, x in got.items():
+            for k in ("loss", "grad_norm"):
+                err = abs(x[k] - want[s][k]) / abs(want[s][k])
+                worst = max(worst, err)
+                check(err <= FSDP_REL, f"fsdp: rank {rank} ({run}) step {s} {k} {x[k]} against one process's "
+                                       f"{want[s][k]}: {err:.2e} > {FSDP_REL:.0e}")
+    return worst
+
+
+def fsdp_blocks(torch, ranks: list, whole: dict, step: int) -> int:
+    """The blocks each rank handed its save of ``step`` against the same
+    blocks of ``whole`` (a one-process restore's tree), bit for bit; each
+    split leaf's blocks together its whole bytes. Returns the leaves split."""
+    split = 0
+    for name, t in _leaves(whole):
+        if not hasattr(t, "shape"):
+            continue
+        shapes = [rec["ok"]["saves"][str(step)][name]["shape"] for rec in ranks]
+        dims = [d for d in range(t.ndim) if shapes[0][d] != t.shape[d]]
+        check(len(dims) <= 1 and all(s == shapes[0] for s in shapes), f"fsdp: {name} blocks {shapes} of {list(t.shape)}")
+        if dims:
+            split += 1
+            check(shapes[0][dims[0]] * FSDP_RANKS == t.shape[dims[0]], f"fsdp: {name} blocks {shapes} of {list(t.shape)}")
+        for rank, rec in enumerate(ranks):
+            block = t.chunk(FSDP_RANKS, dims[0])[rank] if dims else t
+            check(rec["ok"]["saves"][str(step)][name]["fp"] == fingerprint(torch, block),
+                  f"fsdp: rank {rank}'s block of {name} at step {step} is not the one-process restore's")
+    return split
+
+
+def fsdp_state_check(torch, gang: dict, one: dict, saved: dict, what: str) -> dict:
+    """Each rank's blocks of the gang's parameters and moments (``gang``: a
+    whole state restored from the ranks' save) against the same blocks of
+    one process's (``one``: {"params"|"mu"|"nu": {leaf: tensor}}), each
+    within ``FSDP_STATE_REL`` as ‖a − b‖ / ‖b‖ in f32 (``saved``: the
+    shapes a rank handed that save, by state name, which give the dim a
+    leaf is split on). Returns the worst of each part."""
+    worst = {}
+    for part in ("params", "mu", "nu"):
+        mine = dict(_leaves(gang["params"] if part == "params" else gang["opt_state"][part]))
+        worst[part] = 0.0
+        for name, ref in one[part].items():
+            block = saved[f"params/{name}"]["shape"]
+            d = next((i for i, n in enumerate(block) if n != ref.shape[i]), None)
+            for rank in range(FSDP_RANKS if d is not None else 1):
+                a, b = (t.detach().chunk(FSDP_RANKS, d)[rank] if d is not None else t.detach()
+                        for t in (mine[name], ref))
+                b = b.float()
+                err = float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
+                worst[part] = max(worst[part], err)
+                check(err <= FSDP_STATE_REL, f"fsdp: {what} rank {rank}'s block of {part}/{name}: "
+                                             f"{err:.2e} > {FSDP_STATE_REL:.0e} from one process's")
+    return worst
+
+
+def fsdp_line(rec: dict, card: str) -> str:
+    """The ``[fsdp]`` report line."""
+    state = ", ".join(f"{k} {v:.2e}" for k, v in rec["state_rel"].items())
+    return (f"[fsdp] {FSDP_RANKS} ranks on one card over {FSDP_BACKEND}, {rec['preset']} B={rec['batch']} "
+            f"T={rec['seq_len']}, fsdp {FSDP_RANKS}: losses {rec['losses']} (one process {rec['one_losses']}, worst "
+            f"rel {rec['worst_rel']:.2e}); step {rec['restored_step']} blocks against one process's, worst "
+            f"{state} (limit {FSDP_STATE_REL:.0e}); per rank params {rec['param_bytes'] / 1e9:.3f} GB + moments "
+            f"{rec['opt_bytes'] / 1e9:.3f} GB of {rec['whole_bytes'] / 1e9:.3f} GB whole ({rec['split_leaves']} "
+            f"leaves split), peak {[round(b / 2**30, 2) for b in rec['peak_bytes']]} GiB (one process "
+            f"{rec['one_peak_bytes'] / 2**30:.2f} GiB), ms/step {rec['step_ms']} (one process "
+            f"{rec['one_step_ms']}); step {rec['restored_step']} restored into one process bit for bit in "
+            f"{rec['restore_s']:.1f} s; planted faults at {FSDP_FAULT_LAYERS} layers, rank {FSDP_FAULT_RANK} "
+            f"skips the reduce-scatter: grad norm {rec['fault_grad_norm']} vs {rec['fault_one_grad_norm']}, failed; "
+            f"skips its moment update: {rec['moments_fault']}, failed; launches per rank {rec['launches']}; {card}")
+
+
+def fsdp_phase(torch, llama, A, out_dir: Path, card: str, cfg: dict | None = None, device: str = "cuda") -> dict:
+    """``[fsdp]``: the gang of ``FSDP_RANKS`` on the card at the full
+    ``llama-1b`` preset (16 layers, bf16, remat "full", the gang phase's
+    B=8, T=2048; ``cfg`` and ``device`` another model and device),
+    ``MeshSpec.auto``'s fill (fsdp 2): ``FSDP_STEPS`` steps through
+    ``run_lm_training`` with asynchronous sharded saves after step
+    ``FSDP_SAVE_EVERY`` and at the end, then the planted faults' steps at
+    ``FSDP_FAULT_LAYERS`` layers. Each rank's losses and grad norms must be
+    one process's on the global batch (``run_lm_training`` here, B1-B3
+    counted), each rank must hold half of every split leaf (and, on the
+    card, launch B1-B3), the newest step restored into one process
+    (``restore_or_init`` into a whole state) must be the blocks the ranks
+    saved, bit for bit, and each rank's blocks of its parameters and
+    moments must be one process's within ``FSDP_STATE_REL``. The run whose
+    rank skips the reduce-scatter must fail ``fsdp_check``, and the one
+    whose rank skips its moment update ``fsdp_state_check``. Prints
+    per-rank bytes, peak memory and ms/step."""
+    from tony_tpu_torch.train import trainer
+    from tony_tpu_torch.train.checkpoint import restore_or_init
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+    from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState, tree_bytes
+
+    cfg = cfg or {"preset": "llama-1b"}
+    model_cfg = llama.config_from_dict(cfg)
+    fault_cfg = dict(cfg, n_layers=min(FSDP_FAULT_LAYERS, model_cfg.n_layers))
+    cuda = device == "cuda"
+    loop = dict(batch_size=GANG_B, seq_len=GANG_T if cuda else 32, log_every=1, warmup_steps=1)
+    work = out_dir / "fsdp"
+    ranks = fsdp_gang(work, cfg, fault_cfg, loop, device)
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    held, unhold = hold_final_state(trainer)
+    try:
+        one = run_lm_training(llama, model_cfg, LoopConfig(steps=FSDP_STEPS, device=device, **loop))["log"]
+        one_state = dict(held)
+        one_launches, one_peak = dict(A.launches), torch.cuda.max_memory_allocated() if cuda else 0
+        fault_one = run_lm_training(llama, llama.config_from_dict(fault_cfg),
+                                    LoopConfig(steps=1, device=device, **loop))["log"]
+        fault_state = dict(held)
+    finally:
+        unhold()
+    worst = fsdp_check(ranks, one)
+    fault_caught = False
+    try:
+        fsdp_check(ranks, fault_one, "fault")
+    except SmokeFailure:
+        fault_caught = True
+    check(fault_caught, "fsdp: the planted fault (a rank whose gradients skip the reduce-scatter) passed")
+    for rank, rec in enumerate(ranks):
+        check(not cuda or all(rec["ok"]["launches"][k] > 0 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+              f"fsdp: rank {rank} launches {rec['ok']['launches']}")
+    opt = OptimizerConfig(learning_rate=3e-4, warmup_steps=1, total_steps=FSDP_STEPS).build()
+
+    def restored(path: str, mcfg):
+        """The newest step under ``path`` restored into one process's whole state."""
+        return restore_or_init(path, lambda: TrainState.create(
+            llama.init(torch.Generator(device=device).manual_seed(1), mcfg, device), opt), TrainState.load)[::2]
+
+    t0 = time.perf_counter()
+    state, step = restored(str(work / "ckpt"), model_cfg)
+    restore_s = time.perf_counter() - t0
+    check(step == FSDP_STEPS, f"fsdp: one process restored step {step}, want {FSDP_STEPS}")
+    split = fsdp_blocks(torch, ranks, state.state_dict(), step)
+    state_rel = fsdp_state_check(torch, state.state_dict(), one_state, ranks[0]["ok"]["saves"][str(step)],
+                                 f"step {step}")
+    whole_bytes = tree_bytes(state.params) + tree_bytes({k: state.opt_state[k] for k in ("mu", "nu")})
+    del state, one_state, held
+    moments, _ = restored(str(work / "ckpt-moments"), llama.config_from_dict(fault_cfg))
+    try:
+        fsdp_state_check(torch, moments.state_dict(), fault_state, ranks[0]["moments"]["saves"]["1"],
+                         "moments fault")
+        moments_fault = None
+    except SmokeFailure as e:
+        moments_fault = str(e).split(": ", 1)[-1]
+    check(moments_fault is not None, "fsdp: the planted fault (a rank that skips its moment update) passed")
+    del moments, fault_state
+    shutil.rmtree(work, ignore_errors=True)
+    last = [rec["ok"]["log"][-1] for rec in ranks]
+    check(all(x["param_bytes"] + x["opt_bytes"] < 0.51 * whole_bytes for x in last),
+          f"fsdp: per-rank bytes {[(x['param_bytes'], x['opt_bytes']) for x in last]} of {whole_bytes} whole")
+    rec = {
+        "preset": cfg.get("preset", ""), "batch": loop["batch_size"], "seq_len": loop["seq_len"],
+        "steps": FSDP_STEPS, "losses": [x["loss"] for x in ranks[0]["ok"]["log"]],
+        "one_losses": [x["loss"] for x in one], "grad_norms": [x["grad_norm"] for x in ranks[0]["ok"]["log"]],
+        "worst_rel": worst, "state_rel": state_rel, "param_bytes": last[0]["param_bytes"],
+        "opt_bytes": last[0]["opt_bytes"], "whole_bytes": whole_bytes, "split_leaves": split,
+        "peak_bytes": [rec["ok"]["peak_bytes"] for rec in ranks],
+        "one_peak_bytes": one_peak, "step_ms": [x["step_time_ms"] for x in ranks[0]["ok"]["log"]],
+        "one_step_ms": [x["step_time_ms"] for x in one], "restored_step": step, "restore_s": restore_s,
+        "fault_grad_norm": ranks[0]["fault"]["log"][0]["grad_norm"],
+        "fault_one_grad_norm": fault_one[0]["grad_norm"], "moments_fault": moments_fault,
+        "launches": [rec["ok"]["launches"] for rec in ranks], "one_launches": one_launches,
+        "launches_sum": {k: sum(rec["ok"]["launches"][k] for rec in ranks) for k in ranks[0]["ok"]["launches"]},
+    }
+    print(fsdp_line(rec, card), flush=True)
+    return rec
+
+
 # -- main ----------------------------------------------------------------------
 
 class Phases:
@@ -3993,6 +4356,10 @@ def main() -> int:
             del hf
         with phase("mixtral-gang"):
             mixtral_gang = mixtral_gang_phase(out_dir)
+        # the fsdp axis last: a gang of two processes on the card, after every
+        # earlier phase ran as before
+        with phase("fsdp"):
+            fsdp = fsdp_phase(torch, llama, A, out_dir, card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED in phase {phase.current}: {e}", file=sys.stderr, flush=True)
         return 1
@@ -4005,6 +4372,8 @@ def main() -> int:
     try:
         gang_launches = mixtral_gang["launches"]
         more = {k: {"mixtral_gang": gang_launches[k]} for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "moe_bwd")}
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            more[k]["fsdp"] = fsdp["launches_sum"][k]
         more["moe_fwd"] = {"mixtral_gang": gang_launches["moe_fwd"], "hf_serve": hf_serve["mixtral_launches"]["moe_fwd"]}
         for k in ("paged_decode_attention", "int8_matmul"):
             more[k] = {"hf_serve": hf_serve["launches"][k]}
@@ -4024,7 +4393,7 @@ def main() -> int:
          "cp": {"whole_step": cp_step, "train": cp_train},
          "bert": {"whole_step": bert_step, "pack": bert_pack}, "mnist": mnist,
          "resnet": {"whole_step": resnet_step, "train": resnet_train},
-         "hf": {"load": hf_load, "serve": hf_serve}, "mixtral_gang": mixtral_gang}, indent=1))
+         "hf": {"load": hf_load, "serve": hf_serve}, "mixtral_gang": mixtral_gang, "fsdp": fsdp}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

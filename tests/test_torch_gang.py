@@ -52,6 +52,7 @@ from tony_tpu_torch.data import dataset as TD  # noqa: E402
 from tony_tpu_torch.data import native as TN  # noqa: E402
 from tony_tpu_torch.models import llama as TM  # noqa: E402
 from tony_tpu_torch.obs import introspect as TI  # noqa: E402
+from tony_tpu_torch.train import checkpoint as TC  # noqa: E402
 from tony_tpu_torch.train import loop as TLp  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -120,8 +121,10 @@ def _one(**kw) -> list[dict]:
 
 
 def _final_params(ckpt: Path) -> dict:
+    """The newest step's parameters, whole: a gang's fsdp axis writes each
+    rank's blocks (DCP), one process ``state.pt``."""
     step = max(int(p.name) for p in ckpt.iterdir() if p.name.isdigit())
-    return torch.load(ckpt / str(step) / "state.pt", weights_only=True)["params"]
+    return TC.read_whole(str(ckpt / str(step)))["params"]
 
 
 def _leaves(tree, prefix=""):

@@ -508,3 +508,89 @@ def test_kernel_rows_carry_the_later_phases_launches():
     assert rows["int8_matmul"]["launches_hf_serve"] == 40 and "launches_hf_serve" not in rows["moe_bwd"]
     with pytest.raises(cs.SmokeFailure, match="int8_matmul was not launched by the hf_serve phase"):
         cs.kernel_rows(kern, path, {}, bert, bert_kern, {"int8_matmul": {"hf_serve": 0}})
+
+
+@pytest.fixture(scope="module")
+def fsdp_record(tmp_path_factory):
+    """``fsdp_phase`` on the CPU at the tiny Llama in f32: the gloo gang of
+    two (one intra-op thread a rank), the one-process runs, the restores and
+    the planted faults, as the card runs them at ``llama-1b``."""
+    import torch
+
+    from tony_tpu_torch.models import llama
+    from tony_tpu_torch.ops import attention as A
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return cs.fsdp_phase(torch, llama, A, tmp_path_factory.mktemp("fsdp"), "cpu",
+                             cfg={"preset": "tiny", "dtype": "float32"}, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_fsdp_phase_holds_the_gang_to_one_process_and_catches_a_skipped_reduce_scatter(fsdp_record):
+    """Each rank's losses are one process's (f32: within ``FSDP_REL``, here
+    the same to the logged 4 decimals), the 9 split leaves of the tiny
+    Llama and their two moments are blocks of the one-process restore bit
+    for bit, the rank holds half of them, each rank's blocks of the last
+    step's parameters and moments are one process's (f32: within 1e-5 of
+    ``FSDP_STATE_REL``'s relative norm), the rank that skips the
+    reduce-scatter moves the first step's grad norm past ``FSDP_REL``, and
+    the rank that skips its moment update fails ``FSDP_STATE_REL`` on its
+    first moment block (its moments stay zero: 1.0)."""
+    rec = fsdp_record
+    assert rec["losses"] == rec["one_losses"] and rec["worst_rel"] <= cs.FSDP_REL
+    assert rec["split_leaves"] == 27 and rec["restored_step"] == cs.FSDP_STEPS
+    assert rec["param_bytes"] + rec["opt_bytes"] < 0.51 * rec["whole_bytes"]
+    assert set(rec["state_rel"]) == {"params", "mu", "nu"} and max(rec["state_rel"].values()) <= 1e-5
+    assert abs(rec["fault_grad_norm"] - rec["fault_one_grad_norm"]) > cs.FSDP_REL * rec["fault_one_grad_norm"]
+    assert rec["moments_fault"].startswith(f"moments fault rank {cs.FSDP_FAULT_RANK}'s block of mu/")
+    assert rec["moments_fault"].split(": ")[-1].startswith("1.00e+00 > ")
+    assert cs.FSDP_BACKEND == "gloo" and cs.FSDP_RANKS == 2
+
+
+def test_fsdp_line_names_every_number_and_the_card(fsdp_record):
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    line = cs.fsdp_line(fsdp_record, card)
+    assert line.startswith("[fsdp] 2 ranks on one card over gloo, tiny B=8 T=32, fsdp 2: ") and line.endswith(card)
+    for key in ("worst_rel", "restore_s"):
+        assert key in fsdp_record
+    for text in (str(fsdp_record["losses"]), str(fsdp_record["one_losses"]), str(fsdp_record["step_ms"]),
+                 f"step {cs.FSDP_STEPS} restored into one process bit for bit", "skips the reduce-scatter",
+                 "skips its moment update", f"(limit {cs.FSDP_STATE_REL:.0e})"):
+        assert text in line, text
+
+
+def test_fsdp_check_and_blocks_fail_on_a_wrong_norm_or_block():
+    import torch
+
+    one = [{"step": 1, "loss": 5.0, "grad_norm": 1.0}, {"step": 2, "loss": 4.9, "grad_norm": 0.9}]
+    ok = {"log": [dict(x) for x in one]}
+    assert cs.fsdp_check([{"ok": ok}, {"ok": ok}], one) == 0.0
+    off = {"log": [dict(one[0], grad_norm=0.8)]}
+    with pytest.raises(cs.SmokeFailure, match=r"rank 1 \(fault\) step 1 grad_norm 0.8"):
+        cs.fsdp_check([{"fault": ok}, {"fault": off}], one, "fault")
+    whole = {"params": {"w": torch.arange(8.0).reshape(2, 4), "n": torch.ones(3)}}
+    ranks = [{"ok": {"saves": {"3": {
+        "params/w": {"shape": [2, 2], "fp": cs.fingerprint(torch, whole["params"]["w"].chunk(2, 1)[r])},
+        "params/n": {"shape": [3], "fp": cs.fingerprint(torch, whole["params"]["n"])}}}}} for r in range(2)]
+    assert cs.fsdp_blocks(torch, ranks, whole, 3) == 1
+    ranks[1]["ok"]["saves"]["3"]["params/w"]["fp"] = cs.fingerprint(torch, whole["params"]["w"].chunk(2, 1)[0])
+    with pytest.raises(cs.SmokeFailure, match="rank 1's block of params/w"):
+        cs.fsdp_blocks(torch, ranks, whole, 3)
+    # the state check: rank 1's block of w off by 10% in mu fails, a whole leaf on rank 0
+    one = {"params": dict(whole["params"]), "mu": dict(whole["params"]), "nu": dict(whole["params"])}
+    gang = {"params": whole["params"], "opt_state": {"mu": dict(whole["params"]), "nu": whole["params"]}}
+    saved = {name: {"shape": rec["shape"]} for name, rec in ranks[0]["ok"]["saves"]["3"].items()}
+    assert cs.fsdp_state_check(torch, gang, one, saved, "sound") == {"params": 0.0, "mu": 0.0, "nu": 0.0}
+    gang["opt_state"]["mu"]["w"] = torch.cat([whole["params"]["w"][:, :2], 1.1 * whole["params"]["w"][:, 2:]], 1)
+    with pytest.raises(cs.SmokeFailure, match=r"off rank 1's block of mu/w: 1.00e-01 > "):
+        cs.fsdp_state_check(torch, gang, one, saved, "off")
+
+
+def test_fsdp_phase_runs_last_in_main():
+    src = (ROOT / "chip_smoke.py").read_text()
+    main = src[src.index("def main() -> int:"):]
+    assert main.index('phase("mixtral-gang")') < main.index('phase("fsdp")') < main.index("except SmokeFailure")
+    assert 'more[k]["fsdp"] = fsdp["launches_sum"][k]' in main

@@ -1,5 +1,6 @@
 """Checkpoint corruption (own copy of ``tony_tpu/chaos/inject.py`` on the
-port's checkpoint layout, ``<dir>/<step>/state.pt``).
+port's checkpoint layout, ``<dir>/<step>/state.pt`` or a sharded step's
+DCP files).
 
 ``corrupt_latest_checkpoint`` tears the newest step as a crash mid-write
 would (every file truncated to zero, or garbled with ``mode="garbage"``);

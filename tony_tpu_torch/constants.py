@@ -58,3 +58,7 @@ ENV_LOCAL_RANK = "LOCAL_RANK"
 ENV_MASTER_ADDR = "MASTER_ADDR"
 ENV_MASTER_PORT = "MASTER_PORT"
 ENV_INIT_METHOD = "INIT_METHOD"
+
+# slices in the pool (the DCN groups a multi-slice mesh's data/fsdp/stage
+# axes must absorb)
+ENV_TPU_NUM_SLICES = "TPU_NUM_SLICES"

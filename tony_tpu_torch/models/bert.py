@@ -7,8 +7,10 @@ JAX package's weights across unchanged. Post-norm blocks: fused qkv with
 bias, non-causal ``mha`` (B1-B3 on the card, confined within packed
 segments), the ``wo`` residual and LayerNorm, then the tanh-GELU MLP and
 LayerNorm. ``cfg.remat`` checkpoints each block whole (JAX's plain
-``jax.checkpoint``), so B1 runs twice a layer a step. FSDP/TP (A8) raises
-until it is ported.
+``jax.checkpoint``), so B1 runs twice a layer a step. On an ``fsdp`` axis
+the params hold this rank's blocks per ``sharding_rules`` (JAX's: the
+biases and norms whole) and each leaf is gathered where it is used, as in
+Llama. TP (A8b) and a context axis raise.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from tony_tpu_torch.models.llama import segment_positions
 from tony_tpu_torch.ops import attention as attn_ops
 from tony_tpu_torch.ops import layers as L
 from tony_tpu_torch.parallel.mesh import context_degree
+from tony_tpu_torch.parallel.sharding import P, Place, ShardingRules, gather, gathering, keep_whole
 
 
 @dataclass(frozen=True)
@@ -74,10 +77,12 @@ BERT_TINY = BertConfig(
 PRESETS = {"bert-base": BERT_BASE, "tiny": BERT_TINY}
 
 
-def init(gen: torch.Generator, cfg: BertConfig, device: torch.device | str) -> dict:
+def init(gen: torch.Generator, cfg: BertConfig, device: torch.device | str,
+         place: Place = keep_whole) -> dict:
     """Random parameter tree (truncated normal in [-2, 2] · fan_in^-0.5,
     biases 0, norms 1), drawn on ``device`` from ``gen``, one layer at a
-    time. Its bits differ from the JAX init."""
+    time; each leaf goes to ``place(name, leaf)`` as it is drawn
+    (``llama.init``). Its bits differ from the JAX init."""
     D, F, V, Lyr = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layers
     dt = cfg.tdtype
 
@@ -94,33 +99,49 @@ def init(gen: torch.Generator, cfg: BertConfig, device: torch.device | str) -> d
     def const(value, *shape):
         return torch.full(shape, value, dtype=dt, device=device)
 
+    def norm(name, *shape):
+        return {"w": place(f"{name}/w", const(1.0, *shape)), "b": place(f"{name}/b", const(0.0, *shape))}
+
     return {
-        "tok_embed": dense(V, D, fan_in=1.0),
-        "pos_embed": dense(cfg.max_seq, D, fan_in=1.0),
-        "type_embed": dense(cfg.type_vocab, D, fan_in=1.0),
-        "embed_norm": {"w": const(1.0, D), "b": const(0.0, D)},
+        "tok_embed": place("tok_embed", dense(V, D, fan_in=1.0)),
+        "pos_embed": place("pos_embed", dense(cfg.max_seq, D, fan_in=1.0)),
+        "type_embed": place("type_embed", dense(cfg.type_vocab, D, fan_in=1.0)),
+        "embed_norm": norm("embed_norm", D),
         "layers": {
-            "wqkv": dense(Lyr, D, 3 * D, fan_in=D),
-            "bqkv": const(0.0, Lyr, 3 * D),
-            "wo": dense(Lyr, D, D, fan_in=D),
-            "bo": const(0.0, Lyr, D),
-            "attn_norm": {"w": const(1.0, Lyr, D), "b": const(0.0, Lyr, D)},
-            "w_in": dense(Lyr, D, F, fan_in=D),
-            "b_in": const(0.0, Lyr, F),
-            "w_out": dense(Lyr, F, D, fan_in=F),
-            "b_out": const(0.0, Lyr, D),
-            "mlp_norm": {"w": const(1.0, Lyr, D), "b": const(0.0, Lyr, D)},
+            "wqkv": place("layers/wqkv", dense(Lyr, D, 3 * D, fan_in=D)),
+            "bqkv": place("layers/bqkv", const(0.0, Lyr, 3 * D)),
+            "wo": place("layers/wo", dense(Lyr, D, D, fan_in=D)),
+            "bo": place("layers/bo", const(0.0, Lyr, D)),
+            "attn_norm": norm("layers/attn_norm", Lyr, D),
+            "w_in": place("layers/w_in", dense(Lyr, D, F, fan_in=D)),
+            "b_in": place("layers/b_in", const(0.0, Lyr, F)),
+            "w_out": place("layers/w_out", dense(Lyr, F, D, fan_in=F)),
+            "b_out": place("layers/b_out", const(0.0, Lyr, D)),
+            "mlp_norm": norm("layers/mlp_norm", Lyr, D),
         },
-        "mlm_head": dense(D, V, fan_in=D),
-        "mlm_bias": const(0.0, V),
+        "mlm_head": place("mlm_head", dense(D, V, fan_in=D)),
+        "mlm_bias": place("mlm_bias", const(0.0, V)),
     }
+
+
+def sharding_rules(cfg: BertConfig) -> ShardingRules:
+    """JAX's rules: the biases and norms whole."""
+    return ShardingRules([
+        (r"tok_embed", P("model", "fsdp")),
+        (r"(pos|type)_embed", P(None, "fsdp")),
+        (r"layers/(wqkv|w_in)", P(None, "fsdp", "model")),
+        (r"layers/(bqkv|b_in)", P(None, "model")),
+        (r"layers/(wo|w_out)", P(None, "model", "fsdp")),
+        (r"mlm_head", P("fsdp", "model")),
+        (r".*", P()),
+    ])
 
 
 def _refuse_mesh(mesh) -> None:
     if context_degree(mesh) > 1:
         raise NotImplementedError(
-            "BERT runs on a data axis only: the JAX model shards over data, fsdp and model "
-            "(ROADMAP queue A8), and has no context axis")
+            "BERT runs on the data and fsdp axes: the JAX model shards over data, fsdp and model "
+            "(the model axis: ROADMAP queue A8b), and has no context axis")
 
 
 def _block(x, lp: dict, cfg: BertConfig, segment_ids=None):
@@ -158,17 +179,21 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: BertConfig, mesh=None
     _refuse_mesh(mesh)
     T = tokens.shape[1]
     tokens = tokens.long()
+    rules = sharding_rules(cfg)
+    tok_embed, pos_embed, type_embed = (gather(params[k], rules.spec_for(k), mesh)
+                                        for k in ("tok_embed", "pos_embed", "type_embed"))
     if segment_ids is not None:
-        pos_e = embedding(segment_positions(segment_ids), params["pos_embed"])
+        pos_e = embedding(segment_positions(segment_ids), pos_embed)
     else:
-        pos_e = params["pos_embed"][:T]
+        pos_e = pos_embed[:T]
     types = type_ids.long() if type_ids is not None else torch.zeros_like(tokens)
     # ``embedding``, not tensor indexing: its backward reduces sorted runs of
     # equal ids, where indexing's accumulating scatter serialises on them
     # (every type id is 0)
-    x = embedding(tokens, params["tok_embed"]) + pos_e + embedding(types, params["type_embed"])
+    x = embedding(tokens, tok_embed) + pos_e + embedding(types, type_embed)
     x = L.layer_norm(x, params["embed_norm"]["w"], params["embed_norm"]["b"], cfg.norm_eps)
-    block_fn = attn_ops.remat_block(partial(_block, cfg=cfg, segment_ids=segment_ids), cfg.remat, "full")
+    block_fn = attn_ops.remat_block(gathering(partial(_block, cfg=cfg, segment_ids=segment_ids), rules, mesh),
+                                    cfg.remat, "full")
     layers = _unbind(params["layers"])
     for i in range(cfg.n_layers):
         x = block_fn(x, _layer(layers, i))
@@ -180,7 +205,12 @@ def forward(params: dict, tokens: torch.Tensor, cfg: BertConfig, mesh=None,
             segment_ids: torch.Tensor | None = None) -> torch.Tensor:
     """Full-vocabulary MLM logits [B, T, V] at every position."""
     x = hidden_states(params, tokens, cfg, mesh, type_ids, segment_ids=segment_ids)
-    return x @ params["mlm_head"] + params["mlm_bias"]
+    return x @ mlm_head(params, cfg, mesh) + params["mlm_bias"]
+
+
+def mlm_head(params: dict, cfg: BertConfig, mesh=None) -> torch.Tensor:
+    """The whole MLM head (gathered on an fsdp axis)."""
+    return gather(params["mlm_head"], sharding_rules(cfg).spec_for("mlm_head"), mesh)
 
 
 def loss_fn(params: dict, batch: dict, cfg: BertConfig, mesh=None) -> tuple[torch.Tensor, dict]:
@@ -196,7 +226,7 @@ def loss_fn(params: dict, batch: dict, cfg: BertConfig, mesh=None) -> tuple[torc
         x = hidden_states(params, batch["tokens"], cfg, mesh, segment_ids=seg)
         pos = batch["masked_pos"].long()
         xm = torch.gather(x, 1, pos[..., None].expand(-1, -1, x.shape[-1]))
-        logits = xm @ params["mlm_head"] + params["mlm_bias"]
+        logits = xm @ mlm_head(params, cfg, mesh) + params["mlm_bias"]
         loss, n = L.cross_entropy_loss(logits, batch["masked_targets"])
         return loss, {"loss": loss, "tokens": n}
     logits = forward(params, batch["tokens"], cfg, mesh, segment_ids=seg)

@@ -9,8 +9,11 @@ stacked once in the backward). A mesh may carry a context axis
 (``parallel/mesh.py``): with the JAX package's single-process semantics the
 model runs on whole ``[B, T, ...]`` tensors and only attention splits T
 into the mesh ring's shards (``cp_impl``: "xla" ring, "pallas" ring
-kernels, "ulysses"). FSDP/TP (A8) and pipeline stages (A13) raise until
-they are ported.
+kernels, "ulysses"). On an ``fsdp`` axis the params hold this rank's blocks
+per ``sharding_rules`` (JAX's) and each leaf is gathered where it is used:
+the embedding before the take, layer i's weights inside its (remat) block,
+the head before the product or the chunked CE. TP (A8b) and pipeline stages
+(A13) raise until they are ported.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from tony_tpu_torch.ops import layers as L
 from tony_tpu_torch.ops.ring import ring_attention_pallas, ring_attention_pallas_seg
 from tony_tpu_torch.parallel.context import ring_attention, ulysses_attention
 from tony_tpu_torch.parallel.mesh import context_degree
+from tony_tpu_torch.parallel.sharding import P, Place, ShardingRules, gather, gathering, keep_whole
 
 
 @dataclass(frozen=True)
@@ -90,11 +94,14 @@ LLAMA_TINY = LlamaConfig(
 PRESETS = {"llama3-8b": LLAMA3_8B, "llama-1b": LLAMA_1B, "tiny": LLAMA_TINY}
 
 
-def init(gen: torch.Generator, cfg: LlamaConfig, device: torch.device | str) -> dict:
+def init(gen: torch.Generator, cfg: LlamaConfig, device: torch.device | str,
+         place: Place = keep_whole) -> dict:
     """Random parameter tree (truncated normal in [-2, 2] · fan_in^-0.5),
     drawn on ``device`` from ``gen`` (a generator on that device). Stacked
     weights are drawn one layer at a time so the f32 temporaries stay one
-    layer's size at full width. Its bits differ from the JAX init."""
+    layer's size at full width. Each leaf goes to ``place(name, leaf)`` as
+    it is drawn, which keeps it whole or keeps a rank's block of it
+    (``train.trainer.sharded_init``). Its bits differ from the JAX init."""
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     Dh, H, Hkv, Lyr = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
     dt = cfg.tdtype
@@ -116,21 +123,34 @@ def init(gen: torch.Generator, cfg: LlamaConfig, device: torch.device | str) -> 
         return draw(shape, fan_in)
 
     return {
-        "embed": dense(V, D, fan_in=1.0),
+        "embed": place("embed", dense(V, D, fan_in=1.0)),
         "layers": {
-            "attn_norm": norm_init(Lyr, D),
-            "wq": dense(Lyr, D, H * Dh, fan_in=D),
-            "wk": dense(Lyr, D, Hkv * Dh, fan_in=D),
-            "wv": dense(Lyr, D, Hkv * Dh, fan_in=D),
-            "wo": dense(Lyr, H * Dh, D, fan_in=H * Dh),
-            "mlp_norm": norm_init(Lyr, D),
-            "w_gate": dense(Lyr, D, F, fan_in=D),
-            "w_up": dense(Lyr, D, F, fan_in=D),
-            "w_down": dense(Lyr, F, D, fan_in=F),
+            "attn_norm": place("layers/attn_norm", norm_init(Lyr, D)),
+            "wq": place("layers/wq", dense(Lyr, D, H * Dh, fan_in=D)),
+            "wk": place("layers/wk", dense(Lyr, D, Hkv * Dh, fan_in=D)),
+            "wv": place("layers/wv", dense(Lyr, D, Hkv * Dh, fan_in=D)),
+            "wo": place("layers/wo", dense(Lyr, H * Dh, D, fan_in=H * Dh)),
+            "mlp_norm": place("layers/mlp_norm", norm_init(Lyr, D)),
+            "w_gate": place("layers/w_gate", dense(Lyr, D, F, fan_in=D)),
+            "w_up": place("layers/w_up", dense(Lyr, D, F, fan_in=D)),
+            "w_down": place("layers/w_down", dense(Lyr, F, D, fan_in=F)),
         },
-        "final_norm": norm_init(D),
-        "lm_head": dense(D, V, fan_in=D),
+        "final_norm": place("final_norm", norm_init(D)),
+        "lm_head": place("lm_head", dense(D, V, fan_in=D)),
     }
+
+
+def sharding_rules(cfg: LlamaConfig) -> ShardingRules:
+    """FSDP × TP rules, JAX's (the stacked leading layer dim never split;
+    the ``model`` entries are inert while that axis is 1)."""
+    return ShardingRules([
+        (r"embed", P("model", "fsdp")),                  # vocab-parallel
+        (r"layers/(wq|wk|wv|w_gate|w_up)", P(None, "fsdp", "model")),
+        (r"layers/(wo|w_down)", P(None, "model", "fsdp")),
+        (r"layers/.*norm", P(None, None)),
+        (r"final_norm", P(None)),
+        (r"lm_head", P("fsdp", "model")),
+    ])
 
 
 def _attention(q, k, v, cfg: LlamaConfig, mesh, segment_ids=None) -> torch.Tensor:
@@ -187,9 +207,10 @@ def mask_packed_targets(tokens: torch.Tensor, seg: torch.Tensor | None):
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
-    """Embedding rows for ``tokens``. The JAX function's one-hot product is
-    for meshes with two or more active axes; the port's mesh has at most
-    the context axis, where JAX keeps the plain take too."""
+    """Embedding rows for ``tokens`` from the whole (gathered) table. On a
+    mesh with two or more axes above 1 JAX takes a one-hot product instead,
+    a GSPMD layout device whose value is the take's exactly; eager torch
+    has no layout to serve, so the port always takes."""
     context_degree(mesh)
     return embed[tokens.long()]
 
@@ -231,10 +252,11 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=Non
     cos, sin = L.rope_frequencies(cfg.head_dim, T, cfg.rope_theta, cfg.rope_scaling,
                                   device=tokens.device)
     positions = segment_positions(segment_ids) if segment_ids is not None else None
-    x = embed_lookup(params["embed"], tokens, mesh)
+    rules = sharding_rules(cfg)
+    x = embed_lookup(gather(params["embed"], rules.spec_for("embed"), mesh), tokens, mesh)
     block_fn = attn_ops.remat_block(
-        partial(_block, cos=cos, sin=sin, cfg=cfg, mesh=mesh, segment_ids=segment_ids,
-                positions=positions),
+        gathering(partial(_block, cos=cos, sin=sin, cfg=cfg, mesh=mesh, segment_ids=segment_ids,
+                          positions=positions), rules, mesh),
         cfg.remat, cfg.remat_policy,
     )
     per_layer = {name: w.unbind(0) for name, w in params["layers"].items()}
@@ -246,7 +268,12 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=Non
 def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None,
             segment_ids=None) -> torch.Tensor:
     """tokens [B, T] → logits [B, T, V]."""
-    return hidden_states(params, tokens, cfg, mesh, segment_ids=segment_ids) @ params["lm_head"]
+    return hidden_states(params, tokens, cfg, mesh, segment_ids=segment_ids) @ lm_head(params, cfg, mesh)
+
+
+def lm_head(params: dict, cfg: LlamaConfig, mesh=None) -> torch.Tensor:
+    """The whole head (gathered on an fsdp axis)."""
+    return gather(params["lm_head"], sharding_rules(cfg).spec_for("lm_head"), mesh)
 
 
 def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, mesh=None) -> tuple[torch.Tensor, dict]:
@@ -257,7 +284,7 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, mesh=None) -> tuple[tor
     targets, seg_in = mask_packed_targets(tokens, batch.get("segment_ids"))
     if cfg.ce_chunk > 0:
         x = hidden_states(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in)
-        loss, n = L.chunked_cross_entropy_loss(x, params["lm_head"], targets, chunk=cfg.ce_chunk)
+        loss, n = L.chunked_cross_entropy_loss(x, lm_head(params, cfg, mesh), targets, chunk=cfg.ce_chunk)
     else:
         logits = forward(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in)
         loss, n = L.cross_entropy_loss(logits, targets)

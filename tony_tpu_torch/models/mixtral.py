@@ -5,9 +5,12 @@ Counterpart of ``tony_tpu/models/mixtral.py``: the Llama backbone
 by a top-k-of-E SwiGLU mixture routed per token (``parallel/expert.py``).
 The parameter tree is the JAX one: per layer ``router`` [D, E] in f32 and
 ``we_gate``/``we_up`` [E, D, F], ``we_down`` [E, F, D] in the model dtype,
-stacked over layers. Single device only: a mesh raises (a context axis
-waits for a later slice); ``sharding_rules`` and ``pp_value_and_grad`` wait for
-ROADMAP A8 and A13. The MoE is JAX's default ragged dispatch, so the config
+stacked over layers. On an ``fsdp`` axis the params hold this rank's blocks
+per ``sharding_rules`` (JAX's; the ``expert`` entries are inert while that
+axis is 1) and each leaf is gathered where it is used, as in Llama: B7/B8
+receive each layer's whole expert weights, gathered and contiguous. A
+context axis (A12) and an expert axis (A11) raise; ``pp_value_and_grad``
+waits for A13. The MoE is JAX's default ragged dispatch, so the config
 has no ``moe_dispatch`` or ``capacity_factor``; ``config_from_dict`` refuses
 a dict that asks for another dispatch (ROADMAP A11). In a gang,
 ``loss_fn(..., group=)`` takes the router losses over the whole group's
@@ -27,6 +30,8 @@ from tony_tpu_torch.models import llama as llama_mod
 from tony_tpu_torch.ops import attention as attn_ops
 from tony_tpu_torch.ops import layers as L
 from tony_tpu_torch.parallel.expert import MoEConfig, moe_ffn
+from tony_tpu_torch.parallel.mesh import context_degree
+from tony_tpu_torch.parallel.sharding import P, Place, ShardingRules, gather, gathering, keep_whole
 
 _AUX = ("moe_balance_loss", "moe_z_loss", "moe_dropped_frac")
 
@@ -78,10 +83,12 @@ MIXTRAL_TINY = MixtralConfig(
 PRESETS = {"mixtral-8x7b": MIXTRAL_8X7B, "tiny": MIXTRAL_TINY}
 
 
-def init(gen: torch.Generator, cfg: MixtralConfig, device: torch.device | str) -> dict:
+def init(gen: torch.Generator, cfg: MixtralConfig, device: torch.device | str,
+         place: Place = keep_whole) -> dict:
     """Random parameter tree: the Llama init for the backbone, the router in
     f32 and the experts drawn one [D, F] slab at a time (truncated normal in
     [-2, 2] · fan_in^-0.5), so the f32 temporaries stay one slab's size.
+    Each leaf goes to ``place(name, leaf)`` as it is drawn (``llama.init``).
     Its bits differ from the JAX init."""
     D, F, E, Lyr = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.n_layers
     dt = cfg.tdtype
@@ -98,16 +105,31 @@ def init(gen: torch.Generator, cfg: MixtralConfig, device: torch.device | str) -
                 out[i, e] = draw((rows, cols), fan_in, dt)
         return out
 
-    base = llama_mod.init(gen, dataclasses.replace(cfg, d_ff=1), device)  # no dense FFN to draw
+    base = llama_mod.init(gen, dataclasses.replace(cfg, d_ff=1), device, place)  # no dense FFN to draw
     layers = {k: v for k, v in base["layers"].items() if k not in ("w_gate", "w_up", "w_down")}
     layers.update(
-        router=draw((Lyr, D, E), D, torch.float32),
-        we_gate=experts(D, F, D),
-        we_up=experts(D, F, D),
-        we_down=experts(F, D, F),
+        router=place("layers/router", draw((Lyr, D, E), D, torch.float32)),
+        we_gate=place("layers/we_gate", experts(D, F, D)),
+        we_up=place("layers/we_up", experts(D, F, D)),
+        we_down=place("layers/we_down", experts(F, D, F)),
     )
     base["layers"] = layers
     return base
+
+
+def sharding_rules(cfg: MixtralConfig) -> ShardingRules:
+    """JAX's rules."""
+    return ShardingRules([
+        (r"embed", P("model", "fsdp")),
+        (r"layers/(wq|wk|wv)", P(None, "fsdp", "model")),
+        (r"layers/wo", P(None, "model", "fsdp")),
+        (r"layers/router", P(None, None, None)),
+        (r"layers/(we_gate|we_up)", P(None, "expert", "fsdp", "model")),
+        (r"layers/we_down", P(None, "expert", "model", "fsdp")),
+        (r"layers/.*norm", P(None, None)),
+        (r"final_norm", P(None)),
+        (r"lm_head", P("fsdp", "model")),
+    ])
 
 
 def _layer(x, lp: dict, cos, sin, cfg: MixtralConfig, mesh, segment_ids=None, positions=None,
@@ -138,19 +160,20 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=N
     per-segment RoPE positions, and padding (segment 0) routed with zero
     gates and left out of the router losses. ``group``: the ranks sharing
     the batch, over which the router losses are taken (``moe_ffn``)."""
-    if mesh is not None:
+    if context_degree(mesh) > 1:
         raise NotImplementedError(
-            "Mixtral under a device mesh is not ported yet (a context axis: ROADMAP queue A12, "
-            "Mixtral CP; FSDP/TP/expert axes: A8, A11); the port trains it on one device")
+            "Mixtral with a context axis is not ported yet (ROADMAP queue A12, Mixtral CP); "
+            "the port trains it on the data and fsdp axes")
     T = tokens.shape[1]
     cos, sin = L.rope_frequencies(cfg.head_dim, T, cfg.rope_theta, cfg.rope_scaling,
                                   device=tokens.device)
     positions = llama_mod.segment_positions(segment_ids) if segment_ids is not None else None
     token_mask = (segment_ids != 0) if segment_ids is not None else None
-    x = llama_mod.embed_lookup(params["embed"], tokens, mesh)
+    rules = sharding_rules(cfg)
+    x = llama_mod.embed_lookup(gather(params["embed"], rules.spec_for("embed"), mesh), tokens, mesh)
     block_fn = attn_ops.remat_block(
-        partial(_layer, cos=cos, sin=sin, cfg=cfg, mesh=mesh, segment_ids=segment_ids,
-                positions=positions, token_mask=token_mask, group=group),
+        gathering(partial(_layer, cos=cos, sin=sin, cfg=cfg, mesh=mesh, segment_ids=segment_ids,
+                          positions=positions, token_mask=token_mask, group=group), rules, mesh),
         cfg.remat, cfg.remat_policy,
     )
     aux = {k: torch.zeros((), dtype=torch.float32, device=tokens.device) for k in _AUX}
@@ -167,7 +190,12 @@ def forward(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=None,
             segment_ids=None, group=None) -> tuple[torch.Tensor, dict]:
     """tokens [B, T] → (logits [B, T, V], moe aux losses)."""
     x, aux = hidden_states(params, tokens, cfg, mesh, segment_ids=segment_ids, group=group)
-    return x @ params["lm_head"], aux
+    return x @ lm_head(params, cfg, mesh), aux
+
+
+def lm_head(params: dict, cfg: MixtralConfig, mesh=None) -> torch.Tensor:
+    """The whole head (gathered on an fsdp axis)."""
+    return gather(params["lm_head"], sharding_rules(cfg).spec_for("lm_head"), mesh)
 
 
 def _scale_grad(t: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -198,7 +226,7 @@ def loss_fn(params: dict, batch: dict, cfg: MixtralConfig, mesh=None,
     targets, seg_in = llama_mod.mask_packed_targets(tokens, batch.get("segment_ids"))
     if cfg.ce_chunk > 0:
         x, aux = hidden_states(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in, group=group)
-        ce, n = L.chunked_cross_entropy_loss(x, params["lm_head"], targets, chunk=cfg.ce_chunk)
+        ce, n = L.chunked_cross_entropy_loss(x, lm_head(params, cfg, mesh), targets, chunk=cfg.ce_chunk)
     else:
         logits, aux = forward(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in, group=group)
         ce, n = L.cross_entropy_loss(logits, targets)

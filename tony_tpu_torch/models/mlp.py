@@ -4,8 +4,9 @@ workload ``tony submit`` runs).
 Counterpart of ``tony_tpu/models/mlp.py``: the same ``MLPConfig`` and
 parameter tree (``layer_{i}/{w,b}``, ``w`` ``[d_in, d_out]`` used as
 ``x @ w``), so ``models/convert.py`` carries the JAX package's weights
-across unchanged. A mesh with more than the data axis raises: the JAX
-model's FSDP/TP rules come with ROADMAP queue A8.
+across unchanged. ``sharding_rules`` are JAX's; the forward refuses a
+mesh beyond the data axis (no entry point of the MLP builds one: ROADMAP
+queue A8c).
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from tony_tpu_torch.parallel.mesh import context_degree
+from tony_tpu_torch.parallel.mesh import AXIS_FSDP, axis_size, context_degree
+from tony_tpu_torch.parallel.sharding import P, ShardingRules
 
 
 @dataclass(frozen=True)
@@ -47,11 +49,16 @@ def init(gen: torch.Generator, cfg: MLPConfig, device: torch.device | str) -> di
     return params
 
 
+def sharding_rules(cfg: MLPConfig) -> ShardingRules:
+    """JAX's rules."""
+    return ShardingRules([(r"layer_\d+/w", P("fsdp", "model")), (r".*", P())])
+
+
 def _refuse_mesh(mesh) -> None:
-    if context_degree(mesh) > 1:
+    if context_degree(mesh) > 1 or axis_size(mesh, AXIS_FSDP) > 1:
         raise NotImplementedError(
-            "the MLP runs on a data axis only: the JAX model shards over fsdp and model "
-            "(ROADMAP queue A8), and has no context axis")
+            "the MLP runs on a data axis only: its forward over the fsdp and model axes of the "
+            "JAX model's rules is not ported (ROADMAP queue A8c), and it has no context axis")
 
 
 def forward(params: dict, x: torch.Tensor, cfg: MLPConfig, mesh=None) -> torch.Tensor:

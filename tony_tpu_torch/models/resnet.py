@@ -23,7 +23,9 @@ presets, parameter and state trees and the same arithmetic, in PyTorch:
 
 The running statistics ride in the batch (``batch["bn_state"]``) and come
 back in ``loss_fn``'s aux, as in JAX; the trainer carries no BN state.
-A mesh with more than the data axis raises (ROADMAP queue A8).
+``sharding_rules`` are JAX's; the forward refuses a mesh beyond the data
+axis (no entry point of ResNet builds one: ROADMAP queue A8c, with the
+sharded BN state).
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ import torch.nn.functional as F
 
 from tony_tpu_torch.models import convert
 from tony_tpu_torch.models.mlp import classification_loss
-from tony_tpu_torch.parallel.mesh import context_degree
+from tony_tpu_torch.parallel.mesh import AXIS_FSDP, axis_size, context_degree
+from tony_tpu_torch.parallel.sharding import P, ShardingRules
 
 STAGE_BLOCKS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 BOTTLENECK = {50: True, 101: True, 18: False, 34: False}
@@ -211,11 +214,16 @@ def _bn(x: torch.Tensor, p: dict, s: dict, momentum: float, train: bool) -> tupl
     return out * _channel(p["scale"]) + _channel(p["bias"]), new_s
 
 
+def sharding_rules(cfg: ResNetConfig) -> ShardingRules:
+    """JAX's rules: the convolutions replicated, the head over fsdp and model."""
+    return ShardingRules([(r"head/w", P("fsdp", "model")), (r".*", P())])
+
+
 def _refuse_mesh(mesh) -> None:
-    if context_degree(mesh) > 1:
+    if context_degree(mesh) > 1 or axis_size(mesh, AXIS_FSDP) > 1:
         raise NotImplementedError(
-            "ResNet runs on a data axis only: the JAX model shards its head over fsdp and model "
-            "(ROADMAP queue A8), and has no context axis")
+            "ResNet runs on a data axis only: its forward over the fsdp and model axes of the "
+            "JAX model's rules is not ported (ROADMAP queue A8c), and it has no context axis")
 
 
 def forward(params: dict, state: dict, images: torch.Tensor, cfg: ResNetConfig,

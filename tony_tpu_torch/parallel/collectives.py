@@ -27,9 +27,15 @@ its left neighbour's into another; returns something to ``wait()`` on),
 ``rotate`` and ``all_to_all`` return their input, as
 ``stop_transfer_if_single`` does.
 
-The data axis's reduction is ``all_reduce_mean`` (JAX's ``psum`` :37 over
-the gang, divided by its size): the gradients of every rank, packed into
-flat f32 buckets so a step makes a few calls instead of one a tensor.
+The gang's axes (``data``, ``fsdp``) move tensors over a mesh axis's
+process group (``Mesh.axis_group``): ``all_gather`` (:33; its backward is
+the reduce-scatter), ``psum_scatter`` (:41; its backward is the
+all-gather), ``psum`` (:37; its backward is ``psum``) and
+``ring_all_reduce_sum`` (:50, the scatter then the gather). Sums run in
+f32 and return the input's dtype. ``moe_all_to_all`` waits for the expert
+axis (ROADMAP A11). The data axis's reduction of the gradients is
+``all_reduce_mean`` (``psum`` over the gang, divided by its size), packed
+into flat f32 buckets so a step makes a few calls instead of one a tensor.
 """
 
 from __future__ import annotations
@@ -222,6 +228,87 @@ class _AllToAll(torch.autograd.Function):
     def backward(ctx, g):
         split_dim, concat_dim = ctx.dims
         return ctx.ring._all_to_all(g, concat_dim, split_dim), None, None, None
+
+
+def _dim_first(x: torch.Tensor, dim: int) -> torch.Tensor:
+    return x.movedim(dim, 0).contiguous()
+
+
+def _gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    xt = _dim_first(x, dim)
+    out = torch.empty((n * xt.shape[0], *xt.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, xt, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    _check_split(x, dim, n)
+    xt = _dim_first(x, dim).float()
+    out = torch.empty((xt.shape[0] // n, *xt.shape[1:]), dtype=torch.float32, device=x.device)
+    dist.reduce_scatter_tensor(out, xt, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim).to(x.dtype).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(g, ctx.group, ctx.dim), None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.float().clone()
+        dist.all_reduce(out, group=group)
+        return out.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Psum.apply(g, ctx.group), None
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (tiled,
+    as JAX's ``all_gather(tiled=True)``); the gradient is reduce-scattered."""
+    return _AllGather.apply(x, group, dim)
+
+
+def psum_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Block r (of the group's size, along ``dim``) of the ranks' sum, on
+    rank r; the gradient is all-gathered."""
+    return _PsumScatter.apply(x, group, dim)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the group's ranks, on every rank."""
+    return _Psum.apply(x, group)
+
+
+def ring_all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """``psum`` as a reduce-scatter then an all-gather along dim 0 (a plain
+    ``psum`` when dim 0 does not split over the group)."""
+    if x.shape[0] % dist.get_world_size(group):
+        return psum(x, group)
+    return all_gather(psum_scatter(x, group), group)
 
 
 #: elements of one flat f32 bucket of ``all_reduce_mean`` (64 MiB)

@@ -8,7 +8,8 @@ is JAX's ``dispatch="ragged"`` path. The expert MLP always runs through
 on the CPU) with spans padded to ``moe_gemm.TILE``. ``MoEConfig`` has no
 ``dispatch`` or ``capacity_factor``: the capacity dispatches (``"gather"``,
 ``"dense"``) and ``"ragged_xla"`` are not ported, and an expert mesh axis
-raises (ROADMAP queue A11).
+raises (ROADMAP queue A11); the experts run on the rows of this rank, with
+the whole weights the caller gathered on an fsdp axis.
 
 JAX takes the router's statistics over the global arrays of a data-parallel
 mesh. In a gang each process holds a slice of the batch, so with a data
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 
 from tony_tpu_torch.ops import moe_gemm
 from tony_tpu_torch.ops.attention import checkpoint_name
+from tony_tpu_torch.parallel.mesh import context_degree
 
 
 @dataclass(frozen=True)
@@ -224,8 +226,5 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor, w_up:
     x [B, T, D]; router_w [D, E]; w_gate/w_up [E, D, F]; w_down [E, F, D] →
     (y [B, T, D], aux losses). ``group``: the data group whose ranks share
     the batch (``_gating``); the experts run on this rank's rows."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "an expert (or any) mesh axis is not ported yet (ROADMAP queue A8, A11); "
-            "the port's MoE runs on one device")
+    context_degree(mesh)  # an expert axis (A11), TP or stages raise; data and fsdp are the gang's
     return _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg, token_mask, group)

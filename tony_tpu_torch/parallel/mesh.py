@@ -2,32 +2,39 @@
 
 Counterpart of ``tony_tpu/parallel/mesh.py``: the same six axes
 (``stage``, ``data``, ``fsdp``, ``expert``, ``context``, ``model``) and the
-same ``MeshSpec``. The port runs two axes:
+same ``MeshSpec``. The port runs three axes:
 
 - ``context``: every context shard on this process's one device, in the
   ``Mesh``'s ``ring`` (a ``DeviceRing``), as the JAX package's
   single-process mesh over virtual devices holds them;
-- ``data``: the gang, one device a process; the trainer all-reduces the
-  gradients over the ``Mesh``'s ``group``. ``MeshSpec.auto`` fills the gang
-  into it, which is the math of JAX's fill into ``fsdp`` while parameters
-  are not sharded (ROADMAP A8).
+- ``data`` and ``fsdp``: the gang, one device a process, rank r at
+  (data r // fsdp, fsdp r % fsdp). The batch splits over both (JAX's
+  ``batch_spec(("data", "fsdp"))``), and the trainer reduces the gradients
+  over the ``Mesh``'s ``group`` (all of them); ``fsdp`` also splits the
+  parameters and their optimizer state (``parallel/sharding.py``), which
+  the ``device_mesh``'s (a torch ``DeviceMesh`` over (data, fsdp)) groups
+  gather and reduce-scatter. ``MeshSpec.auto`` fills the gang into
+  ``fsdp``, as JAX's does; a data axis is asked for by name
+  (``MeshSpec(data=2)``).
 
 ``build`` gives a ``Mesh`` whose ``shape`` is the JAX mesh's dict and whose
-``device`` is the card (or the CPU, when asked for). Both axes above 1 at
-once (a context axis across a gang, A12), and any other axis above 1, raise
-until they are ported (FSDP/TP: A8; experts: A11; stages: A13).
+``device`` is the card (or the CPU, when asked for). A context axis across
+a gang (A12) and the model, expert and stage axes above 1 raise until they
+are ported (TP: A8b; experts: A11; stages: A13).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, fields
 
 import torch
 import torch.distributed as dist
 
+from tony_tpu_torch import constants
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.parallel.collectives import DeviceRing
-from tony_tpu_torch.runtime import process_count
+from tony_tpu_torch.runtime import gang_device_mesh, process_count
 
 AXIS_DATA = "data"
 AXIS_FSDP = "fsdp"
@@ -36,23 +43,42 @@ AXIS_CONTEXT = "context"
 AXIS_EXPERT = "expert"
 AXIS_STAGE = "stage"
 
+# canonical order: slowest-varying (DCN-friendly) first
 ALL_AXES = (AXIS_STAGE, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_CONTEXT, AXIS_MODEL)
-_UNPORTED = {AXIS_FSDP: "A8", AXIS_MODEL: "A8", AXIS_EXPERT: "A11", AXIS_STAGE: "A13"}
-#: the axes a port model sees through ``context_degree``; the data axis is
-#: the trainer's (gradients reduced over ``Mesh.group``)
-_MODEL_AXES = (AXIS_CONTEXT, AXIS_DATA)
+DCN_SAFE_AXES = frozenset({AXIS_DATA, AXIS_FSDP, AXIS_STAGE})
+_UNPORTED = {AXIS_MODEL: "A8b", AXIS_EXPERT: "A11", AXIS_STAGE: "A13"}
+#: the axes a port model runs under (``context_degree``): the context ring,
+#: and the gang's data and fsdp axes
+_MODEL_AXES = (AXIS_CONTEXT, AXIS_DATA, AXIS_FSDP)
+#: the gang's axes, in the order of the ``DeviceMesh``'s dimensions
+GANG_AXES = (AXIS_DATA, AXIS_FSDP)
 
 
 @dataclass(frozen=True)
 class Mesh:
     """What the port reads of a mesh: ``shape`` (axis → size, all six axes),
-    the device the shards live on, the context ring, and the data axis's
-    process group (None for one process)."""
+    the device the shards live on, the context ring, the process group the
+    batch splits over (the gang; None for one process) and the gang's
+    ``DeviceMesh`` over (data, fsdp) (None for one process)."""
 
     shape: dict
     device: torch.device
     ring: DeviceRing
     group: object = None
+    device_mesh: object = None
+
+    def axis_group(self, axis: str):
+        """The process group of this rank's line along a gang axis."""
+        return self.device_mesh.get_group(axis)
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's position along a gang axis."""
+        return self.device_mesh.get_local_rank(axis) if self.device_mesh is not None else 0
+
+
+def axis_size(mesh: Mesh | None, axis: str) -> int:
+    """The size of ``axis`` (1 without a mesh)."""
+    return 1 if mesh is None else mesh.shape[axis]
 
 
 @dataclass(frozen=True)
@@ -75,43 +101,61 @@ class MeshSpec:
         return tuple(a for a in ALL_AXES if self.axis_sizes[a] > 1)
 
     @classmethod
-    def auto(cls, *, model: int = 1, context: int = 1, expert: int = 1,
-             stage: int = 1) -> "MeshSpec":
-        """The gang's processes fill the data axis; the other axes are as asked."""
-        return cls(stage=stage, data=process_count(), expert=expert, context=context, model=model)
+    def auto(cls, n_devices: int | None = None, *, model: int = 1, context: int = 1,
+             expert: int = 1, stage: int = 1) -> "MeshSpec":
+        """Fill the devices left after the asked axes into fsdp, as JAX's
+        launch-time path does. The devices default to the gang's: each
+        process holds every context shard on its one device, as JAX's
+        single-process mesh does over virtual devices."""
+        n = n_devices if n_devices is not None else process_count() * context
+        used = model * context * expert * stage
+        if n % used:
+            raise ValueError(f"{n} devices not divisible by model*context*expert*stage={used}")
+        rest = n // used
+        return cls(stage=stage, fsdp=rest, expert=expert, context=context, model=model)
 
     def build(self, device: torch.device | str | None = None) -> Mesh:
         """A ``Mesh`` on ``device`` (CUDA unless the CPU is asked for) whose
-        context ring holds all ``context`` shards there and whose data axis
-        is the gang this process joined."""
+        context ring holds all ``context`` shards there and whose data and
+        fsdp axes are the gang this process joined (``data × fsdp`` its
+        processes). A gang over ``TPU_NUM_SLICES`` slices (the env; 1 when
+        unset) puts a slice boundary on one axis, which a data, fsdp or
+        stage axis must absorb, as in JAX; the gang's axes are outermost."""
         unported = {a: self.axis_sizes[a] for a in self.active_axes() if a in _UNPORTED}
         if unported:
             items = sorted(set(_UNPORTED[a] for a in unported))
             raise NotImplementedError(
                 f"mesh axes {unported} are not ported yet (ROADMAP queue {', '.join(items)}); "
-                "the port runs a data axis (the gang) and a context axis")
-        if self.data > 1 and self.context > 1:
+                "the port runs the data and fsdp axes (the gang) and a context axis")
+        procs = self.data * self.fsdp
+        if procs > 1 and self.context > 1:
             raise NotImplementedError(
-                f"a context axis ({self.context}) across a gang of {self.data} processes is not "
+                f"a context axis ({self.context}) across a gang of {procs} processes is not "
                 "ported yet (ROADMAP queue A12); the port holds every context shard in one process")
-        if self.data != process_count():
-            raise ValueError(f"data axis {self.data} needs a gang of as many processes, one device "
-                             f"a process; this gang has {process_count()}")
+        if procs != process_count():
+            raise ValueError(f"data {self.data} x fsdp {self.fsdp} needs a gang of as many processes, "
+                             f"one device a process; this gang has {process_count()}")
+        num_slices = int(os.environ.get(constants.ENV_TPU_NUM_SLICES, "1") or "1")
+        if num_slices > 1 and not any(self.axis_sizes[a] % num_slices == 0 and self.axis_sizes[a] > 1
+                                      for a in ALL_AXES if a in DCN_SAFE_AXES):
+            raise ValueError(f"cannot place {num_slices} slices: no DCN-safe axis "
+                             f"(one of {sorted(DCN_SAFE_AXES)}) is divisible by the slice count")
         dev = resolve_device(device)
+        device_mesh = gang_device_mesh(dev.type, (self.data, self.fsdp), GANG_AXES) if procs > 1 else None
         return Mesh(shape={a: self.axis_sizes[a] for a in ALL_AXES}, device=dev,
                     ring=DeviceRing(self.context, dev),
-                    group=dist.group.WORLD if self.data > 1 else None)
+                    group=dist.group.WORLD if procs > 1 else None, device_mesh=device_mesh)
 
 
 def context_degree(mesh) -> int:
     """The context degree of ``mesh`` (1 for None); raises for a mesh the
-    port does not run (FSDP/TP, expert or stage axes above 1, or not a mesh
-    of the port). A data axis is invisible to the model."""
+    port does not run (TP, expert or stage axes above 1, or not a mesh of
+    the port). The data and fsdp axes are the gang's."""
     if mesh is None:
         return 1
     shape = mesh.shape if isinstance(mesh, Mesh) else None
     if shape is None or any(v > 1 for a, v in shape.items() if a not in _MODEL_AXES):
         raise NotImplementedError(
-            "a device mesh with FSDP/TP, expert or pipeline axes is not ported yet "
-            "(ROADMAP queue A8, A11, A13); the port runs a data and a context axis")
+            "a device mesh with TP, expert or pipeline axes is not ported yet "
+            "(ROADMAP queue A8b, A11, A13); the port runs the data, fsdp and context axes")
     return shape[AXIS_CONTEXT]

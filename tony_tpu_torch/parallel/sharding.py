@@ -1,0 +1,208 @@
+"""Sharding rules: which mesh axis splits which dimension of each parameter.
+
+Counterpart of ``tony_tpu/parallel/sharding.py``. A spec is a tuple with
+one entry per dimension of a leaf, each None or a mesh axis name (or a
+tuple of names), as JAX's ``PartitionSpec`` reads: ``P(None, "fsdp",
+"model")``. Models ship their rules (``sharding_rules(cfg)``), the first
+matching pattern wins and an unmatched leaf is replicated; ``fsdp_spec_tree``
+is the generic rule for a model that ships none.
+
+JAX places a leaf with ``NamedSharding`` and lets XLA insert the
+collectives; eager torch has no propagation, so the port moves shards
+itself, and ``constrain`` (a sharding constraint on an activation) has no
+counterpart. ``shard_dim`` reads a spec on a mesh: the dim the ``fsdp``
+axis splits, where the spec names that axis and the axis is above 1. An
+axis of size 1 splits nothing, so a one-process run and a one-rank gang
+hold every leaf whole and move nothing, as ``stop_transfer_if_single``
+keeps a size-1 axis off the collective path in JAX. ``placements`` turns
+that into torch placements (``Shard(d)`` on the mesh's fsdp dimension,
+``Replicate()`` elsewhere), the one place that builds them, for the
+checkpoint's ``DTensor`` blocks (``Layout.block``); it imports
+``torch.distributed.tensor`` when first called, which a process that never
+writes a split leaf skips.
+
+On an ``fsdp`` axis above 1 each rank keeps ``1/fsdp`` of a sharded leaf
+(``shard``: its block of the split dimension) and the model gathers the
+leaf where it uses it (``gather``, ``gather_layer``): the all-gather's
+backward reduce-scatters the gradient, so the gradient arrives sharded as
+the leaf is. ``Layout`` is what a train state keeps of this: the rules and
+the mesh, by leaf name.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Callable, Iterable
+
+import torch
+
+from tony_tpu_torch.parallel.collectives import all_gather
+from tony_tpu_torch.parallel.mesh import AXIS_FSDP, Mesh, axis_size
+
+#: ``init``'s hook: (leaf name, whole leaf as drawn) → the tensor to keep
+Place = Callable[[str, torch.Tensor], torch.Tensor]
+
+
+def P(*axes) -> tuple:
+    """A spec as JAX writes it: ``P("model", "fsdp")``; ``P()`` replicates.
+    An entry of one axis in a tuple is that axis, as in JAX."""
+    return tuple(a[0] if isinstance(a, tuple) and len(a) == 1 else a for a in axes)
+
+
+def path_str(path: tuple) -> str:
+    """A key path (``("layers", "wq")``) as the 'a/b/c' string rules match."""
+    return "/".join(str(k) for k in path)
+
+
+class ShardingRules:
+    """Ordered (regex → spec) rules; first match wins."""
+
+    def __init__(self, rules: Iterable[tuple[str, tuple]]):
+        self.rules = [(re.compile(pat), tuple(spec)) for pat, spec in rules]
+
+    def spec_for(self, path: str) -> tuple:
+        for pat, spec in self.rules:
+            if pat.search(path):
+                return spec
+        return P()  # replicate by default
+
+    def spec_tree(self, params: dict, prefix: str = "") -> dict:
+        """A spec for every leaf, in a tree mirroring ``params``."""
+        return {k: self.spec_tree(v, f"{prefix}{k}/") if isinstance(v, dict) else self.spec_for(prefix + k)
+                for k, v in params.items()}
+
+
+def batch_spec(data_axes: tuple[str, ...] = ("data", "fsdp")) -> tuple:
+    """The input batch's spec: the batch dim over the data axes."""
+    return P(data_axes)
+
+
+def fsdp_spec_tree(params: dict, axis: str = AXIS_FSDP, min_size: int = 2**12) -> dict:
+    """Generic FSDP rule: each leaf of at least ``min_size`` elements split
+    on its largest dim (ties → the first), the rest replicated."""
+    def spec_of(x) -> tuple:
+        if not torch.is_tensor(x) or x.numel() < min_size or x.ndim == 0:
+            return P()
+        dim = max(range(x.ndim), key=lambda d: x.shape[d])
+        return P(*[axis if d == dim else None for d in range(x.ndim)])
+
+    return {k: fsdp_spec_tree(v, axis, min_size) if isinstance(v, dict) else spec_of(v)
+            for k, v in params.items()}
+
+
+def _names(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def shard_dim(spec: tuple, mesh: Mesh | None) -> int | None:
+    """The dim of a leaf with ``spec`` that the mesh splits: the entry that
+    names fsdp, when that axis is above 1 (None: the leaf is whole).
+    Parameters never split over data."""
+    if axis_size(mesh, AXIS_FSDP) == 1:
+        return None
+    return next((d for d, entry in enumerate(spec) if AXIS_FSDP in _names(entry)), None)
+
+
+def placements(spec: tuple, mesh: Mesh | None) -> list:
+    """The torch placements of a leaf with ``spec`` on the mesh's (data,
+    fsdp) dimensions: ``Shard(d)`` on fsdp for ``shard_dim``'s d, else
+    ``Replicate()``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dim = shard_dim(spec, mesh)
+    return [Replicate(), Replicate() if dim is None else Shard(dim)]
+
+
+def shard(full: torch.Tensor, spec: tuple, mesh: Mesh | None) -> torch.Tensor:
+    """This rank's block of ``full`` (a copy, so ``full`` can be freed), or
+    ``full`` itself when the mesh does not split it."""
+    dim = shard_dim(spec, mesh)
+    if dim is None:
+        return full
+    n = axis_size(mesh, AXIS_FSDP)
+    if full.shape[dim] % n:
+        raise ValueError(f"dim {dim} of a {list(full.shape)} leaf does not split into fsdp {n} shards")
+    return full.chunk(n, dim)[mesh.axis_index(AXIS_FSDP)].clone()
+
+
+def gather(local: torch.Tensor, spec: tuple, mesh: Mesh | None) -> torch.Tensor:
+    """The whole leaf from every fsdp rank's block (differentiable: the
+    gradient is reduce-scattered back to the blocks), or ``local`` itself
+    when the mesh does not split it."""
+    dim = shard_dim(spec, mesh)
+    if dim is None:
+        return local
+    return all_gather(local, mesh.axis_group(AXIS_FSDP), dim)
+
+
+def gather_layer(lp: dict, rules: ShardingRules, mesh: Mesh | None, prefix: str = "layers") -> dict:
+    """One layer's slices of the stacked ``prefix`` leaves (the leading L
+    dim dropped, so each spec's first entry too), each gathered."""
+    if axis_size(mesh, AXIS_FSDP) == 1:
+        return lp
+    return {k: gather_layer(v, rules, mesh, f"{prefix}/{k}") if isinstance(v, dict)
+            else gather(v, rules.spec_for(f"{prefix}/{k}")[1:], mesh) for k, v in lp.items()}
+
+
+def gathering(block, rules: ShardingRules, mesh: Mesh | None, prefix: str = "layers"):
+    """``block(x, lp, ...)`` run on one layer's slices gathered first. Wrap
+    the block before remat: the gather is then inside the recomputed region,
+    so the backward gathers the layer again (JAX's schedule under remat) and
+    the whole weights of a layer live only while it runs. Without remat
+    autograd keeps each layer's gathered weights for the backward."""
+    if axis_size(mesh, AXIS_FSDP) == 1:
+        return block
+
+    def run(x, lp, *args, **kwargs):
+        return block(x, gather_layer(lp, rules, mesh, prefix), *args, **kwargs)
+
+    return run
+
+
+def shard_params(params: dict, rules: ShardingRules, mesh: Mesh | None, prefix: str = "") -> dict:
+    """Each leaf of ``params`` placed per the rules: this rank's block."""
+    return {k: shard_params(v, rules, mesh, f"{prefix}{k}/") if isinstance(v, dict)
+            else shard(v, rules.spec_for(prefix + k), mesh) for k, v in params.items()}
+
+
+class Layout:
+    """Where a train state's leaves live: ``rules`` over ``mesh``, by leaf
+    name ('layers/wq'). ``sharded`` is whether any leaf is split at all."""
+
+    def __init__(self, rules: ShardingRules, mesh: Mesh | None):
+        self.rules, self.mesh = rules, mesh
+        self.sharded = axis_size(mesh, AXIS_FSDP) > 1
+
+    def spec(self, name: str) -> tuple:
+        return self.rules.spec_for(name)
+
+    def dim(self, name: str) -> int | None:
+        return shard_dim(self.spec(name), self.mesh)
+
+    def place(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """``init``'s hook: keep this rank's block of a freshly drawn leaf."""
+        return shard(full, self.spec(name), self.mesh)
+
+    def full_shape(self, name: str, local: torch.Tensor) -> tuple:
+        shape = list(local.shape)
+        if (dim := self.dim(name)) is not None:
+            shape[dim] *= axis_size(self.mesh, AXIS_FSDP)
+        return tuple(shape)
+
+    def block(self, name: str, local: torch.Tensor):
+        """``local`` as the checkpoint sees it: where the leaf is split, a
+        ``DTensor`` over the gang's ``DeviceMesh`` on the same storage, its
+        placements and whole shape the leaf's; else ``local`` itself."""
+        if self.dim(name) is None:
+            return local
+        from torch.distributed.tensor import DTensor
+
+        shape = torch.Size(self.full_shape(name, local))
+        return DTensor.from_local(local.detach(), self.mesh.device_mesh, placements(self.spec(name), self.mesh),
+                                  run_check=False, shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+def keep_whole(name: str, full: torch.Tensor) -> torch.Tensor:
+    """``init``'s default hook: every leaf whole."""
+    return full
+

@@ -8,6 +8,10 @@ than one process joins a ``torch.distributed`` process group from it, gloo
 on the CPU and nccl on cards. One process joins nothing, as JAX's does not,
 so the same program runs under ``tony submit`` and as bare python.
 
+The gang's ``DeviceMesh`` (``gang_device_mesh``) is laid over the process
+group joined here: its subgroups come from that group, with no second
+rendezvous.
+
 A gang restarted after a node loss rendezvouses again on the same
 coordinator address: rank 0's store binds the port anew, and the others
 retry their connection until ``RENDEZVOUS_TIMEOUT``.
@@ -70,6 +74,16 @@ def process_count() -> int:
 
 def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+def gang_device_mesh(device_type: str, shape: tuple[int, ...], names: tuple[str, ...]):
+    """A torch ``DeviceMesh`` of ``shape`` over the joined gang's ranks in
+    row-major order (the last dimension varies fastest), named ``names``;
+    every rank calls it at the same point, as each subgroup is a collective
+    call of the whole gang."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(device_type, torch.arange(process_count()).reshape(shape), mesh_dim_names=names)
 
 
 def shutdown_distributed() -> None:

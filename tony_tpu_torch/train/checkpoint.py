@@ -15,10 +15,26 @@ joins the write and raises any error it hit, and ``close`` does the same at
 the end. Only the main thread calls collectives. ``use_async=False`` writes
 in ``save`` itself.
 
-In a gang every rank holds the whole state (the data axis replicates it),
-so rank 0 writes. ``wait`` ends in a barrier, so once it has returned on
-every rank the step is on the shared directory; a synchronous ``save``
-ends in ``wait``.
+The manager knows no state's schema: it writes the nested dict it is
+handed. Where every leaf is whole (one process, a data axis, an fsdp axis
+of 1) rank 0 writes it with ``torch.save``. Where some leaves are this
+rank's blocks of a whole leaf (``DTensor``s: the state's layout splits
+them over an fsdp axis above 1), every rank writes its own blocks through
+``torch.distributed.checkpoint`` (DCP) into one shared temporary
+directory; DCP's collectives run on a gloo group of the manager's own, in
+the writer thread, and rank 0 publishes the step once DCP has written
+every rank's files and the metadata. ``wait`` ends in a barrier, so once
+it has returned on every rank the step is on the shared directory; a
+synchronous ``save`` ends in ``wait``.
+
+Restore imposes the caller's state, as JAX's does (the elastic contract,
+``tony_tpu/train/checkpoint.py:9-16``): ``restore(step, like)`` reads a DCP
+step as the caller's ``state_dict()`` holds it (its blocks where that
+holds a ``DTensor``, whole leaves elsewhere), whatever gang wrote it, so a
+step written on ``{fsdp: 4}`` restores onto ``{fsdp: 2}``, ``{data: 2}``
+or one process; a ``state.pt`` step comes back whole, and the caller cuts
+its blocks. DCP and ``DTensor`` are imported only where a sharded step is
+written or read.
 ``restore_or_init`` keeps the JAX function's corruption tolerance: a step
 that fails to load is quarantined as ``.corrupt-<step>`` and the
 next-newest step is tried, down to a fresh init; every rank of a gang hits
@@ -35,6 +51,7 @@ from __future__ import annotations
 
 import os
 import shutil
+import sys
 import threading
 import time
 from typing import Any, Callable
@@ -63,7 +80,8 @@ _WRITE_SECONDS = obs_metrics.histogram(
 
 class CheckpointManager:
     """Numbered step directories under ``directory``. ``group``: the gang's
-    process group (None for one process); its rank 0 writes.
+    process group (None for one process); its rank 0 publishes each step
+    (``writer``); every rank writes its blocks of a state that holds some.
     ``use_async``: write in a background thread (the default, as JAX's).
 
     ``saved_step`` is the newest step this manager saved or restored. Every
@@ -78,6 +96,11 @@ class CheckpointManager:
         self.group = group
         self.use_async = use_async
         self.writer = group is None or dist.get_rank(group) == 0
+        # DCP's collectives (a sharded state's saves) run in the writer
+        # thread: a group of their own, made by every rank here, keeps them
+        # apart from the step's
+        self._dcp_group = dist.new_group(backend="gloo") if group is not None else None
+        self._host_meshes: dict = {}  # a block's DeviceMesh → its twin on the host
         self.saved_step: int | None = None
         self._host: dict[str, torch.Tensor] = {}  # leaf name → host buffer of the snapshot
         self._thread: threading.Thread | None = None
@@ -102,15 +125,16 @@ class CheckpointManager:
         if not force and self.saved_step is not None and step <= self.saved_step:
             return False
         t0 = time.perf_counter()
+        writes = self.writer or any(_is_block(v) for _, v in _flat(state))
         with obs_trace.maybe_span("ckpt.save", step=step):
             if not self.use_async:
-                if self.writer:
+                if writes:
                     self._write(step, state)
                 self.wait()
             else:
                 self.join()
                 self._raise_write_error()
-                if self.writer:
+                if writes:
                     snapshot = self._snapshot(state)
                     self._thread = threading.Thread(target=self._write_in_background,
                                                     args=(step, snapshot), name=f"ckpt-write-{step}")
@@ -122,7 +146,8 @@ class CheckpointManager:
     def _snapshot(self, state: dict) -> dict:
         """``state`` with every tensor copied into this manager's host
         buffer for its leaf (made at the first save, or when a leaf's shape
-        or dtype changes); the copies are complete on return."""
+        or dtype changes), a block rewrapped on the host twin of its mesh;
+        the copies are complete on return."""
         devices = set()
 
         def copy(tree: dict, prefix: str) -> dict:
@@ -132,14 +157,15 @@ class CheckpointManager:
                 if isinstance(val, dict):
                     out[key] = copy(val, name + "/")
                 elif torch.is_tensor(val):
+                    local = val.to_local() if _is_block(val) else val
                     buf = self._host.get(name)
-                    if buf is None or buf.shape != val.shape or buf.dtype != val.dtype:
-                        buf = self._host[name] = torch.empty(val.shape, dtype=val.dtype,
-                                                             pin_memory=val.is_cuda)
-                    buf.copy_(val.detach(), non_blocking=val.is_cuda)
-                    if val.is_cuda:
-                        devices.add(val.device)
-                    out[key] = buf
+                    if buf is None or buf.shape != local.shape or buf.dtype != local.dtype:
+                        buf = self._host[name] = torch.empty(local.shape, dtype=local.dtype,
+                                                             pin_memory=local.is_cuda)
+                    buf.copy_(local.detach(), non_blocking=local.is_cuda)
+                    if local.is_cuda:
+                        devices.add(local.device)
+                    out[key] = _rewrap(buf, val, self._host_mesh(val.device_mesh)) if _is_block(val) else buf
                 else:
                     out[key] = val
             return out
@@ -148,6 +174,22 @@ class CheckpointManager:
         for device in devices:
             torch.cuda.current_stream(device).synchronize()
         return snapshot
+
+    def _host_mesh(self, device_mesh):
+        """``device_mesh``'s twin on the host (itself on a CPU gang), made
+        once: a block on a CUDA mesh would move a host buffer to the card.
+        It holds the same process groups, and DCP reads only the rank's
+        coordinates of it; DCP's collectives run on the manager's group."""
+        if device_mesh.device_type == "cpu":
+            return device_mesh
+        key = id(device_mesh)
+        if key not in self._host_meshes:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            names = device_mesh.mesh_dim_names
+            self._host_meshes[key] = (device_mesh, DeviceMesh.from_group(
+                [device_mesh.get_group(n) for n in names], "cpu", mesh=device_mesh.mesh, mesh_dim_names=names))
+        return self._host_meshes[key][1]
 
     def _write_in_background(self, step: int, snapshot: dict) -> None:
         try:
@@ -158,16 +200,29 @@ class CheckpointManager:
     def _write(self, step: int, state: dict) -> None:
         t0 = time.perf_counter()
         final = os.path.join(self.directory, str(step))
-        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save(state, os.path.join(tmp, STATE_FILE))
-        shutil.rmtree(final, ignore_errors=True)  # a forced re-save of the same step
-        os.rename(tmp, final)
-        for old in self.all_steps()[:-self.max_to_keep]:
-            shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+        if not any(_is_block(v) for _, v in _flat(state)):
+            tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save(state, os.path.join(tmp, STATE_FILE))
+        else:
+            # one directory for the gang's ranks: rank 0 clears a stale one
+            # first, and DCP writes no file before its first collective,
+            # which waits for rank 0
+            import torch.distributed.checkpoint as dcp
+
+            tmp = os.path.join(self.directory, f".tmp-{step}")
+            if self.writer:
+                shutil.rmtree(tmp, ignore_errors=True)
+            dcp.save(dict(_flat(state)), storage_writer=dcp.FileSystemWriter(tmp),
+                     process_group=self._dcp_group)  # returns once every rank's files and the metadata are written
+        if self.writer:
+            shutil.rmtree(final, ignore_errors=True)  # a forced re-save of the same step
+            os.rename(tmp, final)
+            for old in self.all_steps()[:-self.max_to_keep]:
+                shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+            obs_logging.info(f"[ckpt] step {step} published", step=step)
         _WRITE_SECONDS.observe(time.perf_counter() - t0)
-        obs_logging.info(f"[ckpt] step {step} published", step=step)
 
     def _raise_write_error(self) -> None:
         if self._error is not None:
@@ -195,14 +250,93 @@ class CheckpointManager:
         self.wait()
         self._host.clear()
 
-    def restore(self, step: int | None = None) -> dict:
-        """The saved state of ``step`` (default: the newest), memory-mapped on
-        the host; the caller copies it into its own tensors."""
+    def restore(self, step: int | None = None, like: dict | None = None) -> dict:
+        """The saved state of ``step`` (default: the newest) on the host, for
+        the caller to copy into its own tensors: a ``state.pt`` step's dict,
+        memory-mapped, every leaf whole; a DCP step read as ``like`` (the
+        caller's ``state_dict()``) holds it (``read_sharded``)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
-        path = os.path.join(self.directory, str(step), STATE_FILE)
-        return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+        path = os.path.join(self.directory, str(step))
+        if not os.path.exists(os.path.join(path, STATE_FILE)):
+            return read_sharded(path, like, self._host_mesh)
+        return torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True, mmap=True)
+
+
+def _is_block(v) -> bool:
+    """Whether ``v`` is a rank's block of a whole leaf (a ``DTensor``); no
+    value is one where ``torch.distributed.tensor`` was never imported."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(v, mod.DTensor)
+
+
+def _flat(tree: dict, prefix: str = "") -> list:
+    """(name, value) of a nested dict's leaves, named 'a/b/c' as DCP stores them."""
+    out = []
+    for k, v in tree.items():
+        out += _flat(v, f"{prefix}{k}/") if isinstance(v, dict) else [(f"{prefix}{k}", v)]
+    return out
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for name, v in flat.items():
+        *parents, leaf = name.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def _rewrap(local: torch.Tensor, like, mesh):
+    """``local`` as a block placed as ``like`` is, on ``mesh``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, mesh, like.placements, run_check=False, shape=like.shape, stride=like.stride())
+
+
+def read_sharded(path: str, like: dict | None = None, host_mesh=lambda m: m) -> dict:
+    """A DCP step on the host: each leaf read as ``like`` holds it (this
+    rank's block where ``like`` holds a ``DTensor``, whole where it holds a
+    tensor), or every leaf whole without ``like``. With ``like``, every
+    leaf's name, whole shape and dtype is checked against the step's
+    metadata before anything is read. No collective: each rank reads its own."""
+    import torch.distributed.checkpoint as dcp
+
+    reader = dcp.FileSystemReader(path)
+    saved = reader.read_metadata().state_dict_metadata
+    if like is None:
+        targets = {name: torch.empty(tuple(m.size), dtype=m.properties.dtype) if hasattr(m, "size") else None
+                   for name, m in saved.items()}
+    else:
+        mine = dict(_flat(like))
+        if mine.keys() != saved.keys():
+            raise ValueError(f"checkpoint leaves differ: {sorted(mine.keys() ^ saved.keys())}")
+        targets = {}
+        for name, v in mine.items():
+            if not torch.is_tensor(v):
+                targets[name] = v
+                continue
+            meta = saved[name]
+            if tuple(meta.size) != tuple(v.shape) or meta.properties.dtype != v.dtype:
+                raise ValueError(f"checkpoint {name}: {meta.properties.dtype}{list(meta.size)}, "
+                                 f"want {v.dtype}{list(v.shape)}")
+            if _is_block(v):
+                targets[name] = _rewrap(torch.empty(v.to_local().shape, dtype=v.dtype), v, host_mesh(v.device_mesh))
+            else:
+                targets[name] = torch.empty(v.shape, dtype=v.dtype)
+    dcp.load(targets, storage_reader=reader, no_dist=True)
+    return _nest({k: v.to_local() if _is_block(v) else v for k, v in targets.items()})
+
+
+def read_whole(step_dir: str) -> dict:
+    """The state saved in ``step_dir`` with every leaf whole, on the host,
+    whichever gang wrote it."""
+    if os.path.exists(os.path.join(step_dir, STATE_FILE)):
+        return torch.load(os.path.join(step_dir, STATE_FILE), map_location="cpu", weights_only=True)
+    return read_sharded(str(step_dir))
 
 
 def _quarantine_step(ckpt_dir: str, step: int) -> None:
@@ -238,7 +372,9 @@ def restore_or_init(
 
     No ``ckpt_dir`` → (init_fn(), None, 0). Otherwise the newest step that
     loads is restored into the freshly initialised state with
-    ``load_fn(state, saved)``, which checks every leaf before it copies any,
+    ``load_fn(state, saved)``, which checks every leaf before it copies any
+    (``saved`` read as the state's ``state_dict()`` holds it, where the
+    state has one: ``restore``'s ``like``),
     so a torn step leaves the fresh state intact; a step that fails to load
     or to apply is quarantined and the previous one is tried. In a gang
     (``group``) every rank restores, then the ranks gather their steps and
@@ -261,7 +397,8 @@ def restore_or_init(
         try:
             t0 = time.perf_counter()
             with obs_trace.maybe_span("ckpt.restore", step=step):
-                state = load_fn(state, mgr.restore(step))
+                like = state.state_dict() if hasattr(state, "state_dict") else None
+                state = load_fn(state, mgr.restore(step, like))
             _RESTORE_SECONDS.observe(time.perf_counter() - t0)
             break
         except Exception as e:  # noqa: BLE001 — any torn artifact must fall back, not crash

@@ -5,13 +5,16 @@ from the env the torch runtime adapter exports), build the mesh, initialise
 or resume the state, step with throughput metrics, checkpoint on an interval
 and at the end, and resume after a gang restart.
 
-- The gang is the mesh's data axis, one device a process: each rank trains
-  on its contiguous row slice of a constant global batch, and the trainer
-  averages the gradients over the gang, so a gang's trajectory is that of
-  one process on the same global batches. ``context_axis > 1`` trains with
-  every context shard on this process's one device; a context axis across
-  a gang, and the model, expert and stage axes, raise until ported
-  (ROADMAP queue A8, A11, A12, A13).
+- The gang fills the mesh's fsdp axis (``MeshSpec.auto``, as JAX's), one
+  device a process: each rank holds its blocks of the parameters and of
+  their AdamW moments (``trainer.sharded_init`` with the model's
+  ``sharding_rules``), trains on its contiguous row slice of a constant
+  global batch, and the trainer reduces the gradients over the gang, so a
+  gang's trajectory is that of one process on the same global batches.
+  Each step report carries this rank's parameter and optimizer bytes.
+  ``context_axis > 1`` trains with every context shard on this process's
+  one device; a context axis across a gang, and the model, expert and
+  stage axes, raise until ported (ROADMAP queue A8b, A11, A12, A13).
 - Batches come from ``*.tonytok`` shards under ``data_dir`` through
   ``TokenLoader`` (a pure function of (data_seed, global slot); rank 0
   writes the consumption cursor beside each checkpoint and a resume
@@ -54,7 +57,8 @@ from tony_tpu_torch.train.checkpoint import UrgentSaveSignal, restore_or_init
 from tony_tpu_torch.train.input_pipeline import InputPipeline
 from tony_tpu_torch.train.metrics import detect_peak_flops, flops_per_token_for_batch
 from tony_tpu_torch.train.profiling import StepProfiler
-from tony_tpu_torch.train.trainer import OptimizerConfig, Throughput, TrainState, make_train_step
+from tony_tpu_torch.train.trainer import (OptimizerConfig, Throughput, TrainState, make_train_step,
+                                          sharded_init, tree_bytes)
 
 _FIRST_STEP_SECONDS = obs_metrics.gauge(
     "tony_train_first_step_seconds",
@@ -153,8 +157,8 @@ def _refuse_unported(model_module, loop: LoopConfig) -> None:
              ("model_axis", "expert_axis", "stage_axis") if getattr(loop, name) > 1}
     if asked:
         raise NotImplementedError(
-            f"{asked}: not ported yet — the port trains a data-parallel gang with a context axis "
-            "in one process (ROADMAP queue A8 mesh, A11 experts, A13 stages)")
+            f"{asked}: not ported yet — the port trains a gang on the data and fsdp axes with a "
+            "context axis in one process (ROADMAP queue A8b TP, A11 experts, A13 stages)")
     procs = world_size_from_env()
     if procs > 1 and loop.context_axis > 1:
         raise NotImplementedError(
@@ -229,19 +233,24 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
         total_steps=loop.schedule_steps or loop.steps,
     ).build()
 
+    rules = model_module.sharding_rules(model_cfg)
+
     def init_state() -> TrainState:
-        # the same seed on every rank: the replicas start equal
+        # the same seed on every rank: each keeps its blocks of the same leaves
         gen = torch.Generator(device=device).manual_seed(0)
-        return TrainState.create(model_module.init(gen, model_cfg, device), opt)
+        return sharded_init(lambda place: model_module.init(gen, model_cfg, device, place), rules, mesh, opt)
 
     state, ckpt_mgr, start_step = restore_or_init(
         loop.checkpoint_dir or None, init_state, TrainState.load, group=mesh.group)
     if start_step:
         obs_logging.info(f"[train] resumed from checkpoint step {start_step}", step=start_step)
+    state_bytes = {"param_bytes": tree_bytes(state.params),
+                   "opt_bytes": tree_bytes({k: state.opt_state[k] for k in ("mu", "nu")})}
 
-    model_mesh = mesh if loop.context_axis > 1 else None  # the data axis is the trainer's
     # a partial keeps the loss's keywords in sight: make_train_step hands a
     # loss that takes ``group`` (Mixtral's router losses) the ranks sharing its batch
+    # a mesh of one device reaches the model as None: the unsharded path
+    model_mesh = mesh if mesh.shape["context"] * mesh.shape["fsdp"] > 1 else None
     loss_fn = functools.partial(model_module.loss_fn, cfg=model_cfg, mesh=model_mesh)
     step_fn = make_train_step(loss_fn, opt, group=mesh.group)
     probe = model_module.synthetic_batch(_batch_generator(device, 0, 0), 1, loop.seq_len, model_cfg)
@@ -339,6 +348,7 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
                     "mfu": round(report["mfu"], 4),
                     "time": time.strftime("%H:%M:%S"),
                     **{k: float(v) for k, v in metrics.items() if k.startswith("moe_")},
+                    **state_bytes,
                 }
                 obs_logging.info(json.dumps(line), **line)
                 _drop_train_metrics(line)

@@ -22,11 +22,23 @@ In a gang (``group`` of more than one process) each rank computes the
 gradients of its rows of the global batch, and the gang reduces them
 before the global norm and the clip to the gradients of the JAX step,
 which takes one token mean over the global arrays: rank r, whose loss is
-the mean over its ``n_r`` valid targets, weighs its loss and gradients by
-``n_r · world / Σn`` before the mean over the ranks, so the result is
-Σ n_r·loss_r / Σn. With equal counts (every Llama and Mixtral batch) the
-weight is exactly 1.0. ``tokens`` is summed and the ``moe_*`` metrics are
-averaged, so every rank reports the global values.
+the mean over its ``n_r`` valid targets, weighs its loss by ``n_r · world
+/ Σn`` before its backward (one collective of the scalars, between the
+forward and the backward, gives Σn), and the gang's mean of the weighed
+gradients is Σ n_r·g_r / Σn. With equal counts (every Llama and Mixtral
+batch) the weight is exactly 1.0. ``tokens`` is summed and the ``moe_*``
+metrics are averaged, so every rank reports the global values.
+
+A state made by ``sharded_init`` on a mesh with an ``fsdp`` axis above 1
+(its ``layout``) holds this rank's block of each leaf the model's rules
+split, and the moments of that block: the AdamW update is elementwise, so
+it runs on the blocks as they are. The model gathers a leaf where it uses
+it, and the gather's backward sums the gradients of the fsdp ranks into
+each block (the weighed gradients, so no averaging applies there); the
+data axis then takes the mean over its ranks, divided by ``fsdp``, and a
+leaf the rules keep whole takes the mean over the whole gang. The global
+norm sums the squares of the blocks over the fsdp axis (one scalar
+collective) and adds those of the whole leaves once.
 
 With ``accum_steps`` A > 1 the gang computes JAX's scan over the global
 batch: microbatch i is global rows i·mb … (i+1)·mb, one token mean each,
@@ -59,6 +71,8 @@ import torch
 import torch.distributed as dist
 
 from tony_tpu_torch.parallel.collectives import all_reduce_mean
+from tony_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP
+from tony_tpu_torch.parallel.sharding import Layout, ShardingRules
 
 
 def _leaves(tree: dict, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
@@ -77,36 +91,71 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
+def sharded_global_norm(grads: dict[str, torch.Tensor], layout: Layout) -> torch.Tensor:
+    """‖g‖ of the whole leaves' gradients from this rank's blocks: the
+    blocks' squares summed over the fsdp axis, plus the whole leaves' once."""
+    zero = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
+    split = sum((g.float().square().sum() for n, g in grads.items() if layout.dim(n) is not None), zero)
+    dist.all_reduce(split, group=layout.mesh.axis_group(AXIS_FSDP))
+    whole = sum((g.float().square().sum() for n, g in grads.items() if layout.dim(n) is None), zero)
+    return torch.sqrt(split + whole)
+
+
+def tree_bytes(tree: dict) -> int:
+    """The bytes this process holds of a tree's tensors."""
+    return sum(t.numel() * t.element_size() for _, t in _leaves(tree) if torch.is_tensor(t))
+
+
 @dataclass
 class TrainState:
     params: dict     # nested dict of tensors (requires_grad)
     opt_state: dict  # {"mu": {name: t}, "nu": {name: t}, "count": int}
     step: int
+    #: where the leaves live (``sharded_init``): this rank's blocks of the
+    #: leaves an fsdp axis splits; None: every leaf whole
+    layout: Layout | None = None
 
     @classmethod
-    def create(cls, params: dict, optimizer: "AdamW") -> "TrainState":
+    def create(cls, params: dict, optimizer: "AdamW", layout: Layout | None = None) -> "TrainState":
         for _, p in _leaves(params):
             p.requires_grad_(True)
-        return cls(params=params, opt_state=optimizer.init(params), step=0)
+        return cls(params=params, opt_state=optimizer.init(params), step=0, layout=layout)
+
+    def _trees(self) -> dict:
+        """The state's tensors by part, each tree keyed by parameter name."""
+        return {"params": self.params, "opt_state/mu": self.opt_state["mu"], "opt_state/nu": self.opt_state["nu"]}
 
     def state_dict(self) -> dict:
-        return {"params": self.params, "opt_state": self.opt_state, "step": self.step}
+        """The state as a checkpoint holds it: where the layout splits a
+        leaf, this rank's block of it and of its moments as a ``DTensor``
+        (the same storage; ``Layout.block``), else the tensors themselves."""
+        if self.layout is None or not self.layout.sharded:
+            return {"params": self.params, "opt_state": self.opt_state, "step": self.step}
+        placed = {part: {n: self.layout.block(n, t) for n, t in _leaves(tree)} for part, tree in self._trees().items()}
+        return {"params": placed["params"], "step": self.step,
+                "opt_state": {"mu": placed["opt_state/mu"], "nu": placed["opt_state/nu"],
+                              "count": self.opt_state["count"]}}
 
     def load(self, saved: dict) -> "TrainState":
-        """Copy a saved ``state_dict`` into this state's tensors (in place).
-        Every leaf's name, shape and dtype is checked before any is copied."""
+        """Copy a saved state into this state's tensors (in place): each leaf
+        this rank's block of it, or the whole leaf, which is cut to the
+        block. Every leaf's name, shape and dtype is checked before any is
+        copied."""
         pairs = []
-        for part in ("params", "opt_state"):
-            mine, theirs = dict(_leaves(getattr(self, part))), dict(_leaves(saved[part]))
+        theirs_by_part = {"params": saved["params"], "opt_state/mu": saved["opt_state"]["mu"],
+                          "opt_state/nu": saved["opt_state"]["nu"]}
+        for part, tree in self._trees().items():
+            mine, theirs = dict(_leaves(tree)), dict(_leaves(theirs_by_part[part]))
             if mine.keys() != theirs.keys():
                 raise ValueError(f"checkpoint {part} leaves differ: {sorted(mine.keys() ^ theirs.keys())}")
             for name, t in mine.items():
                 s = theirs[name]
-                if not torch.is_tensor(t):
-                    continue
-                if s.shape != t.shape or s.dtype != t.dtype:
+                whole = t.shape if self.layout is None else self.layout.full_shape(name, t)
+                if s.dtype != t.dtype or s.shape not in (t.shape, whole):
                     raise ValueError(f"checkpoint {part}/{name}: {s.dtype}{list(s.shape)}, "
-                                     f"want {t.dtype}{list(t.shape)}")
+                                     f"want {t.dtype}{list(whole)}")
+                if s.shape != t.shape:  # a whole leaf: this rank's block of it
+                    s = self.layout.place(name, s)
                 pairs.append((t, s))
         with torch.no_grad():
             for t, s in pairs:
@@ -186,6 +235,17 @@ class AdamW:
         state["count"] = t
 
 
+def sharded_init(init_fn: Callable[..., dict], rules: ShardingRules, mesh, optimizer: AdamW) -> TrainState:
+    """Counterpart of JAX's ``sharded_init``: ``init_fn(place)`` draws the
+    parameter tree, handing each leaf to ``place(name, leaf)`` as it is
+    drawn, which keeps this rank's block of it per ``rules`` on ``mesh``.
+    Every rank draws every whole leaf from the same seeded generator, so the
+    blocks are those of the one-process init, and the peak is one whole
+    leaf; the moments are made from the blocks, so they are split alike."""
+    layout = Layout(rules, mesh)
+    return TrainState.create(init_fn(layout.place), optimizer, layout)
+
+
 class SGD:
     """``optax.sgd(lr, momentum)``: the trace t ← g + momentum·t, kept in the
     parameter dtype (optax's ``accumulator_dtype=None``), and p ← p − lr·t,
@@ -246,51 +306,27 @@ def make_train_step(
 
     With accum_steps > 1 the batch's leading dim is ``accum_steps ·
     microbatch``; gradients are summed in f32 over the microbatches and then
-    averaged, as the JAX scan does. ``group``: the data axis's process group
-    (``Mesh.group``); its ranks' gradients and metrics are reduced to those
-    of the global batch (the module docstring), ``accum_steps`` counting
-    the global batch's microbatches. A ``loss_fn`` with a ``group`` keyword
-    is given the ranks that share its microbatch (the module docstring)."""
+    averaged, as the JAX scan does. ``group``: the ranks the batch splits
+    over (``Mesh.group``: the gang's data × fsdp ranks); their gradients and
+    metrics are reduced to those of the global batch, a state's blocks as
+    its ``layout`` splits them (the module docstring), ``accum_steps``
+    counting the global batch's microbatches. A ``loss_fn`` with a
+    ``group`` keyword is given the ranks that share its microbatch (the
+    module docstring)."""
     world = dist.get_world_size(group) if group is not None else 1
     local_steps, slots = gang_slots(accum_steps, world) if group is not None else (accum_steps, 1)
     slot = dist.get_rank(group) * slots // world if group is not None else 0
     if group is not None and "group" in inspect.signature(loss_fn).parameters:
         loss_fn = functools.partial(loss_fn, group=_microbatch_group(group, slots, slot))
 
-    def compute_grads(params, batch):
-        leaves = _leaves(params)
-        tensors = [p for _, p in leaves]
-        if accum_steps > 1:
-            nested = [k for k, v in batch.items() if isinstance(v, dict)]
-            if nested:
-                raise ValueError(
-                    f"accum_steps={accum_steps} splits every batch value along its leading dim, and "
-                    f"{nested} hold a tree (ResNet's BatchNorm state rides in the batch as 'bn_state'): "
-                    "neither package splits it; train such a model with accum_steps=1")
-        if local_steps == 1:
-            loss, aux = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, tensors)
-            return loss.detach(), aux, dict(zip((n for n, _ in leaves), grads))
-        micro = {k: v.reshape(local_steps, v.shape[0] // local_steps, *v.shape[1:])
-                 for k, v in batch.items()}
-        loss_sum = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
-        sums = [torch.zeros_like(p, dtype=torch.float32) for p in tensors]
-        for i in range(local_steps):
-            loss, _ = loss_fn(params, {k: v[i] for k, v in micro.items()})
-            for s, g in zip(sums, torch.autograd.grad(loss, tensors)):
-                s += g
-            loss_sum += loss.detach().float()
-        inv = 1.0 / local_steps
-        return loss_sum * inv, {}, {n: s * inv for (n, _), s in zip(leaves, sums)}
-
-    def reduce_over_gang(loss, aux, grads):
-        """The weighted mean over the gang: one collective of the scalars
-        (per slot: the counts and the losses times the counts, this rank's
-        in its own slot; the ``moe_*`` metrics) gives each slot's count
-        N_i, and rank r's weight ``n_r · world / (slots · N_i)`` scales its
-        gradients in the f32 buckets of their mean. A rank that holds whole
-        microbatches counts 1: its loss is already their mean. A rank with
-        no targets weighs 0, and a microbatch with none adds 0 to the loss."""
+    def weigh(loss, aux):
+        """The gang's loss, metrics and this rank's weight, from one
+        collective of the scalars (per slot: the counts and the losses times
+        the counts, this rank's in its own slot; the ``moe_*`` metrics) that
+        gives each slot's count N_i: rank r weighs ``n_r · world / (slots ·
+        N_i)``. A rank that holds whole microbatches counts 1: its loss is
+        already their mean. A rank with no targets weighs 0, and a
+        microbatch with none adds 0 to the loss."""
         def f32(v):
             return torch.as_tensor(v, dtype=torch.float32, device=loss.device).detach()
 
@@ -304,19 +340,74 @@ def make_train_step(
         counts = scalars[:slots]
         # N_i, exact: the counts are integers; at least 1, as JAX's token count
         totals = torch.round(counts * world).clamp_min(1.0)
-        all_reduce_mean(list(grads.values()), group, scale=n * world / (totals[slot] * slots))
         aux = {**aux, **{k: scalars[2 * slots + i] for i, k in enumerate(names)}}
         if "tokens" in aux:
             aux["tokens"] = totals.sum()
-        return (scalars[slots:2 * slots] / torch.where(counts > 0, counts, 1.0)).mean(), aux
+        mean = (scalars[slots:2 * slots] / torch.where(counts > 0, counts, 1.0)).mean()
+        return mean, aux, n * world / (totals[slot] * slots)
+
+    def compute_grads(params, batch):
+        """(loss, aux, {leaf: gradient}) of this rank's batch; in a gang the
+        loss and aux are the gang's and the gradients this rank's weighed
+        ones (the weight is 1 where each rank holds whole microbatches)."""
+        leaves = _leaves(params)
+        tensors = [p for _, p in leaves]
+        if accum_steps > 1:
+            nested = [k for k, v in batch.items() if isinstance(v, dict)]
+            if nested:
+                raise ValueError(
+                    f"accum_steps={accum_steps} splits every batch value along its leading dim, and "
+                    f"{nested} hold a tree (ResNet's BatchNorm state rides in the batch as 'bn_state'): "
+                    "neither package splits it; train such a model with accum_steps=1")
+        if local_steps == 1:
+            loss, aux = loss_fn(params, batch)
+            reported = loss.detach()
+            if group is not None:
+                reported, aux, weight = weigh(loss, aux)
+                loss = loss * weight
+            grads = torch.autograd.grad(loss, tensors)
+            return reported, aux, dict(zip((n for n, _ in leaves), grads))
+        micro = {k: v.reshape(local_steps, v.shape[0] // local_steps, *v.shape[1:])
+                 for k, v in batch.items()}
+        loss_sum = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
+        sums = [torch.zeros_like(p, dtype=torch.float32) for p in tensors]
+        for i in range(local_steps):
+            loss, _ = loss_fn(params, {k: v[i] for k, v in micro.items()})
+            for s, g in zip(sums, torch.autograd.grad(loss, tensors)):
+                s += g
+            loss_sum += loss.detach().float()
+        inv = 1.0 / local_steps
+        loss, aux = loss_sum * inv, {}
+        if group is not None:
+            loss, aux, _ = weigh(loss, aux)  # each rank weighs 1
+        return loss, aux, {n: s * inv for (n, _), s in zip(leaves, sums)}
+
+    def reduce_grads(grads: dict, layout: Layout | None) -> None:
+        """The gang's mean of the weighed gradients, in place: over the
+        whole gang for a whole leaf; for a block (already summed over the
+        fsdp axis by the gather's backward) over the data axis, divided by
+        fsdp."""
+        split = [g for n, g in grads.items() if layout is not None and layout.dim(n) is not None]
+        whole = [g for n, g in grads.items() if layout is None or layout.dim(n) is None]
+        if whole:
+            all_reduce_mean(whole, group)
+        if split:
+            mesh = layout.mesh
+            inv = torch.tensor(1.0 / mesh.shape[AXIS_FSDP], device=split[0].device)
+            if mesh.shape[AXIS_DATA] > 1:
+                all_reduce_mean(split, mesh.axis_group(AXIS_DATA), scale=inv)
+            else:
+                for g in split:
+                    g.mul_(inv)
 
     def train_step(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
         loss, aux, grads = compute_grads(state.params, batch)
+        layout = state.layout if state.layout is not None and state.layout.sharded else None
         if group is not None:
-            loss, aux = reduce_over_gang(loss, aux, grads)
+            reduce_grads(grads, layout)
         if accum_steps > 1:
             aux = {}  # the scan's metrics carry no aux, as in JAX
-        norm = global_norm(grads.values())
+        norm = global_norm(grads.values()) if layout is None else sharded_global_norm(grads, layout)
         optimizer.update(state.params, grads, state.opt_state, norm)
         state.step += 1
         metrics = {
