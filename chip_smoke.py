@@ -52,8 +52,8 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    (a subprocess, as is ``tony loadtest``) twice on the card, Llama-3-8B
    paged, 8 slots, max_len 2048: ``disagg`` (a prefill and a decode
    replica) and ``colocated`` (one replica), each under the same streamed
-   ``tony loadtest`` traffic (8 sessions x 3 turns, prompts of 768 or 1280
-   tokens sharing 512, 64 tokens a turn): 24/24 requests ok, prefix hits,
+   ``tony loadtest`` traffic (6 sessions x 2 turns, prompts of 768 or 1280
+   tokens sharing 512, 64 tokens a turn): 12/12 requests ok, prefix hits,
    B5 launched by the decode replica during the load, pages exported and
    adopted (``disagg``); SIGINT to the launcher kills the job, every
    replica logs its drain and exits, the launcher within 120 s; prints the
@@ -82,12 +82,12 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
 5a. gang: the training gang at the full ``llama-1b`` preset (16 layers,
    bf16, remat "full", B=8, T=2048) on four ``*.tonytok`` shards written
    from a seed: ``tony submit`` (run as ``python -m tony_tpu.cli.main``, a
-   subprocess) of ``python -m tony_tpu_torch.train.pretrain`` for 12 steps
-   with an asynchronous checkpoint every 4 and a node loss at step 9: one
+   subprocess) of ``python -m tony_tpu_torch.train.pretrain`` for 8 steps
+   with an asynchronous checkpoint every 3 and a node loss at step 7: one
    restart, the resume at the newest step attempt 0's log shows published
-   (4, since the save at step 8 joins step 4's write) with a validated
+   (3, since the save at step 6 joins step 3's write) with a validated
    cursor, every global slot consumed once, ``tony top`` on the live worker
-   and ``tony goodput`` after; the same 12 steps in this process through
+   and ``tony goodput`` after; the same 8 steps in this process through
    B1-B3 (launches counted) with each loss the worker's within
    ``GANG_LOSS_REL``; an urgent save on a drain request and a
    ``torch.profiler`` window in this process; the bucketed mean over a
@@ -95,8 +95,8 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    runs, the checkpoint's bytes, its save dispatch, write and restore
    seconds, goodput's ``checkpoint`` seconds, and the time to recover (node
    loss to the restart's first step);
-5s. asynchronous save, in this process, at the gang's shape: 20 train
-   steps saved after steps 4 and 20, once with ``use_async=False`` and once
+5s. asynchronous save, in this process, at the gang's shape: 14 train
+   steps saved after steps 4 and 14, once with ``use_async=False`` and once
    with ``use_async=True``: each save's dispatch and write seconds, the
    steps during the first write against the steady step, the wall of each
    run, and the same bytes restored from both (the async step 4 also the
@@ -187,7 +187,7 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
     width cut to 1 layer, B=1, T=2048, 3 steps: SUCCEEDED, finite steps with
     their ``moe_*`` metrics, the first loss near ln V, and the worker's
     B1-B3, B7, B8 launches as remat "full" schedules them;
-13. ``[fsdp]`` (last): a gang of two processes on the one card over gloo
+13. ``[fsdp]``: a gang of two processes on the one card over gloo
     (nccl refuses two ranks on one card), on the mesh's fsdp axis
     (``MeshSpec.auto``'s fill): ``run_lm_training`` at the full ``llama-1b``
     preset, B=8, T=2048, 3 steps with sharded asynchronous saves after step
@@ -200,11 +200,28 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
     step each at 2 layers, that must fail: a rank whose gradients skip the
     reduce-scatter (the grad norm) and a rank that skips its moment update
     (the blocks); prints per-rank bytes, peak memory and ms/step;
-14. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
+14. ``[tp]``: a gang of two processes on the one card over gloo on the
+    mesh's model axis (``run_lm_training(model_axis=2)``: Megatron's column
+    and row blocks, the vocab-parallel embedding and CE) at Llama-3-8B
+    widths cut to 2 layers (bf16, remat "full", B=2, T=2048), 3 steps with
+    a sharded save at the end: each rank's losses and grad norms against
+    one process's within ``GANG_LOSS_REL``, B1-B3 launched by each rank as
+    often as by one process, the step restored into one process bit for bit
+    against the blocks the ranks saved, each rank's blocks of the step-3
+    parameters and moments within ``FSDP_STATE_REL``, and two planted
+    faults, one step each, that must fail: a row-parallel reduce whose
+    backward also sums, and a rank whose embedding skips its sum; prints
+    per-rank bytes, peak memory, launches and ms/step;
+15. ``[tp-serve]``: the TP engine (``ContinuousBatcher(tp=2)``, both shards
+    on the one card) at Llama-3-8B widths cut to 4 layers in f32 against
+    the tp=1 engine on the same weights: the same greedy tokens on 4
+    requests, the decode ms/step of both (reported), and a planted fault
+    (one shard's row partial dropped) that must change the tokens;
+16. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
     their ``[bench-bert]`` launches and BERT cases, and the launches of the
-    phases of 12 and 13 as ``launches_hf_serve``, ``launches_mixtral_gang``
-    and ``launches_fsdp``, the last the sum over the two ranks) and, last,
-    ``{"ok": true, "device": {...}}``.
+    phases of 12 to 14 as ``launches_hf_serve``, ``launches_mixtral_gang``,
+    ``launches_fsdp``, the sum over the two ranks, and ``launches_tp``, one
+    rank's) and, last, ``{"ok": true, "device": {...}}``.
 
 Each phase prints ``[phase] <name> start`` and ``[phase] <name> <s>s``, so a
 failure is named by the last start line.
@@ -338,16 +355,16 @@ CP_TRAIN_LAYERS = 4
 CP_TRAIN_STEPS = 3
 
 # the training gang at the full llama-1b preset: B=8, T=2048 over 4 seeded
-# shards, 12 steps with a checkpoint every 4 and a node loss at step 9 under
-# ``tony submit``. Saves are asynchronous and a 5.24 GB write outlasts four
-# steps, so the save at step 8 first joins step 4's write: step 4 is
-# published before step 9 is reported, and the restart resumes at the newest
-# step the worker's log shows published (4, or 8 if its write also ended).
+# shards, 8 steps with a checkpoint every 3 and a node loss at step 7 under
+# ``tony submit``. Saves are asynchronous and a 5.24 GB write outlasts three steps, so the
+# save at step 6 first joins step 3's write: step 3 is published before
+# step 7 is reported, and the restart resumes at the newest step the
+# worker's log shows published (3, or 6 if its write also ended).
 # Each step's loss of the gang's worker against the same steps in this
 # process: the same program on the same data, so the same bits unless a
 # kernel or library reduction on the path runs in another order between the
-# two (bf16, 12 steps: a few ulps of the loss)
-GANG_STEPS, GANG_CKPT_EVERY, GANG_LOSS_AT = 12, 4, 9
+# two (bf16, 8 steps: a few ulps of the loss)
+GANG_STEPS, GANG_CKPT_EVERY, GANG_LOSS_AT = 8, 3, 7
 GANG_B, GANG_T, GANG_SHARDS = 8, 2048, 4
 GANG_LOSS_REL = 2e-3
 
@@ -1308,9 +1325,9 @@ BENCH_RECIPES = {
 }
 BENCH_STEPS = 6
 # the asynchronous save at the gang's shape (llama-1b, B=8, T=2048): saves
-# after step 4, whose write (~6 s: one torch.save at ~0.8 GB/s) the 16 steps after it
-# (~6.8 s) outlast, and after the last step
-ASYNC_STEPS, ASYNC_SAVE_AT = 20, (4, 20)
+# after step 4, whose write (~4-6 s: one torch.save at ~0.8-1.3 GB/s) the 10 steps
+# after it (~4.3 s) overlap, and after the last step
+ASYNC_STEPS, ASYNC_SAVE_AT = 14, (4, 14)
 
 
 def _expected_launches(counters, L: int, per: int, steps: int = 1) -> dict:
@@ -1635,16 +1652,17 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
     here from a seed:
 
     1. ``tony submit`` (framework pytorch, one worker) of ``python -m
-       tony_tpu_torch.train.pretrain --data_dir ...`` for 12 steps with an
-       asynchronous checkpoint every 4 and ``node-loss:worker:0@step+9``:
+       tony_tpu_torch.train.pretrain --data_dir ...`` for ``GANG_STEPS`` steps
+       with an asynchronous checkpoint every ``GANG_CKPT_EVERY`` and
+       ``node-loss:worker:0@step+GANG_LOSS_AT``:
        the job must succeed after one gang restart that resumes at the
-       newest step attempt 0's log shows published (at least 4) with a
+       newest step attempt 0's log shows published (at least the first save) with a
        validated cursor, and the global slots of the steps each attempt
-       trained must cover ``[0, 12*8)`` once; ``tony top`` reads the live
+       trained must cover ``[0, GANG_STEPS*8)`` once; ``tony top`` reads the live
        worker (which waits for a stop file after training) and ``tony
        goodput`` the finished job; the time to recover runs from the node
        loss to the first step of the restart;
-    2. ``run_lm_training`` in this process on the same shards, 12 steps: B1-B3
+    2. ``run_lm_training`` in this process on the same shards, the same steps: B1-B3
        launched (counts set to 0 just before), and each step's loss that of
        the gang's worker within ``GANG_LOSS_REL``;
     3. in this process, 5 steps with the static ``StepProfiler`` window
@@ -1664,7 +1682,7 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
     data, ck, stop, root = work / "data", work / "ckpt", work / "stop", work / "tony"
     data.mkdir(parents=True)
     rng = np.random.default_rng(0)
-    for i in range(GANG_SHARDS):  # 4 x 2^18 tokens: 511 windows of 2049, more than the 96 drawn
+    for i in range(GANG_SHARDS):  # 4 x 2^18 tokens: 511 windows of 2049, more than the 64 drawn
         write_token_shard(data / f"shard-{i:02d}.tonytok", rng.integers(0, cfg.vocab_size, 1 << 18))
     run = ["--preset", "llama-1b", "--data_dir", str(data), "--steps", str(GANG_STEPS),
            "--batch_size", str(GANG_B), "--seq_len", str(GANG_T), "--log_every", "1",
@@ -2325,12 +2343,11 @@ FLEET_ENGINE = ["--preset", "llama3-8b", "--kv", "paged", "--page_len", str(PLEN
                 "--max_len", str(MAXT), "--decode_chunk", "8"]
 FLEETS = {"disagg": ["--disagg", "--replicas", "1", "--prefill_replicas", "1"],
           "colocated": ["--replicas", "1"]}
-# `tony loadtest` traffic, the same for both fleets: 8 sessions x 3 turns =
-# 24 streamed requests; the longest conversation is 1280 + 2 x (64 + 8) + 64
-# = 1488 of the 2048 positions
-LOADTEST = ["--rate", "2", "--sessions", "8", "--turns", "3", "--prompt-mix", "768:1,1280:1",
+# `tony loadtest` traffic, the same for both fleets: 6 sessions x 2 turns =
+# 12 streamed requests; the longest conversation is 1280 + (64 + 8) + 64 = 1416 of the 2048 positions
+LOADTEST = ["--rate", "2", "--sessions", "6", "--turns", "2", "--prompt-mix", "768:1,1280:1",
             "--shared-prefix", "512", "--max-tokens", "64", "--seed", "0"]
-LOADTEST_REQUESTS = 24
+LOADTEST_REQUESTS = 12
 _ROUTER_LINE = re.compile(r"^\[tony-serve\] fleet router (http://\S+) ", re.M)
 _REPLICA_LINE = re.compile(r"^\[tony-serve\] (http://\S+) role=(serve|prefill) ", re.M)
 _DRAINED_LINE = re.compile(r"^\[tony-serve\] drained: (\d+) request\(s\) completed, exit 0$", re.M)
@@ -2601,7 +2618,7 @@ def fleet_phase(out_dir: Path, card: str) -> dict:
     max_len 2048) on the one card: ``disagg`` (one prefill and one decode
     replica, the KV handoff between them) and ``colocated`` (one replica),
     each driven by the same ``tony loadtest`` traffic (``LOADTEST``, streamed).
-    Holds 24/24 requests ok, prefix hits, B5 launched by the decode replica
+    Holds 12/12 requests ok, prefix hits, B5 launched by the decode replica
     during the load, and for ``disagg`` pages moved and adopted; SIGINT to the
     launcher ends the job, every replica logs a drain and exits, and the
     launcher within 120 s. Both tiers share the card, so ``disagg`` measures
@@ -3905,22 +3922,16 @@ def fsdp_rank(spec_json: str) -> None:
     (work / f"rank{rank}.json").write_text(json.dumps(out))
 
 
-def fsdp_gang(work: Path, cfg: dict, fault_cfg: dict, loop: dict, device: str, timeout: float = 600) -> list:
-    """Run the ``[fsdp]`` gang's ranks (``fsdp_rank``) as processes, all
-    waited for (killed past ``timeout``); each rank's record."""
-    work = work.resolve()  # the ranks' file store takes an absolute path
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    ok = dict(loop, steps=FSDP_STEPS, checkpoint_dir=str(work / "ckpt"), checkpoint_every=FSDP_SAVE_EVERY,
-              device=device)
-    spec = json.dumps({"dir": str(work), "cfg": cfg, "fault_cfg": fault_cfg, "device": device, "ok": ok,
-                       "fault": dict(loop, steps=1, device=device),
-                       "moments": dict(loop, steps=1, device=device, checkpoint_dir=str(work / "ckpt-moments"))})
+def run_gang(work: Path, spec: dict, entry: str, n: int, tag: str, timeout: float = 600) -> list:
+    """Run ``n`` ranks of ``chip_smoke.<entry>(spec)`` as processes (``RANK``
+    in the env, one intra-op thread each), all waited for (killed past
+    ``timeout``); each rank's record, ``rank<r>.json`` under ``work``."""
+    spec = json.dumps(spec)
     procs = []
-    for rank in range(FSDP_RANKS):
-        env = dict(os.environ, PYTHONPATH=str(ROOT), RANK=str(rank), WORLD_SIZE=str(FSDP_RANKS),
+    for rank in range(n):
+        env = dict(os.environ, PYTHONPATH=str(ROOT), RANK=str(rank), WORLD_SIZE=str(n),
                    LOCAL_RANK="0", OMP_NUM_THREADS="1")
-        procs.append(subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.fsdp_rank({spec!r})"],
+        procs.append(subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.{entry}({spec!r})"],
                                       cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True))
     try:
@@ -3932,52 +3943,69 @@ def fsdp_gang(work: Path, cfg: dict, fault_cfg: dict, loop: dict, device: str, t
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    check(outs is not None, f"fsdp: the gang did not finish in {timeout:.0f} s")
+    check(outs is not None, f"{tag}: the gang did not finish in {timeout:.0f} s")
     for rank, (p, text) in enumerate(zip(procs, outs)):
-        check(p.returncode == 0, f"fsdp: rank {rank} exited {p.returncode}:\n{text[-4000:]}")
-    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(FSDP_RANKS)]
+        check(p.returncode == 0, f"{tag}: rank {rank} exited {p.returncode}:\n{text[-4000:]}")
+    return [json.loads((work / f"rank{r}.json").read_text()) for r in range(n)]
 
 
-def fsdp_check(ranks: list, one: list, run: str = "ok") -> float:
+def fsdp_gang(work: Path, cfg: dict, fault_cfg: dict, loop: dict, device: str, timeout: float = 600) -> list:
+    """Run the ``[fsdp]`` gang's ranks (``fsdp_rank``) as processes, all
+    waited for (killed past ``timeout``); each rank's record."""
+    work = work.resolve()  # the ranks' file store takes an absolute path
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ok = dict(loop, steps=FSDP_STEPS, checkpoint_dir=str(work / "ckpt"), checkpoint_every=FSDP_SAVE_EVERY,
+              device=device)
+    spec = {"dir": str(work), "cfg": cfg, "fault_cfg": fault_cfg, "device": device, "ok": ok,
+            "fault": dict(loop, steps=1, device=device),
+            "moments": dict(loop, steps=1, device=device, checkpoint_dir=str(work / "ckpt-moments"))}
+    return run_gang(work, spec, "fsdp_rank", FSDP_RANKS, "fsdp", timeout)
+
+
+def fsdp_check(ranks: list, one: list, run: str = "ok", tag: str = "fsdp") -> float:
     """Every rank's step reports of ``run`` against one process's on the
     global batch: the same steps, each loss and grad norm within
-    ``FSDP_REL`` relative. Returns the worst."""
+    ``FSDP_REL`` relative. Returns the worst. ``tag`` names the phase."""
     worst = 0.0
     want = {x["step"]: x for x in one}
     for rank, rec in enumerate(ranks):
         got = {x["step"]: x for x in rec[run]["log"]}
-        check(set(got) <= set(want) and got, f"fsdp: rank {rank} steps {sorted(got)}, one process {sorted(want)}")
+        check(set(got) <= set(want) and got, f"{tag}: rank {rank} steps {sorted(got)}, one process {sorted(want)}")
         for s, x in got.items():
             for k in ("loss", "grad_norm"):
                 err = abs(x[k] - want[s][k]) / abs(want[s][k])
                 worst = max(worst, err)
-                check(err <= FSDP_REL, f"fsdp: rank {rank} ({run}) step {s} {k} {x[k]} against one process's "
+                check(err <= FSDP_REL, f"{tag}: rank {rank} ({run}) step {s} {k} {x[k]} against one process's "
                                        f"{want[s][k]}: {err:.2e} > {FSDP_REL:.0e}")
     return worst
 
 
-def fsdp_blocks(torch, ranks: list, whole: dict, step: int) -> int:
+def fsdp_blocks(torch, ranks: list, whole: dict, step: int, tag: str = "fsdp") -> int:
     """The blocks each rank handed its save of ``step`` against the same
     blocks of ``whole`` (a one-process restore's tree), bit for bit; each
-    split leaf's blocks together its whole bytes. Returns the leaves split."""
+    split leaf's blocks together its whole bytes (one axis of the ranks
+    splits it: rank r's block is block r). Returns the leaves split."""
     split = 0
     for name, t in _leaves(whole):
         if not hasattr(t, "shape"):
             continue
         shapes = [rec["ok"]["saves"][str(step)][name]["shape"] for rec in ranks]
         dims = [d for d in range(t.ndim) if shapes[0][d] != t.shape[d]]
-        check(len(dims) <= 1 and all(s == shapes[0] for s in shapes), f"fsdp: {name} blocks {shapes} of {list(t.shape)}")
+        check(len(dims) <= 1 and all(s == shapes[0] for s in shapes),
+              f"{tag}: {name} blocks {shapes} of {list(t.shape)}")
         if dims:
             split += 1
-            check(shapes[0][dims[0]] * FSDP_RANKS == t.shape[dims[0]], f"fsdp: {name} blocks {shapes} of {list(t.shape)}")
+            check(shapes[0][dims[0]] * FSDP_RANKS == t.shape[dims[0]],
+                  f"{tag}: {name} blocks {shapes} of {list(t.shape)}")
         for rank, rec in enumerate(ranks):
             block = t.chunk(FSDP_RANKS, dims[0])[rank] if dims else t
             check(rec["ok"]["saves"][str(step)][name]["fp"] == fingerprint(torch, block),
-                  f"fsdp: rank {rank}'s block of {name} at step {step} is not the one-process restore's")
+                  f"{tag}: rank {rank}'s block of {name} at step {step} is not the one-process restore's")
     return split
 
 
-def fsdp_state_check(torch, gang: dict, one: dict, saved: dict, what: str) -> dict:
+def fsdp_state_check(torch, gang: dict, one: dict, saved: dict, what: str, tag: str = "fsdp") -> dict:
     """Each rank's blocks of the gang's parameters and moments (``gang``: a
     whole state restored from the ranks' save) against the same blocks of
     one process's (``one``: {"params"|"mu"|"nu": {leaf: tensor}}), each
@@ -3997,7 +4025,7 @@ def fsdp_state_check(torch, gang: dict, one: dict, saved: dict, what: str) -> di
                 b = b.float()
                 err = float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
                 worst[part] = max(worst[part], err)
-                check(err <= FSDP_STATE_REL, f"fsdp: {what} rank {rank}'s block of {part}/{name}: "
+                check(err <= FSDP_STATE_REL, f"{tag}: {what} rank {rank}'s block of {part}/{name}: "
                                              f"{err:.2e} > {FSDP_STATE_REL:.0e} from one process's")
     return worst
 
@@ -4116,6 +4144,292 @@ def fsdp_phase(torch, llama, A, out_dir: Path, card: str, cfg: dict | None = Non
         "launches_sum": {k: sum(rec["ok"]["launches"][k] for rec in ranks) for k in ranks[0]["ok"]["launches"]},
     }
     print(fsdp_line(rec, card), flush=True)
+    return rec
+
+
+# [tp]: Megatron's tensor parallelism for Llama, a gang of TP_RANKS processes
+# on the one card over gloo (``FSDP_BACKEND``: nccl refuses two ranks on one
+# card) on ``MeshSpec.auto(model=2)`` (model 2, fsdp 1), at Llama-3-8B widths
+# cut to TP_LAYERS layers (bf16, remat "full"), B=TP_B, T=TP_T: TP_STEPS steps
+# with a sharded save at the end, then one step of each planted fault. The
+# losses and grad norms are held to one process's within GANG_LOSS_REL
+# (``FSDP_REL``), the step's blocks of the parameters and moments within
+# FSDP_STATE_REL (``fsdp_check``, ``fsdp_state_check``: the model axis splits
+# each leaf on one dim, as fsdp does)
+TP_RANKS, TP_STEPS = 2, 3
+TP_LAYERS, TP_B, TP_T = 2, 2, 2048
+TP_FAULT_RANK = 1
+#: the planted faults' runs, one step each: every rank's row-parallel reduce
+#: also sums its gradient ("reduce"), and rank TP_FAULT_RANK's embedding keeps
+#: its own rows without the line's sum ("embed")
+TP_FAULTS = ("reduce", "embed")
+#: [tp-serve]: the TP engine (``ContinuousBatcher(tp=2)``) with both shards on
+#: the one card against the tp=1 engine on the same weights, Llama-3-8B widths
+#: cut to TP_SERVE_LAYERS layers in f32 (bf16 greedy parity is rounding luck):
+#: TP_SERVE_PROMPTS prompt lengths, TP_SERVE_TOKENS greedy tokens each
+TP_SERVE_LAYERS, TP_SERVE_TOKENS, TP_SERVE_CHUNK = 4, 32, 8
+TP_SERVE_PROMPTS = (17, 64, 200, 33)
+
+
+def psum_backward_reduce(collectives) -> None:
+    """A planted fault on every rank: the row-parallel reduce's backward also
+    sums over the model line (``psum``'s pair), which hands each rank tp times
+    the upstream gradient."""
+    def backward(ctx, g):
+        return collectives._psum_f32(g, ctx.group), None
+
+    collectives._ReduceFromModel.backward = staticmethod(backward)
+
+
+def skip_embedding_psum(llama) -> None:
+    """A planted fault: this rank's embedding keeps its own rows (zeros for
+    the tokens its peer holds) instead of the line's sum; the sum still runs,
+    so its peer is not left waiting."""
+    real = llama.embed_lookup
+
+    def own_rows(embed, tokens, mesh=None):
+        real(embed, tokens, mesh)
+        return llama.vocab_rows(embed, tokens, mesh.axis_index("model") * embed.shape[0])
+
+    llama.embed_lookup = own_rows
+
+
+def tp_rank(spec_json: str) -> None:
+    """One rank of the ``[tp]`` gang (``RANK`` in the env): ``run_lm_training``
+    with ``model_axis`` TP_RANKS once sound with a sharded save (the
+    fingerprint and shape of each block the rank hands it) and once for each
+    planted fault, each in a gloo group of its own (a file store under the
+    spec's directory); each run's step reports, B1-B3 launches and peak
+    memory. Writes ``rank<r>.json`` there."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from tony_tpu_torch.models import llama
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.parallel import collectives
+    from tony_tpu_torch.train import checkpoint as C
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+
+    spec = json.loads(spec_json)
+    rank, work = int(os.environ["RANK"]), Path(spec["dir"])
+    cuda = spec["device"] == "cuda"
+    real = C.CheckpointManager.save, vars(collectives._ReduceFromModel)["backward"], llama.embed_lookup
+    out = {}
+    for run in ("ok", *TP_FAULTS):
+        saves: dict = {}
+
+        def save(self, step, state, force=False):
+            local = {name: t.to_local() if hasattr(t, "to_local") else t for name, t in _leaves(state)}
+            saves[step] = {name: {"shape": list(t.shape), "fp": fingerprint(torch, t)}
+                           for name, t in local.items() if hasattr(t, "shape")}
+            return real[0](self, step, state, force=force)
+
+        if cuda:
+            torch.cuda.set_device(0)
+            torch.cuda.reset_peak_memory_stats()
+        dist.init_process_group(FSDP_BACKEND, init_method=f"file://{work / ('store-' + run)}",
+                                world_size=TP_RANKS, rank=rank)
+        C.CheckpointManager.save = save
+        if run == "reduce":
+            psum_backward_reduce(collectives)
+        if run == "embed" and rank == TP_FAULT_RANK:
+            skip_embedding_psum(llama)
+        A.reset_launches()
+        try:
+            res = run_lm_training(llama, llama.config_from_dict(spec["cfg"]), LoopConfig(**spec[run]))
+        finally:
+            C.CheckpointManager.save, collectives._ReduceFromModel.backward, llama.embed_lookup = real
+        out[run] = {"log": res["log"], "launches": dict(A.launches), "saves": saves,
+                    "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def tp_line(rec: dict, card: str) -> str:
+    """The ``[tp]`` report line."""
+    state = ", ".join(f"{k} {v:.2e}" for k, v in rec["state_rel"].items())
+    faults = "; ".join(f"{k}: grad norm {v['grad_norm']} loss {v['loss']} against one process's "
+                       f"{rec['one_grad_norm']} / {rec['one_loss']}, failed" for k, v in rec["faults"].items())
+    return (f"[tp] {TP_RANKS} ranks on one card over {FSDP_BACKEND}, {rec['preset']} widths {rec['layers']} layers "
+            f"B={rec['batch']} T={rec['seq_len']}, model {TP_RANKS}: losses {rec['losses']} grad norms "
+            f"{rec['grad_norms']} (one process {rec['one_losses']} / {rec['one_grad_norms']}, worst rel "
+            f"{rec['worst_rel']:.2e}, limit {FSDP_REL:.0e}); step {rec['restored_step']} blocks against one "
+            f"process's, worst {state} (limit {FSDP_STATE_REL:.0e}); per rank params "
+            f"{rec['param_bytes'] / 1e9:.3f} GB + moments {rec['opt_bytes'] / 1e9:.3f} GB of "
+            f"{rec['whole_bytes'] / 1e9:.3f} GB whole ({rec['split_leaves']} leaves split), peak "
+            f"{[round(b / 2**30, 2) for b in rec['peak_bytes']]} GiB (one process "
+            f"{rec['one_peak_bytes'] / 2**30:.2f} GiB); B1/B2/B3 a rank {rec['launches']} (one process "
+            f"{rec['one_launches']}); ms/step {rec['step_ms']} over gloo (one process {rec['one_step_ms']}); "
+            f"step {rec['restored_step']} restored into one process bit for bit in {rec['restore_s']:.1f} s; "
+            f"planted faults, {faults}; {card}")
+
+
+def tp_phase(torch, llama, A, out_dir: Path, card: str, cfg: dict | None = None, device: str = "cuda") -> dict:
+    """``[tp]``: the gang of ``TP_RANKS`` on the card on the model axis at
+    Llama-3-8B widths cut to ``TP_LAYERS`` layers (``cfg`` and ``device``
+    another model and device), ``TP_STEPS`` steps through
+    ``run_lm_training(model_axis=2)`` with a sharded save at the end, then a
+    step of each planted fault (``TP_FAULTS``). Each rank's losses and grad
+    norms must be one process's on the same batches (``run_lm_training``
+    here, B1-B3 counted), each rank must launch B1-B3 as often as one
+    process, hold half of every split leaf, and the step restored into one
+    process must be the blocks the ranks saved, bit for bit, and each
+    rank's blocks of its parameters and moments one process's within
+    ``FSDP_STATE_REL``. Both faults must fail ``fsdp_check``. Prints per-rank
+    bytes, peak memory, launches and ms/step."""
+    from tony_tpu_torch.train import trainer
+    from tony_tpu_torch.train.checkpoint import restore_or_init
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+    from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState, tree_bytes
+
+    cfg = cfg or {"preset": "llama3-8b", "n_layers": TP_LAYERS}
+    model_cfg = llama.config_from_dict(cfg)
+    cuda = device == "cuda"
+    loop = dict(batch_size=TP_B, seq_len=TP_T if cuda else 32, log_every=1, warmup_steps=1)
+    work = (out_dir / "tp").resolve()  # the ranks' file store takes an absolute path
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    gang = dict(loop, model_axis=TP_RANKS, device=device)
+    spec = {"dir": str(work), "cfg": cfg, "device": device,
+            "ok": dict(gang, steps=TP_STEPS, checkpoint_dir=str(work / "ckpt"), checkpoint_every=TP_STEPS),
+            **{f: dict(gang, steps=1) for f in TP_FAULTS}}
+    ranks = run_gang(work, spec, "tp_rank", TP_RANKS, "tp")
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    held, unhold = hold_final_state(trainer)
+    try:
+        one = run_lm_training(llama, model_cfg, LoopConfig(steps=TP_STEPS, device=device, **loop))["log"]
+        one_state = dict(held)
+    finally:
+        unhold()
+    one_launches, one_peak = dict(A.launches), torch.cuda.max_memory_allocated() if cuda else 0
+    worst = fsdp_check(ranks, one, tag="tp")
+    faults = {}
+    for fault in TP_FAULTS:
+        try:
+            fsdp_check(ranks, one, fault, tag="tp")
+        except SmokeFailure:
+            faults[fault] = {k: [rec[fault]["log"][0][k] for rec in ranks] for k in ("loss", "grad_norm")}
+        check(fault in faults, f"tp: the planted fault {fault!r} passed")
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    for rank, rec in enumerate(ranks):
+        got = {k: rec["ok"]["launches"][k] for k in flash}
+        check(got == {k: one_launches[k] for k in flash} and (not cuda or all(got.values())),
+              f"tp: rank {rank} launches {got}, one process {one_launches}")
+    opt = OptimizerConfig(learning_rate=3e-4, warmup_steps=1, total_steps=TP_STEPS).build()
+    t0 = time.perf_counter()
+    state, _, step = restore_or_init(str(work / "ckpt"), lambda: TrainState.create(
+        llama.init(torch.Generator(device=device).manual_seed(1), model_cfg, device), opt), TrainState.load)
+    restore_s = time.perf_counter() - t0
+    check(step == TP_STEPS, f"tp: one process restored step {step}, want {TP_STEPS}")
+    split = fsdp_blocks(torch, ranks, state.state_dict(), step, tag="tp")
+    state_rel = fsdp_state_check(torch, state.state_dict(), one_state, ranks[0]["ok"]["saves"][str(step)],
+                                 f"step {step}", tag="tp")
+    whole_bytes = tree_bytes(state.params) + tree_bytes({k: state.opt_state[k] for k in ("mu", "nu")})
+    del state, one_state, held
+    shutil.rmtree(work, ignore_errors=True)
+    last = [rec["ok"]["log"][-1] for rec in ranks]
+    check(all(x["param_bytes"] + x["opt_bytes"] < 0.51 * whole_bytes for x in last),
+          f"tp: per-rank bytes {[(x['param_bytes'], x['opt_bytes']) for x in last]} of {whole_bytes} whole")
+    rec = {
+        "preset": cfg.get("preset", ""), "layers": model_cfg.n_layers, "batch": loop["batch_size"],
+        "seq_len": loop["seq_len"], "steps": TP_STEPS, "losses": [x["loss"] for x in ranks[0]["ok"]["log"]],
+        "grad_norms": [x["grad_norm"] for x in ranks[0]["ok"]["log"]], "one_losses": [x["loss"] for x in one],
+        "one_grad_norms": [x["grad_norm"] for x in one], "one_loss": one[0]["loss"],
+        "one_grad_norm": one[0]["grad_norm"], "worst_rel": worst, "state_rel": state_rel,
+        "param_bytes": last[0]["param_bytes"], "opt_bytes": last[0]["opt_bytes"], "whole_bytes": whole_bytes,
+        "split_leaves": split, "peak_bytes": [rec["ok"]["peak_bytes"] for rec in ranks],
+        "one_peak_bytes": one_peak, "step_ms": [x["step_time_ms"] for x in ranks[0]["ok"]["log"]],
+        "one_step_ms": [x["step_time_ms"] for x in one], "restored_step": step, "restore_s": restore_s,
+        "faults": faults, "launches": [[rec["ok"]["launches"][k] for k in flash] for rec in ranks],
+        "one_launches": [one_launches[k] for k in flash],
+        "launches_rank": {k: ranks[0]["ok"]["launches"][k] for k in flash},
+    }
+    print(tp_line(rec, card), flush=True)
+    return rec
+
+
+def tp_serve_requests(vocab: int) -> list[list[int]]:
+    """The ``[tp-serve]`` prompts: ``TP_SERVE_PROMPTS`` lengths of seeded ids."""
+    import random
+
+    rng = random.Random(0)
+    return [[rng.randrange(vocab) for _ in range(n)] for n in TP_SERVE_PROMPTS]
+
+
+def drop_last_shard_partial(collectives) -> None:
+    """A planted fault: the one-process reduce over the shards drops the last
+    shard's row-parallel partial."""
+    real = collectives.DeviceModel.reduce_from_model
+
+    def reduce_from_model(self, parts):
+        return real(self, parts[:-1] + [parts[-1] * 0])
+
+    collectives.DeviceModel.reduce_from_model = reduce_from_model
+
+
+def serve_tokens(torch, eng, prompts: list) -> tuple[list, float]:
+    """Every prompt submitted at once to the in-process engine, run to its
+    end: (each request's greedy tokens, the mean ms of a decode step, from
+    the chunks after every slot was admitted)."""
+    rids = [eng.submit(p, TP_SERVE_TOKENS) for p in prompts]
+    eng.step()  # admission: every prompt's prefill and the first chunk
+    check(len(eng.running) + len(eng.done) == len(prompts) and not (eng.pending or eng._staged),
+          "tp-serve: a prompt was not admitted by the first step")
+    t0, chunks = time.perf_counter(), 0
+    while eng.step():
+        chunks += 1
+    ms = (time.perf_counter() - t0) * 1e3 / max(chunks * eng.decode_chunk, 1)
+    return [eng.done[r] for r in rids], ms
+
+
+def tp_serve_line(rec: dict, card: str) -> str:
+    """The ``[tp-serve]`` report line."""
+    return (f"[tp-serve] {rec['preset']} widths {rec['layers']} layers {rec['dtype']}, {len(TP_SERVE_PROMPTS)} "
+            f"requests of {TP_SERVE_TOKENS} greedy tokens, prompts {list(TP_SERVE_PROMPTS)}: tp 2 (both shards on "
+            f"{rec['devices']}) tokens equal tp 1's; decode ms/step tp 2 {rec['tp2_ms']:.2f} / tp 1 "
+            f"{rec['tp1_ms']:.2f} (reported, not judged); planted fault, one shard's row partial dropped: "
+            f"{rec['fault_changed']} of {len(TP_SERVE_PROMPTS)} requests' tokens changed, failed; {card}")
+
+
+def tp_serve_phase(torch, llama, card: str, cfg: dict | None = None, device: str = "cuda") -> dict:
+    """``[tp-serve]``: the TP engine with both shards on the one device
+    against the tp=1 engine on the same seeded weights (Llama-3-8B widths cut
+    to ``TP_SERVE_LAYERS`` layers, f32; ``cfg`` and ``device`` another model
+    and device): the same greedy tokens; the decode ms/step of both,
+    reported; a planted fault (one shard's row partial dropped) must change
+    the tokens."""
+    from tony_tpu_torch.models.serving import ContinuousBatcher
+    from tony_tpu_torch.parallel import collectives
+
+    cfg = cfg or {"preset": "llama3-8b", "n_layers": TP_SERVE_LAYERS, "dtype": "float32"}
+    model_cfg = llama.config_from_dict(cfg)
+    params = llama.init(torch.Generator(device=device).manual_seed(0), model_cfg, device)
+    prompts = tp_serve_requests(model_cfg.vocab_size)
+    kw = dict(num_slots=len(prompts), max_len=max(TP_SERVE_PROMPTS) + TP_SERVE_TOKENS + TP_SERVE_CHUNK,
+              decode_chunk=TP_SERVE_CHUNK)
+
+    def engine(tp: int):
+        return ContinuousBatcher(params, model_cfg, tp=tp, devices=[device] * tp if tp > 1 else None, **kw)
+
+    want, tp1_ms = serve_tokens(torch, engine(1), prompts)
+    got, tp2_ms = serve_tokens(torch, engine(2), prompts)
+    check(got == want, f"tp-serve: tp 2 tokens {got} differ from tp 1's {want}")
+    real = collectives.DeviceModel.reduce_from_model
+    drop_last_shard_partial(collectives)
+    try:
+        faulty, _ = serve_tokens(torch, engine(2), prompts)
+    finally:
+        collectives.DeviceModel.reduce_from_model = real
+    changed = sum(a != b for a, b in zip(faulty, want))
+    check(changed > 0, "tp-serve: the planted fault (one shard's row partial dropped) left the tokens as they were")
+    rec = {"preset": cfg.get("preset", ""), "layers": model_cfg.n_layers, "dtype": model_cfg.dtype,
+           "devices": f"{device} twice", "tokens": got, "tp1_ms": tp1_ms, "tp2_ms": tp2_ms,
+           "fault_changed": changed}
+    print(tp_serve_line(rec, card), flush=True)
     return rec
 
 
@@ -4356,10 +4670,14 @@ def main() -> int:
             del hf
         with phase("mixtral-gang"):
             mixtral_gang = mixtral_gang_phase(out_dir)
-        # the fsdp axis last: a gang of two processes on the card, after every
-        # earlier phase ran as before
+        # the fsdp axis, then the model axis, last: gangs of two processes on
+        # the card, after every earlier phase ran as before
         with phase("fsdp"):
             fsdp = fsdp_phase(torch, llama, A, out_dir, card)
+        with phase("tp"):
+            tp = tp_phase(torch, llama, A, out_dir, card)
+        with phase("tp-serve"):
+            tp_serve = tp_serve_phase(torch, llama, card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED in phase {phase.current}: {e}", file=sys.stderr, flush=True)
         return 1
@@ -4374,6 +4692,7 @@ def main() -> int:
         more = {k: {"mixtral_gang": gang_launches[k]} for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "moe_bwd")}
         for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             more[k]["fsdp"] = fsdp["launches_sum"][k]
+            more[k]["tp"] = tp["launches_rank"][k]
         more["moe_fwd"] = {"mixtral_gang": gang_launches["moe_fwd"], "hf_serve": hf_serve["mixtral_launches"]["moe_fwd"]}
         for k in ("paged_decode_attention", "int8_matmul"):
             more[k] = {"hf_serve": hf_serve["launches"][k]}
@@ -4393,7 +4712,8 @@ def main() -> int:
          "cp": {"whole_step": cp_step, "train": cp_train},
          "bert": {"whole_step": bert_step, "pack": bert_pack}, "mnist": mnist,
          "resnet": {"whole_step": resnet_step, "train": resnet_train},
-         "hf": {"load": hf_load, "serve": hf_serve}, "mixtral_gang": mixtral_gang, "fsdp": fsdp}, indent=1))
+         "hf": {"load": hf_load, "serve": hf_serve}, "mixtral_gang": mixtral_gang, "fsdp": fsdp, "tp": tp,
+         "tp_serve": tp_serve}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -228,13 +228,13 @@ def test_fleet_phase_reads_the_lines_the_fleet_prints(tmp_path):
 
 @pytest.mark.parametrize("handoff", [True, False], ids=["disagg", "colocated"])
 def test_fleet_line_names_every_number_and_the_card(handoff):
-    rec = {"fleet": "disagg" if handoff else "colocated", "startup_s": 31.2, "requests_ok": 24,
+    rec = {"fleet": "disagg" if handoff else "colocated", "startup_s": 31.2, "requests_ok": cs.LOADTEST_REQUESTS,
            "tokens_per_sec": 120.5, "ttft_p50_ms": 250.0, "ttft_p95_ms": 600.0, "ttft_p99_ms": 700.0,
            "token_latency_p50_ms": 38.1, "latency_p50_ms": 2600.0, "latency_p99_ms": 3900.0,
            "prefix_hit_tokens": 5120, "b5_launches": 4096, "stop_s": 6.0,
            "kv_handoff_pages": 60 if handoff else None, "handoff_p50_ms": 900.0 if handoff else None}
     line = cs.fleet_line(rec, "NVIDIA H100 80GB HBM3, 700.00 W")
-    assert line.startswith(f"[fleet] {rec['fleet']}: startup 31.2 s; 24/24 ok, 120.5 tok/s")
+    assert line.startswith(f"[fleet] {rec['fleet']}: startup 31.2 s; 12/12 ok, 120.5 tok/s")
     for part in ("TTFT p50/p95/p99 250.0 / 600.0 / 700.0 ms", "gap between tokens p50 38.10 ms",
                  "latency p50/p99 2600.0 / 3900.0 ms", "B5 4096", "NVIDIA H100 80GB HBM3, 700.00 W"):
         assert part in line
@@ -242,17 +242,17 @@ def test_fleet_line_names_every_number_and_the_card(handoff):
 
 
 def test_fleet_traffic_is_tony_loadtests_and_fits_the_engine():
-    """``LOADTEST`` as ``tony loadtest`` parses it: 24 streamed requests, the
+    """``LOADTEST`` as ``tony loadtest`` parses it: 12 streamed requests, the
     shared prefix inside every first prompt, and the longest conversation
     (first prompt, then each turn's answer and fresh tokens) inside max_len."""
     pytest.importorskip("jax")
     from tony_tpu.cli.loadtest import build_spec
 
     spec, _ = build_spec(["--url", "http://127.0.0.1:1", *cs.LOADTEST])
-    assert spec.sessions * spec.turns == cs.LOADTEST_REQUESTS == 24 and spec.stream
+    assert spec.sessions * spec.turns == cs.LOADTEST_REQUESTS == 12 and spec.stream
     assert sorted(n for n, _ in spec.prompt_mix) == [768, 1280] and spec.shared_prefix == 512
     longest = max(n for n, _ in spec.prompt_mix) + (spec.turns - 1) * (spec.max_tokens + spec.turn_tokens)
-    assert longest + spec.max_tokens == 1488 < 1500 < cs.MAXT
+    assert longest + spec.max_tokens == 1416 < 1500 < cs.MAXT
     assert spec.vocab <= 128_256  # prompt ids inside Llama-3's vocabulary
 
 
@@ -594,3 +594,105 @@ def test_fsdp_phase_runs_last_in_main():
     main = src[src.index("def main() -> int:"):]
     assert main.index('phase("mixtral-gang")') < main.index('phase("fsdp")') < main.index("except SmokeFailure")
     assert 'more[k]["fsdp"] = fsdp["launches_sum"][k]' in main
+
+
+@pytest.fixture(scope="module")
+def tp_records(tmp_path_factory):
+    """``tp_phase`` and ``tp_serve_phase`` on the CPU at the tiny Llama in
+    f32: the gloo gang of two on the model axis (one intra-op thread a
+    rank), the one-process run, the restore and the planted faults; then
+    the TP engine's two shards on the CPU against the tp=1 engine, as the
+    card runs them at Llama-3-8B widths."""
+    import torch
+
+    from tony_tpu_torch.models import llama
+    from tony_tpu_torch.ops import attention as A
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    tiny = {"preset": "tiny", "dtype": "float32"}
+    try:
+        return (cs.tp_phase(torch, llama, A, tmp_path_factory.mktemp("tp"), "cpu", cfg=tiny, device="cpu"),
+                cs.tp_serve_phase(torch, llama, "cpu", cfg=tiny, device="cpu"))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_tp_phase_holds_the_gang_to_one_process_and_catches_both_faults(tp_records):
+    """Each rank's losses and grad norms are one process's (f32: the same to
+    the logged 4 decimals), the 9 leaves the model axis splits and their two
+    moments are blocks of the one-process restore bit for bit, each rank
+    holds half of them and launches B1-B3 as one process does (none on the
+    CPU), its blocks of the last step's parameters and moments are one
+    process's within 1e-5, the reduce whose backward also sums moves the
+    first grad norm past ``FSDP_REL`` and the embedding that skips its sum
+    the first loss."""
+    rec, _ = tp_records
+    assert rec["losses"] == rec["one_losses"] and rec["grad_norms"] == rec["one_grad_norms"]
+    assert rec["worst_rel"] <= cs.FSDP_REL
+    assert rec["split_leaves"] == 27 and rec["restored_step"] == cs.TP_STEPS
+    assert rec["param_bytes"] + rec["opt_bytes"] < 0.51 * rec["whole_bytes"]
+    assert set(rec["state_rel"]) == {"params", "mu", "nu"} and max(rec["state_rel"].values()) <= 1e-5
+    assert rec["launches"] == [rec["one_launches"]] * cs.TP_RANKS
+    assert set(rec["faults"]) == set(cs.TP_FAULTS)
+    reduce, embed = rec["faults"]["reduce"], rec["faults"]["embed"]
+    assert all(abs(g - rec["one_grad_norm"]) > cs.FSDP_REL * rec["one_grad_norm"] for g in reduce["grad_norm"])
+    assert all(abs(x - rec["one_loss"]) > cs.FSDP_REL * rec["one_loss"] for x in embed["loss"])
+
+
+def test_tp_serve_phase_gives_tp1s_tokens_and_catches_a_dropped_partial(tp_records):
+    _, rec = tp_records
+    assert len(rec["tokens"]) == len(cs.TP_SERVE_PROMPTS)
+    assert all(len(t) == cs.TP_SERVE_TOKENS for t in rec["tokens"])
+    assert rec["fault_changed"] > 0 and rec["tp1_ms"] > 0 and rec["tp2_ms"] > 0
+
+
+def test_tp_lines_name_every_number_and_the_card(tp_records):
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    rec, serve = tp_records
+    line = cs.tp_line(rec, card)
+    assert line.startswith("[tp] 2 ranks on one card over gloo, tiny widths 2 layers B=2 T=32, model 2: ")
+    assert line.endswith(card)
+    for text in (str(rec["losses"]), str(rec["grad_norms"]), str(rec["step_ms"]), str(rec["launches"]),
+                 f"step {cs.TP_STEPS} restored into one process bit for bit", "reduce: grad norm", "embed: grad norm",
+                 f"(limit {cs.FSDP_STATE_REL:.0e})"):
+        assert text in line, text
+    line = cs.tp_serve_line(serve, card)
+    assert line.startswith("[tp-serve] tiny widths 2 layers float32, 4 requests of 32 greedy tokens")
+    for text in (f"tp 2 {serve['tp2_ms']:.2f} / tp 1 {serve['tp1_ms']:.2f}", "tokens equal tp 1's",
+                 f"{serve['fault_changed']} of 4 requests' tokens changed, failed", card):
+        assert text in line, text
+
+
+def test_tp_checks_fail_on_a_wrong_norm_a_wrong_block_and_wrong_tokens(monkeypatch):
+    """The [tp] checks name the phase: a grad norm off by 20% on one rank, a
+    rank's block from its peer, and, in ``tp_serve_phase``, a TP engine
+    whose shards' sum drops one partial for the whole phase (its tokens are
+    no longer tp 1's)."""
+    import torch
+
+    from tony_tpu_torch.models import llama
+    from tony_tpu_torch.parallel import collectives
+
+    one = [{"step": 1, "loss": 5.0, "grad_norm": 1.0}]
+    off = {"log": [dict(one[0], grad_norm=0.8)]}
+    with pytest.raises(cs.SmokeFailure, match=r"^tp: rank 1 \(reduce\) step 1 grad_norm 0.8"):
+        cs.fsdp_check([{"reduce": {"log": one}}, {"reduce": off}], one, "reduce", tag="tp")
+    whole = {"params": {"w": torch.arange(8.0).reshape(2, 4)}}
+    ranks = [{"ok": {"saves": {"3": {"params/w": {"shape": [2, 2], "fp": cs.fingerprint(
+        torch, whole["params"]["w"].chunk(2, 1)[0])}}}}} for _ in range(2)]
+    with pytest.raises(cs.SmokeFailure, match="^tp: rank 1's block of params/w"):
+        cs.fsdp_blocks(torch, ranks, whole, 3, tag="tp")
+    real = collectives.DeviceModel.reduce_from_model
+    monkeypatch.setattr(collectives.DeviceModel, "reduce_from_model",
+                        lambda self, parts: real(self, parts[:-1] + [parts[-1] * 0]))
+    with pytest.raises(cs.SmokeFailure, match="^tp-serve: tp 2 tokens"):
+        cs.tp_serve_phase(torch, llama, "cpu", cfg={"preset": "tiny", "dtype": "float32"}, device="cpu")
+
+
+def test_tp_phases_run_after_fsdp_in_main():
+    src = (ROOT / "chip_smoke.py").read_text()
+    main = src[src.index("def main() -> int:"):]
+    assert main.index('phase("fsdp")') < main.index('phase("tp")') < main.index('phase("tp-serve")')
+    assert main.index('phase("tp-serve")') < main.index("except SmokeFailure")
+    assert 'more[k]["tp"] = tp["launches_rank"][k]' in main

@@ -6,7 +6,11 @@ included, as any ``(q, scale)`` named tuple) and returns the same tree of
 torch tensors, layouts unchanged. bf16 arrays arrive with ``ml_dtypes``'
 ``bfloat16`` dtype, which ``torch.from_numpy`` refuses: they are viewed as
 uint16 and reinterpreted as ``torch.bfloat16`` bit for bit, with neither
-``ml_dtypes`` nor ``jax`` imported.
+``ml_dtypes`` nor ``jax`` imported. ``blocks_from_numpy`` hands a gang's
+rank its blocks of the same tree (``sharding.shard_params`` on its mesh:
+the fsdp and model axes), so a sharded run starts from JAX's weights; the
+serving engine cuts a whole tree into its model-axis shards itself
+(``generate.ModelShards``).
 
 The rest is the counterpart of ``tony_tpu/models/convert.py``: an HF
 ``LlamaForCausalLM`` or ``MixtralForCausalLM`` state dict mapped onto the
@@ -58,6 +62,14 @@ def params_from_numpy(tree, device):
     if isinstance(tree, tuple) and hasattr(tree, "_fields") and set(tree._fields) == {"q", "scale"}:
         return QTensor(tensor_from_numpy(tree.q, device), tensor_from_numpy(tree.scale, device))
     return tensor_from_numpy(tree, device)
+
+
+def blocks_from_numpy(tree, rules, mesh, device) -> dict:
+    """This rank's blocks of a numpy tree on ``mesh`` per ``rules`` (the
+    whole leaves where the mesh does not split them)."""
+    from tony_tpu_torch.parallel.sharding import shard_params
+
+    return shard_params(params_from_numpy(tree, device), rules, mesh)
 
 
 # -- Hugging Face configs ------------------------------------------------------------

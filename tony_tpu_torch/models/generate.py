@@ -9,6 +9,19 @@ is plain XLA in the JAX package; decode attention over per-slot caches
 bucketed mode shares. ``QTensor`` weights dispatch to the int8 kernel
 through ``_mm``. Randomness comes from an explicit ``torch.Generator``
 (its draws differ from ``jax.random``'s; greedy decoding does not draw).
+
+Tensor-parallel serving holds a model's ``tp`` shards in one process
+(``ModelShards``, as JAX's engine holds a model-axis mesh's devices):
+shard s has its ``H/tp`` query heads, ``Hkv/tp`` kv heads and ``F/tp`` FFN
+columns, ``V/tp`` embedding rows and head columns (the training rules'
+blocks), on its own device, and a cache (``KVCache``, the serving
+engine's ``SlotCache``) then holds one k/v tensor of ``Hkv/tp`` heads a
+shard (lists). Each shard computes its heads and columns from a copy of
+the normed residual stream (``DeviceModel.copy_to_model``), the
+row-parallel partials are summed on the first device
+(``reduce_from_model``), the embedding sums the shards' masked takes, and
+the head's logits are joined whole before sampling, so the host loop and
+the samplers never see the shards. A plain tree is one shard.
 """
 
 from __future__ import annotations
@@ -17,10 +30,69 @@ from dataclasses import dataclass
 
 import torch
 
-from tony_tpu_torch.models.llama import LlamaConfig
+from tony_tpu_torch.models.llama import LlamaConfig, vocab_rows
 from tony_tpu_torch.ops import layers as L
 from tony_tpu_torch.ops import quant as Q
+from tony_tpu_torch.parallel.collectives import DeviceModel
 from tony_tpu_torch.parallel.expert import _gating, moe_ffn
+from tony_tpu_torch.parallel.sharding import ShardingRules, model_shards
+
+
+@dataclass
+class ModelShards:
+    """A model's shards of a model axis held in one process: ``trees[s]``
+    (shard s's blocks, on ``axis.devices[s]``)."""
+
+    trees: list[dict]
+    axis: DeviceModel
+
+    @classmethod
+    def place(cls, params: dict, rules: ShardingRules, devices) -> "ModelShards":
+        """``params`` (a whole tree) cut by ``rules``' model entries into
+        ``len(devices)`` shards, shard s copied to ``devices[s]``."""
+        axis = DeviceModel(devices)
+        trees = model_shards(params, rules, axis.n)
+        return cls([_to(tree, d) for tree, d in zip(trees, axis.devices)], axis)
+
+
+def _to(tree: dict, device) -> dict:
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device).contiguous() for k, v in tree.items()}
+
+
+def params_device(params) -> torch.device:
+    """The device of a tree's leaves (a ``ModelShards``: its first shard's)."""
+    if isinstance(params, ModelShards):
+        return params.axis.devices[0]
+    e = params["embed"]
+    return (e.q if hasattr(e, "q") else e).device
+
+
+def _shards(params) -> tuple[list[dict], DeviceModel]:
+    """(the shards' trees, their axis): a plain tree is one shard."""
+    if isinstance(params, ModelShards):
+        return params.trees, params.axis
+    return [params], DeviceModel([params_device(params)])
+
+
+def each(t) -> list:
+    """A cache's per-shard k (or v) tensors: the list, or the one tensor."""
+    return t if isinstance(t, list) else [t]
+
+
+def embed_shards(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """Embedding rows of ``tokens`` on the first device: each shard takes
+    the rows it holds (zeros elsewhere), summed exactly."""
+    trees, axis = _shards(params)
+    if axis.n == 1:
+        return _embed_lookup(trees[0]["embed"], tokens, dtype)
+    return axis.reduce_from_model([vocab_rows(t["embed"], tokens.to(d), s * t["embed"].shape[0])
+                                   for s, (t, d) in enumerate(zip(trees, axis.devices))])
+
+
+def head_logits(params, x: torch.Tensor) -> torch.Tensor:
+    """f32 logits over the whole vocabulary: each shard's columns, joined."""
+    trees, axis = _shards(params)
+    return axis.join([_mm(xs, t["lm_head"]).float() for xs, t in zip(axis.copy_to_model(x), trees)])
 
 
 def _mm(x, w):
@@ -55,12 +127,20 @@ class KVCache:
     length: int = 0
 
 
+def cache_tensors(cfg: LlamaConfig, batch: int, max_len: int, device) -> tuple:
+    """Zeroed k and v ``[L, batch, Hkv, max_len, Dh]`` on ``device``, or on
+    each of a list of shard devices (lists of ``Hkv/tp`` heads each)."""
+    def zeros(d, heads):
+        return torch.zeros((cfg.n_layers, batch, heads, max_len, cfg.head_dim), dtype=cfg.tdtype, device=d)
+
+    if not isinstance(device, (list, tuple)):
+        return zeros(device, cfg.n_kv_heads), zeros(device, cfg.n_kv_heads)
+    heads = cfg.n_kv_heads // len(device)
+    return [zeros(d, heads) for d in device], [zeros(d, heads) for d in device]
+
+
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int, device) -> KVCache:
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return KVCache(
-        k=torch.zeros(shape, dtype=cfg.tdtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.tdtype, device=device),
-    )
+    return KVCache(*cache_tensors(cfg, batch, max_len, device))
 
 
 def _cached_attention(q, ck, cv, length: int, n_rep: int, window: int = 0):
@@ -131,22 +211,24 @@ def _ffn_with_cache(h, lp, cfg: LlamaConfig):
     return torch.einsum("end,ne->nd", ye, w.reshape(B * T, E).to(ye.dtype)).reshape(B, T, D)
 
 
-def _block_with_cache(x, lp, ck, cv, length: int, cos, sin, cfg: LlamaConfig):
-    """One decoder block over Tq new tokens at positions [length, length+Tq);
-    writes their K/V into ``ck``/``cv`` ([B, Hkv, maxT, Dh] views) in place."""
-    B, Tq = x.shape[0], x.shape[1]
-    Dh, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    positions = length + torch.arange(Tq, device=x.device)
-
-    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = _mm(h, lp["wq"]).reshape(B, Tq, H, Dh).transpose(1, 2)
-    k = _mm(h, lp["wk"]).reshape(B, Tq, Hkv, Dh).transpose(1, 2)
-    v = _mm(h, lp["wv"]).reshape(B, Tq, Hkv, Dh).transpose(1, 2)
+def _attn_with_cache(h, lp, ck, cv, length: int, rope, cfg: LlamaConfig):
+    """One shard's attention over Tq new tokens at positions [length,
+    length+Tq) (its heads: all of them for a plain tree), writing their K/V
+    into ``ck``/``cv`` ([B, Hkv, maxT, Dh] views) in place; returns its
+    output projection (a row-parallel partial under tp)."""
+    B, Tq = h.shape[0], h.shape[1]
+    Dh = cfg.head_dim
+    cos, sin = rope
+    positions = length + torch.arange(Tq, device=h.device)
+    q = _mm(h, lp["wq"]).reshape(B, Tq, -1, Dh).transpose(1, 2)
+    k = _mm(h, lp["wk"]).reshape(B, Tq, -1, Dh).transpose(1, 2)
+    v = _mm(h, lp["wv"]).reshape(B, Tq, -1, Dh).transpose(1, 2)
     q = L.apply_rope(q, cos, sin, positions=positions)
     k = L.apply_rope(k, cos, sin, positions=positions)
+    n_rep = q.shape[1] // k.shape[1]
     if Tq == 1:
         o = _masked_slot_attention(
-            q[:, :, 0], ck, cv, torch.full((B,), length, device=x.device), H // Hkv,
+            q[:, :, 0], ck, cv, torch.full((B,), length, device=h.device), n_rep,
             window=cfg.sliding_window,
             cur_k=k[:, :, 0].to(ck.dtype), cur_v=v[:, :, 0].to(cv.dtype),
         )[:, :, None]
@@ -155,27 +237,40 @@ def _block_with_cache(x, lp, ck, cv, length: int, cos, sin, cfg: LlamaConfig):
     else:
         ck[:, :, length:length + Tq] = k.to(ck.dtype)
         cv[:, :, length:length + Tq] = v.to(cv.dtype)
-        o = _cached_attention(q, ck, cv, length, H // Hkv, window=cfg.sliding_window)
-    o = o.transpose(1, 2).reshape(B, Tq, H * Dh)
-    x = x + _mm(o, lp["wo"])
-    h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + _ffn_with_cache(h, lp, cfg)
+        o = _cached_attention(q, ck, cv, length, n_rep, window=cfg.sliding_window)
+    return _mm(o.transpose(1, 2).reshape(B, Tq, -1), lp["wo"])
+
+
+def _block_with_cache(x, lps: list[dict], cks: list, cvs: list, length: int, ropes: list, cfg: LlamaConfig,
+                      axis: DeviceModel):
+    """One decoder block over Tq new tokens on every shard (``lps``: each
+    shard's layer params, ``cks``/``cvs`` its cache views, ``ropes`` the cos
+    and sin tables on its device); the partials are summed on ``x``'s
+    device."""
+    h = L.rms_norm(x, lps[0]["attn_norm"], cfg.norm_eps)
+    x = x + axis.reduce_from_model([_attn_with_cache(hs, lp, ck, cv, length, rope, cfg) for hs, lp, ck, cv, rope
+                                    in zip(axis.copy_to_model(h), lps, cks, cvs, ropes)])
+    h = L.rms_norm(x, lps[0]["mlp_norm"], cfg.norm_eps)
+    return x + axis.reduce_from_model([_ffn_with_cache(hs, lp, cfg) for hs, lp in zip(axis.copy_to_model(h), lps)])
 
 
 def _forward_with_cache(params, tokens, cache: KVCache, cfg: LlamaConfig):
-    """tokens [B, Tq] (new tokens only) → (logits [B, Tq, V] f32, cache')."""
-    maxT = cache.k.shape[3]
+    """tokens [B, Tq] (new tokens only) → (logits [B, Tq, V] f32, cache').
+    ``params`` a tree or ``ModelShards`` (``cache`` then holds their lists)."""
+    trees, axis = _shards(params)
+    cks, cvs = each(cache.k), each(cache.v)
+    maxT = cks[0].shape[3]
     if cache.length + tokens.shape[1] > maxT:
         raise ValueError(f"cache holds {maxT} positions; {cache.length} + {tokens.shape[1]} overflows")
-    cos, sin = L.rope_frequencies(cfg.head_dim, maxT, cfg.rope_theta, cfg.rope_scaling,
-                                  device=tokens.device)
-    x = _embed_lookup(params["embed"], tokens, cfg.tdtype)
+    tables = {str(k.device): L.rope_frequencies(cfg.head_dim, maxT, cfg.rope_theta, cfg.rope_scaling,
+                                                 device=k.device) for k in cks}
+    ropes = [tables[str(k.device)] for k in cks]
+    x = embed_shards(params, tokens, cfg.tdtype)
     for i in range(cfg.n_layers):
-        x = _block_with_cache(x, layer_params(params["layers"], i), cache.k[i], cache.v[i],
-                              cache.length, cos, sin, cfg)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _mm(x, params["lm_head"]).float()
-    return logits, KVCache(cache.k, cache.v, cache.length + tokens.shape[1])
+        x = _block_with_cache(x, [layer_params(t["layers"], i) for t in trees], [k[i] for k in cks],
+                              [v[i] for v in cvs], cache.length, ropes, cfg, axis)
+    x = L.rms_norm(x, trees[0]["final_norm"], cfg.norm_eps)
+    return head_logits(params, x), KVCache(cache.k, cache.v, cache.length + tokens.shape[1])
 
 
 def prefill(params, tokens, cache: KVCache, cfg: LlamaConfig):

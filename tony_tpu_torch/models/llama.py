@@ -12,8 +12,17 @@ into the mesh ring's shards (``cp_impl``: "xla" ring, "pallas" ring
 kernels, "ulysses"). On an ``fsdp`` axis the params hold this rank's blocks
 per ``sharding_rules`` (JAX's) and each leaf is gathered where it is used:
 the embedding before the take, layer i's weights inside its (remat) block,
-the head before the product or the chunked CE. TP (A8b) and pipeline stages
-(A13) raise until they are ported.
+the head before the product or the chunked CE.
+
+On a ``model`` axis (Megatron's tensor parallelism, JAX's rules) each rank
+holds its column blocks of ``wq|wk|wv|w_gate|w_up`` (``H/tp`` whole query
+heads, ``Hkv/tp`` kv heads, ``F/tp`` FFN columns), the row blocks of
+``wo|w_down``, ``V/tp`` rows of the embedding and ``V/tp`` columns of the
+head. A block runs on its local heads (B1-B3 per rank): ``copy_to_model``
+at the input of the column products, ``reduce_from_model`` after the row
+products; the embedding takes its local rows and sums over the line; the
+loss is the vocab-parallel CE (``ops/layers.py``). Pipeline stages (A13)
+raise until they are ported.
 """
 
 from __future__ import annotations
@@ -27,8 +36,9 @@ import torch
 from tony_tpu_torch.ops import attention as attn_ops
 from tony_tpu_torch.ops import layers as L
 from tony_tpu_torch.ops.ring import ring_attention_pallas, ring_attention_pallas_seg
+from tony_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 from tony_tpu_torch.parallel.context import ring_attention, ulysses_attention
-from tony_tpu_torch.parallel.mesh import context_degree
+from tony_tpu_torch.parallel.mesh import AXIS_MODEL, axis_size, context_degree, model_group
 from tony_tpu_torch.parallel.sharding import P, Place, ShardingRules, gather, gathering, keep_whole
 
 
@@ -141,8 +151,7 @@ def init(gen: torch.Generator, cfg: LlamaConfig, device: torch.device | str,
 
 
 def sharding_rules(cfg: LlamaConfig) -> ShardingRules:
-    """FSDP × TP rules, JAX's (the stacked leading layer dim never split;
-    the ``model`` entries are inert while that axis is 1)."""
+    """FSDP × TP rules, JAX's (the stacked leading layer dim never split)."""
     return ShardingRules([
         (r"embed", P("model", "fsdp")),                  # vocab-parallel
         (r"layers/(wq|wk|wv|w_gate|w_up)", P(None, "fsdp", "model")),
@@ -153,6 +162,14 @@ def sharding_rules(cfg: LlamaConfig) -> ShardingRules:
     ])
 
 
+def check_model_axis(cfg: LlamaConfig, tp: int) -> None:
+    """Refuse a model axis of ``tp`` that does not split whole heads, kv
+    heads, vocabulary rows and FFN columns."""
+    if tp > 1 and (cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.vocab_size % tp or cfg.d_ff % tp):
+        raise ValueError(f"n_heads {cfg.n_heads}, n_kv_heads {cfg.n_kv_heads}, vocab_size {cfg.vocab_size} "
+                         f"and d_ff {cfg.d_ff} must divide the model axis ({tp})")
+
+
 def _attention(q, k, v, cfg: LlamaConfig, mesh, segment_ids=None) -> torch.Tensor:
     """Dispatch: context-parallel attention (``cfg.cp_impl``: the plain
     PyTorch ring, the ring kernels, or Ulysses' all-to-all) when the mesh's
@@ -161,7 +178,7 @@ def _attention(q, k, v, cfg: LlamaConfig, mesh, segment_ids=None) -> torch.Tenso
     q: [B, H, T, Dh]; k/v: [B, Hkv, T, Dh]; segment_ids [B, T] (packing)."""
     if cfg.cp_impl not in ("xla", "pallas", "ulysses"):
         raise ValueError(f"cp_impl must be 'xla', 'pallas', or 'ulysses', got {cfg.cp_impl!r}")
-    cp = context_degree(mesh)
+    cp = context_degree(mesh, tensor_parallel=True)
     if cp > 1:
         if cfg.cp_impl != "pallas":
             if segment_ids is not None:
@@ -207,12 +224,27 @@ def mask_packed_targets(tokens: torch.Tensor, seg: torch.Tensor | None):
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, mesh=None) -> torch.Tensor:
-    """Embedding rows for ``tokens`` from the whole (gathered) table. On a
-    mesh with two or more axes above 1 JAX takes a one-hot product instead,
-    a GSPMD layout device whose value is the take's exactly; eager torch
-    has no layout to serve, so the port always takes."""
-    context_degree(mesh)
-    return embed[tokens.long()]
+    """Embedding rows for ``tokens`` from the (fsdp-gathered) table. On a
+    model axis ``embed`` is this rank's ``V/tp`` rows: each rank takes the
+    rows it holds, zeros elsewhere, and the line sums them
+    (``reduce_from_model``), so every rank has each token's row exactly.
+    On a mesh with two or more axes above 1 JAX takes a one-hot product
+    instead, a GSPMD layout device whose value is the take's exactly; eager
+    torch has no layout to serve, so the port takes."""
+    context_degree(mesh, tensor_parallel=True)
+    group = model_group(mesh)
+    if group is None:
+        return embed[tokens.long()]
+    return reduce_from_model(vocab_rows(embed, tokens, mesh.axis_index(AXIS_MODEL) * embed.shape[0]), group)
+
+
+def vocab_rows(embed: torch.Tensor, tokens: torch.Tensor, start: int) -> torch.Tensor:
+    """The rows of ``tokens`` in ``embed``, the vocabulary's block from row
+    ``start``; zeros for the tokens it does not hold."""
+    local = tokens.long() - start
+    own = (local >= 0) & (local < embed.shape[0])
+    rows = embed[torch.where(own, local, 0)]
+    return torch.where(own[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
 
 
 def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
@@ -227,20 +259,22 @@ def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
 
 
 def _block(x, lp: dict, cos, sin, cfg: LlamaConfig, mesh, segment_ids=None, positions=None):
-    """One decoder block (pre-norm attention + SwiGLU)."""
+    """One decoder block (pre-norm attention + SwiGLU) on this rank's heads
+    and FFN columns (all of them without a model axis)."""
     B, T = x.shape[0], x.shape[1]
-    Dh, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(B, T, H, Dh).transpose(1, 2)
-    k = (h @ lp["wk"]).reshape(B, T, Hkv, Dh).transpose(1, 2)
-    v = (h @ lp["wv"]).reshape(B, T, Hkv, Dh).transpose(1, 2)
+    Dh = cfg.head_dim
+    group = model_group(mesh)
+    h = copy_to_model(L.rms_norm(x, lp["attn_norm"], cfg.norm_eps), group)
+    q = (h @ lp["wq"]).reshape(B, T, -1, Dh).transpose(1, 2)
+    k = (h @ lp["wk"]).reshape(B, T, -1, Dh).transpose(1, 2)
+    v = (h @ lp["wv"]).reshape(B, T, -1, Dh).transpose(1, 2)
     q = L.apply_rope(q, cos, sin, positions=positions)
     k = L.apply_rope(k, cos, sin, positions=positions)
     o = _attention(q, k, v, cfg, mesh, segment_ids=segment_ids)
-    o = o.transpose(1, 2).reshape(B, T, H * Dh)
-    x = x + o @ lp["wo"]
-    h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
+    o = o.transpose(1, 2).reshape(B, T, -1)
+    x = x + reduce_from_model(o @ lp["wo"], group)
+    h = copy_to_model(L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps), group)
+    return x + reduce_from_model(L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), group)
 
 
 def hidden_states(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None,
@@ -249,6 +283,7 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=Non
     [B, T] confines attention within packed segments and restarts RoPE
     positions at every boundary."""
     T = tokens.shape[1]
+    check_model_axis(cfg, axis_size(mesh, AXIS_MODEL))
     cos, sin = L.rope_frequencies(cfg.head_dim, T, cfg.rope_theta, cfg.rope_scaling,
                                   device=tokens.device)
     positions = segment_positions(segment_ids) if segment_ids is not None else None
@@ -267,27 +302,34 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=Non
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None,
             segment_ids=None) -> torch.Tensor:
-    """tokens [B, T] → logits [B, T, V]."""
-    return hidden_states(params, tokens, cfg, mesh, segment_ids=segment_ids) @ lm_head(params, cfg, mesh)
+    """tokens [B, T] → logits [B, T, V] (on a model axis this rank's
+    ``V/tp`` columns of them)."""
+    x = hidden_states(params, tokens, cfg, mesh, segment_ids=segment_ids)
+    return copy_to_model(x, model_group(mesh)) @ lm_head(params, cfg, mesh)
 
 
 def lm_head(params: dict, cfg: LlamaConfig, mesh=None) -> torch.Tensor:
-    """The whole head (gathered on an fsdp axis)."""
+    """The head gathered on an fsdp axis: whole, or this rank's ``V/tp``
+    columns on a model axis."""
     return gather(params["lm_head"], sharding_rules(cfg).spec_for("lm_head"), mesh)
 
 
 def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, mesh=None) -> tuple[torch.Tensor, dict]:
     """batch: {"tokens": [B, T+1], optional "segment_ids": [B, T+1]} →
     (next-token CE loss, {"loss", "tokens"}). ``cfg.ce_chunk > 0`` fuses the
-    lm head and CE per chunk so the [B, T, V] logits never exist."""
+    lm head and CE per chunk so the [B, T, V] logits never exist. On a
+    model axis the CE is vocab-parallel, and every rank of a model line
+    gets the same loss and count."""
     tokens = batch["tokens"]
     targets, seg_in = mask_packed_targets(tokens, batch.get("segment_ids"))
+    group = model_group(mesh)
     if cfg.ce_chunk > 0:
-        x = hidden_states(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in)
-        loss, n = L.chunked_cross_entropy_loss(x, lm_head(params, cfg, mesh), targets, chunk=cfg.ce_chunk)
+        x = copy_to_model(hidden_states(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in), group)
+        loss, n = L.chunked_cross_entropy_loss(x, lm_head(params, cfg, mesh), targets, chunk=cfg.ce_chunk,
+                                               group=group)
     else:
         logits = forward(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in)
-        loss, n = L.cross_entropy_loss(logits, targets)
+        loss, n = L.cross_entropy_loss(logits, targets, group=group)
     return loss, {"loss": loss, "tokens": n}
 
 

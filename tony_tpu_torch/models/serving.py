@@ -20,7 +20,17 @@ Decode attention is one of:
 The JAX engine's jit-stability helpers become plain in-place tensor updates:
 PyTorch runs eagerly and the cache tensors are updated where they live.
 A Mixtral config serves through the MoE branch of ``_ffn_with_cache``.
-Tensor-parallel serving is not ported yet and raises.
+
+``tp > 1`` is the TP engine (JAX's ``mesh=`` with a model axis): the
+training rules cut the weights into ``tp`` shards held in this process
+(``generate.ModelShards``) on the first ``tp`` CUDA devices (or the
+``devices`` given, which may repeat one), the dense cache splits over its
+kv heads (JAX's ``P(None, None, "model")``), and the host loop stays as it
+is. JAX's refusals hold: ``kv="paged"``, heads that do not divide the
+axis, and an explicit ``attn="ragged"`` raise, and ``"auto"`` is
+``"bucketed"``: no hand-written kernel runs under tp, as none is
+partitioned in JAX. int8 weights under tp raise too (JAX's engine fails
+to place them), as do Mixtral's (A8b's second part).
 """
 
 from __future__ import annotations
@@ -33,17 +43,23 @@ import torch
 
 from tony_tpu_torch.models.generate import (
     KVCache,
-    _embed_lookup,
+    ModelShards,
     _ffn_with_cache,
     _forward_with_cache,
     _masked_slot_attention,
     _mm,
     _sample,
+    _shards,
+    cache_tensors,
+    each,
+    embed_shards,
+    head_logits,
     init_cache,
     layer_params,
+    params_device,
     sample_logits,
 )
-from tony_tpu_torch.models.llama import LlamaConfig
+from tony_tpu_torch.models.llama import LlamaConfig, check_model_axis, sharding_rules
 from tony_tpu_torch.models.paged_cache import (
     PageAllocator,
     PagedCache,
@@ -53,25 +69,26 @@ from tony_tpu_torch.models.paged_cache import (
     prefix_keys,
 )
 from tony_tpu_torch.ops import layers as L
+from tony_tpu_torch.ops import quant as Q
 from tony_tpu_torch.ops.decode_attention import paged_decode_attention, ragged_decode_attention
 
 
 @dataclass
 class SlotCache:
-    """Decode state for S slots. k/v: [L, S, Hkv, maxT, Dh]; lengths: [S] int32."""
+    """Decode state for S slots. k/v: [L, S, Hkv, maxT, Dh] (under tp a list
+    of one ``Hkv/tp``-head tensor a shard, on its device); lengths: [S]
+    int32 (on the first device)."""
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: torch.Tensor | list
+    v: torch.Tensor | list
     lengths: torch.Tensor
 
 
 def init_slot_cache(cfg: LlamaConfig, num_slots: int, max_len: int, device) -> SlotCache:
-    shape = (cfg.n_layers, num_slots, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return SlotCache(
-        k=torch.zeros(shape, dtype=cfg.tdtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.tdtype, device=device),
-        lengths=torch.zeros((num_slots,), dtype=torch.int32, device=device),
-    )
+    """``device``: one device, or the tp shards' devices (a list)."""
+    k, v = cache_tensors(cfg, num_slots, max_len, device)
+    home = device[0] if isinstance(device, (list, tuple)) else device
+    return SlotCache(k=k, v=v, lengths=torch.zeros((num_slots,), dtype=torch.int32, device=home))
 
 
 @functools.lru_cache(maxsize=32)
@@ -90,51 +107,59 @@ def _decode_one(
     Each slot runs at position ``cache.lengths[s]`` clamped at maxT-1; idle
     slots (length 0) decode garbage the host ignores. ``cache`` is a
     SlotCache or a PagedCache; the branch picks the attention read and the
-    cache write, everything else is shared."""
+    cache write, everything else is shared. ``params``: a tree, or the TP
+    engine's ``ModelShards`` (with a SlotCache of their lists)."""
     paged = isinstance(cache, PagedCache)
+    trees, axis = _shards(params)
+    cks, cvs = each(cache.k), each(cache.v)
     S = tokens.shape[0]
-    Dh, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    maxT = cache.page_table.shape[1] * cache.k.shape[3] if paged else cache.k.shape[3]
-    cos, sin = _rope_table(Dh, maxT, cfg.rope_theta, cfg.rope_scaling, str(tokens.device))
+    Dh = cfg.head_dim
+    maxT = cache.page_table.shape[1] * cache.k.shape[3] if paged else cks[0].shape[3]
     # KERNEL PRECONDITION: active slots have lengths < maxT (submit() checks
     # prompt + budget <= max_len); only retired-not-yet-flushed slots reach
     # the clamp, and their output is never read
     pos = torch.clamp(cache.lengths, max=maxT - 1).to(torch.int32)
-    x = _embed_lookup(params["embed"], tokens[:, None], cfg.tdtype)      # [S, 1, D]
-    ks_new, vs_new = [], []
+    ropes = [_rope_table(Dh, maxT, cfg.rope_theta, cfg.rope_scaling, str(k.device)) for k in cks]
+    poss = [pos.to(k.device) for k in cks]
+    x = embed_shards(params, tokens[:, None], cfg.tdtype)                # [S, 1, D]
+    ks_new, vs_new = [[] for _ in cks], [[] for _ in cks]
     for i in range(cfg.n_layers):
-        lp = layer_params(params["layers"], i)
-        ck, cv = cache.k[i], cache.v[i]
-        h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = _mm(h, lp["wq"]).reshape(S, 1, H, Dh).transpose(1, 2)
-        k = _mm(h, lp["wk"]).reshape(S, 1, Hkv, Dh).transpose(1, 2)
-        v = _mm(h, lp["wv"]).reshape(S, 1, Hkv, Dh).transpose(1, 2)
-        q = L.apply_rope(q, cos, sin, positions=pos[:, None])
-        k = L.apply_rope(k, cos, sin, positions=pos[:, None])
-        q1 = q[:, :, 0].contiguous()
-        k1 = k[:, :, 0].to(ck.dtype).contiguous()                       # [S, Hkv, Dh]
-        v1 = v[:, :, 0].to(cv.dtype).contiguous()
-        if paged:
-            extra = {}
-            if staged is not None:
-                extra = dict(staged_k=staged[0][i], staged_v=staged[1][i], staged_count=staged[2])
-            o = paged_decode_attention(
-                q1, ck, cv, pos, cache.page_table, cur_k=k1, cur_v=v1,
-                window=cfg.sliding_window, **extra,
-            )
-        elif attn == "ragged":
-            o = ragged_decode_attention(q1, ck, cv, pos, cur_k=k1, cur_v=v1,
-                                        window=cfg.sliding_window)
-        else:
-            o = _masked_slot_attention(q1, ck, cv, pos, H // Hkv, window=cfg.sliding_window,
-                                       cur_k=k1, cur_v=v1)
-        x = x + _mm(o.reshape(S, 1, H * Dh), lp["wo"])
-        h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn_with_cache(h, lp, cfg)
-        ks_new.append(k1)
-        vs_new.append(v1)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    logits = _mm(x[:, 0], params["lm_head"]).float()                     # [S, V]
+        lps = [layer_params(t["layers"], i) for t in trees]
+        h = L.rms_norm(x, lps[0]["attn_norm"], cfg.norm_eps)
+        parts = []
+        for s_, (hs, lp) in enumerate(zip(axis.copy_to_model(h), lps)):
+            ck, cv = cks[s_][i], cvs[s_][i]
+            (cos, sin), p_ = ropes[s_], poss[s_]
+            q = _mm(hs, lp["wq"]).reshape(S, 1, -1, Dh).transpose(1, 2)
+            k = _mm(hs, lp["wk"]).reshape(S, 1, -1, Dh).transpose(1, 2)
+            v = _mm(hs, lp["wv"]).reshape(S, 1, -1, Dh).transpose(1, 2)
+            q = L.apply_rope(q, cos, sin, positions=p_[:, None])
+            k = L.apply_rope(k, cos, sin, positions=p_[:, None])
+            q1 = q[:, :, 0].contiguous()
+            k1 = k[:, :, 0].to(ck.dtype).contiguous()                   # [S, Hkv, Dh]
+            v1 = v[:, :, 0].to(cv.dtype).contiguous()
+            if paged:
+                extra = {}
+                if staged is not None:
+                    extra = dict(staged_k=staged[0][i], staged_v=staged[1][i], staged_count=staged[2])
+                o = paged_decode_attention(
+                    q1, ck, cv, p_, cache.page_table, cur_k=k1, cur_v=v1,
+                    window=cfg.sliding_window, **extra,
+                )
+            elif attn == "ragged":
+                o = ragged_decode_attention(q1, ck, cv, p_, cur_k=k1, cur_v=v1,
+                                            window=cfg.sliding_window)
+            else:
+                o = _masked_slot_attention(q1, ck, cv, p_, q1.shape[1] // k1.shape[1],
+                                           window=cfg.sliding_window, cur_k=k1, cur_v=v1)
+            parts.append(_mm(o.reshape(S, 1, -1), lp["wo"]))
+            ks_new[s_].append(k1)
+            vs_new[s_].append(v1)
+        x = x + axis.reduce_from_model(parts)
+        h = L.rms_norm(x, lps[0]["mlp_norm"], cfg.norm_eps)
+        x = x + axis.reduce_from_model([_ffn_with_cache(hs, lp, cfg) for hs, lp in zip(axis.copy_to_model(h), lps)])
+    x = L.rms_norm(x, trees[0]["final_norm"], cfg.norm_eps)
+    logits = head_logits(params, x[:, 0])                                # [S, V]
     if samp is not None:
         nxt = sample_logits(logits, gen, *samp)
     else:
@@ -143,21 +168,24 @@ def _decode_one(
     new_len = torch.where(
         cache.lengths > 0, torch.clamp(cache.lengths + 1, max=maxT), 0
     ).to(torch.int32)
-    ks_new, vs_new = torch.stack(ks_new), torch.stack(vs_new)          # [L, S, Hkv, Dh]
+    ks_new = [torch.stack(t) for t in ks_new]                            # [L, S, Hkv, Dh] a shard
+    vs_new = [torch.stack(t) for t in vs_new]
     if staged is not None:
         # deferred-write mode: the columns go to the chunk staging, not the pool
-        return nxt, PagedCache(cache.k, cache.v, new_len, cache.page_table), ks_new, vs_new
+        return nxt, PagedCache(cache.k, cache.v, new_len, cache.page_table), ks_new[0], vs_new[0]
     slots = torch.arange(S, device=tokens.device)
     if paged:
         page_len = cache.k.shape[3]
         pages = cache.page_table[slots, (pos // page_len).long()].long()
         offs = (pos % page_len).long()
         # two advanced indices split by a slice: indexed dims go first → [S, L, Hkv, Dh]
-        cache.k[:, pages, :, offs, :] = ks_new.transpose(0, 1)
-        cache.v[:, pages, :, offs, :] = vs_new.transpose(0, 1)
+        cache.k[:, pages, :, offs, :] = ks_new[0].transpose(0, 1)
+        cache.v[:, pages, :, offs, :] = vs_new[0].transpose(0, 1)
         return nxt, PagedCache(cache.k, cache.v, new_len, cache.page_table)
-    cache.k[:, slots, :, pos.long(), :] = ks_new.transpose(0, 1)
-    cache.v[:, slots, :, pos.long(), :] = vs_new.transpose(0, 1)
+    for ck, cv, kn, vn, p_ in zip(cks, cvs, ks_new, vs_new, poss):
+        sl = slots.to(ck.device)
+        ck[:, sl, :, p_.long(), :] = kn.transpose(0, 1)
+        cv[:, sl, :, p_.long(), :] = vn.transpose(0, 1)
     return nxt, SlotCache(cache.k, cache.v, new_len)
 
 
@@ -214,7 +242,10 @@ def decode_steps_bucketed(
     """``decode_steps`` over a LENGTH-BUCKETED cache view: attention reads
     only the first ``bucket`` positions; the view's writes land in the full
     cache directly (it is a view)."""
-    sub = SlotCache(cache.k[:, :, :, :bucket], cache.v[:, :, :, :bucket], cache.lengths)
+    def view(t):
+        return [x[:, :, :, :bucket] for x in t] if isinstance(t, list) else t[:, :, :, :bucket]
+
+    sub = SlotCache(view(cache.k), view(cache.v), cache.lengths)
     seq = []
     for _ in range(n):
         tokens, sub = _decode_one(params, sub, tokens, gen, cfg, temperature, top_k, "bucketed", samp)
@@ -230,11 +261,22 @@ def _bucket(n: int, lo: int = 16) -> int:
 
 
 def _insert_prefill(cache: SlotCache, pre: KVCache, slot: int, true_len: int) -> SlotCache:
-    """Copy a 1-request prefill cache [L, 1, Hkv, maxT, Dh] into ``slot``."""
-    cache.k[:, slot] = pre.k[:, 0]
-    cache.v[:, slot] = pre.v[:, 0]
+    """Copy a 1-request prefill cache [L, 1, Hkv, maxT, Dh] (a shard's each)
+    into ``slot``."""
+    for ck, pk in zip(each(cache.k), each(pre.k)):
+        ck[:, slot] = pk[:, 0]
+    for cv, pv in zip(each(cache.v), each(pre.v)):
+        cv[:, slot] = pv[:, 0]
     cache.lengths[slot] = true_len
     return cache
+
+
+def _leaf_values(tree: dict):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaf_values(v)
+        else:
+            yield v
 
 
 @dataclass
@@ -268,9 +310,15 @@ class _Staged:
     keys: list[tuple] = field(default_factory=list)
 
 
-def _params_device(params) -> torch.device:
-    e = params["embed"]
-    return (e.q if hasattr(e, "q") else e).device
+def tp_devices(tp: int, like: torch.device) -> list[torch.device]:
+    """The first ``tp`` visible CUDA devices (for a model on a card), or
+    the CPU ``tp`` times."""
+    if like.type != "cuda":
+        return [like] * tp
+    n = torch.cuda.device_count()
+    if n < tp:
+        raise ValueError(f"--tp {tp} needs {tp} devices but only {n} are visible")
+    return [torch.device("cuda", i) for i in range(tp)]
 
 
 class ContinuousBatcher:
@@ -289,21 +337,40 @@ class ContinuousBatcher:
         eos_id: int = -1, temperature: float = 0.0, top_k: int = 0,
         generator: torch.Generator | None = None, decode_chunk: int = 8, attn: str = "auto",
         prefill_chunk: int = 0, kv: str = "dense", page_len: int = 256,
-        num_pages: int | None = None, tp: int = 1,
+        num_pages: int | None = None, tp: int = 1, devices=None,
     ):
         if num_slots < 1 or max_len < 1:
             raise ValueError(f"need num_slots>=1 and max_len>=1, got {num_slots}/{max_len}")
         if kv not in ("dense", "paged"):
             raise ValueError(f"kv must be dense|paged, got {kv!r}")
-        if tp != 1:
-            raise NotImplementedError("tensor-parallel serving (tp > 1) is not ported yet")
         self.kv = kv
         if kv == "paged":
             if page_len < 8 or page_len % 8:
                 raise ValueError(f"page_len must be a multiple of 8 >= 8, got {page_len}")
             if max_len % page_len:
                 raise ValueError(f"max_len {max_len} must be a multiple of page_len {page_len}")
-        self.device = _params_device(params)
+        self.device = params_device(params)
+        self.tp = tp
+        if tp > 1:
+            if kv == "paged":
+                raise ValueError("model-axis TP serving currently requires kv='dense' "
+                                 "(the paged pool's page indirection is per-device)")
+            if cfg.n_kv_heads % tp or cfg.n_heads % tp:
+                raise ValueError(f"n_heads {cfg.n_heads} and n_kv_heads {cfg.n_kv_heads} "
+                                 f"must divide the model axis ({tp})")
+            if attn == "ragged":
+                raise ValueError("attn='ragged' is incompatible with model-axis TP (the decode kernel "
+                                 "is not partitioned over heads); use attn='auto'")
+            if any(isinstance(v, Q.QTensor) for v in _leaf_values(params)):
+                raise ValueError("int8 weights under model-axis TP (tp > 1) are not served: JAX's TP "
+                                 "engine cannot place them either; serve --int8 at --tp 1")
+            if "router" in params["layers"]:
+                raise NotImplementedError("Mixtral under model-axis TP is not ported yet (ROADMAP queue "
+                                          "A8b's second part)")
+            check_model_axis(cfg, tp)
+            attn = "bucketed"
+            params = ModelShards.place(params, sharding_rules(cfg), devices or tp_devices(tp, self.device))
+            self.device = params_device(params)
         if attn not in ("auto", "ragged", "bucketed"):
             raise ValueError(f"attn must be auto|ragged|bucketed, got {attn!r}")
         if attn == "auto" and (self.device.type == "cpu" or max_len <= self.RAGGED_THRESHOLD):
@@ -330,7 +397,7 @@ class ContinuousBatcher:
             #: prompt tokens whose prefill was skipped via prefix-cache hits
             self.prefix_hit_tokens = 0
         else:
-            self.cache = init_slot_cache(cfg, num_slots, max_len, self.device)
+            self.cache = init_slot_cache(cfg, num_slots, max_len, self._kv_devices())
         self.tokens = torch.zeros((num_slots,), dtype=torch.int32, device=self.device)
         self.gen = generator
         self.pending: list[_Request] = []
@@ -407,6 +474,10 @@ class ContinuousBatcher:
 
     # -- engine internals ---------------------------------------------------
 
+    def _kv_devices(self):
+        """Where a cache lives: the device, or each TP shard's."""
+        return self.params.axis.devices if isinstance(self.params, ModelShards) else self.device
+
     def _free_slots(self) -> list[int]:
         return [s for s in range(self.S) if s not in self.running]
 
@@ -425,7 +496,7 @@ class ContinuousBatcher:
         leader to register its pages, then re-matches instead of recomputing."""
         while self.pending and len(self._staged) < budget:
             req = self.pending.pop(0)
-            entry = _Staged(req, init_cache(self.cfg, 1, self.max_len, self.device))
+            entry = _Staged(req, init_cache(self.cfg, 1, self.max_len, self._kv_devices()))
             if self.kv == "paged":
                 entry.keys = prefix_keys(req.prompt, self.page_len)
                 self._match_prefix_into(entry)

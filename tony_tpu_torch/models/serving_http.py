@@ -61,7 +61,7 @@ from tony_tpu_torch.cluster.rpc import RpcClient, RpcError, own_host
 from tony_tpu_torch.device import resolve_device
 from tony_tpu_torch.models.convert import load_hf_dir
 from tony_tpu_torch.models.llama import PRESETS, init
-from tony_tpu_torch.models.serving import ContinuousBatcher
+from tony_tpu_torch.models.serving import ContinuousBatcher, tp_devices
 from tony_tpu_torch.obs import introspect
 from tony_tpu_torch.obs import logging as obs_logging
 from tony_tpu_torch.obs import metrics as obs_metrics
@@ -753,10 +753,14 @@ def _ack_drain(path: str, req_id: str, step: int) -> None:
 
 
 def _resolve_kv(args) -> str:
-    """``--kv`` when set; else paged wherever the page geometry fits
-    (``max_len`` a positive multiple of ``page_len``), dense otherwise."""
+    """``--kv`` when set; else dense under ``--tp > 1`` (the paged pool's
+    page indirection is per-device, as in JAX), paged wherever the page
+    geometry fits (``max_len`` a positive multiple of ``page_len``), dense
+    otherwise."""
     if args.kv is not None:
         return args.kv
+    if getattr(args, "tp", 1) > 1:
+        return "dense"
     if args.page_len <= 0 or args.max_len % args.page_len:
         obs_logging.warning(f"[tony-serve] kv defaulting to dense: max_len {args.max_len} is not a "
                             f"positive multiple of page_len {args.page_len}")
@@ -766,8 +770,17 @@ def _resolve_kv(args) -> str:
 
 def build_engine(args) -> ContinuousBatcher:
     """The engine ``args`` describe: a preset's seeded weights or ``--hf``'s
-    checkpoint, int8 where asked."""
+    checkpoint, int8 where asked. ``--tp N > 1`` places the shards on the
+    first N visible CUDA devices (the CPU N times under ``--device cpu``)
+    and raises when fewer are visible, as JAX's does; ``--int8`` with it
+    raises (JAX's engine cannot place int8 weights on a model axis)."""
     device = resolve_device(args.device)
+    devices = None
+    if args.tp > 1:
+        if args.int8:
+            raise ValueError(f"--int8 with --tp {args.tp}: int8 weights under model-axis TP are not "
+                             "served (JAX's TP engine cannot place them either); use --tp 1")
+        devices = tp_devices(args.tp, device)
     if args.hf:
         t0 = time.perf_counter()
         params, cfg = load_hf_dir(args.hf, device)
@@ -780,10 +793,10 @@ def build_engine(args) -> ContinuousBatcher:
         params = init(gen, cfg, device)
     if args.int8:
         params, _, _ = quant.quantize_tree(params)
-    return engine_for(params, cfg, args, device)
+    return engine_for(params, cfg, args, device, devices)
 
 
-def engine_for(params: dict, cfg, args, device) -> ContinuousBatcher:
+def engine_for(params: dict, cfg, args, device, devices=None) -> ContinuousBatcher:
     """The ``ContinuousBatcher`` of ``args``'s settings over ``params`` (as
     given: ``--int8`` is ``build_engine``'s)."""
     args.kv = _resolve_kv(args)
@@ -795,7 +808,7 @@ def engine_for(params: dict, cfg, args, device) -> ContinuousBatcher:
         temperature=args.temperature, top_k=args.top_k, generator=sample_gen,
         decode_chunk=args.decode_chunk, attn=args.attn, prefill_chunk=args.prefill_chunk,
         kv=args.kv, page_len=args.page_len,
-        num_pages=args.num_pages if args.num_pages > 0 else None, tp=args.tp,
+        num_pages=args.num_pages if args.num_pages > 0 else None, tp=args.tp, devices=devices,
     )
 
 
@@ -824,7 +837,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     p.add_argument("--page-len", type=int, default=256)
     p.add_argument("--num-pages", type=int, default=0,
                    help="page pool size (0 = dense-equivalent: slots x max_len)")
-    p.add_argument("--tp", type=int, default=1, help="tensor parallelism (only 1 is ported)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="model-axis tensor parallelism for the engine: its shards on the first N "
+                        "CUDA devices, the projections and KV heads split over them; dense kv, "
+                        "bucketed attention, no --int8")
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--top-k", type=int, default=0)
     p.add_argument("--eos-id", type=int, default=-1)

@@ -32,7 +32,20 @@ process group (``Mesh.axis_group``): ``all_gather`` (:33; its backward is
 the reduce-scatter), ``psum_scatter`` (:41; its backward is the
 all-gather), ``psum`` (:37; its backward is ``psum``) and
 ``ring_all_reduce_sum`` (:50, the scatter then the gather). Sums run in
-f32 and return the input's dtype. ``moe_all_to_all`` waits for the expert
+f32 and return the input's dtype.
+
+The ``model`` axis runs Megatron's pair over the model line's group:
+``copy_to_model`` (identity forward, ``psum`` backward) at the input of a
+column-parallel product, and ``reduce_from_model`` (``psum`` forward,
+identity backward) at the output of a row-parallel one. Unlike ``psum``,
+whose ``psum`` backward is right for a value every rank differentiates
+alone (the norm's scalar), the row-parallel output's upstream gradient is
+already the whole one on every rank, so a ``psum`` there would multiply it
+by the axis's size. ``pmax`` (no gradient) is the max the vocab-parallel
+logsumexp shifts by. ``DeviceModel`` is the same pair for shards held in
+one process (the serving engine's), each on its own device:
+``copy_to_model`` puts a tensor on every shard's device and
+``reduce_from_model`` sums the shards' partials on the first. ``moe_all_to_all`` waits for the expert
 axis (ROADMAP A11). The data axis's reduction of the gradients is
 ``all_reduce_mean`` (``psum`` over the gang, divided by its size), packed
 into flat f32 buckets so a step makes a few calls instead of one a tensor.
@@ -277,9 +290,7 @@ class _Psum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        out = x.float().clone()
-        dist.all_reduce(out, group=group)
-        return out.to(x.dtype)
+        return _psum_f32(x, group)
 
     @staticmethod
     def backward(ctx, g):
@@ -301,6 +312,88 @@ def psum_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 def psum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over the group's ranks, on every rank."""
     return _Psum.apply(x, group)
+
+
+def _psum_f32(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.float().clone()
+    dist.all_reduce(out, group=group)
+    return out.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum_f32(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _psum_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself forward; the backward sums its gradient over the model
+    line (the input of a column-parallel product, whose ranks each
+    differentiate their own columns). ``group`` None: the identity."""
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of the ranks' ``x`` over the model line forward (a
+    row-parallel product's partials); the gradient passes through as it
+    is. ``group`` None: the identity."""
+    return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def pmax(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over the group's ranks (no gradient)."""
+    out = x.detach().float().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+class DeviceModel:
+    """All ``n`` shards of the model axis in this process, shard s on
+    ``devices[s]`` (a device may repeat: shards then share it). The first
+    device is home: the residual stream, the norms' outputs and the joined
+    logits live there."""
+
+    def __init__(self, devices):
+        self.devices = [torch.device(d) for d in devices]
+        self.n = len(self.devices)
+        if self.n < 1:
+            raise ValueError("a model axis needs at least one shard")
+
+    def copy_to_model(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """``x`` on every shard's device (itself where it is already there)."""
+        return [x.to(d) for d in self.devices]
+
+    def reduce_from_model(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """The shards' partials summed in f32 on the home device, in shard
+        order, in their dtype (one shard: its partial itself)."""
+        if len(parts) == 1:
+            return parts[0]
+        home = self.devices[0]
+        out = parts[0].to(home, torch.float32)
+        for p in parts[1:]:
+            out = out + p.to(home, torch.float32)
+        return out.to(parts[0].dtype)
+
+    def join(self, parts: list[torch.Tensor], dim: int = -1) -> torch.Tensor:
+        """The shards' blocks concatenated along ``dim`` on the home device
+        (the vocab-parallel head's logits, whole)."""
+        return torch.cat([p.to(self.devices[0]) for p in parts], dim) if len(parts) > 1 else parts[0]
 
 
 def ring_all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:

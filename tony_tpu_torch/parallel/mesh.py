@@ -2,7 +2,7 @@
 
 Counterpart of ``tony_tpu/parallel/mesh.py``: the same six axes
 (``stage``, ``data``, ``fsdp``, ``expert``, ``context``, ``model``) and the
-same ``MeshSpec``. The port runs three axes:
+same ``MeshSpec``. The port runs four axes:
 
 - ``context``: every context shard on this process's one device, in the
   ``Mesh``'s ``ring`` (a ``DeviceRing``), as the JAX package's
@@ -15,12 +15,19 @@ same ``MeshSpec``. The port runs three axes:
   the ``device_mesh``'s (a torch ``DeviceMesh`` over (data, fsdp)) groups
   gather and reduce-scatter. ``MeshSpec.auto`` fills the gang into
   ``fsdp``, as JAX's does; a data axis is asked for by name
-  (``MeshSpec(data=2)``).
+  (``MeshSpec(data=2)``);
+- ``model``: Megatron's tensor parallelism (Llama only), one device a
+  process: the gang's ranks are laid out row-major over (data, fsdp,
+  model), ``model`` varying fastest as in JAX's ``ALL_AXES`` order. The
+  ranks of one model line hold the other blocks of the same leaves and
+  take the same rows, so the ``Mesh``'s ``group`` is then the data × fsdp
+  ranks of this rank's model index, and ``model_group(mesh)`` the model
+  line.
 
 ``build`` gives a ``Mesh`` whose ``shape`` is the JAX mesh's dict and whose
 ``device`` is the card (or the CPU, when asked for). A context axis across
-a gang (A12) and the model, expert and stage axes above 1 raise until they
-are ported (TP: A8b; experts: A11; stages: A13).
+a gang or beside a model axis (A12) and the expert and stage axes above 1
+raise until they are ported (experts: A11; stages: A13).
 """
 
 from __future__ import annotations
@@ -46,26 +53,30 @@ AXIS_STAGE = "stage"
 # canonical order: slowest-varying (DCN-friendly) first
 ALL_AXES = (AXIS_STAGE, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_CONTEXT, AXIS_MODEL)
 DCN_SAFE_AXES = frozenset({AXIS_DATA, AXIS_FSDP, AXIS_STAGE})
-_UNPORTED = {AXIS_MODEL: "A8b", AXIS_EXPERT: "A11", AXIS_STAGE: "A13"}
-#: the axes a port model runs under (``context_degree``): the context ring,
-#: and the gang's data and fsdp axes
+_UNPORTED = {AXIS_EXPERT: "A11", AXIS_STAGE: "A13"}
+#: the axes every port model runs under (``context_degree``): the context
+#: ring, and the gang's data and fsdp axes; a model that runs tensor
+#: parallelism also runs the model axis
 _MODEL_AXES = (AXIS_CONTEXT, AXIS_DATA, AXIS_FSDP)
 #: the gang's axes, in the order of the ``DeviceMesh``'s dimensions
-GANG_AXES = (AXIS_DATA, AXIS_FSDP)
+GANG_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_MODEL)
 
 
 @dataclass(frozen=True)
 class Mesh:
     """What the port reads of a mesh: ``shape`` (axis → size, all six axes),
     the device the shards live on, the context ring, the process group the
-    batch splits over (the gang; None for one process) and the gang's
-    ``DeviceMesh`` over (data, fsdp) (None for one process)."""
+    batch splits over (the data × fsdp ranks of this rank's model index:
+    the whole gang without a model axis; None for one process), the gang's
+    ``DeviceMesh`` over (data, fsdp, model) and the whole gang's group, which
+    saves and restores checkpoints together (both None for one process)."""
 
     shape: dict
     device: torch.device
     ring: DeviceRing
     group: object = None
     device_mesh: object = None
+    gang: object = None
 
     def axis_group(self, axis: str):
         """The process group of this rank's line along a gang axis."""
@@ -116,9 +127,9 @@ class MeshSpec:
 
     def build(self, device: torch.device | str | None = None) -> Mesh:
         """A ``Mesh`` on ``device`` (CUDA unless the CPU is asked for) whose
-        context ring holds all ``context`` shards there and whose data and
-        fsdp axes are the gang this process joined (``data × fsdp`` its
-        processes). A gang over ``TPU_NUM_SLICES`` slices (the env; 1 when
+        context ring holds all ``context`` shards there and whose data, fsdp
+        and model axes are the gang this process joined (``data × fsdp ×
+        model`` its processes). A gang over ``TPU_NUM_SLICES`` slices (the env; 1 when
         unset) puts a slice boundary on one axis, which a data, fsdp or
         stage axis must absorb, as in JAX; the gang's axes are outermost."""
         unported = {a: self.axis_sizes[a] for a in self.active_axes() if a in _UNPORTED}
@@ -126,36 +137,59 @@ class MeshSpec:
             items = sorted(set(_UNPORTED[a] for a in unported))
             raise NotImplementedError(
                 f"mesh axes {unported} are not ported yet (ROADMAP queue {', '.join(items)}); "
-                "the port runs the data and fsdp axes (the gang) and a context axis")
-        procs = self.data * self.fsdp
+                "the port runs the data, fsdp and model axes (the gang) and a context axis")
+        if self.model > 1 and self.context > 1:
+            raise NotImplementedError(
+                f"a model axis ({self.model}) beside a context axis ({self.context}) is not ported yet "
+                "(ROADMAP queue A12): the port runs the model axis (A8b) across a gang and holds every "
+                "context shard in one process")
+        procs = self.data * self.fsdp * self.model
         if procs > 1 and self.context > 1:
             raise NotImplementedError(
                 f"a context axis ({self.context}) across a gang of {procs} processes is not "
                 "ported yet (ROADMAP queue A12); the port holds every context shard in one process")
         if procs != process_count():
-            raise ValueError(f"data {self.data} x fsdp {self.fsdp} needs a gang of as many processes, "
-                             f"one device a process; this gang has {process_count()}")
+            raise ValueError(f"data {self.data} x fsdp {self.fsdp} x model {self.model} needs a gang of as "
+                             f"many processes, one device a process; this gang has {process_count()}")
         num_slices = int(os.environ.get(constants.ENV_TPU_NUM_SLICES, "1") or "1")
         if num_slices > 1 and not any(self.axis_sizes[a] % num_slices == 0 and self.axis_sizes[a] > 1
                                       for a in ALL_AXES if a in DCN_SAFE_AXES):
             raise ValueError(f"cannot place {num_slices} slices: no DCN-safe axis "
                              f"(one of {sorted(DCN_SAFE_AXES)}) is divisible by the slice count")
         dev = resolve_device(device)
-        device_mesh = gang_device_mesh(dev.type, (self.data, self.fsdp), GANG_AXES) if procs > 1 else None
+        if procs == 1:
+            return Mesh(shape={a: self.axis_sizes[a] for a in ALL_AXES}, device=dev,
+                        ring=DeviceRing(self.context, dev))
+        device_mesh = gang_device_mesh(dev.type, (self.data, self.fsdp, self.model), GANG_AXES)
+        group = dist.group.WORLD
+        if self.model > 1:
+            # one group a model index, every rank making all of them in order
+            group, _ = dist.new_subgroups_by_enumeration(
+                [list(range(m, procs, self.model)) for m in range(self.model)])
         return Mesh(shape={a: self.axis_sizes[a] for a in ALL_AXES}, device=dev,
-                    ring=DeviceRing(self.context, dev),
-                    group=dist.group.WORLD if procs > 1 else None, device_mesh=device_mesh)
+                    ring=DeviceRing(self.context, dev), group=group, device_mesh=device_mesh,
+                    gang=dist.group.WORLD)
 
 
-def context_degree(mesh) -> int:
+def context_degree(mesh, tensor_parallel: bool = False) -> int:
     """The context degree of ``mesh`` (1 for None); raises for a mesh the
-    port does not run (TP, expert or stage axes above 1, or not a mesh of
-    the port). The data and fsdp axes are the gang's."""
+    port does not run (expert or stage axes above 1, a model axis where the
+    caller does not run ``tensor_parallel``, or not a mesh of the port).
+    The data, fsdp and model axes are the gang's."""
     if mesh is None:
         return 1
     shape = mesh.shape if isinstance(mesh, Mesh) else None
-    if shape is None or any(v > 1 for a, v in shape.items() if a not in _MODEL_AXES):
+    runs = _MODEL_AXES + ((AXIS_MODEL,) if tensor_parallel else ())
+    if shape is None or any(v > 1 for a, v in shape.items() if a not in runs):
         raise NotImplementedError(
-            "a device mesh with TP, expert or pipeline axes is not ported yet "
-            "(ROADMAP queue A8b, A11, A13); the port runs the data, fsdp and context axes")
+            "a device mesh with TP, expert or pipeline axes is not ported yet for this model "
+            "(ROADMAP queue A8b's second part: BERT and Mixtral on the model axis; A11, A13); "
+            "the port runs the data, fsdp and context axes, and the model axis for Llama")
     return shape[AXIS_CONTEXT]
+
+
+def model_group(mesh):
+    """The process group of this rank's model line (None for no mesh or a
+    model axis of 1): Megatron's pair and the vocab-parallel loss reduce
+    over it."""
+    return mesh.axis_group(AXIS_MODEL) if axis_size(mesh, AXIS_MODEL) > 1 else None

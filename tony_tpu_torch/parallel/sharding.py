@@ -10,23 +10,28 @@ is the generic rule for a model that ships none.
 JAX places a leaf with ``NamedSharding`` and lets XLA insert the
 collectives; eager torch has no propagation, so the port moves shards
 itself, and ``constrain`` (a sharding constraint on an activation) has no
-counterpart. ``shard_dim`` reads a spec on a mesh: the dim the ``fsdp``
-axis splits, where the spec names that axis and the axis is above 1. An
-axis of size 1 splits nothing, so a one-process run and a one-rank gang
-hold every leaf whole and move nothing, as ``stop_transfer_if_single``
-keeps a size-1 axis off the collective path in JAX. ``placements`` turns
-that into torch placements (``Shard(d)`` on the mesh's fsdp dimension,
-``Replicate()`` elsewhere), the one place that builds them, for the
-checkpoint's ``DTensor`` blocks (``Layout.block``); it imports
-``torch.distributed.tensor`` when first called, which a process that never
-writes a split leaf skips.
+counterpart. ``split_dim`` reads a spec on a mesh: the dim a gang axis
+(``fsdp`` or ``model``) splits, where the spec names that axis and the
+axis is above 1 (``shard_dim``: the fsdp axis's). An axis of size 1
+splits nothing, so a one-process run and a one-rank gang hold every leaf
+whole and move nothing, as ``stop_transfer_if_single`` keeps a size-1
+axis off the collective path in JAX. ``placements`` turns that into torch
+placements on the gang's (data, fsdp, model) ``DeviceMesh``
+(``Shard(d)`` on the axis that splits dim d, ``Replicate()`` elsewhere),
+the one place that builds them, for the checkpoint's ``DTensor`` blocks
+(``Layout.block``); it imports ``torch.distributed.tensor`` when first
+called, which a process that never writes a split leaf skips.
 
-On an ``fsdp`` axis above 1 each rank keeps ``1/fsdp`` of a sharded leaf
-(``shard``: its block of the split dimension) and the model gathers the
-leaf where it uses it (``gather``, ``gather_layer``): the all-gather's
-backward reduce-scatters the gradient, so the gradient arrives sharded as
-the leaf is. ``Layout`` is what a train state keeps of this: the rules and
-the mesh, by leaf name.
+Each rank keeps its block of a leaf (``shard``): ``1/fsdp`` of the dim the
+fsdp axis splits and ``1/model`` of the dim the model axis splits (a spec
+that names both on one dim nests the model block in the fsdp block, as
+``DTensor`` does; no model's rules do). The model gathers the fsdp axis
+only, where it uses a leaf (``gather``, ``gather_layer``): the
+all-gather's backward reduce-scatters the gradient, so the gradient
+arrives sharded as the leaf is. The model axis's blocks stay split: that
+is tensor parallelism, and the model computes on them
+(``models/llama.py``). ``Layout`` is what a train state keeps of this: the
+rules and the mesh, by leaf name.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from typing import Callable, Iterable
 import torch
 
 from tony_tpu_torch.parallel.collectives import all_gather
-from tony_tpu_torch.parallel.mesh import AXIS_FSDP, Mesh, axis_size
+from tony_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_MODEL, GANG_AXES, Mesh, axis_size
 
 #: ``init``'s hook: (leaf name, whole leaf as drawn) → the tensor to keep
 Place = Callable[[str, torch.Tensor], torch.Tensor]
@@ -94,35 +99,44 @@ def _names(entry) -> tuple:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
-def shard_dim(spec: tuple, mesh: Mesh | None) -> int | None:
-    """The dim of a leaf with ``spec`` that the mesh splits: the entry that
-    names fsdp, when that axis is above 1 (None: the leaf is whole).
-    Parameters never split over data."""
-    if axis_size(mesh, AXIS_FSDP) == 1:
+def split_dim(spec: tuple, mesh: Mesh | None, axis: str) -> int | None:
+    """The dim of a leaf with ``spec`` that the gang axis ``axis`` splits:
+    the entry that names it, when that axis is above 1 (None: the axis
+    leaves the leaf whole). Parameters never split over data."""
+    if axis_size(mesh, axis) == 1:
         return None
-    return next((d for d, entry in enumerate(spec) if AXIS_FSDP in _names(entry)), None)
+    return next((d for d, entry in enumerate(spec) if axis in _names(entry)), None)
+
+
+def shard_dim(spec: tuple, mesh: Mesh | None) -> int | None:
+    """The dim the fsdp axis splits (``split_dim``'s)."""
+    return split_dim(spec, mesh, AXIS_FSDP)
 
 
 def placements(spec: tuple, mesh: Mesh | None) -> list:
-    """The torch placements of a leaf with ``spec`` on the mesh's (data,
-    fsdp) dimensions: ``Shard(d)`` on fsdp for ``shard_dim``'s d, else
-    ``Replicate()``."""
+    """The torch placements of a leaf with ``spec`` on the gang's (data,
+    fsdp, model) dimensions: ``Shard(d)`` on an axis that splits dim d,
+    else ``Replicate()``."""
     from torch.distributed.tensor import Replicate, Shard
 
-    dim = shard_dim(spec, mesh)
-    return [Replicate(), Replicate() if dim is None else Shard(dim)]
+    dims = [split_dim(spec, mesh, a) for a in GANG_AXES]
+    return [Replicate() if d is None else Shard(d) for d in dims]
 
 
 def shard(full: torch.Tensor, spec: tuple, mesh: Mesh | None) -> torch.Tensor:
     """This rank's block of ``full`` (a copy, so ``full`` can be freed), or
-    ``full`` itself when the mesh does not split it."""
-    dim = shard_dim(spec, mesh)
-    if dim is None:
-        return full
-    n = axis_size(mesh, AXIS_FSDP)
-    if full.shape[dim] % n:
-        raise ValueError(f"dim {dim} of a {list(full.shape)} leaf does not split into fsdp {n} shards")
-    return full.chunk(n, dim)[mesh.axis_index(AXIS_FSDP)].clone()
+    ``full`` itself when the mesh does not split it: its fsdp block, then
+    the model block of that, as ``DTensor`` nests two shards of one dim."""
+    out = full
+    for axis in (AXIS_FSDP, AXIS_MODEL):
+        dim = split_dim(spec, mesh, axis)
+        if dim is None:
+            continue
+        n = axis_size(mesh, axis)
+        if out.shape[dim] % n:
+            raise ValueError(f"dim {dim} of a {list(full.shape)} leaf does not split into {axis} {n} shards")
+        out = out.chunk(n, dim)[mesh.axis_index(axis)]
+    return full if out is full else out.clone()
 
 
 def gather(local: torch.Tensor, spec: tuple, mesh: Mesh | None) -> torch.Tensor:
@@ -160,9 +174,30 @@ def gathering(block, rules: ShardingRules, mesh: Mesh | None, prefix: str = "lay
 
 
 def shard_params(params: dict, rules: ShardingRules, mesh: Mesh | None, prefix: str = "") -> dict:
-    """Each leaf of ``params`` placed per the rules: this rank's block."""
+    """Each leaf of ``params`` placed per the rules: this rank's block (the
+    bridge that hands the same weights to a gang's ranks)."""
     return {k: shard_params(v, rules, mesh, f"{prefix}{k}/") if isinstance(v, dict)
             else shard(v, rules.spec_for(prefix + k), mesh) for k, v in params.items()}
+
+
+def model_shards(params: dict, rules: ShardingRules, n: int, prefix: str = "") -> list[dict]:
+    """``params`` cut into the ``n`` blocks of a model axis held in one
+    process (the serving engine's shards): tree s holds block s of each
+    leaf on the dim its spec names ``model`` (views of ``params``), the
+    whole leaf elsewhere."""
+    trees: list[dict] = [{} for _ in range(n)]
+    for k, v in params.items():
+        if isinstance(v, dict):
+            for tree, sub in zip(trees, model_shards(v, rules, n, f"{prefix}{k}/")):
+                tree[k] = sub
+            continue
+        spec = rules.spec_for(prefix + k)
+        dim = next((d for d, entry in enumerate(spec) if AXIS_MODEL in _names(entry)), None) if n > 1 else None
+        if dim is not None and v.shape[dim] % n:
+            raise ValueError(f"dim {dim} of a {list(v.shape)} leaf does not split into {AXIS_MODEL} {n} shards")
+        for tree, block in zip(trees, [v] * n if dim is None else v.chunk(n, dim)):
+            tree[k] = block
+    return trees
 
 
 class Layout:
@@ -171,13 +206,22 @@ class Layout:
 
     def __init__(self, rules: ShardingRules, mesh: Mesh | None):
         self.rules, self.mesh = rules, mesh
-        self.sharded = axis_size(mesh, AXIS_FSDP) > 1
+        self.sharded = axis_size(mesh, AXIS_FSDP) * axis_size(mesh, AXIS_MODEL) > 1
 
     def spec(self, name: str) -> tuple:
         return self.rules.spec_for(name)
 
     def dim(self, name: str) -> int | None:
+        """The dim the fsdp axis splits (None: whole on that axis)."""
         return shard_dim(self.spec(name), self.mesh)
+
+    def model_dim(self, name: str) -> int | None:
+        """The dim the model axis splits (None: whole on that axis)."""
+        return split_dim(self.spec(name), self.mesh, AXIS_MODEL)
+
+    def split(self, name: str) -> bool:
+        """Whether this rank holds a block of the leaf on either axis."""
+        return self.dim(name) is not None or self.model_dim(name) is not None
 
     def place(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """``init``'s hook: keep this rank's block of a freshly drawn leaf."""
@@ -185,15 +229,16 @@ class Layout:
 
     def full_shape(self, name: str, local: torch.Tensor) -> tuple:
         shape = list(local.shape)
-        if (dim := self.dim(name)) is not None:
-            shape[dim] *= axis_size(self.mesh, AXIS_FSDP)
+        for axis in (AXIS_FSDP, AXIS_MODEL):
+            if (dim := split_dim(self.spec(name), self.mesh, axis)) is not None:
+                shape[dim] *= axis_size(self.mesh, axis)
         return tuple(shape)
 
     def block(self, name: str, local: torch.Tensor):
         """``local`` as the checkpoint sees it: where the leaf is split, a
         ``DTensor`` over the gang's ``DeviceMesh`` on the same storage, its
         placements and whole shape the leaf's; else ``local`` itself."""
-        if self.dim(name) is None:
+        if not self.split(name):
             return local
         from torch.distributed.tensor import DTensor
 

@@ -12,9 +12,14 @@ and at the end, and resume after a gang restart.
   global batch, and the trainer reduces the gradients over the gang, so a
   gang's trajectory is that of one process on the same global batches.
   Each step report carries this rank's parameter and optimizer bytes.
-  ``context_axis > 1`` trains with every context shard on this process's
-  one device; a context axis across a gang, and the model, expert and
-  stage axes, raise until ported (ROADMAP queue A8b, A11, A12, A13).
+  ``model_axis > 1`` runs Llama's tensor parallelism across the gang
+  (``MeshSpec.auto(model=…)`` fills the rest into fsdp): the ranks of a
+  model line take the same rows, so rows, shards and the data cursor are
+  cut by the data × fsdp index. ``context_axis > 1`` trains with every
+  context shard on this process's one device; a context axis across a
+  gang or beside a model axis, the model axis for Mixtral and BERT, and
+  the expert and stage axes raise until ported (ROADMAP queue A8b's second
+  part, A11, A12, A13).
 - Batches come from ``*.tonytok`` shards under ``data_dir`` through
   ``TokenLoader`` (a pure function of (data_seed, global slot); rank 0
   writes the consumption cursor beside each checkpoint and a resume
@@ -153,12 +158,21 @@ def _refuse_unported(model_module, loop: LoopConfig) -> None:
             "--data_dir with BERT: the shard loader yields next-token LM rows, and BERT's "
             "loss_fn takes MLM batches (masked_pos/masked_targets or targets); train BERT on "
             "synthetic batches")
-    asked = {name: getattr(loop, name) for name in
-             ("model_axis", "expert_axis", "stage_axis") if getattr(loop, name) > 1}
+    asked = {name: getattr(loop, name) for name in ("expert_axis", "stage_axis") if getattr(loop, name) > 1}
     if asked:
         raise NotImplementedError(
-            f"{asked}: not ported yet — the port trains a gang on the data and fsdp axes with a "
-            "context axis in one process (ROADMAP queue A8b TP, A11 experts, A13 stages)")
+            f"{asked}: not ported yet — the port trains a gang on the data, fsdp and model axes with a "
+            "context axis in one process (ROADMAP queue A11 experts, A13 stages)")
+    if loop.model_axis > 1:
+        name = getattr(model_module, "__name__", "").rsplit(".", 1)[-1]
+        if name != "llama":
+            raise NotImplementedError(
+                f"model_axis {loop.model_axis} for {name}: not ported yet — the port runs the model axis "
+                "for Llama (ROADMAP queue A8b's second part: BERT's wqkv blocks, Mixtral's experts)")
+        if loop.context_axis > 1:
+            raise NotImplementedError(
+                f"model_axis {loop.model_axis} with context_axis {loop.context_axis}: not ported yet "
+                "(ROADMAP queue A12); the model axis runs across the gang, a context axis in one process")
     procs = world_size_from_env()
     if procs > 1 and loop.context_axis > 1:
         raise NotImplementedError(
@@ -218,15 +232,17 @@ def _run_gang(model_module, model_cfg, loop: LoopConfig, tracer) -> dict:
 
 
 def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.device) -> dict:
-    procs, rank = process_count(), process_index()
+    procs = process_count()
     mesh = MeshSpec.auto(model=loop.model_axis, context=loop.context_axis,
                          expert=loop.expert_axis, stage=loop.stage_axis).build(device)
-    if loop.batch_size % procs:
+    # the batch splits over data × fsdp; the ranks of a model line take the same rows
+    rows_world, rows_rank = procs // loop.model_axis, process_index() // loop.model_axis
+    if loop.batch_size % rows_world:
         raise ValueError(
             f"global batch_size {loop.batch_size} must divide by the gang's "
-            f"{procs} processes (elastic restarts re-split the SAME global "
-            "batch across the new gang)")
-    local_rows = loop.batch_size // procs
+            f"{rows_world} processes that split the batch (data x fsdp: a model line takes one "
+            "row slice; elastic restarts re-split the SAME global batch across the new gang)")
+    local_rows = loop.batch_size // rows_world
 
     opt = OptimizerConfig(
         learning_rate=loop.learning_rate, warmup_steps=loop.warmup_steps,
@@ -241,7 +257,7 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
         return sharded_init(lambda place: model_module.init(gen, model_cfg, device, place), rules, mesh, opt)
 
     state, ckpt_mgr, start_step = restore_or_init(
-        loop.checkpoint_dir or None, init_state, TrainState.load, group=mesh.group)
+        loop.checkpoint_dir or None, init_state, TrainState.load, group=mesh.gang)
     if start_step:
         obs_logging.info(f"[train] resumed from checkpoint step {start_step}", step=start_step)
     state_bytes = {"param_bytes": tree_bytes(state.params),
@@ -250,7 +266,7 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
     # a partial keeps the loss's keywords in sight: make_train_step hands a
     # loss that takes ``group`` (Mixtral's router losses) the ranks sharing its batch
     # a mesh of one device reaches the model as None: the unsharded path
-    model_mesh = mesh if mesh.shape["context"] * mesh.shape["fsdp"] > 1 else None
+    model_mesh = mesh if mesh.shape["context"] * mesh.shape["fsdp"] * mesh.shape["model"] > 1 else None
     loss_fn = functools.partial(model_module.loss_fn, cfg=model_cfg, mesh=model_mesh)
     step_fn = make_train_step(loss_fn, opt, group=mesh.group)
     probe = model_module.synthetic_batch(_batch_generator(device, 0, 0), 1, loop.seq_len, model_cfg)
@@ -273,17 +289,17 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
                 cursor.validate_resume(loop.batch_size, loop.data_seed, start_step)
                 obs_logging.info(
                     f"[train] data cursor validated: resuming the global stream at batch "
-                    f"{start_step} (written at world size {cursor.world_size}, now {procs})",
+                    f"{start_step} (written at world size {cursor.world_size}, now {rows_world})",
                     step=start_step)
-        loader = TokenLoader(paths, local_rows, loop.seq_len, shard_id=rank, num_shards=procs,
+        loader = TokenLoader(paths, local_rows, loop.seq_len, shard_id=rows_rank, num_shards=rows_world,
                              seed=loop.data_seed, start_index=start_step)
         obs_logging.info(f"[train] data: {len(paths)} shards, {loader.total_tokens} tokens, "
                          f"native={loader.is_native}")
 
     def drop_cursor(next_batch: int) -> None:
-        if loader is not None and rank == 0:
+        if loader is not None and process_index() == 0:
             ConsumptionCursor(global_batch_index=next_batch, global_batch_size=loop.batch_size,
-                              seed=loop.data_seed, world_size=procs).save(loop.checkpoint_dir)
+                              seed=loop.data_seed, world_size=rows_world).save(loop.checkpoint_dir)
 
     def make_batch(step: int) -> dict:
         """Batch ``step`` of this rank; runs on the pipeline's thread, in step
@@ -292,15 +308,15 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
             return {"tokens": torch.from_numpy(loader.next()).to(device, torch.long)}
         batch = model_module.synthetic_batch(_batch_generator(device, loop.data_seed, step),
                                              loop.batch_size, loop.seq_len, model_cfg)
-        return {k: v[rank * local_rows:(rank + 1) * local_rows] for k, v in batch.items()}
+        return {k: v[rows_rank * local_rows:(rows_rank + 1) * local_rows] for k, v in batch.items()}
 
     # a drain request reaches each rank's executor on its own clock; the
     # gang agrees each step (a one-int all-reduce over a CPU group) so that
     # its ranks save together
     urgent = UrgentSaveSignal()
     ctl_group = None
-    if mesh.group is not None and ckpt_mgr is not None:
-        ctl_group = mesh.group if device.type == "cpu" else dist.new_group(backend="gloo")
+    if mesh.gang is not None and ckpt_mgr is not None:
+        ctl_group = mesh.gang if device.type == "cpu" else dist.new_group(backend="gloo")
 
     def drain_request() -> str | None:
         """This rank's new request id; "" when only a peer's is new; else None."""

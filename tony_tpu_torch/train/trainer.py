@@ -40,6 +40,17 @@ leaf the rules keep whole takes the mean over the whole gang. The global
 norm sums the squares of the blocks over the fsdp axis (one scalar
 collective) and adds those of the whole leaves once.
 
+On a ``model`` axis the ranks of a model line take the same rows and
+hold the other blocks of the same leaves: ``group`` is then the data ×
+fsdp ranks of this rank's model index (``Mesh.group``), over which the
+weighing and the means run; a leaf split on the model axis alone is
+averaged over that group as a whole leaf is. Megatron's pair
+(``copy_to_model``'s backward) already sums the activations' gradients
+over the line, so a leaf the rules keep whole (the norms) has the same
+gradient on every rank of it, and the global norm sums the squares of a
+leaf split on either axis over fsdp then model, each counted once (a
+block one axis leaves whole is divided by that axis's size first).
+
 With ``accum_steps`` A > 1 the gang computes JAX's scan over the global
 batch: microbatch i is global rows i·mb … (i+1)·mb, one token mean each,
 and the loss and gradients are the mean over the A microbatches. Rank r
@@ -71,7 +82,7 @@ import torch
 import torch.distributed as dist
 
 from tony_tpu_torch.parallel.collectives import all_reduce_mean
-from tony_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP
+from tony_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP, AXIS_MODEL
 from tony_tpu_torch.parallel.sharding import Layout, ShardingRules
 
 
@@ -93,11 +104,21 @@ def global_norm(tensors) -> torch.Tensor:
 
 def sharded_global_norm(grads: dict[str, torch.Tensor], layout: Layout) -> torch.Tensor:
     """‖g‖ of the whole leaves' gradients from this rank's blocks: the
-    blocks' squares summed over the fsdp axis, plus the whole leaves' once."""
+    squares of the leaves split on the fsdp or the model axis summed over
+    both (a block replicated on one of them divided by its size, so each
+    counts once), plus the whole leaves' once."""
+    mesh = layout.mesh
     zero = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
-    split = sum((g.float().square().sum() for n, g in grads.items() if layout.dim(n) is not None), zero)
-    dist.all_reduce(split, group=layout.mesh.axis_group(AXIS_FSDP))
-    whole = sum((g.float().square().sum() for n, g in grads.items() if layout.dim(n) is None), zero)
+    split = zero
+    for n, g in grads.items():
+        if layout.split(n):
+            copies = (mesh.shape[AXIS_FSDP] if layout.dim(n) is None else 1) * \
+                (mesh.shape[AXIS_MODEL] if layout.model_dim(n) is None else 1)
+            split = split + g.float().square().sum() / copies
+    for axis in (AXIS_FSDP, AXIS_MODEL):
+        if mesh.shape[axis] > 1:
+            dist.all_reduce(split, group=mesh.axis_group(axis))
+    whole = sum((g.float().square().sum() for n, g in grads.items() if not layout.split(n)), zero)
     return torch.sqrt(split + whole)
 
 
@@ -291,6 +312,10 @@ def _microbatch_group(group, slots: int, slot: int):
         return group
     if slots == world:
         return None
+    if world != dist.get_world_size():
+        raise NotImplementedError(
+            "a loss that pools over a microbatch slot of a model line's group: the slot groups of "
+            "every model line are not made (Mixtral on the model axis, ROADMAP A8b's second part)")
     ranks, per = dist.get_process_group_ranks(group), world // slots
     return [dist.new_group(ranks[i * per:(i + 1) * per]) for i in range(slots)][slot]
 
@@ -383,10 +408,10 @@ def make_train_step(
         return loss, aux, {n: s * inv for (n, _), s in zip(leaves, sums)}
 
     def reduce_grads(grads: dict, layout: Layout | None) -> None:
-        """The gang's mean of the weighed gradients, in place: over the
-        whole gang for a whole leaf; for a block (already summed over the
-        fsdp axis by the gather's backward) over the data axis, divided by
-        fsdp."""
+        """The gang's mean of the weighed gradients, in place: over
+        ``group`` (data × fsdp) for a leaf the fsdp axis leaves whole; for a
+        block of the fsdp axis (already summed over it by the gather's
+        backward) over the data axis, divided by fsdp."""
         split = [g for n, g in grads.items() if layout is not None and layout.dim(n) is not None]
         whole = [g for n, g in grads.items() if layout is None or layout.dim(n) is None]
         if whole:
