@@ -66,14 +66,14 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    2 layers, B=1, T=2048); two planted faults (a query head dropped by B1,
    or by B3) must fail the limits the kernels pass;
 5. train: ``run_lm_training`` in this process at the full 8B width cut to
-   8 layers (bf16, remat "full", ce_chunk 512, B=4, T=2048): 3 steps with a
+   4 layers (bf16, remat "full", ce_chunk 512, B=4, T=2048): 3 steps with a
    checkpoint, then a second call to 6 steps that must resume at step 3;
    prints loss and grad_norm per step, tok/s, ms/step, MFU, peak memory and
    the B1-B3 launches of the two calls; then the same step on a fresh state
    split with CUDA events into loss + gradients and the optimizer update,
    and its device time by kernel family from ``torch.profiler`` with the
    card's busy share of the profiled window;
-5r. remat policies: the train shape (8 layers, B=4, T=2048) under "full",
+5r. remat policies: the train shape (4 layers, B=4, T=2048) under "full",
    "dots" and "flash" from one state and batch: the loss and every gradient
    of each against "full"'s within the whole-step limits (and whether the
    bits are identical), B1 launched 2L / 2L / L times a forward and
@@ -117,7 +117,8 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    spills fails the run), then the grouped SwiGLU forward and
    backward against their plain versions at Mixtral-8x7B widths (D 4096,
    F 14336, 8 experts, top-2) on three routings (the train shape B=4,
-   T=2048; every token to experts 0 and 1; one 1000-token prompt), ys and
+   T=2048; every token to experts 0 and 1; one 1000-token prompt) and at
+   a ``[mixtral-tp]`` rank's ``F/2`` = 7168 columns (B=1, T=2048), ys and
    dxs row by row and each expert's dW in relative norm, with a planted
    fault (each expert's last row tile on the next expert's weights) that
    must fail every check; times against the three grouped GEMMs of
@@ -147,8 +148,9 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
 10. BERT-base MLM (last, with every earlier phase's state freed): B1-B3 on
     BERT's shapes (non-causal, H = Hkv = 12, Dh 64, T=512: bench.py's B=384,
     and B=64 rows of three packed segments and a padded tail), held, faulted
-    and timed as the Llama cases, each also twice for the same bits and with
-    a query head dropped by B1 and by B3; ``[bert-step]``: ``loss_fn`` and
+    and timed as the Llama cases (the plain versions compared, not timed:
+    seconds a call at these shapes), each also twice for the same bits and
+    with a query head dropped by B1 and by B3; ``[bert-step]``: ``loss_fn`` and
     every gradient through the kernels against ``attn_impl="reference"``
     (12 layers, bf16, B=8, T=512) on the gathered layout and on a dense
     packed batch, with a query head dropped by B1 that must fail;
@@ -189,8 +191,9 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
     B1-B3, B7, B8 launches as remat "full" schedules them;
 13. ``[fsdp]``: a gang of two processes on the one card over gloo
     (nccl refuses two ranks on one card), on the mesh's fsdp axis
-    (``MeshSpec.auto``'s fill): ``run_lm_training`` at the full ``llama-1b``
-    preset, B=8, T=2048, 3 steps with sharded asynchronous saves after step
+    (``MeshSpec.auto``'s fill): ``run_lm_training`` at ``llama-1b`` cut to
+    ``FSDP_LAYERS`` of its 16 layers, B=8, T=2048, 3 steps with sharded
+    asynchronous saves after step
     2 and at the end; each rank's losses and grad norms against one process
     on the global batch within ``FSDP_REL``, each rank holding half of every
     split leaf and its moments, B1-B3 launched on each, the newest step
@@ -217,11 +220,30 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
     the tp=1 engine on the same weights: the same greedy tokens on 4
     requests, the decode ms/step of both (reported), and a planted fault
     (one shard's row partial dropped) that must change the tokens;
-16. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
+16. ``[mixtral-tp]``: the ``[tp]`` gang for Mixtral (``tp_phase`` with the
+    family) at Mixtral-8x7B widths cut to 2 layers (bf16, remat "full",
+    B=1, T=2048): each rank's experts on F/tp = 7168 columns (B7/B8 on
+    ``[8, 4096, 7168]`` blocks), 3 steps and a sharded save held as
+    ``[tp]``'s, with the router losses among the held metrics, B1-B3, B7
+    and B8 launched by each rank as often as by one process, and the
+    router's gradient the same bits on both ranks at every step; two
+    planted faults that must fail: combine gates whose gradient skips the
+    line's sum (the router gradients differ) and a rank whose expert
+    output skips ``reduce_from_model``;
+17. ``[mixtral-tp-serve]``: the TP engine against the tp=1 engine at
+    Mixtral-8x7B widths cut to 4 layers in bf16, every prompt's prefill
+    through B7 on each shard's blocks: the decode ms/step of both
+    (reported); both fed tp 1's tokens, every prefill's and decode step's
+    logits row within ``MIXTRAL_TP_SERVE_ROW_TOL`` of tp 1's and the
+    argmax tp 1's where its margin is clear; contiguous expert blocks; a
+    planted fault (one shard's expert partial dropped) that must read above
+    the limit;
+18. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
     their ``[bench-bert]`` launches and BERT cases, and the launches of the
-    phases of 12 to 14 as ``launches_hf_serve``, ``launches_mixtral_gang``,
-    ``launches_fsdp``, the sum over the two ranks, and ``launches_tp``, one
-    rank's) and, last, ``{"ok": true, "device": {...}}``.
+    phases of 12 to 17 as ``launches_hf_serve``, ``launches_mixtral_gang``,
+    ``launches_fsdp``, the sum over the two ranks, ``launches_tp`` and
+    ``launches_mixtral_tp``, one rank's, and ``launches_mixtral_tp_serve``)
+    and, last, ``{"ok": true, "device": {...}}``.
 
 Each phase prints ``[phase] <name> start`` and ``[phase] <name> <s>s``, so a
 failure is named by the last start line.
@@ -298,7 +320,10 @@ LSE_ATOL = 1e-3
 # dropped by B1 (loss 5.3e-5) or by B3 (worst leaf 0.53); PERF.md
 STEP_LOSS_REL = 1.5e-5
 STEP_GRAD_REL = 5e-2
-TRAIN_LAYERS = 8
+#: the train, remat and breakdown phases' depth: Llama-3-8B cut to 4 layers
+#: (its checkpoint round trip ~11.5 GB), which pays for part of the Mixtral
+#: model-axis phases' seconds
+TRAIN_LAYERS = 4
 
 # Mixtral-8x7B widths of the MoE kernels (B7, B8): D, F, experts, top-k
 MOE_D, MOE_F, MOE_E, MOE_K = 4096, 14336, 8, 2
@@ -306,6 +331,7 @@ MOE_CASES = {
     "train": dict(tokens=4 * 2048, skew="random"),   # the train run's B=4, T=2048
     "skewed": dict(tokens=4 * 2048, skew="two"),     # every token to experts 0 and 1
     "prefill": dict(tokens=1000, skew="random"),     # one 1000-token prompt
+    "tp2": dict(tokens=2048, skew="random", F=MOE_F // 2),  # a [mixtral-tp] rank's F/2 blocks, B=1, T=2048
 }
 # ys and dxs of the bf16 kernels against their plain versions row by row
 # (``row_rel_err``), each expert's dW in relative Frobenius norm: both sum in
@@ -1024,14 +1050,18 @@ def flash_kernel_phase(torch, A, flush, cases) -> dict:
                    **({"fault_head_row_err": head_faults[kname]} if kname in head_faults else {}),
                    **({"same_bits": same_bits} if same_bits is not None else {}),
                    "ms": time_ms(torch, kernels[kname], flush),
-                   "plain_ms": time_ms(torch, plains[kname], flush, iters=3, warmup=1),
+                   # at BERT's shapes a plain call takes seconds and is no yardstick:
+                   # compared with above, not timed
+                   "plain_ms": None if name in BERT_FLASH_CASES
+                   else time_ms(torch, plains[kname], flush, iters=3, warmup=1),
                    "library_ms": lib_fwd if kname == "flash_fwd" else lib_bwd,
                    "library_call": "sdpa forward" if kname == "flash_fwd"
                    else "sdpa backward alone (covers B2+B3 together)",
                    "bound_ms": max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3,
                    "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS else "operations"}
             rec["tflops"] = flops / rec["ms"] / 1e9
-            print(f"[kernel] {kname} {name:9s} ms {rec['ms']:.4f} plain {rec['plain_ms']:.4f} "
+            plain = "not timed" if rec["plain_ms"] is None else f"{rec['plain_ms']:.4f}"
+            print(f"[kernel] {kname} {name:9s} ms {rec['ms']:.4f} plain {plain} "
                   f"{rec['library_call']} {rec['library_ms']:.4f} bound {rec['bound_ms']:.4f} "
                   f"({rec['bound_by']}); {rec['tflops']:.1f} TFLOP/s", flush=True)
             recs[kname].append(rec)
@@ -2630,13 +2660,13 @@ def fleet_phase(out_dir: Path, card: str) -> dict:
 # -- MoE grouped SwiGLU kernels (B7, B8) and the Mixtral path --------------------
 
 def moe_inputs(torch, MG, expert, c):
-    """Routed rows at Mixtral-8x7B widths: ``c["tokens"]`` tokens routed
-    top-2 over 8 experts by a seeded random router ('random'), or every
-    token to experts 0 and 1 ('two': experts 2-7 own one pad tile and no
-    real row); expert weights at fan-in scale; the cotangent zero on pad rows,
-    as the combine's backward makes it."""
+    """Routed rows at Mixtral-8x7B widths (F, or ``c["F"]`` columns of it):
+    ``c["tokens"]`` tokens routed top-2 over 8 experts by a seeded random
+    router ('random'), or every token to experts 0 and 1 ('two': experts 2-7
+    own one pad tile and no real row); expert weights at fan-in scale; the
+    cotangent zero on pad rows, as the combine's backward makes it."""
     g = torch.Generator(device="cuda").manual_seed(4)
-    N, bf = c["tokens"], torch.bfloat16
+    N, F, bf = c["tokens"], c.get("F", MOE_F), torch.bfloat16
     x = torch.randn(1, N, MOE_D, generator=g, device="cuda").to(bf)
     router = torch.randn(MOE_D, MOE_E, generator=g, device="cuda") / MOE_D ** 0.5
     if c["skew"] == "two":
@@ -2651,8 +2681,7 @@ def moe_inputs(torch, MG, expert, c):
     def w(*shape, fan):
         return (torch.randn(*shape, generator=g, device="cuda") * fan ** -0.5).to(bf)
 
-    wg, wu, wd = w(MOE_E, MOE_D, MOE_F, fan=MOE_D), w(MOE_E, MOE_D, MOE_F, fan=MOE_D), \
-        w(MOE_E, MOE_F, MOE_D, fan=MOE_F)
+    wg, wu, wd = w(MOE_E, MOE_D, F, fan=MOE_D), w(MOE_E, MOE_D, F, fan=MOE_D), w(MOE_E, F, MOE_D, fan=F)
     dy = (torch.randn(xs.shape, generator=g, device="cuda") * (gate_sorted != 0)[:, None]).to(bf)
     return dict(xs=xs, wg=wg, wu=wu, wd=wd, tg=tg, dy=dy, gs=gs, rows=N * MOE_K)
 
@@ -2698,7 +2727,7 @@ def library_swiglu(torch, xs, wg, wu, wd, gs):
 def moe_cost(m) -> dict:
     """Operations over this run's real routed rows and the bytes of each
     input read once and each output written once."""
-    PN, E, D, F = m["xs"].shape[0], MOE_E, MOE_D, MOE_F
+    PN, E, D, F = m["xs"].shape[0], MOE_E, MOE_D, m["wg"].shape[-1]
     w, act = 3 * E * D * F * 2, PN * D * 2
     return {"moe_fwd": (2 * m["rows"] * D * F * 3, 2 * act + w + PN // 128 * 4),
             "moe_bwd": (2 * m["rows"] * D * F * 8, 3 * act + 2 * w + PN // 128 * 4)}
@@ -3796,6 +3825,9 @@ def mixtral_gang_phase(out_dir: Path) -> dict:
 FSDP_BACKEND = "gloo"
 FSDP_RANKS, FSDP_STEPS, FSDP_SAVE_EVERY = 2, 3, 2
 FSDP_FAULT_RANK = 1
+#: the sound run's depth: llama-1b cut to 8 of its 16 layers, which pays for
+#: part of the Mixtral model-axis phases' seconds
+FSDP_LAYERS = 8
 #: the planted faults' runs: one step at the preset cut to this depth (the
 #: embedding and the head, most of llama-1b's gloo traffic, stay whole)
 FSDP_FAULT_LAYERS = 2
@@ -3963,17 +3995,18 @@ def fsdp_gang(work: Path, cfg: dict, fault_cfg: dict, loop: dict, device: str, t
     return run_gang(work, spec, "fsdp_rank", FSDP_RANKS, "fsdp", timeout)
 
 
-def fsdp_check(ranks: list, one: list, run: str = "ok", tag: str = "fsdp") -> float:
+def fsdp_check(ranks: list, one: list, run: str = "ok", tag: str = "fsdp",
+               keys: tuple = ("loss", "grad_norm")) -> float:
     """Every rank's step reports of ``run`` against one process's on the
-    global batch: the same steps, each loss and grad norm within
-    ``FSDP_REL`` relative. Returns the worst. ``tag`` names the phase."""
+    global batch: the same steps, each of ``keys`` (the loss and grad norm)
+    within ``FSDP_REL`` relative. Returns the worst. ``tag`` names the phase."""
     worst = 0.0
     want = {x["step"]: x for x in one}
     for rank, rec in enumerate(ranks):
         got = {x["step"]: x for x in rec[run]["log"]}
         check(set(got) <= set(want) and got, f"{tag}: rank {rank} steps {sorted(got)}, one process {sorted(want)}")
         for s, x in got.items():
-            for k in ("loss", "grad_norm"):
+            for k in keys:
                 err = abs(x[k] - want[s][k]) / abs(want[s][k])
                 worst = max(worst, err)
                 check(err <= FSDP_REL, f"{tag}: rank {rank} ({run}) step {s} {k} {x[k]} against one process's "
@@ -4005,13 +4038,15 @@ def fsdp_blocks(torch, ranks: list, whole: dict, step: int, tag: str = "fsdp") -
     return split
 
 
-def fsdp_state_check(torch, gang: dict, one: dict, saved: dict, what: str, tag: str = "fsdp") -> dict:
+def fsdp_state_check(torch, gang: dict, one: dict, saved: dict, what: str, tag: str = "fsdp",
+                     leaves: dict | None = None) -> dict:
     """Each rank's blocks of the gang's parameters and moments (``gang``: a
     whole state restored from the ranks' save) against the same blocks of
     one process's (``one``: {"params"|"mu"|"nu": {leaf: tensor}}), each
     within ``FSDP_STATE_REL`` as ‖a − b‖ / ‖b‖ in f32 (``saved``: the
     shapes a rank handed that save, by state name, which give the dim a
-    leaf is split on). Returns the worst of each part."""
+    leaf is split on). Returns the worst of each part; ``leaves``, when
+    given, receives the leaf that read it."""
     worst = {}
     for part in ("params", "mu", "nu"):
         mine = dict(_leaves(gang["params"] if part == "params" else gang["opt_state"][part]))
@@ -4024,6 +4059,8 @@ def fsdp_state_check(torch, gang: dict, one: dict, saved: dict, what: str, tag: 
                         for t in (mine[name], ref))
                 b = b.float()
                 err = float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
+                if leaves is not None and err >= worst[part]:
+                    leaves[part] = name
                 worst[part] = max(worst[part], err)
                 check(err <= FSDP_STATE_REL, f"{tag}: {what} rank {rank}'s block of {part}/{name}: "
                                              f"{err:.2e} > {FSDP_STATE_REL:.0e} from one process's")
@@ -4047,9 +4084,9 @@ def fsdp_line(rec: dict, card: str) -> str:
 
 
 def fsdp_phase(torch, llama, A, out_dir: Path, card: str, cfg: dict | None = None, device: str = "cuda") -> dict:
-    """``[fsdp]``: the gang of ``FSDP_RANKS`` on the card at the full
-    ``llama-1b`` preset (16 layers, bf16, remat "full", the gang phase's
-    B=8, T=2048; ``cfg`` and ``device`` another model and device),
+    """``[fsdp]``: the gang of ``FSDP_RANKS`` on the card at the ``llama-1b``
+    preset cut to ``FSDP_LAYERS`` layers (bf16, remat "full", the gang
+    phase's B=8, T=2048; ``cfg`` and ``device`` another model and device),
     ``MeshSpec.auto``'s fill (fsdp 2): ``FSDP_STEPS`` steps through
     ``run_lm_training`` with asynchronous sharded saves after step
     ``FSDP_SAVE_EVERY`` and at the end, then the planted faults' steps at
@@ -4068,7 +4105,7 @@ def fsdp_phase(torch, llama, A, out_dir: Path, card: str, cfg: dict | None = Non
     from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
     from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState, tree_bytes
 
-    cfg = cfg or {"preset": "llama-1b"}
+    cfg = cfg or {"preset": "llama-1b", "n_layers": FSDP_LAYERS}
     model_cfg = llama.config_from_dict(cfg)
     fault_cfg = dict(cfg, n_layers=min(FSDP_FAULT_LAYERS, model_cfg.n_layers))
     cuda = device == "cuda"
@@ -4130,8 +4167,8 @@ def fsdp_phase(torch, llama, A, out_dir: Path, card: str, cfg: dict | None = Non
     check(all(x["param_bytes"] + x["opt_bytes"] < 0.51 * whole_bytes for x in last),
           f"fsdp: per-rank bytes {[(x['param_bytes'], x['opt_bytes']) for x in last]} of {whole_bytes} whole")
     rec = {
-        "preset": cfg.get("preset", ""), "batch": loop["batch_size"], "seq_len": loop["seq_len"],
-        "steps": FSDP_STEPS, "losses": [x["loss"] for x in ranks[0]["ok"]["log"]],
+        "preset": cfg.get("preset", "") + (f" cut to {model_cfg.n_layers} layers" if "n_layers" in cfg else ""),
+        "batch": loop["batch_size"], "seq_len": loop["seq_len"], "steps": FSDP_STEPS, "losses": [x["loss"] for x in ranks[0]["ok"]["log"]],
         "one_losses": [x["loss"] for x in one], "grad_norms": [x["grad_norm"] for x in ranks[0]["ok"]["log"]],
         "worst_rel": worst, "state_rel": state_rel, "param_bytes": last[0]["param_bytes"],
         "opt_bytes": last[0]["opt_bytes"], "whole_bytes": whole_bytes, "split_leaves": split,
@@ -4147,28 +4184,69 @@ def fsdp_phase(torch, llama, A, out_dir: Path, card: str, cfg: dict | None = Non
     return rec
 
 
-# [tp]: Megatron's tensor parallelism for Llama, a gang of TP_RANKS processes
-# on the one card over gloo (``FSDP_BACKEND``: nccl refuses two ranks on one
-# card) on ``MeshSpec.auto(model=2)`` (model 2, fsdp 1), at Llama-3-8B widths
-# cut to TP_LAYERS layers (bf16, remat "full"), B=TP_B, T=TP_T: TP_STEPS steps
-# with a sharded save at the end, then one step of each planted fault. The
-# losses and grad norms are held to one process's within GANG_LOSS_REL
+# [tp] and [mixtral-tp]: Megatron's tensor parallelism, a gang of TP_RANKS
+# processes on the one card over gloo (``FSDP_BACKEND``: nccl refuses two
+# ranks on one card) on ``MeshSpec.auto(model=2)`` (model 2, fsdp 1), bf16,
+# remat "full", T=TP_T: TP_STEPS steps with a sharded save at the end, then
+# one step of each planted fault. [tp] runs Llama-3-8B widths cut to
+# TP_LAYERS layers at B=TP_B; [mixtral-tp] Mixtral-8x7B widths cut to
+# MIXTRAL_TP_LAYERS layers at B=MIXTRAL_TP_B, each rank's experts on F/tp
+# columns (B7/B8 at [E, D, 7168]). The losses and grad norms (and Mixtral's
+# router losses) are held to one process's within GANG_LOSS_REL
 # (``FSDP_REL``), the step's blocks of the parameters and moments within
-# FSDP_STATE_REL (``fsdp_check``, ``fsdp_state_check``: the model axis splits
-# each leaf on one dim, as fsdp does)
+# FSDP_STATE_REL (``fsdp_check``, ``fsdp_state_check``: the model axis
+# splits each leaf on one dim, as fsdp does)
 TP_RANKS, TP_STEPS = 2, 3
 TP_LAYERS, TP_B, TP_T = 2, 2, 2048
+MIXTRAL_TP_LAYERS, MIXTRAL_TP_B = 2, 1
 TP_FAULT_RANK = 1
 #: the planted faults' runs, one step each: every rank's row-parallel reduce
 #: also sums its gradient ("reduce"), and rank TP_FAULT_RANK's embedding keeps
 #: its own rows without the line's sum ("embed")
 TP_FAULTS = ("reduce", "embed")
+#: Mixtral's: every rank's combine gates skip the model line's sum on their
+#: gradient ("gates": each router gradient holds its own columns' share, so
+#: the two ranks' differ), and rank TP_FAULT_RANK's expert output skips
+#: ``reduce_from_model`` ("expert")
+MIXTRAL_TP_FAULTS = ("gates", "expert")
+#: the family's gang: its phase's tag, its cut preset, batch rows and faults,
+#: the step-report keys held to one process's and the kernels it launches
+TP_FAMILIES = {
+    "llama": dict(tag="tp", cfg={"preset": "llama3-8b", "n_layers": TP_LAYERS}, batch=TP_B, faults=TP_FAULTS,
+                  keys=("loss", "grad_norm"), kernels=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+    "mixtral": dict(tag="mixtral-tp", cfg={"preset": "mixtral-8x7b", "n_layers": MIXTRAL_TP_LAYERS},
+                    batch=MIXTRAL_TP_B, faults=MIXTRAL_TP_FAULTS,
+                    keys=("loss", "grad_norm", "moe_balance_loss", "moe_z_loss"),
+                    kernels=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "moe_fwd", "moe_bwd")),
+}
 #: [tp-serve]: the TP engine (``ContinuousBatcher(tp=2)``) with both shards on
 #: the one card against the tp=1 engine on the same weights, Llama-3-8B widths
 #: cut to TP_SERVE_LAYERS layers in f32 (bf16 greedy parity is rounding luck):
 #: TP_SERVE_PROMPTS prompt lengths, TP_SERVE_TOKENS greedy tokens each
 TP_SERVE_LAYERS, TP_SERVE_TOKENS, TP_SERVE_CHUNK = 4, 32, 8
 TP_SERVE_PROMPTS = (17, 64, 200, 33)
+#: [mixtral-tp-serve]: the same engines at Mixtral-8x7B widths cut to
+#: MIXTRAL_TP_SERVE_LAYERS layers in bf16 (B7 takes bf16 only), every prompt
+#: longer than 16 tokens so that its prefill runs B7 on each shard's [E, D,
+#: 7168] blocks, MIXTRAL_TP_SERVE_TOKENS tokens each. bf16 greedy parity is
+#: rounding luck, so both engines are fed tp 1's token stream (teacher
+#: forcing) and each prefill's and decode step's last-position logits row is
+#: held to tp 1's: ‖Δ‖∞ / ‖row‖∞ within MIXTRAL_TP_SERVE_ROW_TOL. The
+#: shards' partials are rounded to bf16 apart and summed in f32, tp 1's
+#: products once: ~1 bf16 ulp (4e-3) of the residual stream a layer, a few
+#: ulps of the logits (|logits| ~4: 2e-2 of a row's largest). The limit is
+#: 5x that estimate; an H100 read 6.2e-3 to 1.3e-2. A router choice near a
+#: tie can round the other way on the shards (the first H100 run: one row in
+#: 64, its token sent to another expert in one layer, 0.24): so the limit
+#: holds the rows whose own token routed as tp 1's in every layer (the
+#: routes are recorded on both engines), and at most MIXTRAL_TP_SERVE_FLIPS
+#: of the rows may route otherwise. One shard's expert partial dropped (half
+#: of every mixture) moves the rows by tens of percent and reroutes most
+#: tokens after the first layer. The argmax must be tp 1's wherever tp 1's
+#: top-2 margin exceeds twice the limit, on the rows the limit holds
+MIXTRAL_TP_SERVE_LAYERS, MIXTRAL_TP_SERVE_TOKENS = 4, 16
+MIXTRAL_TP_SERVE_ROW_TOL = 0.1
+MIXTRAL_TP_SERVE_FLIPS = 0.1
 
 
 def psum_backward_reduce(collectives) -> None:
@@ -4194,30 +4272,60 @@ def skip_embedding_psum(llama) -> None:
     llama.embed_lookup = own_rows
 
 
+def unsummed_gates(expert, top_k: int) -> None:
+    """A planted fault on every rank: the gates entering the MoE combine
+    ([B·T, top_k]) skip ``copy_to_model``, so their gradient, and the
+    router's, hold only this rank's columns' share; the dispatched rows
+    ([B·T, D]) keep it."""
+    real = expert.copy_to_model
+    expert.copy_to_model = lambda x, group: x if x.shape[-1] == top_k else real(x, group)
+
+
+def skip_expert_reduce(expert) -> None:
+    """A planted fault: this rank's MoE output is its own experts' partial,
+    without the model line's sum; the sum still runs, so its peer is not
+    left waiting."""
+    real = expert.reduce_from_model
+
+    def own_partial(x, group):
+        real(x, group)
+        return x
+
+    expert.reduce_from_model = own_partial
+
+
 def tp_rank(spec_json: str) -> None:
-    """One rank of the ``[tp]`` gang (``RANK`` in the env): ``run_lm_training``
-    with ``model_axis`` TP_RANKS once sound with a sharded save (the
-    fingerprint and shape of each block the rank hands it) and once for each
-    planted fault, each in a gloo group of its own (a file store under the
-    spec's directory); each run's step reports, B1-B3 launches and peak
-    memory. Writes ``rank<r>.json`` there."""
+    """One rank of the ``[tp]`` or ``[mixtral-tp]`` gang (``RANK`` in the
+    env; the spec's ``model``: llama or mixtral): ``run_lm_training`` with
+    ``model_axis`` TP_RANKS once sound with a sharded save (the fingerprint
+    and shape of each block the rank hands it) and once for each planted
+    fault, each in a gloo group of its own (a file store under the spec's
+    directory); each run's step reports, kernel launches, peak memory and
+    (Mixtral) the fingerprint of the router's gradient at each step. Writes
+    ``rank<r>.json`` there."""
     import torch
     import torch.distributed as dist
 
     sys.path.insert(0, str(ROOT))
-    from tony_tpu_torch.models import llama
+    from tony_tpu_torch.models import llama, mixtral
     from tony_tpu_torch.ops import attention as A
-    from tony_tpu_torch.parallel import collectives
+    from tony_tpu_torch.ops import moe_gemm as MG
+    from tony_tpu_torch.parallel import collectives, expert
     from tony_tpu_torch.train import checkpoint as C
+    from tony_tpu_torch.train import trainer
     from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
 
     spec = json.loads(spec_json)
     rank, work = int(os.environ["RANK"]), Path(spec["dir"])
     cuda = spec["device"] == "cuda"
-    real = C.CheckpointManager.save, vars(collectives._ReduceFromModel)["backward"], llama.embed_lookup
+    model = {"llama": llama, "mixtral": mixtral}[spec["model"]]
+    cfg = model.config_from_dict(spec["cfg"])
+    real = (C.CheckpointManager.save, vars(collectives._ReduceFromModel)["backward"], llama.embed_lookup,
+            expert.copy_to_model, expert.reduce_from_model, trainer.AdamW.update)
     out = {}
-    for run in ("ok", *TP_FAULTS):
+    for run in ("ok", *spec["faults"]):
         saves: dict = {}
+        router: list = []
 
         def save(self, step, state, force=False):
             local = {name: t.to_local() if hasattr(t, "to_local") else t for name, t in _leaves(state)}
@@ -4225,129 +4333,181 @@ def tp_rank(spec_json: str) -> None:
                            for name, t in local.items() if hasattr(t, "shape")}
             return real[0](self, step, state, force=force)
 
+        def update(self, params, grads, state, norm):
+            if "layers/router" in grads:
+                router.append(fingerprint(torch, grads["layers/router"]))
+            return real[5](self, params, grads, state, norm)
+
         if cuda:
             torch.cuda.set_device(0)
             torch.cuda.reset_peak_memory_stats()
         dist.init_process_group(FSDP_BACKEND, init_method=f"file://{work / ('store-' + run)}",
                                 world_size=TP_RANKS, rank=rank)
-        C.CheckpointManager.save = save
+        C.CheckpointManager.save, trainer.AdamW.update = save, update
         if run == "reduce":
             psum_backward_reduce(collectives)
         if run == "embed" and rank == TP_FAULT_RANK:
             skip_embedding_psum(llama)
+        if run == "gates":
+            unsummed_gates(expert, cfg.top_k)
+        if run == "expert" and rank == TP_FAULT_RANK:
+            skip_expert_reduce(expert)
         A.reset_launches()
+        MG.reset_launches()
         try:
-            res = run_lm_training(llama, llama.config_from_dict(spec["cfg"]), LoopConfig(**spec[run]))
+            res = run_lm_training(model, cfg, LoopConfig(**spec[run]))
         finally:
-            C.CheckpointManager.save, collectives._ReduceFromModel.backward, llama.embed_lookup = real
-        out[run] = {"log": res["log"], "launches": dict(A.launches), "saves": saves,
-                    "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+            (C.CheckpointManager.save, collectives._ReduceFromModel.backward, llama.embed_lookup,
+             expert.copy_to_model, expert.reduce_from_model, trainer.AdamW.update) = real
+        out[run] = {"log": res["log"], "launches": {**A.launches, **MG.launches}, "saves": saves,
+                    "router": router, "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
     (work / f"rank{rank}.json").write_text(json.dumps(out))
 
 
+def router_check(ranks: list, run: str = "ok", tag: str = "mixtral-tp") -> int:
+    """The router's gradient, whole on every rank, must be the same bits on
+    every rank of the model line at every step of ``run`` (the trainer's norm
+    and update assume it of a leaf the rules keep whole). Returns the steps
+    checked."""
+    steps = [rec[run]["router"] for rec in ranks]
+    check(steps[0] and all(len(s) == len(steps[0]) for s in steps), f"{tag}: router gradients recorded {steps}")
+    for i, fps in enumerate(zip(*steps)):
+        check(all(fp == fps[0] for fp in fps),
+              f"{tag}: ({run}) the ranks' router gradients differ at step {i + 1}: {list(fps)}")
+    return len(steps[0])
+
+
 def tp_line(rec: dict, card: str) -> str:
-    """The ``[tp]`` report line."""
-    state = ", ".join(f"{k} {v:.2e}" for k, v in rec["state_rel"].items())
+    """The ``[tp]`` / ``[mixtral-tp]`` report line."""
+    state = ", ".join(f"{k} {v:.2e} ({rec['state_worst_leaf'][k]})" for k, v in rec["state_rel"].items())
     faults = "; ".join(f"{k}: grad norm {v['grad_norm']} loss {v['loss']} against one process's "
-                       f"{rec['one_grad_norm']} / {rec['one_loss']}, failed" for k, v in rec["faults"].items())
-    return (f"[tp] {TP_RANKS} ranks on one card over {FSDP_BACKEND}, {rec['preset']} widths {rec['layers']} layers "
-            f"B={rec['batch']} T={rec['seq_len']}, model {TP_RANKS}: losses {rec['losses']} grad norms "
+                       f"{rec['one_grad_norm']} / {rec['one_loss']}"
+                       f"{', the ranks router gradients differ' if k == 'gates' else ''}, failed"
+                       for k, v in rec["faults"].items())
+    moe = (f"; router losses balance {rec['balance']} z {rec['z']} (one process {rec['one_balance']} / "
+           f"{rec['one_z']}); the router's gradient the same bits on both ranks at {rec['router_steps']} steps"
+           if "balance" in rec else "")
+    return (f"[{rec['tag']}] {TP_RANKS} ranks on one card over {FSDP_BACKEND}, {rec['preset']} widths {rec['layers']} "
+            f"layers B={rec['batch']} T={rec['seq_len']}, model {TP_RANKS}: losses {rec['losses']} grad norms "
             f"{rec['grad_norms']} (one process {rec['one_losses']} / {rec['one_grad_norms']}, worst rel "
-            f"{rec['worst_rel']:.2e}, limit {FSDP_REL:.0e}); step {rec['restored_step']} blocks against one "
+            f"{rec['worst_rel']:.2e}, limit {FSDP_REL:.0e}){moe}; step {rec['restored_step']} blocks against one "
             f"process's, worst {state} (limit {FSDP_STATE_REL:.0e}); per rank params "
             f"{rec['param_bytes'] / 1e9:.3f} GB + moments {rec['opt_bytes'] / 1e9:.3f} GB of "
             f"{rec['whole_bytes'] / 1e9:.3f} GB whole ({rec['split_leaves']} leaves split), peak "
             f"{[round(b / 2**30, 2) for b in rec['peak_bytes']]} GiB (one process "
-            f"{rec['one_peak_bytes'] / 2**30:.2f} GiB); B1/B2/B3 a rank {rec['launches']} (one process "
-            f"{rec['one_launches']}); ms/step {rec['step_ms']} over gloo (one process {rec['one_step_ms']}); "
+            f"{rec['one_peak_bytes'] / 2**30:.2f} GiB); {'/'.join(rec['kernels'])} a rank {rec['launches']} (one "
+            f"process {rec['one_launches']}); ms/step {rec['step_ms']} over gloo (one process {rec['one_step_ms']}); "
             f"step {rec['restored_step']} restored into one process bit for bit in {rec['restore_s']:.1f} s; "
-            f"planted faults, {faults}; {card}")
+            f"seconds {rec['seconds']}; planted faults, {faults}; {card}")
 
 
-def tp_phase(torch, llama, A, out_dir: Path, card: str, cfg: dict | None = None, device: str = "cuda") -> dict:
-    """``[tp]``: the gang of ``TP_RANKS`` on the card on the model axis at
-    Llama-3-8B widths cut to ``TP_LAYERS`` layers (``cfg`` and ``device``
-    another model and device), ``TP_STEPS`` steps through
-    ``run_lm_training(model_axis=2)`` with a sharded save at the end, then a
-    step of each planted fault (``TP_FAULTS``). Each rank's losses and grad
-    norms must be one process's on the same batches (``run_lm_training``
-    here, B1-B3 counted), each rank must launch B1-B3 as often as one
+def tp_phase(torch, model, A, out_dir: Path, card: str, cfg: dict | None = None, device: str = "cuda") -> dict:
+    """``[tp]`` (``model`` llama) or ``[mixtral-tp]`` (mixtral): the gang of
+    ``TP_RANKS`` on the card on the model axis at the family's widths cut
+    to depth (``TP_FAMILIES``; ``cfg`` and ``device`` another config and
+    device), ``TP_STEPS`` steps through ``run_lm_training(model_axis=2)``
+    with a sharded save at the end, then a step of each planted fault.
+    Each rank's losses and grad norms (and router losses) must be one
+    process's on the same batches (``run_lm_training`` here, kernels
+    counted), each rank must launch the family's kernels as often as one
     process, hold half of every split leaf, and the step restored into one
     process must be the blocks the ranks saved, bit for bit, and each
     rank's blocks of its parameters and moments one process's within
-    ``FSDP_STATE_REL``. Both faults must fail ``fsdp_check``. Prints per-rank
-    bytes, peak memory, launches and ms/step."""
+    ``FSDP_STATE_REL``; Mixtral's router gradient must be the same bits on
+    both ranks. Llama's faults must fail ``fsdp_check``; Mixtral's
+    unsummed gates ``router_check`` and its unreduced expert output
+    ``fsdp_check``. Prints per-rank bytes, peak memory, launches and
+    ms/step."""
+    from tony_tpu_torch.ops import moe_gemm as MG
     from tony_tpu_torch.train import trainer
     from tony_tpu_torch.train.checkpoint import restore_or_init
     from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
     from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState, tree_bytes
 
-    cfg = cfg or {"preset": "llama3-8b", "n_layers": TP_LAYERS}
-    model_cfg = llama.config_from_dict(cfg)
+    family = model.__name__.rsplit(".", 1)[-1]
+    fam = TP_FAMILIES[family]
+    tag, kernels = fam["tag"], fam["kernels"]
+    cfg = cfg or fam["cfg"]
+    model_cfg = model.config_from_dict(cfg)
     cuda = device == "cuda"
-    loop = dict(batch_size=TP_B, seq_len=TP_T if cuda else 32, log_every=1, warmup_steps=1)
-    work = (out_dir / "tp").resolve()  # the ranks' file store takes an absolute path
+    loop = dict(batch_size=fam["batch"], seq_len=TP_T if cuda else 32, log_every=1, warmup_steps=1)
+    work = (out_dir / tag).resolve()  # the ranks' file store takes an absolute path
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     gang = dict(loop, model_axis=TP_RANKS, device=device)
-    spec = {"dir": str(work), "cfg": cfg, "device": device,
+    spec = {"dir": str(work), "model": family, "cfg": cfg, "device": device, "faults": list(fam["faults"]),
             "ok": dict(gang, steps=TP_STEPS, checkpoint_dir=str(work / "ckpt"), checkpoint_every=TP_STEPS),
-            **{f: dict(gang, steps=1) for f in TP_FAULTS}}
-    ranks = run_gang(work, spec, "tp_rank", TP_RANKS, "tp")
+            **{f: dict(gang, steps=1) for f in fam["faults"]}}
+    t0 = time.perf_counter()
+    ranks = run_gang(work, spec, "tp_rank", TP_RANKS, tag)
+    seconds = {"gang": time.perf_counter() - t0}
     if cuda:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     A.reset_launches()
+    MG.reset_launches()
     held, unhold = hold_final_state(trainer)
+    t0 = time.perf_counter()
     try:
-        one = run_lm_training(llama, model_cfg, LoopConfig(steps=TP_STEPS, device=device, **loop))["log"]
+        one = run_lm_training(model, model_cfg, LoopConfig(steps=TP_STEPS, device=device, **loop))["log"]
         one_state = dict(held)
     finally:
         unhold()
-    one_launches, one_peak = dict(A.launches), torch.cuda.max_memory_allocated() if cuda else 0
-    worst = fsdp_check(ranks, one, tag="tp")
+    seconds["one_process"] = time.perf_counter() - t0
+    one_launches, one_peak = {**A.launches, **MG.launches}, torch.cuda.max_memory_allocated() if cuda else 0
+    worst = fsdp_check(ranks, one, tag=tag, keys=fam["keys"])
+    router_steps = router_check(ranks, tag=tag) if family == "mixtral" else 0
     faults = {}
-    for fault in TP_FAULTS:
+    for fault in fam["faults"]:
         try:
-            fsdp_check(ranks, one, fault, tag="tp")
+            if fault == "gates":
+                router_check(ranks, fault, tag=tag)
+            else:
+                fsdp_check(ranks, one, fault, tag=tag, keys=fam["keys"])
         except SmokeFailure:
             faults[fault] = {k: [rec[fault]["log"][0][k] for rec in ranks] for k in ("loss", "grad_norm")}
-        check(fault in faults, f"tp: the planted fault {fault!r} passed")
-    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+        check(fault in faults, f"{tag}: the planted fault {fault!r} passed")
     for rank, rec in enumerate(ranks):
-        got = {k: rec["ok"]["launches"][k] for k in flash}
-        check(got == {k: one_launches[k] for k in flash} and (not cuda or all(got.values())),
-              f"tp: rank {rank} launches {got}, one process {one_launches}")
+        got = {k: rec["ok"]["launches"][k] for k in kernels}
+        check(got == {k: one_launches[k] for k in kernels} and (not cuda or all(got.values())),
+              f"{tag}: rank {rank} launches {got}, one process {one_launches}")
     opt = OptimizerConfig(learning_rate=3e-4, warmup_steps=1, total_steps=TP_STEPS).build()
     t0 = time.perf_counter()
     state, _, step = restore_or_init(str(work / "ckpt"), lambda: TrainState.create(
-        llama.init(torch.Generator(device=device).manual_seed(1), model_cfg, device), opt), TrainState.load)
+        model.init(torch.Generator(device=device).manual_seed(1), model_cfg, device), opt), TrainState.load)
     restore_s = time.perf_counter() - t0
-    check(step == TP_STEPS, f"tp: one process restored step {step}, want {TP_STEPS}")
-    split = fsdp_blocks(torch, ranks, state.state_dict(), step, tag="tp")
+    check(step == TP_STEPS, f"{tag}: one process restored step {step}, want {TP_STEPS}")
+    split = fsdp_blocks(torch, ranks, state.state_dict(), step, tag=tag)
+    worst_leaves: dict = {}
     state_rel = fsdp_state_check(torch, state.state_dict(), one_state, ranks[0]["ok"]["saves"][str(step)],
-                                 f"step {step}", tag="tp")
+                                 f"step {step}", tag=tag, leaves=worst_leaves)
     whole_bytes = tree_bytes(state.params) + tree_bytes({k: state.opt_state[k] for k in ("mu", "nu")})
     del state, one_state, held
     shutil.rmtree(work, ignore_errors=True)
     last = [rec["ok"]["log"][-1] for rec in ranks]
     check(all(x["param_bytes"] + x["opt_bytes"] < 0.51 * whole_bytes for x in last),
-          f"tp: per-rank bytes {[(x['param_bytes'], x['opt_bytes']) for x in last]} of {whole_bytes} whole")
+          f"{tag}: per-rank bytes {[(x['param_bytes'], x['opt_bytes']) for x in last]} of {whole_bytes} whole")
+    log0 = ranks[0]["ok"]["log"]
     rec = {
-        "preset": cfg.get("preset", ""), "layers": model_cfg.n_layers, "batch": loop["batch_size"],
-        "seq_len": loop["seq_len"], "steps": TP_STEPS, "losses": [x["loss"] for x in ranks[0]["ok"]["log"]],
-        "grad_norms": [x["grad_norm"] for x in ranks[0]["ok"]["log"]], "one_losses": [x["loss"] for x in one],
+        "tag": tag, "preset": cfg.get("preset", ""), "layers": model_cfg.n_layers, "batch": loop["batch_size"],
+        "seq_len": loop["seq_len"], "steps": TP_STEPS, "losses": [x["loss"] for x in log0],
+        "grad_norms": [x["grad_norm"] for x in log0], "one_losses": [x["loss"] for x in one],
         "one_grad_norms": [x["grad_norm"] for x in one], "one_loss": one[0]["loss"],
         "one_grad_norm": one[0]["grad_norm"], "worst_rel": worst, "state_rel": state_rel,
-        "param_bytes": last[0]["param_bytes"], "opt_bytes": last[0]["opt_bytes"], "whole_bytes": whole_bytes,
+        "state_worst_leaf": worst_leaves, "param_bytes": last[0]["param_bytes"], "opt_bytes": last[0]["opt_bytes"], "whole_bytes": whole_bytes,
         "split_leaves": split, "peak_bytes": [rec["ok"]["peak_bytes"] for rec in ranks],
-        "one_peak_bytes": one_peak, "step_ms": [x["step_time_ms"] for x in ranks[0]["ok"]["log"]],
+        "one_peak_bytes": one_peak, "step_ms": [x["step_time_ms"] for x in log0],
         "one_step_ms": [x["step_time_ms"] for x in one], "restored_step": step, "restore_s": restore_s,
-        "faults": faults, "launches": [[rec["ok"]["launches"][k] for k in flash] for rec in ranks],
-        "one_launches": [one_launches[k] for k in flash],
-        "launches_rank": {k: ranks[0]["ok"]["launches"][k] for k in flash},
+        "seconds": {k: round(v, 1) for k, v in seconds.items()}, "faults": faults,
+        "kernels": list(kernels), "launches": [[rec["ok"]["launches"][k] for k in kernels] for rec in ranks],
+        "one_launches": [one_launches[k] for k in kernels],
+        "launches_rank": {k: ranks[0]["ok"]["launches"][k] for k in kernels},
     }
+    if family == "mixtral":
+        rec.update(balance=[x["moe_balance_loss"] for x in log0], z=[x["moe_z_loss"] for x in log0],
+                   one_balance=[x["moe_balance_loss"] for x in one], one_z=[x["moe_z_loss"] for x in one],
+                   router_steps=router_steps)
     print(tp_line(rec, card), flush=True)
     return rec
 
@@ -4371,11 +4531,11 @@ def drop_last_shard_partial(collectives) -> None:
     collectives.DeviceModel.reduce_from_model = reduce_from_model
 
 
-def serve_tokens(torch, eng, prompts: list) -> tuple[list, float]:
+def serve_tokens(torch, eng, prompts: list, tokens: int = TP_SERVE_TOKENS) -> tuple[list, float]:
     """Every prompt submitted at once to the in-process engine, run to its
-    end: (each request's greedy tokens, the mean ms of a decode step, from
-    the chunks after every slot was admitted)."""
-    rids = [eng.submit(p, TP_SERVE_TOKENS) for p in prompts]
+    end: (each request's ``tokens`` greedy tokens, the mean ms of a decode
+    step, from the chunks after every slot was admitted)."""
+    rids = [eng.submit(p, tokens) for p in prompts]
     eng.step()  # admission: every prompt's prefill and the first chunk
     check(len(eng.running) + len(eng.done) == len(prompts) and not (eng.pending or eng._staged),
           "tp-serve: a prompt was not admitted by the first step")
@@ -4430,6 +4590,194 @@ def tp_serve_phase(torch, llama, card: str, cfg: dict | None = None, device: str
            "devices": f"{device} twice", "tokens": got, "tp1_ms": tp1_ms, "tp2_ms": tp2_ms,
            "fault_changed": changed}
     print(tp_serve_line(rec, card), flush=True)
+    return rec
+
+
+def forced_logits(torch, params, cfg, prompt: list, stream: list):
+    """The engine's forward (``generate``) on ``params`` (a tree or the TP
+    engine's ``ModelShards``) fed ``prompt`` then ``stream`` one token at a
+    time, teacher-forced: the prefill's last-position logits and each decode
+    step's, [1 + len(stream) - 1, V] f32 on the first device."""
+    from tony_tpu_torch.models import generate as G
+
+    devices = params.axis.devices if isinstance(params, G.ModelShards) else G.params_device(params)
+    home = G.params_device(params)
+    with torch.inference_mode():
+        cache = G.init_cache(cfg, 1, len(prompt) + len(stream), devices)
+        last, cache = G.prefill(params, torch.tensor([prompt], device=home), cache, cfg)
+        rows = [last[0]]
+        for t in stream[:-1]:
+            logits, cache = G._forward_with_cache(params, torch.tensor([[t]], device=home), cache, cfg)
+            rows.append(logits[0, -1])
+    return torch.stack(rows).float()
+
+
+def logit_row_errs(torch, got, want) -> list:
+    """Each row's ‖got − want‖∞ / ‖want‖∞."""
+    return ((got - want).abs().amax(-1) / want.abs().amax(-1).clamp_min(1e-30)).tolist()
+
+
+def recorded_routes(expert) -> tuple:
+    """While installed, each top-k choice of the router (``expert._top_k``,
+    which the prefill's ``moe_ffn`` and the decode's ``_gating`` both reach)
+    is appended to the list returned, each position's experts sorted
+    ([positions, K] on the CPU); the function returned uninstalls it."""
+    seen, real = [], expert._top_k
+
+    def top_k(probs, k):
+        vals, idx = real(probs, k)
+        seen.append(idx.reshape(-1, k).sort(-1).values.cpu())
+        return vals, idx
+
+    expert._top_k = top_k
+    return seen, lambda: setattr(expert, "_top_k", real)
+
+
+def forced_run(torch, expert, params, cfg, prompts: list, streams: list, shards: int) -> tuple[list, list]:
+    """``forced_logits`` of each prompt fed its stream, with the routes of
+    every call: (each prompt's rows, each prompt's routes indexed [call]
+    [layer][shard], call c giving row c)."""
+    rows, routes = [], []
+    for prompt, stream in zip(prompts, streams):
+        seen, unhook = recorded_routes(expert)
+        try:
+            rows.append(forced_logits(torch, params, cfg, prompt, stream))
+        finally:
+            unhook()
+        L = cfg.n_layers
+        check(len(seen) == len(stream) * L * shards,
+              f"mixtral-tp-serve: {len(seen)} router calls for {len(stream)} forward calls of {L} layers")
+        routes.append([[seen[(c * L + i) * shards:(c * L + i + 1) * shards] for i in range(L)]
+                       for c in range(len(stream))])
+    return rows, routes
+
+
+def forced_reading(torch, got: list, got_routes: list, ref: list, ref_routes: list) -> dict:
+    """tp 2's teacher-forced rows and routes against tp 1's: whether every
+    shard routed every call alike, the rows whose own token routed as tp
+    1's in every layer (their errors, and how many have a clear tp 1
+    margin and which of those keep tp 1's argmax), and the others'."""
+    held, flipped, clear, kept, shards_alike = [], [], 0, 0, True
+    for a, b, ra, rb in zip(got, ref, got_routes, ref_routes):
+        errs = logit_row_errs(torch, a, b)
+        top = b.topk(2, dim=-1).values
+        margin = (top[:, 0] - top[:, 1]) > 2 * MIXTRAL_TP_SERVE_ROW_TOL * b.abs().amax(-1)
+        same_top = a.argmax(-1) == b.argmax(-1)
+        for r, (call_a, call_b) in enumerate(zip(ra, rb)):
+            shards_alike &= all(torch.equal(la[0], x) for la in call_a for x in la[1:])
+            if any(not torch.equal(la[0][-1], lb[0][-1]) for la, lb in zip(call_a, call_b)):
+                flipped.append(errs[r])
+                continue
+            held.append(errs[r])
+            clear += int(margin[r])
+            kept += int(margin[r] and same_top[r])
+    return {"rows": len(held) + len(flipped), "worst_row": max(held, default=0.0), "row_errs": held,
+            "flipped_errs": flipped, "argmax_rows": clear, "argmax_kept": kept, "shards_alike": shards_alike}
+
+
+def forced_check(reading: dict) -> None:
+    """``forced_reading``'s limits: the shards route alike, the rows routed
+    as tp 1 within ``MIXTRAL_TP_SERVE_ROW_TOL`` with tp 1's argmax where
+    its margin is clear, at most ``MIXTRAL_TP_SERVE_FLIPS`` of the rows
+    routed otherwise."""
+    check(reading["shards_alike"], "mixtral-tp-serve: the TP engine's shards routed a token differently")
+    check(reading["worst_row"] <= MIXTRAL_TP_SERVE_ROW_TOL,
+          f"mixtral-tp-serve: a teacher-forced logits row of tp 2 is {reading['worst_row']:.2e} > "
+          f"{MIXTRAL_TP_SERVE_ROW_TOL:.0e} from tp 1's (rows {['%.1e' % e for e in reading['row_errs']]})")
+    check(len(reading["flipped_errs"]) <= MIXTRAL_TP_SERVE_FLIPS * reading["rows"],
+          f"mixtral-tp-serve: {len(reading['flipped_errs'])} of {reading['rows']} rows' tokens routed otherwise "
+          f"than tp 1's, more than {MIXTRAL_TP_SERVE_FLIPS:.0%}")
+    check(reading["argmax_kept"] == reading["argmax_rows"],
+          f"mixtral-tp-serve: tp 2's argmax differs from tp 1's on {reading['argmax_rows'] - reading['argmax_kept']} "
+          "rows whose margin is clear")
+
+
+def drop_last_shard_experts(generate, shards) -> None:
+    """A planted fault: the expert partial of the last of ``shards`` (a
+    ``ModelShards``) is dropped in every MoE layer; attention keeps both."""
+    real = generate._ffn_with_cache
+    last = shards.trees[-1]["layers"]["we_gate"].untyped_storage().data_ptr()
+
+    def ffn(h, lp, cfg):
+        y = real(h, lp, cfg)
+        return y * 0 if lp["we_gate"].untyped_storage().data_ptr() == last else y
+
+    generate._ffn_with_cache = ffn
+
+
+def mixtral_tp_serve_line(rec: dict, card: str) -> str:
+    """The ``[mixtral-tp-serve]`` report line."""
+    flips = ", ".join(f"{e:.2e}" for e in rec["flipped_errs"]) or "none"
+    return (f"[mixtral-tp-serve] {rec['preset']} widths {rec['layers']} layers {rec['dtype']}, "
+            f"{len(TP_SERVE_PROMPTS)} requests of {MIXTRAL_TP_SERVE_TOKENS} greedy tokens, prompts "
+            f"{list(TP_SERVE_PROMPTS)}: tp 2 (both shards on {rec['devices']}, expert blocks {rec['expert_block']} "
+            f"contiguous, routing alike) teacher-forced on tp 1's tokens, {rec['rows']} logits rows: the "
+            f"{len(rec['row_errs'])} whose token routed as tp 1's worst {rec['worst_row']:.2e} (limit "
+            f"{MIXTRAL_TP_SERVE_ROW_TOL:.0e}), argmax tp 1's on the {rec['argmax_rows']} with a clear margin; "
+            f"{len(rec['flipped_errs'])} routed otherwise (limit {MIXTRAL_TP_SERVE_FLIPS:.0%} of the rows): {flips}; "
+            f"greedy tokens equal tp 1's on {rec['greedy_equal']} of {len(TP_SERVE_PROMPTS)} (reported); B7 "
+            f"{rec['launches']} launches; decode ms/step tp 2 {rec['tp2_ms']:.2f} / tp 1 {rec['tp1_ms']:.2f} "
+            f"(reported, not judged); planted fault, one shard's expert partial dropped: worst row routed as tp 1 "
+            f"{rec['fault']['worst_row']:.2e}, {len(rec['fault']['flipped_errs'])} of {rec['fault']['rows']} rows "
+            f"routed otherwise, failed; {card}")
+
+
+def mixtral_tp_serve_phase(torch, mixtral, MG, card: str, cfg: dict | None = None, device: str = "cuda") -> dict:
+    """``[mixtral-tp-serve]``: the TP engine with both shards on the one
+    device against the tp=1 engine on the same seeded weights
+    (Mixtral-8x7B widths cut to ``MIXTRAL_TP_SERVE_LAYERS`` layers, bf16;
+    ``cfg`` and ``device`` another config and device). Both serve the
+    prompts greedily (decode ms/step reported); then both are fed tp 1's
+    tokens with their routes recorded, and ``forced_check`` holds tp 2's
+    logits rows and routes to tp 1's. Every shard's expert blocks must be
+    contiguous, and on the card the TP engine must launch B7 (its
+    prefills). A planted fault (one shard's expert partial dropped) must
+    fail ``forced_check``."""
+    from tony_tpu_torch.models import generate
+    from tony_tpu_torch.models.serving import ContinuousBatcher
+    from tony_tpu_torch.parallel import expert
+
+    cfg = cfg or {"preset": "mixtral-8x7b", "n_layers": MIXTRAL_TP_SERVE_LAYERS}
+    model_cfg = mixtral.config_from_dict(cfg)
+    with torch.no_grad():
+        params = mixtral.init(torch.Generator(device=device).manual_seed(0), model_cfg, device)
+    prompts = tp_serve_requests(model_cfg.vocab_size)
+    kw = dict(num_slots=len(prompts), max_len=max(TP_SERVE_PROMPTS) + MIXTRAL_TP_SERVE_TOKENS + TP_SERVE_CHUNK,
+              decode_chunk=TP_SERVE_CHUNK)
+    one = ContinuousBatcher(params, model_cfg, **kw)
+    want, tp1_ms = serve_tokens(torch, one, prompts, MIXTRAL_TP_SERVE_TOKENS)
+    MG.reset_launches()
+    eng = ContinuousBatcher(params, model_cfg, tp=2, devices=[device] * 2, **kw)
+    got, tp2_ms = serve_tokens(torch, eng, prompts, MIXTRAL_TP_SERVE_TOKENS)
+    launches = MG.launches["moe_fwd"]
+    check(device != "cuda" or launches > 0, f"mixtral-tp-serve: the TP engine launched B7 {launches} times")
+    blocks = [t["layers"][k] for t in eng.params.trees for k in ("we_gate", "we_up", "we_down")]
+    check(all(b.is_contiguous() for b in blocks), "mixtral-tp-serve: a shard's expert block is not contiguous")
+    F = model_cfg.d_ff // 2
+    check([tuple(b.shape[-2:]) for b in blocks[:3]] == [(model_cfg.d_model, F)] * 2 + [(F, model_cfg.d_model)],
+          f"mixtral-tp-serve: shard 0's expert blocks {[tuple(b.shape) for b in blocks[:3]]}")
+    ref, ref_routes = forced_run(torch, expert, one.params, model_cfg, prompts, want, 1)
+    reading = forced_reading(torch, *forced_run(torch, expert, eng.params, model_cfg, prompts, want, 2),
+                             ref, ref_routes)
+    forced_check(reading)
+    real = generate._ffn_with_cache
+    drop_last_shard_experts(generate, eng.params)
+    try:
+        fault = forced_reading(torch, *forced_run(torch, expert, eng.params, model_cfg, prompts, want, 2),
+                               ref, ref_routes)
+    finally:
+        generate._ffn_with_cache = real
+    try:
+        forced_check(fault)
+        caught = False
+    except SmokeFailure:
+        caught = True
+    check(caught, "mixtral-tp-serve: the planted fault (one shard's expert partial dropped) passed")
+    rec = {"preset": cfg.get("preset", ""), "layers": model_cfg.n_layers, "dtype": model_cfg.dtype,
+           "devices": f"{device} twice", "expert_block": list(blocks[0].shape), **reading, "tokens": want,
+           "greedy_equal": sum(a == b for a, b in zip(got, want)), "launches": launches, "tp1_ms": tp1_ms,
+           "tp2_ms": tp2_ms, "fault": {k: fault[k] for k in ("rows", "worst_row", "flipped_errs")}}
+    print(mixtral_tp_serve_line(rec, card), flush=True)
     return rec
 
 
@@ -4678,6 +5026,11 @@ def main() -> int:
             tp = tp_phase(torch, llama, A, out_dir, card)
         with phase("tp-serve"):
             tp_serve = tp_serve_phase(torch, llama, card)
+        # Mixtral on the model axis: its experts on F/tp columns, B7/B8 at 7168
+        with phase("mixtral-tp"):
+            mixtral_tp = tp_phase(torch, mixtral, A, out_dir, card)
+        with phase("mixtral-tp-serve"):
+            mixtral_tp_serve = mixtral_tp_serve_phase(torch, mixtral, MG, card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED in phase {phase.current}: {e}", file=sys.stderr, flush=True)
         return 1
@@ -4694,6 +5047,9 @@ def main() -> int:
             more[k]["fsdp"] = fsdp["launches_sum"][k]
             more[k]["tp"] = tp["launches_rank"][k]
         more["moe_fwd"] = {"mixtral_gang": gang_launches["moe_fwd"], "hf_serve": hf_serve["mixtral_launches"]["moe_fwd"]}
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "moe_fwd", "moe_bwd"):
+            more[k]["mixtral_tp"] = mixtral_tp["launches_rank"][k]
+        more["moe_fwd"]["mixtral_tp_serve"] = mixtral_tp_serve["launches"]
         for k in ("paged_decode_attention", "int8_matmul"):
             more[k] = {"hf_serve": hf_serve["launches"][k]}
         kernels = kernel_rows(kern, path_launches, {f: rec["b5_launches"] for f, rec in fleet.items()},
@@ -4713,7 +5069,7 @@ def main() -> int:
          "bert": {"whole_step": bert_step, "pack": bert_pack}, "mnist": mnist,
          "resnet": {"whole_step": resnet_step, "train": resnet_train},
          "hf": {"load": hf_load, "serve": hf_serve}, "mixtral_gang": mixtral_gang, "fsdp": fsdp, "tp": tp,
-         "tp_serve": tp_serve}, indent=1))
+         "tp_serve": tp_serve, "mixtral_tp": mixtral_tp, "mixtral_tp_serve": mixtral_tp_serve}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -459,6 +459,27 @@ def test_moe_kernels_match_plain(gen, E, D, F, N, skew):
         assert all(bool((g[2:] == 0).all()) for g in grads[1:])
 
 
+def test_moe_kernels_at_f_over_tp_match_plain_and_refuse_other_widths(gen):
+    """B7/B8 at Mixtral-8x7B's experts on a model axis of 2 (each rank's
+    ``[8, 4096, 7168]`` blocks) on 1000 routed tokens equal their plain
+    versions within ``MOE_TOL``; a block of 7168 + 64 columns (not a
+    multiple of 128) raises, naming the widths."""
+    from tony_tpu_torch.ops import moe_gemm as MG
+
+    E, D, F = 8, 4096, 14336 // 2
+    xs, (wg, wu, wd), tg, dy = _moe_inputs(gen, E, D, F, 1000, "random")
+    ys, grads = MG.moe_fwd(xs, wg, wu, wd, tg), MG.moe_bwd(xs, dy, wg, wu, wd, tg)
+    want_ys, want = MG.moe_fwd_plain(xs, wg, wu, wd, tg), MG.moe_bwd_plain(xs, dy, wg, wu, wd, tg)
+    assert _row_err(ys, want_ys) <= MOE_TOL and _row_err(grads[0], want[0]) <= MOE_TOL
+    for got, exp in zip(grads[1:], want[1:]):
+        for e in range(E):
+            ref = exp[e].float()
+            assert ((got[e].float() - ref).norm() / ref.norm()).item() <= MOE_TOL, e
+    wide = torch.zeros(E, D, F + 64, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match=str(F + 64)):
+        MG.moe_fwd(xs, wide, wide, torch.zeros(E, F + 64, D, dtype=torch.bfloat16, device="cuda"), tg)
+
+
 def test_moe_ffn_and_mixtral_step_on_card_launch_the_kernels(gen):
     """``moe_ffn`` on card tensors launches B7 once and B8 once; a Mixtral
     loss and backward under remat "full" launches B7 twice a layer (forward

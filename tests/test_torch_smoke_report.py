@@ -696,3 +696,144 @@ def test_tp_phases_run_after_fsdp_in_main():
     assert main.index('phase("fsdp")') < main.index('phase("tp")') < main.index('phase("tp-serve")')
     assert main.index('phase("tp-serve")') < main.index("except SmokeFailure")
     assert 'more[k]["tp"] = tp["launches_rank"][k]' in main
+
+
+@pytest.fixture(scope="module")
+def mixtral_tp_records(tmp_path_factory):
+    """``tp_phase`` for Mixtral and ``mixtral_tp_serve_phase`` on the CPU at
+    the tiny Mixtral in f32 (``F/tp`` 64 on the plain B7/B8): the gloo gang
+    of two on the model axis, the one-process run, the restore, the router's
+    gradient on both ranks and the planted faults; then the TP engine's two
+    shards on the CPU teacher-forced against the tp=1 engine, as the card
+    runs them at Mixtral-8x7B widths."""
+    import torch
+
+    from tony_tpu_torch.models import mixtral
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import moe_gemm as MG
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    tiny = {"preset": "tiny", "dtype": "float32"}
+    try:
+        return (cs.tp_phase(torch, mixtral, A, tmp_path_factory.mktemp("mixtral_tp"), "cpu", cfg=tiny, device="cpu"),
+                cs.mixtral_tp_serve_phase(torch, mixtral, MG, "cpu", cfg=tiny, device="cpu"))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_mixtral_tp_phase_holds_the_gang_and_the_router_and_catches_both_faults(mixtral_tp_records):
+    """Each rank's losses, grad norms and router losses are one process's
+    within ``FSDP_REL`` (f32: rounding), the 27 leaves the model axis splits
+    and their moments are blocks of the one-process restore bit for bit, each
+    rank launches B1-B3, B7 and B8 as one process does (none on the CPU), the
+    router's gradient is the same bits on both ranks at all 3 steps; the
+    unsummed gates leave the first loss as it was (the forward is the same)
+    and fail the router check, and the unreduced expert output moves the
+    first loss past ``FSDP_REL``."""
+    rec, _ = mixtral_tp_records
+    assert rec["tag"] == "mixtral-tp" and rec["kernels"][3:] == ["moe_fwd", "moe_bwd"]
+    assert rec["worst_rel"] <= cs.FSDP_REL and rec["router_steps"] == cs.TP_STEPS
+    for got, want in ((rec["balance"], rec["one_balance"]), (rec["z"], rec["one_z"])):
+        assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(got, want, strict=True))
+    assert rec["split_leaves"] == 27 and rec["restored_step"] == cs.TP_STEPS
+    assert max(rec["state_rel"].values()) <= 1e-5
+    assert rec["launches"] == [rec["one_launches"]] * cs.TP_RANKS
+    assert set(rec["faults"]) == set(cs.MIXTRAL_TP_FAULTS)
+    assert rec["faults"]["gates"]["loss"] == [rec["one_loss"]] * cs.TP_RANKS
+    assert all(abs(x - rec["one_loss"]) > cs.FSDP_REL * rec["one_loss"] for x in rec["faults"]["expert"]["loss"])
+
+
+def test_mixtral_tp_serve_phase_holds_the_logits_and_catches_a_dropped_expert_partial(mixtral_tp_records):
+    """Teacher-forced on tp 1's tokens, every prefill and decode logits row
+    of the tp=2 engine is tp 1's to f32 rounding (far inside the limit),
+    every token routes as tp 1's on both shards, the argmax is held on the
+    rows with a clear margin, and one shard's expert partial dropped fails
+    ``forced_check``: rows far off tp 1's, or most of them rerouted."""
+    _, rec = mixtral_tp_records
+    assert rec["rows"] == len(rec["row_errs"]) == len(cs.TP_SERVE_PROMPTS) * cs.MIXTRAL_TP_SERVE_TOKENS
+    assert rec["shards_alike"] and rec["flipped_errs"] == []
+    assert rec["worst_row"] <= 1e-5 and rec["argmax_rows"] == rec["argmax_kept"] > 0
+    fault = rec["fault"]
+    assert (fault["worst_row"] > cs.MIXTRAL_TP_SERVE_ROW_TOL
+            or len(fault["flipped_errs"]) > cs.MIXTRAL_TP_SERVE_FLIPS * fault["rows"])
+    assert rec["greedy_equal"] == len(cs.TP_SERVE_PROMPTS)
+    assert rec["expert_block"] == [2, 4, 64, 64] and rec["tp1_ms"] > 0 and rec["tp2_ms"] > 0
+
+
+def test_forced_check_holds_rerouted_rows_apart_and_counts_them():
+    """A row whose own token routed otherwise than tp 1's is left out of
+    the row limit and counted; more than ``MIXTRAL_TP_SERVE_FLIPS`` of them,
+    a held row past the limit, shards that route apart or a lost argmax on
+    a clear margin fail."""
+    import torch
+
+    ref = torch.tensor([[4.0, 1.0, 0.0], [0.0, 1.0, 2.0], [1.0, 0.5, 0.0]])
+    route = lambda *e: [[torch.tensor([list(e)])]]  # noqa: E731  one layer, one shard
+    ref_routes = [[route(0, 1), route(0, 2), route(1, 2)]]
+    got = ref + torch.tensor([[0.01, 0, 0], [1.0, 0, 0], [0, 0, 0.02]])
+    routes = [[[[torch.tensor([[0, 1]]), torch.tensor([[0, 1]])]], [[torch.tensor([[0, 3]])] * 2],
+               [[torch.tensor([[1, 2]])] * 2]]]
+    reading = cs.forced_reading(torch, [got], routes, [ref], ref_routes)
+    assert reading["rows"] == 3 and reading["flipped_errs"] == [0.5] and reading["shards_alike"]
+    assert reading["row_errs"] == pytest.approx([0.0025, 0.02], abs=1e-6)
+    assert reading["argmax_rows"] == reading["argmax_kept"] == 2
+    with pytest.raises(cs.SmokeFailure, match="1 of 3 rows' tokens routed otherwise"):
+        cs.forced_check(reading)
+    many = dict(reading, rows=20)
+    cs.forced_check(many)
+    for bad, text in ((dict(many, worst_row=0.2), "a teacher-forced logits row of tp 2 is 2.00e-01"),
+                      (dict(many, shards_alike=False), "shards routed a token differently"),
+                      (dict(many, argmax_kept=0), "argmax differs from tp 1's on 2 rows")):
+        with pytest.raises(cs.SmokeFailure, match=text):
+            cs.forced_check(bad)
+
+
+def test_mixtral_tp_lines_name_every_number_and_the_card(mixtral_tp_records):
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    rec, serve = mixtral_tp_records
+    line = cs.tp_line(rec, card)
+    assert line.startswith("[mixtral-tp] 2 ranks on one card over gloo, tiny widths 2 layers B=1 T=32, model 2: ")
+    assert line.endswith(card)
+    for text in (str(rec["losses"]), str(rec["balance"]), str(rec["z"]), str(rec["launches"]),
+                 "flash_fwd/flash_bwd_dq/flash_bwd_dkv/moe_fwd/moe_bwd a rank",
+                 f"the same bits on both ranks at {cs.TP_STEPS} steps", "gates: grad norm",
+                 "the ranks router gradients differ, failed", "expert: grad norm"):
+        assert text in line, text
+    line = cs.mixtral_tp_serve_line(serve, card)
+    assert line.startswith("[mixtral-tp-serve] tiny widths 2 layers float32, 4 requests of 16 greedy tokens")
+    for text in (f"worst {serve['worst_row']:.2e} (limit {cs.MIXTRAL_TP_SERVE_ROW_TOL:.0e})",
+                 f"tp 2 {serve['tp2_ms']:.2f} / tp 1 {serve['tp1_ms']:.2f}", "0 routed otherwise",
+                 f"worst row routed as tp 1 {serve['fault']['worst_row']:.2e}",
+                 "expert blocks [2, 4, 64, 64] contiguous, routing alike", card):
+        assert text in line, text
+
+
+def test_mixtral_tp_checks_fail_on_differing_routers_and_a_dropped_partial(monkeypatch):
+    """The router check names the step whose fingerprints differ, and
+    ``mixtral_tp_serve_phase`` whose shards drop their expert partials for
+    the whole phase fails ``forced_check``."""
+    import torch
+
+    from tony_tpu_torch.models import generate, mixtral
+    from tony_tpu_torch.ops import moe_gemm as MG
+
+    ok = {"router": [[1, 2], [3, 4]]}
+    assert cs.router_check([{"ok": ok}, {"ok": ok}]) == 2
+    with pytest.raises(cs.SmokeFailure, match=r"^mixtral-tp: \(ok\) the ranks' router gradients differ at step 2"):
+        cs.router_check([{"ok": ok}, {"ok": {"router": [[1, 2], [3, 5]]}}])
+    real = generate._ffn_with_cache
+    monkeypatch.setattr(generate, "_ffn_with_cache",
+                        lambda h, lp, cfg: real(h, lp, cfg) * (0 if lp["we_gate"].shape[-1] == 64 else 1))
+    with pytest.raises(cs.SmokeFailure, match=r"^mixtral-tp-serve: (a teacher-forced logits row|\d+ of \d+ rows')"):
+        cs.mixtral_tp_serve_phase(torch, mixtral, MG, "cpu", cfg={"preset": "tiny", "dtype": "float32"},
+                                  device="cpu")
+
+
+def test_mixtral_tp_phases_run_after_tp_serve_in_main():
+    src = (ROOT / "chip_smoke.py").read_text()
+    main = src[src.index("def main() -> int:"):]
+    assert main.index('phase("tp-serve")') < main.index('phase("mixtral-tp")') < main.index('phase("mixtral-tp-serve")')
+    assert main.index('phase("mixtral-tp-serve")') < main.index("except SmokeFailure")
+    assert 'more[k]["mixtral_tp"] = mixtral_tp["launches_rank"][k]' in main
+    assert 'more["moe_fwd"]["mixtral_tp_serve"] = mixtral_tp_serve["launches"]' in main

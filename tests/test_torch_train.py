@@ -234,12 +234,13 @@ def test_unported_options_and_gangs_raise(monkeypatch):
     for kw in (dict(stage_axis=2), dict(expert_axis=2)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", **kw))
-    from tony_tpu_torch.models import mixtral
+    from tony_tpu_torch.models import bert, mixtral
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):  # Llama's model axis is ported; Mixtral's is not
-        TLp.run_lm_training(mixtral, mixtral.MIXTRAL_TINY, TLp.LoopConfig(device="cpu", model_axis=2))
-    with pytest.raises(ValueError, match="not divisible by model"):  # one process holds no model axis of 2
-        TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", model_axis=2))
+    with pytest.raises(NotImplementedError, match="not ported yet"):  # Llama's and Mixtral's model axis is ported
+        TLp.run_lm_training(bert, bert.BERT_TINY, TLp.LoopConfig(device="cpu", model_axis=2))
+    for model, cfg in ((TM, _tcfg()), (mixtral, mixtral.MIXTRAL_TINY)):
+        with pytest.raises(ValueError, match="not divisible by model"):  # one process holds no model axis of 2
+            TLp.run_lm_training(model, cfg, TLp.LoopConfig(device="cpu", model_axis=2))
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="A12"):
         TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", steps=1, context_axis=2))

@@ -66,7 +66,8 @@ def params_from_numpy(tree, device):
 
 def blocks_from_numpy(tree, rules, mesh, device) -> dict:
     """This rank's blocks of a numpy tree on ``mesh`` per ``rules`` (the
-    whole leaves where the mesh does not split them)."""
+    whole leaves where the mesh does not split them; Mixtral's rules cut
+    each expert's D over fsdp and its F over model)."""
     from tony_tpu_torch.parallel.sharding import shard_params
 
     return shard_params(params_from_numpy(tree, device), rules, mesh)

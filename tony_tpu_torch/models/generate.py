@@ -21,7 +21,10 @@ the normed residual stream (``DeviceModel.copy_to_model``), the
 row-parallel partials are summed on the first device
 (``reduce_from_model``), the embedding sums the shards' masked takes, and
 the head's logits are joined whole before sampling, so the host loop and
-the samplers never see the shards. A plain tree is one shard.
+the samplers never see the shards. A plain tree is one shard. A Mixtral
+shard holds ``F/tp`` columns of every expert and the whole router:
+``_ffn_with_cache`` runs on it as on a whole tree, and its output is a
+partial of the mixture, summed as the dense FFN's.
 """
 
 from __future__ import annotations
@@ -49,7 +52,10 @@ class ModelShards:
     @classmethod
     def place(cls, params: dict, rules: ShardingRules, devices) -> "ModelShards":
         """``params`` (a whole tree) cut by ``rules``' model entries into
-        ``len(devices)`` shards, shard s copied to ``devices[s]``."""
+        ``len(devices)`` shards, shard s copied to ``devices[s]``. Each
+        block is made contiguous here, once: a block that splits an inner
+        dim (an expert's F columns) is a strided view, which ``.to`` keeps
+        on its own device, and B7 takes contiguous blocks."""
         axis = DeviceModel(devices)
         trees = model_shards(params, rules, axis.n)
         return cls([_to(tree, d) for tree, d in zip(trees, axis.devices)], axis)

@@ -258,9 +258,10 @@ def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
     return idx - start
 
 
-def _block(x, lp: dict, cos, sin, cfg: LlamaConfig, mesh, segment_ids=None, positions=None):
-    """One decoder block (pre-norm attention + SwiGLU) on this rank's heads
-    and FFN columns (all of them without a model axis)."""
+def attention_residual(x, lp: dict, cos, sin, cfg: LlamaConfig, mesh, segment_ids=None, positions=None):
+    """x plus its pre-norm GQA attention on this rank's heads (all of them
+    without a model axis): Megatron's column-parallel ``wq|wk|wv`` and
+    row-parallel ``wo``. Llama's and Mixtral's blocks share it."""
     B, T = x.shape[0], x.shape[1]
     Dh = cfg.head_dim
     group = model_group(mesh)
@@ -272,7 +273,14 @@ def _block(x, lp: dict, cos, sin, cfg: LlamaConfig, mesh, segment_ids=None, posi
     k = L.apply_rope(k, cos, sin, positions=positions)
     o = _attention(q, k, v, cfg, mesh, segment_ids=segment_ids)
     o = o.transpose(1, 2).reshape(B, T, -1)
-    x = x + reduce_from_model(o @ lp["wo"], group)
+    return x + reduce_from_model(o @ lp["wo"], group)
+
+
+def _block(x, lp: dict, cos, sin, cfg: LlamaConfig, mesh, segment_ids=None, positions=None):
+    """One decoder block (pre-norm attention + SwiGLU) on this rank's heads
+    and FFN columns (all of them without a model axis)."""
+    group = model_group(mesh)
+    x = attention_residual(x, lp, cos, sin, cfg, mesh, segment_ids=segment_ids, positions=positions)
     h = copy_to_model(L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps), group)
     return x + reduce_from_model(L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), group)
 

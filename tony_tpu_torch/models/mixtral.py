@@ -8,13 +8,21 @@ The parameter tree is the JAX one: per layer ``router`` [D, E] in f32 and
 stacked over layers. On an ``fsdp`` axis the params hold this rank's blocks
 per ``sharding_rules`` (JAX's; the ``expert`` entries are inert while that
 axis is 1) and each leaf is gathered where it is used, as in Llama: B7/B8
-receive each layer's whole expert weights, gathered and contiguous. A
-context axis (A12) and an expert axis (A11) raise; ``pp_value_and_grad``
-waits for A13. The MoE is JAX's default ragged dispatch, so the config
-has no ``moe_dispatch`` or ``capacity_factor``; ``config_from_dict`` refuses
-a dict that asks for another dispatch (ROADMAP A11). In a gang,
+receive each layer's expert weights, gathered and contiguous.
+
+On a ``model`` axis (Megatron's tensor parallelism, JAX's rules) the
+attention half is Llama's (``llama.attention_residual``: ``H/tp`` query
+heads, ``Hkv/tp`` kv heads a rank), the embedding and the head are
+vocab-parallel and the loss the vocab-parallel CE, as Llama's; each rank
+holds ``F/tp`` columns of every expert and runs B7/B8 on them
+(``moe_ffn``), while the router stays whole on every rank. A context axis
+(A12) and an expert axis (A11) raise; ``pp_value_and_grad`` waits for A13.
+The MoE is JAX's default ragged dispatch, so the config has no
+``moe_dispatch`` or ``capacity_factor``; ``config_from_dict`` refuses a dict
+that asks for another dispatch (ROADMAP A11). In a gang,
 ``loss_fn(..., group=)`` takes the router losses over the whole group's
-batch, as JAX does over a data-parallel mesh's global arrays.
+batch, as JAX does over a data-parallel mesh's global arrays: the data ×
+fsdp ranks of this rank's model index, whose rows differ.
 """
 
 from __future__ import annotations
@@ -29,8 +37,9 @@ import torch.distributed as dist
 from tony_tpu_torch.models import llama as llama_mod
 from tony_tpu_torch.ops import attention as attn_ops
 from tony_tpu_torch.ops import layers as L
+from tony_tpu_torch.parallel.collectives import copy_to_model
 from tony_tpu_torch.parallel.expert import MoEConfig, moe_ffn
-from tony_tpu_torch.parallel.mesh import context_degree
+from tony_tpu_torch.parallel.mesh import AXIS_MODEL, axis_size, context_degree, model_group
 from tony_tpu_torch.parallel.sharding import P, Place, ShardingRules, gather, gathering, keep_whole
 
 _AUX = ("moe_balance_loss", "moe_z_loss", "moe_dropped_frac")
@@ -134,18 +143,10 @@ def sharding_rules(cfg: MixtralConfig) -> ShardingRules:
 
 def _layer(x, lp: dict, cos, sin, cfg: MixtralConfig, mesh, segment_ids=None, positions=None,
            token_mask=None, group=None):
-    """One Mixtral decoder layer (pre-norm GQA attention + MoE FFN) →
-    (x, moe_balance_loss, moe_z_loss, moe_dropped_frac)."""
-    B, T = x.shape[0], x.shape[1]
-    Dh, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    h = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(B, T, H, Dh).transpose(1, 2)
-    k = (h @ lp["wk"]).reshape(B, T, Hkv, Dh).transpose(1, 2)
-    v = (h @ lp["wv"]).reshape(B, T, Hkv, Dh).transpose(1, 2)
-    q = L.apply_rope(q, cos, sin, positions=positions)
-    k = L.apply_rope(k, cos, sin, positions=positions)
-    o = llama_mod._attention(q, k, v, cfg, mesh, segment_ids=segment_ids)
-    x = x + o.transpose(1, 2).reshape(B, T, H * Dh) @ lp["wo"]
+    """One Mixtral decoder layer (pre-norm GQA attention + MoE FFN) on this
+    rank's heads and expert columns → (x, moe_balance_loss, moe_z_loss,
+    moe_dropped_frac)."""
+    x = llama_mod.attention_residual(x, lp, cos, sin, cfg, mesh, segment_ids=segment_ids, positions=positions)
     h = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
     y, aux = moe_ffn(h, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"], cfg.moe,
                      mesh, token_mask=token_mask, group=group)
@@ -160,10 +161,11 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=N
     per-segment RoPE positions, and padding (segment 0) routed with zero
     gates and left out of the router losses. ``group``: the ranks sharing
     the batch, over which the router losses are taken (``moe_ffn``)."""
-    if context_degree(mesh) > 1:
+    if context_degree(mesh, tensor_parallel=True) > 1:
         raise NotImplementedError(
             "Mixtral with a context axis is not ported yet (ROADMAP queue A12, Mixtral CP); "
-            "the port trains it on the data and fsdp axes")
+            "the port trains it on the data, fsdp and model axes")
+    llama_mod.check_model_axis(cfg, axis_size(mesh, AXIS_MODEL))
     T = tokens.shape[1]
     cos, sin = L.rope_frequencies(cfg.head_dim, T, cfg.rope_theta, cfg.rope_scaling,
                                   device=tokens.device)
@@ -188,13 +190,15 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=N
 
 def forward(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=None,
             segment_ids=None, group=None) -> tuple[torch.Tensor, dict]:
-    """tokens [B, T] → (logits [B, T, V], moe aux losses)."""
+    """tokens [B, T] → (logits [B, T, V] (on a model axis this rank's
+    ``V/tp`` columns of them), moe aux losses)."""
     x, aux = hidden_states(params, tokens, cfg, mesh, segment_ids=segment_ids, group=group)
-    return x @ lm_head(params, cfg, mesh), aux
+    return copy_to_model(x, model_group(mesh)) @ lm_head(params, cfg, mesh), aux
 
 
 def lm_head(params: dict, cfg: MixtralConfig, mesh=None) -> torch.Tensor:
-    """The whole head (gathered on an fsdp axis)."""
+    """The head gathered on an fsdp axis: whole, or this rank's ``V/tp``
+    columns on a model axis."""
     return gather(params["lm_head"], sharding_rules(cfg).spec_for("lm_head"), mesh)
 
 
@@ -219,17 +223,24 @@ def loss_fn(params: dict, batch: dict, cfg: MixtralConfig, mesh=None,
     targets weighs 0 and scales them by 0: exact when its rows are all
     padding, while a rank whose rows hold only one-token segments loses its
     share of the router gradient. One process (or a group of one) keeps the
-    single-process path."""
+    single-process path.
+
+    On a model axis the CE is vocab-parallel over the model line (Llama's),
+    every rank of a line gets the same loss and ``n``, and ``group`` is the
+    data × fsdp ranks of this rank's model index, so ``Σn`` counts each row
+    slice once."""
     if group is not None and dist.get_world_size(group) == 1:
         group = None
     tokens = batch["tokens"]
     targets, seg_in = llama_mod.mask_packed_targets(tokens, batch.get("segment_ids"))
+    line = model_group(mesh)
     if cfg.ce_chunk > 0:
         x, aux = hidden_states(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in, group=group)
-        ce, n = L.chunked_cross_entropy_loss(x, lm_head(params, cfg, mesh), targets, chunk=cfg.ce_chunk)
+        ce, n = L.chunked_cross_entropy_loss(copy_to_model(x, line), lm_head(params, cfg, mesh), targets,
+                                             chunk=cfg.ce_chunk, group=line)
     else:
         logits, aux = forward(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in, group=group)
-        ce, n = L.cross_entropy_loss(logits, targets)
+        ce, n = L.cross_entropy_loss(logits, targets, group=line)
     balance, z = aux["moe_balance_loss"], aux["moe_z_loss"]
     if group is not None:
         total = n.detach().clone()

@@ -28,9 +28,13 @@ training rules cut the weights into ``tp`` shards held in this process
 kv heads (JAX's ``P(None, None, "model")``), and the host loop stays as it
 is. JAX's refusals hold: ``kv="paged"``, heads that do not divide the
 axis, and an explicit ``attn="ragged"`` raise, and ``"auto"`` is
-``"bucketed"``: no hand-written kernel runs under tp, as none is
-partitioned in JAX. int8 weights under tp raise too (JAX's engine fails
-to place them), as do Mixtral's (A8b's second part).
+``"bucketed"``: no attention kernel runs under tp, as none is partitioned
+in JAX. int8 weights under tp raise too (JAX's engine fails to place
+them). A Mixtral config is cut by Mixtral's rules (JAX's choice): each
+shard holds ``F/tp`` columns of every expert and the whole router, runs
+the router on its own copy (the same gates on every shard), and its
+expert partials are summed as the dense FFN's are; a prefill's MoE is
+B7 on the shard's blocks.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ from tony_tpu_torch.models.generate import (
     params_device,
     sample_logits,
 )
-from tony_tpu_torch.models.llama import LlamaConfig, check_model_axis, sharding_rules
+from tony_tpu_torch.models import llama, mixtral
+from tony_tpu_torch.models.llama import LlamaConfig, check_model_axis
 from tony_tpu_torch.models.paged_cache import (
     PageAllocator,
     PagedCache,
@@ -364,12 +369,10 @@ class ContinuousBatcher:
             if any(isinstance(v, Q.QTensor) for v in _leaf_values(params)):
                 raise ValueError("int8 weights under model-axis TP (tp > 1) are not served: JAX's TP "
                                  "engine cannot place them either; serve --int8 at --tp 1")
-            if "router" in params["layers"]:
-                raise NotImplementedError("Mixtral under model-axis TP is not ported yet (ROADMAP queue "
-                                          "A8b's second part)")
             check_model_axis(cfg, tp)
             attn = "bucketed"
-            params = ModelShards.place(params, sharding_rules(cfg), devices or tp_devices(tp, self.device))
+            rules = (mixtral if isinstance(cfg, mixtral.MixtralConfig) else llama).sharding_rules(cfg)
+            params = ModelShards.place(params, rules, devices or tp_devices(tp, self.device))
             self.device = params_device(params)
         if attn not in ("auto", "ragged", "bucketed"):
             raise ValueError(f"attn must be auto|ragged|bucketed, got {attn!r}")

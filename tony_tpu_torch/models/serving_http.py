@@ -37,7 +37,8 @@ branch. Prompts are token ids: text prompts need a tokenizer (the
 refused by name.
 
 Run: ``python -m tony_tpu_torch.models.serving_http --preset llama3-8b``, or
-``--hf <checkpoint dir> [--int8]``.
+``--hf <checkpoint dir> [--int8]``. ``--tp N`` serves a Llama or Mixtral
+preset (``--preset mixtral-8x7b``) or ``--hf`` directory from N shards.
 """
 
 from __future__ import annotations
@@ -59,8 +60,8 @@ import torch
 from tony_tpu_torch import constants
 from tony_tpu_torch.cluster.rpc import RpcClient, RpcError, own_host
 from tony_tpu_torch.device import resolve_device
+from tony_tpu_torch.models import llama, mixtral
 from tony_tpu_torch.models.convert import load_hf_dir
-from tony_tpu_torch.models.llama import PRESETS, init
 from tony_tpu_torch.models.serving import ContinuousBatcher, tp_devices
 from tony_tpu_torch.obs import introspect
 from tony_tpu_torch.obs import logging as obs_logging
@@ -68,6 +69,11 @@ from tony_tpu_torch.obs import metrics as obs_metrics
 from tony_tpu_torch.obs import trace as obs_trace
 from tony_tpu_torch.ops import decode_attention, quant
 from tony_tpu_torch.serve import disagg
+
+#: ``--preset``'s choices: Llama's presets, and Mixtral's under a
+#: ``mixtral-`` name (served through the engine's MoE branch, at ``--tp``
+#: too)
+PRESETS = {**llama.PRESETS, "mixtral-8x7b": mixtral.MIXTRAL_8X7B, "mixtral-tiny": mixtral.MIXTRAL_TINY}
 
 # the JAX replica's instruments, names and shapes unchanged: snapshots drop
 # at <train-metrics-file>.obs and ride the executor's metrics push to the
@@ -790,7 +796,7 @@ def build_engine(args) -> ContinuousBatcher:
         cfg = PRESETS[args.preset]
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
-        params = init(gen, cfg, device)
+        params = (mixtral if isinstance(cfg, mixtral.MixtralConfig) else llama).init(gen, cfg, device)
     if args.int8:
         params, _, _ = quant.quantize_tree(params)
     return engine_for(params, cfg, args, device, devices)

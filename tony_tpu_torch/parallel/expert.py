@@ -11,6 +11,21 @@ on the CPU) with spans padded to ``moe_gemm.TILE``. ``MoEConfig`` has no
 raises (ROADMAP queue A11); the experts run on the rows of this rank, with
 the whole weights the caller gathered on an fsdp axis.
 
+On a ``model`` axis (Megatron's tensor parallelism, JAX's rules split each
+expert's F) the ranks of a model line hold the same rows and this rank's
+``F/tp`` columns of ``w_gate|w_up`` and rows of ``w_down``. The gating,
+``route_ragged`` and the dispatch run on every rank of the line on the same
+bits, so they agree; B7/B8 run on this rank's blocks and give a partial of
+each expert's output. ``copy_to_model`` sits on the dispatched rows and on
+the gates that enter the combine (each rank differentiates its own
+columns, so their gradients are summed over the line there), and
+``reduce_from_model`` on the combined ``y`` (the combine is linear in the
+partials, and ``y`` is ``1/(K·pad)`` of their bytes). The router reads the
+normed rows itself, so its gradient and the balance and z losses', which
+every rank computes whole, are counted once: the router's gradient is the
+same on every rank of a line, as the trainer's norm assumes of a leaf the
+rules keep whole.
+
 JAX takes the router's statistics over the global arrays of a data-parallel
 mesh. In a gang each process holds a slice of the batch, so with a data
 ``group`` the gating sums its statistics over the group's ranks inside the
@@ -28,7 +43,8 @@ import torch.nn.functional as F
 
 from tony_tpu_torch.ops import moe_gemm
 from tony_tpu_torch.ops.attention import checkpoint_name
-from tony_tpu_torch.parallel.mesh import context_degree
+from tony_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
+from tony_tpu_torch.parallel.mesh import context_degree, model_group
 
 
 @dataclass(frozen=True)
@@ -198,10 +214,12 @@ def _expert_swiglu(xs, w_gate, w_up, w_down, group_sizes, tile: int):
     return moe_gemm.moe_swiglu_grouped(xs, w_gate, w_up, w_down, tg, tile)
 
 
-def _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, token_mask, group=None):
+def _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, token_mask, group=None,
+                       model=None):
     """Grouped-GEMM MoE on one device: route, gather the rows, run the expert
     MLP over expert-sorted spans, gather back to choice order and sum with
-    the gates."""
+    the gates. ``model``: the model line's group, whose ranks each hold
+    ``F/tp`` columns of every expert (the module docstring)."""
     B, T, D = x.shape
     K = cfg.top_k
     tile = moe_gemm.TILE
@@ -211,9 +229,11 @@ def _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, token_
     # moe_disp and moe_combine only when TONY_REMAT_EXTRA_NAMES lists them
     sort_tok, dest, gate_vals, gate_sorted, group_sizes = (
         checkpoint_name(t, "moe_route") for t in (sort_tok, dest, gate_vals, gate_sorted, group_sizes))
-    xs = checkpoint_name(_DispatchGather.apply(x.reshape(B * T, D), sort_tok, dest), "moe_disp")
+    rows = copy_to_model(x.reshape(B * T, D), model)
+    xs = checkpoint_name(_DispatchGather.apply(rows, sort_tok, dest), "moe_disp")
     ys = _expert_swiglu(xs, w_gate, w_up, w_down, group_sizes, tile)
-    y = _CombineGather.apply(ys, dest, sort_tok, gate_vals.reshape(B * T, K), gate_sorted)
+    gates = copy_to_model(gate_vals.reshape(B * T, K), model)
+    y = reduce_from_model(_CombineGather.apply(ys, dest, sort_tok, gates, gate_sorted), model)
     y = checkpoint_name(y, "moe_combine")
     return y.reshape(B, T, D).to(x.dtype), aux
 
@@ -223,8 +243,10 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor, w_up:
             token_mask: torch.Tensor | None = None, group=None) -> tuple[torch.Tensor, dict]:
     """SwiGLU mixture-of-experts FFN: the capacity-free ragged dispatch on one device.
 
-    x [B, T, D]; router_w [D, E]; w_gate/w_up [E, D, F]; w_down [E, F, D] →
-    (y [B, T, D], aux losses). ``group``: the data group whose ranks share
-    the batch (``_gating``); the experts run on this rank's rows."""
-    context_degree(mesh)  # an expert axis (A11), TP or stages raise; data and fsdp are the gang's
-    return _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg, token_mask, group)
+    x [B, T, D]; router_w [D, E]; w_gate/w_up [E, D, F]; w_down [E, F, D]
+    (``F/tp`` of F on a model axis) → (y [B, T, D], aux losses). ``group``:
+    the data × fsdp ranks that share the batch (``_gating``), never a model
+    line, whose ranks hold the same rows; the experts run on this rank's
+    rows and, on a model axis, its columns of them."""
+    context_degree(mesh, tensor_parallel=True)  # an expert axis (A11) or stages (A13) raise
+    return _ragged_expert_ffn(x, router_w, w_gate, w_up, w_down, cfg, token_mask, group, model_group(mesh))

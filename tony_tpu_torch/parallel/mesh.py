@@ -16,7 +16,7 @@ same ``MeshSpec``. The port runs four axes:
   gather and reduce-scatter. ``MeshSpec.auto`` fills the gang into
   ``fsdp``, as JAX's does; a data axis is asked for by name
   (``MeshSpec(data=2)``);
-- ``model``: Megatron's tensor parallelism (Llama only), one device a
+- ``model``: Megatron's tensor parallelism (Llama and Mixtral), one device a
   process: the gang's ranks are laid out row-major over (data, fsdp,
   model), ``model`` varying fastest as in JAX's ``ALL_AXES`` order. The
   ranks of one model line hold the other blocks of the same leaves and
@@ -183,8 +183,8 @@ def context_degree(mesh, tensor_parallel: bool = False) -> int:
     if shape is None or any(v > 1 for a, v in shape.items() if a not in runs):
         raise NotImplementedError(
             "a device mesh with TP, expert or pipeline axes is not ported yet for this model "
-            "(ROADMAP queue A8b's second part: BERT and Mixtral on the model axis; A11, A13); "
-            "the port runs the data, fsdp and context axes, and the model axis for Llama")
+            "(ROADMAP queue A8b's second part: BERT on the model axis; A11, A13); "
+            "the port runs the data, fsdp and context axes, and the model axis for Llama and Mixtral")
     return shape[AXIS_CONTEXT]
 
 

@@ -12,12 +12,12 @@ and at the end, and resume after a gang restart.
   global batch, and the trainer reduces the gradients over the gang, so a
   gang's trajectory is that of one process on the same global batches.
   Each step report carries this rank's parameter and optimizer bytes.
-  ``model_axis > 1`` runs Llama's tensor parallelism across the gang
+  ``model_axis > 1`` runs Llama's and Mixtral's tensor parallelism across the gang
   (``MeshSpec.auto(model=…)`` fills the rest into fsdp): the ranks of a
   model line take the same rows, so rows, shards and the data cursor are
   cut by the data × fsdp index. ``context_axis > 1`` trains with every
   context shard on this process's one device; a context axis across a
-  gang or beside a model axis, the model axis for Mixtral and BERT, and
+  gang or beside a model axis, the model axis for BERT, and
   the expert and stage axes raise until ported (ROADMAP queue A8b's second
   part, A11, A12, A13).
 - Batches come from ``*.tonytok`` shards under ``data_dir`` through
@@ -165,10 +165,10 @@ def _refuse_unported(model_module, loop: LoopConfig) -> None:
             "context axis in one process (ROADMAP queue A11 experts, A13 stages)")
     if loop.model_axis > 1:
         name = getattr(model_module, "__name__", "").rsplit(".", 1)[-1]
-        if name != "llama":
+        if name not in ("llama", "mixtral"):
             raise NotImplementedError(
                 f"model_axis {loop.model_axis} for {name}: not ported yet — the port runs the model axis "
-                "for Llama (ROADMAP queue A8b's second part: BERT's wqkv blocks, Mixtral's experts)")
+                "for Llama and Mixtral (ROADMAP queue A8b's second part: BERT's wqkv blocks and MLM head)")
         if loop.context_axis > 1:
             raise NotImplementedError(
                 f"model_axis {loop.model_axis} with context_axis {loop.context_axis}: not ported yet "

@@ -1,10 +1,11 @@
 """Mixtral (MoE) pretraining, the port's counterpart of ``examples/mixtral/pretrain.py``:
-one process on one device, or a data-parallel gang under ``tony submit``
-(framework pytorch), whose router losses are taken over the gang's global
-batch (``mixtral.loss_fn``'s ``group``):
+one process on one device, or a gang under ``tony submit`` (framework
+pytorch) on the data and fsdp axes, whose router losses are taken over the
+gang's global batch (``mixtral.loss_fn``'s ``group``), and with
+``--model_axis N`` on the model axis too (each expert's F over N ranks):
 
     python -m tony_tpu_torch.train.pretrain_mixtral --preset mixtral-8x7b [--n_layers 1] [--steps N ...]
-    python -m tony_tpu_torch.train.pretrain_mixtral --preset tiny --device cpu --steps 3
+    python -m tony_tpu_torch.train.pretrain_mixtral --preset tiny --device cpu --steps 3 [--model_axis 2]
 """
 
 import sys

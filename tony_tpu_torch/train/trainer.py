@@ -46,7 +46,8 @@ fsdp ranks of this rank's model index (``Mesh.group``), over which the
 weighing and the means run; a leaf split on the model axis alone is
 averaged over that group as a whole leaf is. Megatron's pair
 (``copy_to_model``'s backward) already sums the activations' gradients
-over the line, so a leaf the rules keep whole (the norms) has the same
+over the line, so a leaf the rules keep whole (the norms, Mixtral's
+router: ``moe_ffn`` sums the gates' gradients over the line) has the same
 gradient on every rank of it, and the global norm sums the squares of a
 leaf split on either axis over fsdp then model, each counted once (a
 block one axis leaves whole is divided by that axis's size first).
@@ -65,7 +66,7 @@ A loss that takes a ``group`` keyword pools statistics over the rows of a
 whole microbatch (Mixtral's router losses). ``make_train_step`` hands it
 the ranks that share the microbatch: the whole group without accumulation,
 none where each rank holds whole microbatches, else the rank's slot (a
-subgroup). Its ranks are weighed by ``n_r / N_i`` as above, so such a loss
+subgroup; on a model axis, of the ranks of its model index). Its ranks are weighed by ``n_r / N_i`` as above, so such a loss
 scales the gradient of its pooled terms by ``N_i / n_r``.
 """
 
@@ -305,19 +306,23 @@ def gang_slots(accum_steps: int, world: int) -> tuple[int, int]:
 
 def _microbatch_group(group, slots: int, slot: int):
     """The ranks of ``group`` that share this rank's microbatch: all of them
-    (one slot), none (a slot of one rank), or this rank's slot, a subgroup
-    that every rank makes, all slots in the same order."""
+    (one slot), none (a slot of one rank), or this rank's slot, a subgroup.
+    ``dist.new_group`` is collective over the whole gang, so every rank
+    makes the slot groups of every group like ``group`` (on a model axis,
+    one a model index: the lines' groups, gathered), all in one order, and
+    keeps its own."""
     world = dist.get_world_size(group)
     if slots == 1:
         return group
     if slots == world:
         return None
-    if world != dist.get_world_size():
-        raise NotImplementedError(
-            "a loss that pools over a microbatch slot of a model line's group: the slot groups of "
-            "every model line are not made (Mixtral on the model axis, ROADMAP A8b's second part)")
-    ranks, per = dist.get_process_group_ranks(group), world // slots
-    return [dist.new_group(ranks[i * per:(i + 1) * per]) for i in range(slots)][slot]
+    lines = [None] * dist.get_world_size()
+    dist.all_gather_object(lines, dist.get_process_group_ranks(group))
+    per = world // slots
+    slot_ranks = [list(line[i * per:(i + 1) * per]) for line in sorted({tuple(x) for x in lines})
+                  for i in range(slots)]
+    mine, _ = dist.new_subgroups_by_enumeration(slot_ranks)
+    return mine
 
 
 def make_train_step(
