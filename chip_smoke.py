@@ -118,7 +118,8 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    backward against their plain versions at Mixtral-8x7B widths (D 4096,
    F 14336, 8 experts, top-2) on three routings (the train shape B=4,
    T=2048; every token to experts 0 and 1; one 1000-token prompt) and at
-   a ``[mixtral-tp]`` rank's ``F/2`` = 7168 columns (B=1, T=2048), ys and
+   a ``[mixtral-tp]`` rank's ``F/2`` = 7168 columns (B=1, T=2048) and on a
+   ``[mixtral-ep]`` rank's span of 4 whole experts (B=1, T=2048), ys and
    dxs row by row and each expert's dW in relative norm, with a planted
    fault (each expert's last row tile on the next expert's weights) that
    must fail every check; times against the three grouped GEMMs of
@@ -229,7 +230,16 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
     router's gradient the same bits on both ranks at every step; two
     planted faults that must fail: combine gates whose gradient skips the
     line's sum (the router gradients differ) and a rank whose expert
-    output skips ``reduce_from_model``;
+    output skips ``reduce_from_model``; then in the same two processes
+    ``[mixtral-ep]``, the expert axis (``run_lm_training(expert_axis=2)``:
+    4 whole experts a rank, B7/B8 on the span of sorted rows they own, 4
+    groups), 3 steps and a sharded save held to the same one-process run:
+    the losses, grad norms and router losses, the router's gradient the same
+    bits on both ranks, the step-3 blocks, the per-rank bytes exactly the
+    whole less half of every expert leaf, B1-B3/B7/B8 launched as by one
+    process with every B7/B8 call on 4 experts, the step restored into one
+    process bit for bit; two planted faults that must fail: the MoE output
+    not summed over the expert line, and every rank taking expert 0's span;
 17. ``[mixtral-tp-serve]``: the TP engine against the tp=1 engine at
     Mixtral-8x7B widths cut to 4 layers in bf16, every prompt's prefill
     through B7 on each shard's blocks: the decode ms/step of both
@@ -241,8 +251,9 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
 18. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
     their ``[bench-bert]`` launches and BERT cases, and the launches of the
     phases of 12 to 17 as ``launches_hf_serve``, ``launches_mixtral_gang``,
-    ``launches_fsdp``, the sum over the two ranks, ``launches_tp`` and
-    ``launches_mixtral_tp``, one rank's, and ``launches_mixtral_tp_serve``)
+    ``launches_fsdp``, the sum over the two ranks, ``launches_tp``,
+    ``launches_mixtral_tp`` and ``launches_mixtral_ep``, one rank's, and
+    ``launches_mixtral_tp_serve``)
     and, last, ``{"ok": true, "device": {...}}``.
 
 Each phase prints ``[phase] <name> start`` and ``[phase] <name> <s>s``, so a
@@ -332,6 +343,7 @@ MOE_CASES = {
     "skewed": dict(tokens=4 * 2048, skew="two"),     # every token to experts 0 and 1
     "prefill": dict(tokens=1000, skew="random"),     # one 1000-token prompt
     "tp2": dict(tokens=2048, skew="random", F=MOE_F // 2),  # a [mixtral-tp] rank's F/2 blocks, B=1, T=2048
+    "ep2": dict(tokens=2048, skew="random", experts=MOE_E // 2),  # a [mixtral-ep] rank's span of 4 experts
 }
 # ys and dxs of the bf16 kernels against their plain versions row by row
 # (``row_rel_err``), each expert's dW in relative Frobenius norm: both sum in
@@ -2663,8 +2675,10 @@ def moe_inputs(torch, MG, expert, c):
     """Routed rows at Mixtral-8x7B widths (F, or ``c["F"]`` columns of it):
     ``c["tokens"]`` tokens routed top-2 over 8 experts by a seeded random
     router ('random'), or every token to experts 0 and 1 ('two': experts 2-7
-    own one pad tile and no real row); expert weights at fan-in scale; the
-    cotangent zero on pad rows, as the combine's backward makes it."""
+    own one pad tile and no real row); with ``c["experts"]`` the sorted rows
+    of the first that many experts only, an expert-axis rank's span; expert
+    weights at fan-in scale; the cotangent zero on pad rows, as the
+    combine's backward makes it. ``rows``: the real routed rows."""
     g = torch.Generator(device="cuda").manual_seed(4)
     N, F, bf = c["tokens"], c.get("F", MOE_F), torch.bfloat16
     x = torch.randn(1, N, MOE_D, generator=g, device="cuda").to(bf)
@@ -2675,15 +2689,21 @@ def moe_inputs(torch, MG, expert, c):
         x = x.abs()
     sort_tok, _, _, gate_sorted, gs, _ = expert.route_ragged(
         x, router, expert.MoEConfig(MOE_E, MOE_K), tile=MG.TILE)
+    E, rows = c.get("experts", MOE_E), N * MOE_K
+    if E < MOE_E:
+        gs = gs[:E]
+        span = int(gs.sum())
+        sort_tok, gate_sorted = sort_tok[:span], gate_sorted[:span]
+        rows = int((gate_sorted != 0).sum())
     xs = x.reshape(N, MOE_D)[sort_tok.long()].contiguous()
     tg = MG.tile_group_map(gs, xs.shape[0] // MG.TILE, MG.TILE)
 
     def w(*shape, fan):
         return (torch.randn(*shape, generator=g, device="cuda") * fan ** -0.5).to(bf)
 
-    wg, wu, wd = w(MOE_E, MOE_D, F, fan=MOE_D), w(MOE_E, MOE_D, F, fan=MOE_D), w(MOE_E, F, MOE_D, fan=F)
+    wg, wu, wd = w(E, MOE_D, F, fan=MOE_D), w(E, MOE_D, F, fan=MOE_D), w(E, F, MOE_D, fan=F)
     dy = (torch.randn(xs.shape, generator=g, device="cuda") * (gate_sorted != 0)[:, None]).to(bf)
-    return dict(xs=xs, wg=wg, wu=wu, wd=wd, tg=tg, dy=dy, gs=gs, rows=N * MOE_K)
+    return dict(xs=xs, wg=wg, wu=wu, wd=wd, tg=tg, dy=dy, gs=gs, rows=rows)
 
 
 def next_expert_tiles(torch, tg, E: int):
@@ -2727,7 +2747,7 @@ def library_swiglu(torch, xs, wg, wu, wd, gs):
 def moe_cost(m) -> dict:
     """Operations over this run's real routed rows and the bytes of each
     input read once and each output written once."""
-    PN, E, D, F = m["xs"].shape[0], MOE_E, MOE_D, m["wg"].shape[-1]
+    PN, E, D, F = m["xs"].shape[0], m["wg"].shape[0], MOE_D, m["wg"].shape[-1]
     w, act = 3 * E * D * F * 2, PN * D * 2
     return {"moe_fwd": (2 * m["rows"] * D * F * 3, 2 * act + w + PN // 128 * 4),
             "moe_bwd": (2 * m["rows"] * D * F * 8, 3 * act + 2 * w + PN // 128 * 4)}
@@ -2779,7 +2799,7 @@ def moe_kernel_phase(torch, MG, expert, flush) -> dict:
         torch.cuda.synchronize()
         ys_p = MG.moe_fwd_plain(*args, m["tg"])
         bwd_p = MG.moe_bwd_plain(m["xs"], m["dy"], *args[1:], m["tg"])
-        bad = next_expert_tiles(torch, m["tg"], MOE_E)
+        bad = next_expert_tiles(torch, m["tg"], m["wg"].shape[0])
         ys_f = MG.moe_fwd_plain(*args, bad)
         bwd_f = MG.moe_bwd_plain(m["xs"], m["dy"], *args[1:], bad)
         for t in (ys, *bwd):
@@ -4014,16 +4034,16 @@ def fsdp_check(ranks: list, one: list, run: str = "ok", tag: str = "fsdp",
     return worst
 
 
-def fsdp_blocks(torch, ranks: list, whole: dict, step: int, tag: str = "fsdp") -> int:
-    """The blocks each rank handed its save of ``step`` against the same
-    blocks of ``whole`` (a one-process restore's tree), bit for bit; each
-    split leaf's blocks together its whole bytes (one axis of the ranks
-    splits it: rank r's block is block r). Returns the leaves split."""
+def fsdp_blocks(torch, ranks: list, whole: dict, step: int, tag: str = "fsdp", run: str = "ok") -> int:
+    """The blocks each rank handed its save of ``step`` in ``run`` against
+    the same blocks of ``whole`` (a one-process restore's tree), bit for
+    bit; each split leaf's blocks together its whole bytes (one axis of the
+    ranks splits it: rank r's block is block r). Returns the leaves split."""
     split = 0
     for name, t in _leaves(whole):
         if not hasattr(t, "shape"):
             continue
-        shapes = [rec["ok"]["saves"][str(step)][name]["shape"] for rec in ranks]
+        shapes = [rec[run]["saves"][str(step)][name]["shape"] for rec in ranks]
         dims = [d for d in range(t.ndim) if shapes[0][d] != t.shape[d]]
         check(len(dims) <= 1 and all(s == shapes[0] for s in shapes),
               f"{tag}: {name} blocks {shapes} of {list(t.shape)}")
@@ -4033,7 +4053,7 @@ def fsdp_blocks(torch, ranks: list, whole: dict, step: int, tag: str = "fsdp") -
                   f"{tag}: {name} blocks {shapes} of {list(t.shape)}")
         for rank, rec in enumerate(ranks):
             block = t.chunk(FSDP_RANKS, dims[0])[rank] if dims else t
-            check(rec["ok"]["saves"][str(step)][name]["fp"] == fingerprint(torch, block),
+            check(rec[run]["saves"][str(step)][name]["fp"] == fingerprint(torch, block),
                   f"{tag}: rank {rank}'s block of {name} at step {step} is not the one-process restore's")
     return split
 
@@ -4209,6 +4229,14 @@ TP_FAULTS = ("reduce", "embed")
 #: the two ranks' differ), and rank TP_FAULT_RANK's expert output skips
 #: ``reduce_from_model`` ("expert")
 MIXTRAL_TP_FAULTS = ("gates", "expert")
+#: [mixtral-ep]: the [mixtral-tp] gang's two processes also run the expert
+#: axis, ``MeshSpec.auto(expert=2)`` (4 of the 8 experts a rank: B7/B8 on 4
+#: groups, the span of sorted rows the rank's experts own), against the same
+#: one-process run, then one step of each planted fault: every rank's MoE
+#: output skips the expert line's sum ("unsummed"), and every rank takes
+#: expert 0's span of the sorted rows ("span0")
+MIXTRAL_EP_FAULTS = ("unsummed", "span0")
+MIXTRAL_EP_RUNS = ("ep-ok", *(f"ep-{f}" for f in MIXTRAL_EP_FAULTS))
 #: the family's gang: its phase's tag, its cut preset, batch rows and faults,
 #: the step-report keys held to one process's and the kernels it launches
 TP_FAMILIES = {
@@ -4217,7 +4245,8 @@ TP_FAMILIES = {
     "mixtral": dict(tag="mixtral-tp", cfg={"preset": "mixtral-8x7b", "n_layers": MIXTRAL_TP_LAYERS},
                     batch=MIXTRAL_TP_B, faults=MIXTRAL_TP_FAULTS,
                     keys=("loss", "grad_norm", "moe_balance_loss", "moe_z_loss"),
-                    kernels=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "moe_fwd", "moe_bwd")),
+                    kernels=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "moe_fwd", "moe_bwd"),
+                    ep_runs=MIXTRAL_EP_RUNS),
 }
 #: [tp-serve]: the TP engine (``ContinuousBatcher(tp=2)``) with both shards on
 #: the one card against the tp=1 engine on the same weights, Llama-3-8B widths
@@ -4294,14 +4323,38 @@ def skip_expert_reduce(expert) -> None:
     expert.reduce_from_model = own_partial
 
 
+def span_of_expert0(expert) -> None:
+    """A planted fault on every rank: the MoE takes expert 0's span of the
+    sorted rows (and its group sizes) for this rank's experts."""
+    expert._expert_span = lambda mesh, num_experts: (0, num_experts // mesh.shape["expert"])
+
+
+def record_moe_experts(MG, seen: set) -> None:
+    """While installed, each B7/B8 wrapper call adds its experts (the
+    weights' leading dim) to ``seen``."""
+    real_fwd, real_bwd = MG.moe_fwd, MG.moe_bwd
+
+    def fwd(xs, wg, *a, **kw):
+        seen.add(wg.shape[0])
+        return real_fwd(xs, wg, *a, **kw)
+
+    def bwd(xs, dy, wg, *a, **kw):
+        seen.add(wg.shape[0])
+        return real_bwd(xs, dy, wg, *a, **kw)
+
+    MG.moe_fwd, MG.moe_bwd = fwd, bwd
+
+
 def tp_rank(spec_json: str) -> None:
     """One rank of the ``[tp]`` or ``[mixtral-tp]`` gang (``RANK`` in the
     env; the spec's ``model``: llama or mixtral): ``run_lm_training`` with
     ``model_axis`` TP_RANKS once sound with a sharded save (the fingerprint
     and shape of each block the rank hands it) and once for each planted
-    fault, each in a gloo group of its own (a file store under the spec's
-    directory); each run's step reports, kernel launches, peak memory and
-    (Mixtral) the fingerprint of the router's gradient at each step. Writes
+    fault, then (Mixtral) the same on ``expert_axis`` TP_RANKS
+    (``MIXTRAL_EP_RUNS``), each in a gloo group of its own (a file store
+    under the spec's directory); each run's step reports, kernel launches,
+    the experts each B7/B8 call took, peak memory and (Mixtral) the
+    fingerprint of the router's gradient at each step. Writes
     ``rank<r>.json`` there."""
     import torch
     import torch.distributed as dist
@@ -4321,11 +4374,13 @@ def tp_rank(spec_json: str) -> None:
     model = {"llama": llama, "mixtral": mixtral}[spec["model"]]
     cfg = model.config_from_dict(spec["cfg"])
     real = (C.CheckpointManager.save, vars(collectives._ReduceFromModel)["backward"], llama.embed_lookup,
-            expert.copy_to_model, expert.reduce_from_model, trainer.AdamW.update)
+            expert.copy_to_model, expert.reduce_from_model, trainer.AdamW.update, expert._expert_span,
+            MG.moe_fwd, MG.moe_bwd)
     out = {}
-    for run in ("ok", *spec["faults"]):
+    for run in ("ok", *spec["faults"], *spec["ep_runs"]):
         saves: dict = {}
         router: list = []
+        experts: set = set()
 
         def save(self, step, state, force=False):
             local = {name: t.to_local() if hasattr(t, "to_local") else t for name, t in _leaves(state)}
@@ -4352,15 +4407,22 @@ def tp_rank(spec_json: str) -> None:
             unsummed_gates(expert, cfg.top_k)
         if run == "expert" and rank == TP_FAULT_RANK:
             skip_expert_reduce(expert)
+        if run == "ep-unsummed":
+            skip_expert_reduce(expert)
+        if run == "ep-span0":
+            span_of_expert0(expert)
+        record_moe_experts(MG, experts)
         A.reset_launches()
         MG.reset_launches()
         try:
             res = run_lm_training(model, cfg, LoopConfig(**spec[run]))
         finally:
             (C.CheckpointManager.save, collectives._ReduceFromModel.backward, llama.embed_lookup,
-             expert.copy_to_model, expert.reduce_from_model, trainer.AdamW.update) = real
+             expert.copy_to_model, expert.reduce_from_model, trainer.AdamW.update, expert._expert_span,
+             MG.moe_fwd, MG.moe_bwd) = real
         out[run] = {"log": res["log"], "launches": {**A.launches, **MG.launches}, "saves": saves,
-                    "router": router, "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+                    "router": router, "experts": sorted(experts),
+                    "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
     (work / f"rank{rank}.json").write_text(json.dumps(out))
 
 
@@ -4435,9 +4497,14 @@ def tp_phase(torch, model, A, out_dir: Path, card: str, cfg: dict | None = None,
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     gang = dict(loop, model_axis=TP_RANKS, device=device)
+    ep_runs = fam.get("ep_runs", ())
+    ep = dict(loop, expert_axis=TP_RANKS, device=device)
     spec = {"dir": str(work), "model": family, "cfg": cfg, "device": device, "faults": list(fam["faults"]),
+            "ep_runs": list(ep_runs),
             "ok": dict(gang, steps=TP_STEPS, checkpoint_dir=str(work / "ckpt"), checkpoint_every=TP_STEPS),
-            **{f: dict(gang, steps=1) for f in fam["faults"]}}
+            **{f: dict(gang, steps=1) for f in fam["faults"]},
+            **{r: dict(ep, steps=TP_STEPS, checkpoint_dir=str(work / "ckpt-ep"), checkpoint_every=TP_STEPS)
+               if r == "ep-ok" else dict(ep, steps=1) for r in ep_runs}}
     t0 = time.perf_counter()
     ranks = run_gang(work, spec, "tp_rank", TP_RANKS, tag)
     seconds = {"gang": time.perf_counter() - t0}
@@ -4483,7 +4550,15 @@ def tp_phase(torch, model, A, out_dir: Path, card: str, cfg: dict | None = None,
     state_rel = fsdp_state_check(torch, state.state_dict(), one_state, ranks[0]["ok"]["saves"][str(step)],
                                  f"step {step}", tag=tag, leaves=worst_leaves)
     whole_bytes = tree_bytes(state.params) + tree_bytes({k: state.opt_state[k] for k in ("mu", "nu")})
-    del state, one_state, held
+    del state
+    ep_rec = None
+    if ep_runs:
+        ep_rec = ep_check(torch, model, model_cfg, ranks, one, one_state, one_launches, work, device, kernels,
+                          fam["keys"], opt)
+        ep_rec.update(preset=cfg.get("preset", ""), layers=model_cfg.n_layers, batch=loop["batch_size"],
+                      seq_len=loop["seq_len"], one_losses=[x["loss"] for x in one],
+                      one_grad_norms=[x["grad_norm"] for x in one], seconds_gang=round(seconds["gang"], 1))
+    del one_state, held
     shutil.rmtree(work, ignore_errors=True)
     last = [rec["ok"]["log"][-1] for rec in ranks]
     check(all(x["param_bytes"] + x["opt_bytes"] < 0.51 * whole_bytes for x in last),
@@ -4509,7 +4584,108 @@ def tp_phase(torch, model, A, out_dir: Path, card: str, cfg: dict | None = None,
                    one_balance=[x["moe_balance_loss"] for x in one], one_z=[x["moe_z_loss"] for x in one],
                    router_steps=router_steps)
     print(tp_line(rec, card), flush=True)
+    if ep_rec is not None:
+        rec["ep"] = ep_rec
+        print(ep_line(ep_rec, card), flush=True)
     return rec
+
+
+#: the expert leaves, which the expert axis halves
+EXPERT_LEAVES = ("layers/we_gate", "layers/we_up", "layers/we_down")
+
+
+def ep_check(torch, model, model_cfg, ranks: list, one: list, one_state: dict, one_launches: dict, work: Path,
+             device: str, kernels: tuple, keys: tuple, opt) -> dict:
+    """``[mixtral-ep]``'s holds on the gang's ``MIXTRAL_EP_RUNS``: each rank's
+    losses, grad norms and router losses one process's within
+    ``FSDP_REL`` (the data × fsdp size is 1, so JAX's per-shard mean is the
+    batch's); the router's gradient the same bits on both ranks at every
+    step; each rank's B1-B3, B7 and B8 launches one process's, every B7/B8
+    call on ``E/2`` experts (and, on the card, B7 launched: the bf16
+    aligned path has no fallback); the per-rank bytes exactly the whole
+    state's less half of every expert leaf and its moments; the saved step
+    restored into one process bit for bit, and each rank's blocks of it
+    within ``FSDP_STATE_REL`` of one process's. Each planted fault must
+    fail ``fsdp_check``."""
+    from tony_tpu_torch.train.checkpoint import restore_or_init
+    from tony_tpu_torch.train.trainer import TrainState, tree_bytes
+
+    tag, run = "mixtral-ep", "ep-ok"
+    worst = fsdp_check(ranks, one, run, tag=tag, keys=keys)
+    router_steps = router_check(ranks, run, tag=tag)
+    faults = {}
+    for fault in MIXTRAL_EP_FAULTS:
+        try:
+            fsdp_check(ranks, one, f"ep-{fault}", tag=tag, keys=keys)
+        except SmokeFailure:
+            faults[fault] = {k: [rec[f"ep-{fault}"]["log"][0][k] for rec in ranks] for k in ("loss", "grad_norm")}
+        check(fault in faults, f"{tag}: the planted fault {fault!r} passed")
+    cuda = device == "cuda"
+    local = model_cfg.num_experts // TP_RANKS
+    for rank, rec in enumerate(ranks):
+        got = {k: rec[run]["launches"][k] for k in kernels}
+        check(got == {k: one_launches[k] for k in kernels} and (not cuda or all(got.values())),
+              f"{tag}: rank {rank} launches {got}, one process {one_launches}")
+        check(rec[run]["experts"] == [local], f"{tag}: rank {rank}'s B7/B8 calls took {rec[run]['experts']} "
+                                              f"experts, want {local}")
+    t0 = time.perf_counter()
+    state, _, step = restore_or_init(str(work / "ckpt-ep"), lambda: TrainState.create(
+        model.init(torch.Generator(device=device).manual_seed(1), model_cfg, device), opt), TrainState.load)
+    restore_s = time.perf_counter() - t0
+    check(step == TP_STEPS, f"{tag}: one process restored step {step}, want {TP_STEPS}")
+    split = fsdp_blocks(torch, ranks, state.state_dict(), step, tag=tag, run=run)
+    check(split == 3 * len(EXPERT_LEAVES),
+          f"{tag}: {split} leaves split, want the {len(EXPERT_LEAVES)} expert leaves and their two moments")
+    worst_leaves: dict = {}
+    state_rel = fsdp_state_check(torch, state.state_dict(), one_state, ranks[0][run]["saves"][str(step)],
+                                 f"step {step}", tag=tag, leaves=worst_leaves)
+    trees = (state.params, state.opt_state["mu"], state.opt_state["nu"])
+    whole_bytes = sum(tree_bytes(t) for t in trees)
+    expert_bytes = sum(tree_bytes({n: t for n, t in _leaves(tree) if n in EXPERT_LEAVES}) for tree in trees)
+    del state
+    last = [rec[run]["log"][-1] for rec in ranks]
+    want = whole_bytes - expert_bytes // TP_RANKS
+    check(all(x["param_bytes"] + x["opt_bytes"] == want for x in last),
+          f"{tag}: per-rank bytes {[(x['param_bytes'], x['opt_bytes']) for x in last]}, want {want}: "
+          f"{whole_bytes} whole less half of the experts' {expert_bytes}")
+    log0 = ranks[0][run]["log"]
+    return {
+        "tag": tag, "steps": TP_STEPS, "losses": [x["loss"] for x in log0],
+        "grad_norms": [x["grad_norm"] for x in log0], "worst_rel": worst,
+        "balance": [x["moe_balance_loss"] for x in log0], "z": [x["moe_z_loss"] for x in log0],
+        "one_balance": [x["moe_balance_loss"] for x in one], "one_z": [x["moe_z_loss"] for x in one],
+        "router_steps": router_steps, "state_rel": state_rel, "state_worst_leaf": worst_leaves,
+        "param_bytes": last[0]["param_bytes"], "opt_bytes": last[0]["opt_bytes"], "whole_bytes": whole_bytes,
+        "expert_bytes": expert_bytes, "split_leaves": split, "local_experts": local,
+        "peak_bytes": [rec[run]["peak_bytes"] for rec in ranks],
+        "step_ms": [x["step_time_ms"] for x in log0], "restored_step": step, "restore_s": restore_s,
+        "faults": faults, "kernels": list(kernels),
+        "launches": [[rec[run]["launches"][k] for k in kernels] for rec in ranks],
+        "one_launches": [one_launches[k] for k in kernels],
+        "launches_rank": {k: ranks[0][run]["launches"][k] for k in kernels},
+    }
+
+
+def ep_line(rec: dict, card: str) -> str:
+    """The ``[mixtral-ep]`` report line."""
+    state = ", ".join(f"{k} {v:.2e} ({rec['state_worst_leaf'][k]})" for k, v in rec["state_rel"].items())
+    faults = "; ".join(f"{k}: loss {v['loss']} grad norm {v['grad_norm']} against one process's "
+                       f"{rec['one_losses'][0]} / {rec['one_grad_norms'][0]}, failed" for k, v in rec["faults"].items())
+    return (f"[{rec['tag']}] {TP_RANKS} ranks on one card over {FSDP_BACKEND}, {rec['preset']} widths {rec['layers']} "
+            f"layers B={rec['batch']} T={rec['seq_len']}, expert {TP_RANKS} ({rec['local_experts']} experts a rank): "
+            f"losses {rec['losses']} grad norms {rec['grad_norms']} (one process {rec['one_losses']} / "
+            f"{rec['one_grad_norms']}, worst rel {rec['worst_rel']:.2e}, limit {FSDP_REL:.0e}); router losses "
+            f"balance {rec['balance']} z {rec['z']} (one process {rec['one_balance']} / {rec['one_z']}); the router's "
+            f"gradient the same bits on both ranks at {rec['router_steps']} steps; step {rec['restored_step']} blocks "
+            f"against one process's, worst {state} (limit {FSDP_STATE_REL:.0e}); per rank params "
+            f"{rec['param_bytes'] / 1e9:.3f} GB + moments {rec['opt_bytes'] / 1e9:.3f} GB of "
+            f"{rec['whole_bytes'] / 1e9:.3f} GB whole, exactly less half of the experts' "
+            f"{rec['expert_bytes'] / 1e9:.3f} GB ({rec['split_leaves']} leaves split), peak "
+            f"{[round(b / 2**30, 2) for b in rec['peak_bytes']]} GiB; {'/'.join(rec['kernels'])} a rank "
+            f"{rec['launches']} (one process {rec['one_launches']}), each B7/B8 call on {rec['local_experts']} "
+            f"experts; ms/step {rec['step_ms']} over gloo; step {rec['restored_step']} restored into one process bit "
+            f"for bit in {rec['restore_s']:.1f} s; gang {rec['seconds_gang']} s with [mixtral-tp]'s runs; planted "
+            f"faults, {faults}; {card}")
 
 
 def tp_serve_requests(vocab: int) -> list[list[int]]:
@@ -5026,7 +5202,9 @@ def main() -> int:
             tp = tp_phase(torch, llama, A, out_dir, card)
         with phase("tp-serve"):
             tp_serve = tp_serve_phase(torch, llama, card)
-        # Mixtral on the model axis: its experts on F/tp columns, B7/B8 at 7168
+        # Mixtral on the model axis (its experts on F/tp columns, B7/B8 at 7168),
+        # then in the same two processes [mixtral-ep], the expert axis (4 whole
+        # experts a rank), against the same one-process run
         with phase("mixtral-tp"):
             mixtral_tp = tp_phase(torch, mixtral, A, out_dir, card)
         with phase("mixtral-tp-serve"):
@@ -5049,6 +5227,7 @@ def main() -> int:
         more["moe_fwd"] = {"mixtral_gang": gang_launches["moe_fwd"], "hf_serve": hf_serve["mixtral_launches"]["moe_fwd"]}
         for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "moe_fwd", "moe_bwd"):
             more[k]["mixtral_tp"] = mixtral_tp["launches_rank"][k]
+            more[k]["mixtral_ep"] = mixtral_tp["ep"]["launches_rank"][k]
         more["moe_fwd"]["mixtral_tp_serve"] = mixtral_tp_serve["launches"]
         for k in ("paged_decode_attention", "int8_matmul"):
             more[k] = {"hf_serve": hf_serve["launches"][k]}

@@ -480,6 +480,74 @@ def test_moe_kernels_at_f_over_tp_match_plain_and_refuse_other_widths(gen):
         MG.moe_fwd(xs, wide, wide, torch.zeros(E, F + 64, D, dtype=torch.bfloat16, device="cuda"), tg)
 
 
+@pytest.mark.parametrize("layout", ["span", (1100, 0, 640, 300)], ids=["routed", "empty_expert"])
+def test_moe_kernels_on_an_expert_axis_span_match_plain(gen, layout):
+    """B7/B8 on an expert-axis rank's span at Mixtral-8x7B widths, 4 of the
+    8 experts (``[4, 4096, 14336]``): 2048 tokens routed top-2 over 8 with
+    the rows of experts 0-3 kept ("routed"), and a layout whose second
+    expert has no row ("empty_expert", one trailing tile clamped to the
+    last): ys, dxs and each expert's dW within ``MOE_TOL`` of the plain
+    versions, the empty expert's dW exactly 0 (JAX's
+    ``test_fused_kernel_empty_experts``)."""
+    from tony_tpu_torch.ops import moe_gemm as MG
+    from tony_tpu_torch.parallel.expert import MoEConfig, route_ragged
+
+    E, D, F = 4, 4096, 14336
+    if layout == "span":
+        x = torch.randn(1, 2048, D, generator=gen, device="cuda").to(torch.bfloat16)
+        router = torch.randn(D, 2 * E, generator=gen, device="cuda") / D ** 0.5
+        sort_tok, _, _, gate_sorted, gs, _ = route_ragged(x, router, MoEConfig(2 * E, 2), tile=MG.TILE)
+        span = int(gs[:E].sum())
+        xs = x.reshape(-1, D)[sort_tok[:span].long()].contiguous()
+        tg = MG.tile_group_map(gs[:E], span // MG.TILE, MG.TILE)
+        r = lambda *sh, scale=1.0: (torch.randn(*sh, generator=gen, device="cuda") * scale).to(torch.bfloat16)  # noqa: E731
+        wg, wu, wd = r(E, D, F, scale=D ** -0.5), r(E, D, F, scale=D ** -0.5), r(E, F, D, scale=F ** -0.5)
+        dy = (r(*xs.shape) * (gate_sorted[:span] != 0)[:, None]).contiguous()
+    else:
+        xs, (wg, wu, wd), tg, dy = _moe_inputs(gen, E, D, F, 1, layout)
+    ys, grads = MG.moe_fwd(xs, wg, wu, wd, tg), MG.moe_bwd(xs, dy, wg, wu, wd, tg)
+    want_ys, want = MG.moe_fwd_plain(xs, wg, wu, wd, tg), MG.moe_bwd_plain(xs, dy, wg, wu, wd, tg)
+    assert _row_err(ys, want_ys) <= MOE_TOL and _row_err(grads[0], want[0]) <= MOE_TOL
+    for got, exp in zip(grads[1:], want[1:]):
+        for e in range(E):
+            ref = exp[e].float()
+            if ref.norm() == 0:
+                assert bool((got[e] == 0).all()), e
+                continue
+            assert ((got[e].float() - ref).norm() / ref.norm()).item() <= MOE_TOL, e
+    if layout != "span":
+        assert all(bool((g[1] == 0).all()) for g in grads[1:])
+
+
+def test_an_f32_mixtral_step_on_the_card_takes_the_grouped_product(gen):
+    """JAX's eligibility rule, before any launch: an f32 Mixtral's loss and
+    gradients on the card take the ``ragged_xla`` grouped product (no B7/B8
+    launch, nothing raised) and equal the CPU's (the plain B7/B8 on the same
+    f32 weights) within 1e-4."""
+    import dataclasses
+
+    from tony_tpu_torch.models import mixtral
+    from tony_tpu_torch.ops import moe_gemm as MG
+
+    cfg = dataclasses.replace(mixtral.MIXTRAL_TINY, dtype="float32", d_model=256, n_heads=4, n_kv_heads=2,
+                              d_ff=256)
+    params = mixtral.init(torch.Generator().manual_seed(0), cfg, "cpu")
+    batch = mixtral.synthetic_batch(torch.Generator().manual_seed(1), 2, 64, cfg)
+    results = []
+    for dev in ("cuda", "cpu"):
+        p = {k: ({n: t.to(dev).requires_grad_(True) for n, t in v.items()} if isinstance(v, dict)
+                 else v.to(dev).requires_grad_(True)) for k, v in params.items()}
+        MG.reset_launches()
+        loss, _ = mixtral.loss_fn(p, {k: v.to(dev) for k, v in batch.items()}, cfg)
+        grads = torch.autograd.grad(loss, list(p["layers"].values()))
+        results.append((loss.item(), [g.cpu() for g in grads], dict(MG.launches)))
+    (lc, gc, launches), (lp, gp, _) = results
+    assert launches == {"moe_fwd": 0, "moe_bwd": 0}
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    for a, b in zip(gc, gp):
+        assert ((a - b).norm() / b.norm().clamp_min(1e-30)).item() <= 1e-4
+
+
 def test_moe_ffn_and_mixtral_step_on_card_launch_the_kernels(gen):
     """``moe_ffn`` on card tensors launches B7 once and B8 once; a Mixtral
     loss and backward under remat "full" launches B7 twice a layer (forward

@@ -84,30 +84,25 @@ def _rel(a, b):
     return float(np.abs(a - b).max() / (np.abs(b).max() + 1e-12))
 
 
-def _without(d: dict, keys) -> dict:
-    return {k: v for k, v in d.items() if k not in keys}
-
-
 def test_config_and_presets_mirror_jax():
-    """The presets equal JAX's but for the fields only JAX's unported
-    dispatches read (each preset takes the ragged one); a dict asking for
-    another dispatch is refused naming A11."""
+    """The presets equal JAX's field for field (each takes the ragged
+    dispatch); a dict naming any of JAX's dispatches configures it, and one
+    JAX does not know raises JAX's ValueError."""
     assert set(TM.PRESETS) == set(JM.PRESETS)
     for name, jcfg in JM.PRESETS.items():
         tcfg = TM.PRESETS[name]
         assert jcfg.moe_dispatch == "ragged", name
-        assert dataclasses.asdict(tcfg) == _without(dataclasses.asdict(jcfg),
-                                                    ("capacity_factor", "moe_dispatch")), name
-        assert dataclasses.asdict(tcfg.moe) == _without(dataclasses.asdict(jcfg.moe),
-                                                        ("capacity_factor", "dispatch")), name
+        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg), name
+        assert dataclasses.asdict(tcfg.moe) == dataclasses.asdict(jcfg.moe), name
         for fn in ("num_params", "active_params", "flops_per_token"):
             assert getattr(tcfg, fn)() == getattr(jcfg, fn)(), (name, fn)
     assert TM.config_from_dict({"preset": "mixtral-8x7b", "n_layers": 2}).n_layers == 2
     assert TM.config_from_dict({"preset": "tiny", "moe_dispatch": "ragged", "capacity_factor": 2.0}) \
-        == TM.MIXTRAL_TINY
+        == dataclasses.replace(TM.MIXTRAL_TINY, capacity_factor=2.0)
     for dispatch in ("ragged_xla", "gather", "dense"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            TM.config_from_dict({"preset": "tiny", "moe_dispatch": dispatch})
+        assert TM.config_from_dict({"preset": "tiny", "moe_dispatch": dispatch}).moe.dispatch == dispatch
+    with pytest.raises(ValueError, match="dispatch must be 'gather' or 'dense', got 'bogus'"):
+        TM.config_from_dict({"preset": "tiny", "moe_dispatch": "bogus"})
     with pytest.raises(NotImplementedError, match="A8"):
         TM.forward({"embed": torch.zeros(8, 4)}, torch.zeros(1, 4, dtype=torch.long), _tcfg(),
                    mesh=object())

@@ -210,17 +210,12 @@ def test_moe_ffn_values_and_gradients_match_jax(skew, masked):
         assert rel(a.numpy(), np.asarray(b)) < 1e-5, name
 
 
-# fields of JAX's MoEConfig that only its unported dispatches read
-JAX_ONLY = ("capacity_factor", "dispatch")
-
-
 def test_moe_ffn_refuses_what_is_not_ported():
-    """An expert mesh axis raises naming A11; the port's MoEConfig is JAX's
-    less the fields of the unported dispatches, and JAX's default dispatch
-    is the ragged one the port runs."""
+    """A mesh that is not the port's raises; the port's MoEConfig is JAX's,
+    field for field, and JAX's default dispatch is the ragged one."""
     x, router, wg, wu, wd = (torch.from_numpy(a) for a in _ffn_inputs(6))
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         TE.moe_ffn(x, router, wg, wu, wd, TE.MoEConfig(**_cfg()), mesh=object())
     jcfg = dataclasses.asdict(JE.MoEConfig())
     assert jcfg["dispatch"] == "ragged"
-    assert dataclasses.asdict(TE.MoEConfig()) == {k: v for k, v in jcfg.items() if k not in JAX_ONLY}
+    assert dataclasses.asdict(TE.MoEConfig()) == jcfg

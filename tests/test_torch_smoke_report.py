@@ -837,3 +837,58 @@ def test_mixtral_tp_phases_run_after_tp_serve_in_main():
     assert main.index('phase("mixtral-tp-serve")') < main.index("except SmokeFailure")
     assert 'more[k]["mixtral_tp"] = mixtral_tp["launches_rank"][k]' in main
     assert 'more["moe_fwd"]["mixtral_tp_serve"] = mixtral_tp_serve["launches"]' in main
+
+
+def test_mixtral_ep_holds_the_expert_axis_to_one_process_and_catches_both_faults(mixtral_tp_records):
+    """``[mixtral-ep]``, run by the same gang on the CPU at the tiny Mixtral
+    (4 experts: 2 a rank) in f32: each rank's losses, grad norms and router
+    losses are one process's within ``FSDP_REL`` (rounding), the router's
+    gradient the same bits on both ranks at every step, the 3 expert leaves
+    and their moments split and restored bit for bit, each rank's bytes the whole less half of
+    the experts' exactly, B1-B3/B7/B8 launched as by one process (none on
+    the CPU) with every B7/B8 call on 2 experts; the unsummed output and
+    expert 0's span each move the first loss past ``FSDP_REL``."""
+    rec = mixtral_tp_records[0]["ep"]
+    assert rec["tag"] == "mixtral-ep" and rec["local_experts"] == 2 and rec["kernels"][3:] == ["moe_fwd", "moe_bwd"]
+    assert rec["worst_rel"] <= cs.FSDP_REL and rec["router_steps"] == cs.TP_STEPS
+    for got, want in ((rec["balance"], rec["one_balance"]), (rec["z"], rec["one_z"])):
+        assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(got, want, strict=True))
+    assert rec["split_leaves"] == 9 and rec["restored_step"] == cs.TP_STEPS  # 3 leaves and their moments
+    assert max(rec["state_rel"].values()) <= 1e-5
+    assert rec["param_bytes"] + rec["opt_bytes"] == rec["whole_bytes"] - rec["expert_bytes"] // 2
+    assert rec["launches"] == [rec["one_launches"]] * cs.TP_RANKS
+    assert set(rec["faults"]) == set(cs.MIXTRAL_EP_FAULTS)
+    one = rec["one_losses"][0]
+    for fault in cs.MIXTRAL_EP_FAULTS:
+        assert all(abs(x - one) > cs.FSDP_REL * one for x in rec["faults"][fault]["loss"]), fault
+
+
+def test_mixtral_ep_line_names_every_number_and_fails_on_a_missing_field(mixtral_tp_records):
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    rec = mixtral_tp_records[0]["ep"]
+    line = cs.ep_line(rec, card)
+    assert line.startswith("[mixtral-ep] 2 ranks on one card over gloo, tiny widths 2 layers B=1 T=32, expert 2 "
+                           "(2 experts a rank): ")
+    assert line.endswith(card)
+    for text in (str(rec["losses"]), str(rec["grad_norms"]), str(rec["balance"]), str(rec["z"]), str(rec["launches"]),
+                 f"worst rel {rec['worst_rel']:.2e}, limit {cs.FSDP_REL:.0e}",
+                 f"the same bits on both ranks at {cs.TP_STEPS} steps", "each B7/B8 call on 2 experts",
+                 "exactly less half of the experts'", "(9 leaves split)", "unsummed: loss", "span0: loss",
+                 f"restored into one process bit for bit in {rec['restore_s']:.1f} s"):
+        assert text in line, text
+    for key in rec:
+        if key in ("tag", "steps", "one_launches", "launches_rank", "split_leaves") or key.startswith("one_"):
+            continue
+        with pytest.raises(KeyError):
+            cs.ep_line({k: v for k, v in rec.items() if k != key}, card)
+
+
+def test_mixtral_ep_launches_and_the_ep2_kernel_case_reach_the_report():
+    """``main`` adds ``[mixtral-ep]``'s launches a rank to each kernel row
+    it launched, and the MoE kernel phase times B7/B8 on a ``[mixtral-ep]``
+    rank's span: 4 of the 8 experts, 2048 tokens routed top-2."""
+    src = (ROOT / "chip_smoke.py").read_text()
+    main = src[src.index("def main() -> int:"):]
+    assert 'more[k]["mixtral_ep"] = mixtral_tp["ep"]["launches_rank"][k]' in main
+    assert cs.MOE_CASES["ep2"] == dict(tokens=2048, skew="random", experts=cs.MOE_E // 2)
+    assert cs.MIXTRAL_EP_RUNS == ("ep-ok", "ep-unsummed", "ep-span0")

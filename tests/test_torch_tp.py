@@ -655,8 +655,8 @@ def test_tp_refuses_int8_resolves_dense_and_counts_devices(monkeypatch):
 
 def test_the_model_axis_still_refuses_what_is_not_ported(monkeypatch):
     """BERT on the model axis (A8b's second part), a model axis beside a
-    context axis (A12), and the expert (A11) and stage (A13) axes raise by
-    name, for Mixtral too; Mixtral's TP engine serves (its tokens are held
+    context axis (A12) or an expert axis (A11's rest), and the stage axis
+    (A13) raise by name, for Mixtral too; Mixtral's TP engine serves (its tokens are held
     to JAX's in ``test_torch_tp_mixtral.py``); a Llama model axis whose
     heads, vocabulary or FFN do not split raises naming the numbers."""
     from tony_tpu_torch.models import bert, mixtral
@@ -672,7 +672,7 @@ def test_the_model_axis_still_refuses_what_is_not_ported(monkeypatch):
         with pytest.raises(NotImplementedError, match=item):
             loop.run_lm_training(mixtral, mixtral.MIXTRAL_TINY, loop.LoopConfig(device="cpu", steps=1, model_axis=2,
                                                                                **kw))
-    for kw, item in ((dict(context=2, model=2), "A12"), (dict(expert=2), "A11"), (dict(stage=2), "A13")):
+    for kw, item in ((dict(context=2, model=2), "A12"), (dict(expert=2, model=2), "A11"), (dict(stage=2), "A13")):
         with pytest.raises(NotImplementedError, match=item):
             MeshSpec(**kw).build("cpu")
     mcfg = dataclasses.replace(mixtral.MIXTRAL_TINY, dtype="float32")

@@ -8,7 +8,7 @@ torch tensors, layouts unchanged. bf16 arrays arrive with ``ml_dtypes``'
 uint16 and reinterpreted as ``torch.bfloat16`` bit for bit, with neither
 ``ml_dtypes`` nor ``jax`` imported. ``blocks_from_numpy`` hands a gang's
 rank its blocks of the same tree (``sharding.shard_params`` on its mesh:
-the fsdp and model axes), so a sharded run starts from JAX's weights; the
+the fsdp, expert and model axes), so a sharded run starts from JAX's weights; the
 serving engine cuts a whole tree into its model-axis shards itself
 (``generate.ModelShards``).
 
@@ -67,7 +67,8 @@ def params_from_numpy(tree, device):
 def blocks_from_numpy(tree, rules, mesh, device) -> dict:
     """This rank's blocks of a numpy tree on ``mesh`` per ``rules`` (the
     whole leaves where the mesh does not split them; Mixtral's rules cut
-    each expert's D over fsdp and its F over model)."""
+    the experts over expert, each expert's D over fsdp and its F over
+    model)."""
     from tony_tpu_torch.parallel.sharding import shard_params
 
     return shard_params(params_from_numpy(tree, device), rules, mesh)
@@ -142,10 +143,9 @@ def config_from_hf(hf_config, dtype: str = "bfloat16", **overrides) -> LlamaConf
 def config_from_hf_mixtral(hf_config, dtype: str = "bfloat16", **overrides):
     """HF MixtralConfig (object or mapping) → the port's ``MixtralConfig``.
 
-    JAX sets ``capacity_factor`` to num_experts/top_k, the lossless setting
-    for its capacity dispatches (HF's routing drops nothing). The port runs
-    only the capacity-free ragged dispatch, which drops nothing either, so
-    its config has no such field."""
+    ``capacity_factor`` is num_experts/top_k, as JAX sets it: the lossless
+    setting for the capacity dispatches (HF's routing drops nothing); the
+    dispatch stays the default ragged one, which drops nothing either."""
     from tony_tpu_torch.models.mixtral import MixtralConfig
 
     _reject_unsupported(hf_config)
@@ -162,6 +162,7 @@ def config_from_hf_mixtral(hf_config, dtype: str = "bfloat16", **overrides):
         dtype=dtype,
         num_experts=_get(hf_config, "num_local_experts"),
         top_k=_get(hf_config, "num_experts_per_tok"),
+        capacity_factor=_get(hf_config, "num_local_experts") / _get(hf_config, "num_experts_per_tok"),
     )
     return dataclasses.replace(base, **overrides) if overrides else base
 

@@ -6,23 +6,31 @@ by a top-k-of-E SwiGLU mixture routed per token (``parallel/expert.py``).
 The parameter tree is the JAX one: per layer ``router`` [D, E] in f32 and
 ``we_gate``/``we_up`` [E, D, F], ``we_down`` [E, F, D] in the model dtype,
 stacked over layers. On an ``fsdp`` axis the params hold this rank's blocks
-per ``sharding_rules`` (JAX's; the ``expert`` entries are inert while that
-axis is 1) and each leaf is gathered where it is used, as in Llama: B7/B8
-receive each layer's expert weights, gathered and contiguous.
+per ``sharding_rules`` (JAX's) and each leaf is gathered where it is used,
+as in Llama: B7/B8 receive each layer's expert weights, gathered and
+contiguous.
 
 On a ``model`` axis (Megatron's tensor parallelism, JAX's rules) the
 attention half is Llama's (``llama.attention_residual``: ``H/tp`` query
 heads, ``Hkv/tp`` kv heads a rank), the embedding and the head are
 vocab-parallel and the loss the vocab-parallel CE, as Llama's; each rank
 holds ``F/tp`` columns of every expert and runs B7/B8 on them
-(``moe_ffn``), while the router stays whole on every rank. A context axis
-(A12) and an expert axis (A11) raise; ``pp_value_and_grad`` waits for A13.
-The MoE is JAX's default ragged dispatch, so the config has no
-``moe_dispatch`` or ``capacity_factor``; ``config_from_dict`` refuses a dict
-that asks for another dispatch (ROADMAP A11). In a gang,
-``loss_fn(..., group=)`` takes the router losses over the whole group's
-batch, as JAX does over a data-parallel mesh's global arrays: the data ×
-fsdp ranks of this rank's model index, whose rows differ.
+(``moe_ffn``), while the router stays whole on every rank. On an
+``expert`` axis (JAX's ``P(None, "expert", …)`` on the expert leaves) each
+rank holds the contiguous span of ``E/ep`` whole experts, their fsdp blocks
+gathered a layer at a time, and runs them on the expert line's shared rows
+(``moe_ffn``); the rest of the model is replicated over the line. A context
+axis (A12), an expert axis beside a model axis (A11's rest) and
+``pp_value_and_grad`` (A13) wait.
+
+``moe_dispatch`` and ``capacity_factor`` are JAX's: the ragged dispatch
+(B7/B8 where eligible), ``ragged_xla``, and the capacity dispatches
+``gather`` and ``dense``; ``config_from_dict`` refuses an unknown dispatch
+with JAX's ``ValueError``. In a gang, ``loss_fn(..., group=)`` takes the
+router losses over the whole group's batch, as JAX does over a
+data-parallel mesh's global arrays (the data × fsdp ranks of this rank's
+model or expert index, whose rows differ), or as its per-shard means on an
+expert axis (``parallel/expert.py``).
 """
 
 from __future__ import annotations
@@ -38,8 +46,8 @@ from tony_tpu_torch.models import llama as llama_mod
 from tony_tpu_torch.ops import attention as attn_ops
 from tony_tpu_torch.ops import layers as L
 from tony_tpu_torch.parallel.collectives import copy_to_model
-from tony_tpu_torch.parallel.expert import MoEConfig, moe_ffn
-from tony_tpu_torch.parallel.mesh import AXIS_MODEL, axis_size, context_degree, model_group
+from tony_tpu_torch.parallel.expert import MoEConfig, check_dispatch, check_expert_axis, moe_ffn
+from tony_tpu_torch.parallel.mesh import AXIS_EXPERT, AXIS_MODEL, axis_size, context_degree, model_group
 from tony_tpu_torch.parallel.sharding import P, Place, ShardingRules, gather, gathering, keep_whole
 
 _AUX = ("moe_balance_loss", "moe_z_loss", "moe_dropped_frac")
@@ -51,11 +59,14 @@ class MixtralConfig(llama_mod.LlamaConfig):
     top_k: int = 2
     aux_loss_coef: float = 1e-2   # load-balance loss weight
     router_z_coef: float = 1e-3   # router z-loss weight
+    capacity_factor: float = 1.25
+    moe_dispatch: str = "ragged"  # ragged (B7/B8 where eligible) | ragged_xla | gather | dense
 
     @property
     def moe(self) -> MoEConfig:
-        return MoEConfig(self.num_experts, self.top_k, router_z_coef=self.router_z_coef,
-                         aux_loss_coef=self.aux_loss_coef)
+        return MoEConfig(self.num_experts, self.top_k, self.capacity_factor,
+                         router_z_coef=self.router_z_coef, aux_loss_coef=self.aux_loss_coef,
+                         dispatch=self.moe_dispatch)
 
     def num_params(self) -> int:
         base = super().num_params()
@@ -164,8 +175,9 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=N
     if context_degree(mesh, tensor_parallel=True) > 1:
         raise NotImplementedError(
             "Mixtral with a context axis is not ported yet (ROADMAP queue A12, Mixtral CP); "
-            "the port trains it on the data, fsdp and model axes")
+            "the port trains it on the data, fsdp, expert and model axes")
     llama_mod.check_model_axis(cfg, axis_size(mesh, AXIS_MODEL))
+    check_expert_axis(cfg.num_experts, axis_size(mesh, AXIS_EXPERT))
     T = tokens.shape[1]
     cos, sin = L.rope_frequencies(cfg.head_dim, T, cfg.rope_theta, cfg.rope_scaling,
                                   device=tokens.device)
@@ -228,7 +240,11 @@ def loss_fn(params: dict, batch: dict, cfg: MixtralConfig, mesh=None,
     On a model axis the CE is vocab-parallel over the model line (Llama's),
     every rank of a line gets the same loss and ``n``, and ``group`` is the
     data × fsdp ranks of this rank's model index, so ``Σn`` counts each row
-    slice once."""
+    slice once; an expert line's ranks likewise share their rows and
+    ``n``. There the router losses are JAX's per-shard means, each shard's
+    ``1/R`` share summed over ``group`` (``parallel/expert.py``), and the
+    same scale leaves each shard's with weight ``1/R`` in the gang's
+    gradient, as JAX's ``pmean`` gives it."""
     if group is not None and dist.get_world_size(group) == 1:
         group = None
     tokens = batch["tokens"]
@@ -257,10 +273,7 @@ synthetic_batch = llama_mod.synthetic_batch
 def config_from_dict(d) -> MixtralConfig:
     if isinstance(d, str):
         return PRESETS[d]
-    if d.get("moe_dispatch", "ragged") != "ragged":
-        raise NotImplementedError(
-            f"MoE dispatch {d['moe_dispatch']!r} is not ported yet (ROADMAP queue A11); "
-            "the port runs the ragged dispatch")
+    check_dispatch(d.get("moe_dispatch", "ragged"))
     fields = {f.name for f in dataclasses.fields(MixtralConfig)}
     return dataclasses.replace(
         PRESETS.get(d.get("preset", ""), MixtralConfig()),

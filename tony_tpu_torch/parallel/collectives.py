@@ -45,8 +45,11 @@ by the axis's size. ``pmax`` (no gradient) is the max the vocab-parallel
 logsumexp shifts by. ``DeviceModel`` is the same pair for shards held in
 one process (the serving engine's), each on its own device:
 ``copy_to_model`` puts a tensor on every shard's device and
-``reduce_from_model`` sums the shards' partials on the first. ``moe_all_to_all`` waits for the expert
-axis (ROADMAP A11). The data axis's reduction of the gradients is
+``reduce_from_model`` sums the shards' partials on the first.
+``moe_all_to_all`` (:67) exchanges an expert group's token blocks with
+``all_to_all_single`` (its backward the same exchange); no path calls it,
+as none does in JAX: the expert axis's MoE shares its rows over the line
+and sums its output (``parallel/expert.py``). The data axis's reduction of the gradients is
 ``all_reduce_mean`` (``psum`` over the gang, divided by its size), packed
 into flat f32 buckets so a step makes a few calls instead of one a tensor.
 """
@@ -354,6 +357,33 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     row-parallel product's partials); the gradient passes through as it
     is. ``group`` None: the identity."""
     return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+class _MoEAllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def moe_all_to_all(tokens: torch.Tensor, group) -> torch.Tensor:
+    """Expert-dispatch all-to-all: ``tokens`` [n·c, ...] grouped by target
+    rank (block j of dim 0 for rank j of ``group``) → block i of the result
+    is rank i's block for this rank (JAX's ``all_to_all(split 0, concat
+    0)``). The backward sends each gradient block back the same way."""
+    _check_split(tokens, 0, dist.get_world_size(group))
+    return _MoEAllToAll.apply(tokens, group)
 
 
 def pmax(x: torch.Tensor, group) -> torch.Tensor:

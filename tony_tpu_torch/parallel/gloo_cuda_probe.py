@@ -5,9 +5,11 @@
 nccl refuses two ranks on one card, so a gang of two on one card runs on
 gloo or not at all. Each of two processes joins a gloo group on
 ``cuda:0`` and runs each collective the ``fsdp`` axis needs on CUDA tensors
-(``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``), then
-a ``torch.distributed.checkpoint`` save and load of a tensor split over the
-two ranks; each result is checked against what the collective must give.
+(``all_gather_into_tensor``, ``reduce_scatter_tensor``, ``all_reduce``), the
+``all_to_all_single`` of ``collectives.moe_all_to_all`` (no path runs it:
+it is reported, not relied on), then a ``torch.distributed.checkpoint``
+save and load of a tensor split over the two ranks; each result is
+checked against what the collective must give.
 Prints the torch version and one JSON line: each check, ``"ok"`` or the
 error it raised. Exits 0 when every check ran (passed or not), 2 without a
 card.
@@ -25,7 +27,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-CHECKS = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce", "dcp_save_load")
+CHECKS = ("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce", "all_to_all_single", "dcp_save_load")
 
 
 def _check(results: dict, name: str, fn) -> None:
@@ -60,6 +62,14 @@ def _rank(rank: int, port: int, ckpt: str, out: str) -> None:
         dist.all_reduce(x)
         assert x.tolist() == [3.0] * 3, x.tolist()
 
+    def all_to_all():
+        # rank r sends block j of [r*4 + 0..3] to rank j
+        x = torch.arange(4, dtype=torch.float32, device=dev) + 4 * rank
+        got = torch.empty(4, device=dev)
+        dist.all_to_all_single(got, x)
+        want = [float(4 * src + 2 * rank + i) for src in range(2) for i in range(2)]
+        assert got.tolist() == want, got.tolist()
+
     def dcp_roundtrip():
         import torch.distributed.checkpoint as dcp
         from torch.distributed.device_mesh import DeviceMesh
@@ -73,7 +83,7 @@ def _rank(rank: int, port: int, ckpt: str, out: str) -> None:
         dcp.load(back, checkpoint_id=ckpt)
         assert torch.equal(back["w"].to_local().cpu(), local.cpu())
 
-    for name, fn in zip(CHECKS, (gather, scatter, reduce, dcp_roundtrip)):
+    for name, fn in zip(CHECKS, (gather, scatter, reduce, all_to_all, dcp_roundtrip)):
         _check(results, name, fn)
     if rank == 0:
         with open(out, "w") as f:

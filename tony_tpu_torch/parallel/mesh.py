@@ -2,7 +2,7 @@
 
 Counterpart of ``tony_tpu/parallel/mesh.py``: the same six axes
 (``stage``, ``data``, ``fsdp``, ``expert``, ``context``, ``model``) and the
-same ``MeshSpec``. The port runs four axes:
+same ``MeshSpec``. The port runs five axes:
 
 - ``context``: every context shard on this process's one device, in the
   ``Mesh``'s ``ring`` (a ``DeviceRing``), as the JAX package's
@@ -22,12 +22,19 @@ same ``MeshSpec``. The port runs four axes:
   ranks of one model line hold the other blocks of the same leaves and
   take the same rows, so the ``Mesh``'s ``group`` is then the data × fsdp
   ranks of this rank's model index, and ``model_group(mesh)`` the model
-  line.
+  line;
+- ``expert``: expert parallelism (Mixtral), one device a process, laid out
+  between fsdp and model as in ``ALL_AXES``: the ranks of one expert line
+  take the same rows and hold the other experts of the same leaves (rank
+  ``ei`` the contiguous span ``[ei·E/ep, (ei+1)·E/ep)``), so the ``group``
+  is the data × fsdp ranks of this rank's expert index and
+  ``expert_group(mesh)`` the expert line.
 
 ``build`` gives a ``Mesh`` whose ``shape`` is the JAX mesh's dict and whose
 ``device`` is the card (or the CPU, when asked for). A context axis across
-a gang or beside a model axis (A12) and the expert and stage axes above 1
-raise until they are ported (experts: A11; stages: A13).
+a gang or beside a model axis (A12), an expert axis beside a model or
+context axis (A11's rest: JAX's GSPMD gather fallback) and a stage axis
+above 1 (A13) raise until they are ported.
 """
 
 from __future__ import annotations
@@ -53,22 +60,24 @@ AXIS_STAGE = "stage"
 # canonical order: slowest-varying (DCN-friendly) first
 ALL_AXES = (AXIS_STAGE, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_CONTEXT, AXIS_MODEL)
 DCN_SAFE_AXES = frozenset({AXIS_DATA, AXIS_FSDP, AXIS_STAGE})
-_UNPORTED = {AXIS_EXPERT: "A11", AXIS_STAGE: "A13"}
+_UNPORTED = {AXIS_STAGE: "A13"}
 #: the axes every port model runs under (``context_degree``): the context
-#: ring, and the gang's data and fsdp axes; a model that runs tensor
-#: parallelism also runs the model axis
-_MODEL_AXES = (AXIS_CONTEXT, AXIS_DATA, AXIS_FSDP)
-#: the gang's axes, in the order of the ``DeviceMesh``'s dimensions
-GANG_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_MODEL)
+#: ring, and the gang's data, fsdp and expert axes (a family without
+#: experts is refused an expert axis by the training loop); a model that
+#: runs tensor parallelism also runs the model axis
+_MODEL_AXES = (AXIS_CONTEXT, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT)
+#: the gang's axes, in ``ALL_AXES`` order: the ``DeviceMesh``'s dimensions
+GANG_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_MODEL)
 
 
 @dataclass(frozen=True)
 class Mesh:
     """What the port reads of a mesh: ``shape`` (axis → size, all six axes),
     the device the shards live on, the context ring, the process group the
-    batch splits over (the data × fsdp ranks of this rank's model index:
-    the whole gang without a model axis; None for one process), the gang's
-    ``DeviceMesh`` over (data, fsdp, model) and the whole gang's group, which
+    batch splits over (the data × fsdp ranks of this rank's expert and
+    model index: the whole gang without either axis; None for one
+    process), the gang's ``DeviceMesh`` over (data, fsdp, expert, model)
+    and the whole gang's group, which
     saves and restores checkpoints together (both None for one process)."""
 
     shape: dict
@@ -127,30 +136,37 @@ class MeshSpec:
 
     def build(self, device: torch.device | str | None = None) -> Mesh:
         """A ``Mesh`` on ``device`` (CUDA unless the CPU is asked for) whose
-        context ring holds all ``context`` shards there and whose data, fsdp
-        and model axes are the gang this process joined (``data × fsdp ×
-        model`` its processes). A gang over ``TPU_NUM_SLICES`` slices (the env; 1 when
+        context ring holds all ``context`` shards there and whose data, fsdp,
+        expert and model axes are the gang this process joined (``data ×
+        fsdp × expert × model`` its processes). A gang over ``TPU_NUM_SLICES`` slices (the env; 1 when
         unset) puts a slice boundary on one axis, which a data, fsdp or
         stage axis must absorb, as in JAX; the gang's axes are outermost."""
         unported = {a: self.axis_sizes[a] for a in self.active_axes() if a in _UNPORTED}
         if unported:
             items = sorted(set(_UNPORTED[a] for a in unported))
             raise NotImplementedError(
-                f"mesh axes {unported} are not ported yet (ROADMAP queue {', '.join(items)}); "
-                "the port runs the data, fsdp and model axes (the gang) and a context axis")
+                f"mesh axes {unported} are not ported yet (ROADMAP queue {', '.join(items)}; experts "
+                "with pipeline stages come with A13); "
+                "the port runs the data, fsdp, expert and model axes (the gang) and a context axis")
+        if self.expert > 1 and (self.model > 1 or self.context > 1):
+            raise NotImplementedError(
+                f"an expert axis ({self.expert}) beside a model ({self.model}) or context ({self.context}) "
+                "axis is not ported yet (ROADMAP queue A11, the rest: JAX runs that layout through its GSPMD "
+                "gather dispatch); the port runs the expert axis with the data and fsdp axes")
         if self.model > 1 and self.context > 1:
             raise NotImplementedError(
                 f"a model axis ({self.model}) beside a context axis ({self.context}) is not ported yet "
                 "(ROADMAP queue A12): the port runs the model axis (A8b) across a gang and holds every "
                 "context shard in one process")
-        procs = self.data * self.fsdp * self.model
+        procs = self.data * self.fsdp * self.expert * self.model
         if procs > 1 and self.context > 1:
             raise NotImplementedError(
                 f"a context axis ({self.context}) across a gang of {procs} processes is not "
                 "ported yet (ROADMAP queue A12); the port holds every context shard in one process")
         if procs != process_count():
-            raise ValueError(f"data {self.data} x fsdp {self.fsdp} x model {self.model} needs a gang of as "
-                             f"many processes, one device a process; this gang has {process_count()}")
+            raise ValueError(f"data {self.data} x fsdp {self.fsdp} x expert {self.expert} x model {self.model} "
+                             f"needs a gang of as many processes, one device a process; this gang has "
+                             f"{process_count()}")
         num_slices = int(os.environ.get(constants.ENV_TPU_NUM_SLICES, "1") or "1")
         if num_slices > 1 and not any(self.axis_sizes[a] % num_slices == 0 and self.axis_sizes[a] > 1
                                       for a in ALL_AXES if a in DCN_SAFE_AXES):
@@ -160,12 +176,13 @@ class MeshSpec:
         if procs == 1:
             return Mesh(shape={a: self.axis_sizes[a] for a in ALL_AXES}, device=dev,
                         ring=DeviceRing(self.context, dev))
-        device_mesh = gang_device_mesh(dev.type, (self.data, self.fsdp, self.model), GANG_AXES)
+        device_mesh = gang_device_mesh(dev.type, (self.data, self.fsdp, self.expert, self.model), GANG_AXES)
         group = dist.group.WORLD
-        if self.model > 1:
-            # one group a model index, every rank making all of them in order
+        inner = self.expert * self.model
+        if inner > 1:
+            # one group an (expert, model) index, every rank making all of them in order
             group, _ = dist.new_subgroups_by_enumeration(
-                [list(range(m, procs, self.model)) for m in range(self.model)])
+                [list(range(m, procs, inner)) for m in range(inner)])
         return Mesh(shape={a: self.axis_sizes[a] for a in ALL_AXES}, device=dev,
                     ring=DeviceRing(self.context, dev), group=group, device_mesh=device_mesh,
                     gang=dist.group.WORLD)
@@ -173,18 +190,18 @@ class MeshSpec:
 
 def context_degree(mesh, tensor_parallel: bool = False) -> int:
     """The context degree of ``mesh`` (1 for None); raises for a mesh the
-    port does not run (expert or stage axes above 1, a model axis where the
-    caller does not run ``tensor_parallel``, or not a mesh of the port).
-    The data, fsdp and model axes are the gang's."""
+    port does not run (a stage axis above 1, a model axis where the caller
+    does not run ``tensor_parallel``, or not a mesh of the port). The data,
+    fsdp, expert and model axes are the gang's."""
     if mesh is None:
         return 1
     shape = mesh.shape if isinstance(mesh, Mesh) else None
     runs = _MODEL_AXES + ((AXIS_MODEL,) if tensor_parallel else ())
     if shape is None or any(v > 1 for a, v in shape.items() if a not in runs):
         raise NotImplementedError(
-            "a device mesh with TP, expert or pipeline axes is not ported yet for this model "
-            "(ROADMAP queue A8b's second part: BERT on the model axis; A11, A13); "
-            "the port runs the data, fsdp and context axes, and the model axis for Llama and Mixtral")
+            "a device mesh with TP or pipeline axes is not ported yet for this model "
+            "(ROADMAP queue A8b's second part: BERT on the model axis; A13); "
+            "the port runs the data, fsdp, expert and context axes, and the model axis for Llama and Mixtral")
     return shape[AXIS_CONTEXT]
 
 
@@ -193,3 +210,9 @@ def model_group(mesh):
     model axis of 1): Megatron's pair and the vocab-parallel loss reduce
     over it."""
     return mesh.axis_group(AXIS_MODEL) if axis_size(mesh, AXIS_MODEL) > 1 else None
+
+
+def expert_group(mesh):
+    """The process group of this rank's expert line (None for no mesh or an
+    expert axis of 1): the expert-parallel MoE sums its output over it."""
+    return mesh.axis_group(AXIS_EXPERT) if axis_size(mesh, AXIS_EXPERT) > 1 else None

@@ -11,27 +11,30 @@ JAX places a leaf with ``NamedSharding`` and lets XLA insert the
 collectives; eager torch has no propagation, so the port moves shards
 itself, and ``constrain`` (a sharding constraint on an activation) has no
 counterpart. ``split_dim`` reads a spec on a mesh: the dim a gang axis
-(``fsdp`` or ``model``) splits, where the spec names that axis and the
+(``fsdp``, ``expert`` or ``model``) splits, where the spec names that axis and the
 axis is above 1 (``shard_dim``: the fsdp axis's). An axis of size 1
 splits nothing, so a one-process run and a one-rank gang hold every leaf
 whole and move nothing, as ``stop_transfer_if_single`` keeps a size-1
 axis off the collective path in JAX. ``placements`` turns that into torch
-placements on the gang's (data, fsdp, model) ``DeviceMesh``
+placements on the gang's (data, fsdp, expert, model) ``DeviceMesh``
 (``Shard(d)`` on the axis that splits dim d, ``Replicate()`` elsewhere),
 the one place that builds them, for the checkpoint's ``DTensor`` blocks
 (``Layout.block``); it imports ``torch.distributed.tensor`` when first
 called, which a process that never writes a split leaf skips.
 
 Each rank keeps its block of a leaf (``shard``): ``1/fsdp`` of the dim the
-fsdp axis splits and ``1/model`` of the dim the model axis splits (a spec
-that names both on one dim nests the model block in the fsdp block, as
-``DTensor`` does; no model's rules do). The model gathers the fsdp axis
-only, where it uses a leaf (``gather``, ``gather_layer``): the
-all-gather's backward reduce-scatters the gradient, so the gradient
-arrives sharded as the leaf is. The model axis's blocks stay split: that
-is tensor parallelism, and the model computes on them
-(``models/llama.py``). ``Layout`` is what a train state keeps of this: the
-rules and the mesh, by leaf name.
+fsdp axis splits, ``1/expert`` of the dim the expert axis splits and
+``1/model`` of the dim the model axis splits (a spec that names two on one
+dim nests the later axis's block in the earlier's, as ``DTensor`` does; no
+model's rules do). The model gathers the fsdp axis only, where it uses a
+leaf (``gather``, ``gather_layer``): the all-gather's backward
+reduce-scatters the gradient, so the gradient arrives sharded as the leaf
+is. The model and expert axes' blocks stay split: that is tensor and
+expert parallelism, and the model computes on them (``models/llama.py``,
+``parallel/expert.py``: a rank's experts, their fsdp blocks gathered a
+layer at a time, as JAX's ``shard_map`` ``in_specs`` gather them).
+``Layout`` is what a train state keeps of this: the rules and the mesh, by
+leaf name.
 """
 
 from __future__ import annotations
@@ -42,7 +45,10 @@ from typing import Callable, Iterable
 import torch
 
 from tony_tpu_torch.parallel.collectives import all_gather
-from tony_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_MODEL, GANG_AXES, Mesh, axis_size
+from tony_tpu_torch.parallel.mesh import AXIS_EXPERT, AXIS_FSDP, AXIS_MODEL, GANG_AXES, Mesh, axis_size
+
+#: the axes that split parameters, in the order their blocks nest
+SPLIT_AXES = (AXIS_FSDP, AXIS_EXPERT, AXIS_MODEL)
 
 #: ``init``'s hook: (leaf name, whole leaf as drawn) → the tensor to keep
 Place = Callable[[str, torch.Tensor], torch.Tensor]
@@ -115,8 +121,8 @@ def shard_dim(spec: tuple, mesh: Mesh | None) -> int | None:
 
 def placements(spec: tuple, mesh: Mesh | None) -> list:
     """The torch placements of a leaf with ``spec`` on the gang's (data,
-    fsdp, model) dimensions: ``Shard(d)`` on an axis that splits dim d,
-    else ``Replicate()``."""
+    fsdp, expert, model) dimensions: ``Shard(d)`` on an axis that splits
+    dim d, else ``Replicate()``."""
     from torch.distributed.tensor import Replicate, Shard
 
     dims = [split_dim(spec, mesh, a) for a in GANG_AXES]
@@ -126,9 +132,10 @@ def placements(spec: tuple, mesh: Mesh | None) -> list:
 def shard(full: torch.Tensor, spec: tuple, mesh: Mesh | None) -> torch.Tensor:
     """This rank's block of ``full`` (a copy, so ``full`` can be freed), or
     ``full`` itself when the mesh does not split it: its fsdp block, then
-    the model block of that, as ``DTensor`` nests two shards of one dim."""
+    the expert and model blocks of that, as ``DTensor`` nests two shards
+    of one dim."""
     out = full
-    for axis in (AXIS_FSDP, AXIS_MODEL):
+    for axis in SPLIT_AXES:
         dim = split_dim(spec, mesh, axis)
         if dim is None:
             continue
@@ -206,7 +213,7 @@ class Layout:
 
     def __init__(self, rules: ShardingRules, mesh: Mesh | None):
         self.rules, self.mesh = rules, mesh
-        self.sharded = axis_size(mesh, AXIS_FSDP) * axis_size(mesh, AXIS_MODEL) > 1
+        self.sharded = any(axis_size(mesh, a) > 1 for a in SPLIT_AXES)
 
     def spec(self, name: str) -> tuple:
         return self.rules.spec_for(name)
@@ -220,8 +227,8 @@ class Layout:
         return split_dim(self.spec(name), self.mesh, AXIS_MODEL)
 
     def split(self, name: str) -> bool:
-        """Whether this rank holds a block of the leaf on either axis."""
-        return self.dim(name) is not None or self.model_dim(name) is not None
+        """Whether this rank holds a block of the leaf on any axis."""
+        return any(split_dim(self.spec(name), self.mesh, a) is not None for a in SPLIT_AXES)
 
     def place(self, name: str, full: torch.Tensor) -> torch.Tensor:
         """``init``'s hook: keep this rank's block of a freshly drawn leaf."""
@@ -229,7 +236,7 @@ class Layout:
 
     def full_shape(self, name: str, local: torch.Tensor) -> tuple:
         shape = list(local.shape)
-        for axis in (AXIS_FSDP, AXIS_MODEL):
+        for axis in SPLIT_AXES:
             if (dim := split_dim(self.spec(name), self.mesh, axis)) is not None:
                 shape[dim] *= axis_size(self.mesh, axis)
         return tuple(shape)

@@ -13,13 +13,17 @@ and at the end, and resume after a gang restart.
   gang's trajectory is that of one process on the same global batches.
   Each step report carries this rank's parameter and optimizer bytes.
   ``model_axis > 1`` runs Llama's and Mixtral's tensor parallelism across the gang
-  (``MeshSpec.auto(model=…)`` fills the rest into fsdp): the ranks of a
-  model line take the same rows, so rows, shards and the data cursor are
-  cut by the data × fsdp index. ``context_axis > 1`` trains with every
-  context shard on this process's one device; a context axis across a
-  gang or beside a model axis, the model axis for BERT, and
-  the expert and stage axes raise until ported (ROADMAP queue A8b's second
-  part, A11, A12, A13).
+  (``MeshSpec.auto(model=…)`` fills the rest into fsdp), and
+  ``expert_axis > 1`` Mixtral's expert parallelism (``MeshSpec.auto(expert=…)``,
+  as JAX's loop; a family without experts keeps every leaf whole on the
+  axis, so its expert line computes the same step, as JAX's replicates
+  it): the ranks of a model or expert line take the same rows, so rows,
+  shards and the data cursor are cut by the data × fsdp index.
+  ``context_axis > 1`` trains with every context shard on this process's
+  one device; a context axis across a gang or beside a model axis, the
+  model axis for BERT, an expert axis beside a model or context axis, and
+  the stage axis raise until ported (ROADMAP queue A8b's second part, A11,
+  A12, A13).
 - Batches come from ``*.tonytok`` shards under ``data_dir`` through
   ``TokenLoader`` (a pure function of (data_seed, global slot); rank 0
   writes the consumption cursor beside each checkpoint and a resume
@@ -38,6 +42,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import math
 import os
 import sys
 import time
@@ -55,6 +60,7 @@ from tony_tpu_torch.obs import logging as obs_logging
 from tony_tpu_torch.obs import metrics as obs_metrics
 from tony_tpu_torch.obs import trace as obs_trace
 from tony_tpu_torch.ops import attention, moe_gemm, ring
+from tony_tpu_torch.parallel.expert import check_expert_axis
 from tony_tpu_torch.parallel.mesh import MeshSpec
 from tony_tpu_torch.runtime import (init_distributed, process_count, process_index,
                                     shutdown_distributed, world_size_from_env)
@@ -152,19 +158,26 @@ def _drop_obs_metrics(device: torch.device) -> None:
         pass
 
 
-def _refuse_unported(model_module, loop: LoopConfig) -> None:
-    if loop.data_dir and getattr(model_module, "__name__", "").rsplit(".", 1)[-1] == "bert":
+def _refuse_unported(model_module, loop: LoopConfig, model_cfg) -> None:
+    name = getattr(model_module, "__name__", "").rsplit(".", 1)[-1]
+    if loop.data_dir and name == "bert":
         raise ValueError(
             "--data_dir with BERT: the shard loader yields next-token LM rows, and BERT's "
             "loss_fn takes MLM batches (masked_pos/masked_targets or targets); train BERT on "
             "synthetic batches")
-    asked = {name: getattr(loop, name) for name in ("expert_axis", "stage_axis") if getattr(loop, name) > 1}
-    if asked:
+    if loop.stage_axis > 1:
         raise NotImplementedError(
-            f"{asked}: not ported yet — the port trains a gang on the data, fsdp and model axes with a "
-            "context axis in one process (ROADMAP queue A11 experts, A13 stages)")
+            f"stage_axis {loop.stage_axis}: not ported yet — the port trains a gang on the data, fsdp, "
+            "expert and model axes with a context axis in one process (ROADMAP queue A13 stages)")
+    if loop.expert_axis > 1:
+        if loop.model_axis > 1 or loop.context_axis > 1:
+            raise NotImplementedError(
+                f"expert_axis {loop.expert_axis} with model_axis {loop.model_axis} and context_axis "
+                f"{loop.context_axis}: not ported yet (ROADMAP queue A11, the rest: JAX's GSPMD gather "
+                "dispatch); the expert axis runs with the data and fsdp axes")
+        if hasattr(model_cfg, "num_experts"):
+            check_expert_axis(model_cfg.num_experts, loop.expert_axis)
     if loop.model_axis > 1:
-        name = getattr(model_module, "__name__", "").rsplit(".", 1)[-1]
         if name not in ("llama", "mixtral"):
             raise NotImplementedError(
                 f"model_axis {loop.model_axis} for {name}: not ported yet — the port runs the model axis "
@@ -223,7 +236,7 @@ def run_lm_training(model_module, model_cfg, loop: LoopConfig) -> dict:
 
 
 def _run_gang(model_module, model_cfg, loop: LoopConfig, tracer) -> dict:
-    _refuse_unported(model_module, loop)
+    _refuse_unported(model_module, loop, model_cfg)
     device = init_distributed(resolve_device(loop.device))
     try:
         return _train(model_module, model_cfg, loop, tracer, device)
@@ -235,12 +248,13 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
     procs = process_count()
     mesh = MeshSpec.auto(model=loop.model_axis, context=loop.context_axis,
                          expert=loop.expert_axis, stage=loop.stage_axis).build(device)
-    # the batch splits over data × fsdp; the ranks of a model line take the same rows
-    rows_world, rows_rank = procs // loop.model_axis, process_index() // loop.model_axis
+    # the batch splits over data × fsdp; the ranks of a model or expert line take the same rows
+    line = loop.model_axis * loop.expert_axis
+    rows_world, rows_rank = procs // line, process_index() // line
     if loop.batch_size % rows_world:
         raise ValueError(
             f"global batch_size {loop.batch_size} must divide by the gang's "
-            f"{rows_world} processes that split the batch (data x fsdp: a model line takes one "
+            f"{rows_world} processes that split the batch (data x fsdp: a model or expert line takes one "
             "row slice; elastic restarts re-split the SAME global batch across the new gang)")
     local_rows = loop.batch_size // rows_world
 
@@ -266,7 +280,7 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
     # a partial keeps the loss's keywords in sight: make_train_step hands a
     # loss that takes ``group`` (Mixtral's router losses) the ranks sharing its batch
     # a mesh of one device reaches the model as None: the unsharded path
-    model_mesh = mesh if mesh.shape["context"] * mesh.shape["fsdp"] * mesh.shape["model"] > 1 else None
+    model_mesh = mesh if math.prod(mesh.shape[a] for a in ("context", "fsdp", "expert", "model")) > 1 else None
     loss_fn = functools.partial(model_module.loss_fn, cfg=model_cfg, mesh=model_mesh)
     step_fn = make_train_step(loss_fn, opt, group=mesh.group)
     probe = model_module.synthetic_batch(_batch_generator(device, 0, 0), 1, loop.seq_len, model_cfg)

@@ -40,17 +40,21 @@ leaf the rules keep whole takes the mean over the whole gang. The global
 norm sums the squares of the blocks over the fsdp axis (one scalar
 collective) and adds those of the whole leaves once.
 
-On a ``model`` axis the ranks of a model line take the same rows and
-hold the other blocks of the same leaves: ``group`` is then the data ×
-fsdp ranks of this rank's model index (``Mesh.group``), over which the
-weighing and the means run; a leaf split on the model axis alone is
-averaged over that group as a whole leaf is. Megatron's pair
-(``copy_to_model``'s backward) already sums the activations' gradients
-over the line, so a leaf the rules keep whole (the norms, Mixtral's
-router: ``moe_ffn`` sums the gates' gradients over the line) has the same
-gradient on every rank of it, and the global norm sums the squares of a
-leaf split on either axis over fsdp then model, each counted once (a
-block one axis leaves whole is divided by that axis's size first).
+On a ``model`` or ``expert`` axis the ranks of a line take the same rows
+and hold the other blocks of the same leaves (F columns of each expert on
+a model line, whole experts on an expert line): ``group`` is then the
+data × fsdp ranks of this rank's model and expert index (``Mesh.group``),
+over which the weighing and the means run; a leaf split on the model or
+expert axis alone is averaged over that group as a whole leaf is.
+Megatron's pair (``copy_to_model``'s backward) already sums the
+activations' gradients over the line, so a leaf the rules keep whole (the
+norms, Mixtral's router: ``moe_ffn`` sums the gates' gradients over the
+line) has the same gradient on every rank of it, and the global norm sums
+the squares of a leaf split on any axis over fsdp, expert and model, each
+counted once (a block one axis leaves whole is divided by that axis's size
+first). Mixtral's router losses on an expert axis are JAX's per-shard
+means under its ``pmean``; ``parallel/expert.py`` says how each shard's
+ends with weight 1/R under this weighing.
 
 With ``accum_steps`` A > 1 the gang computes JAX's scan over the global
 batch: microbatch i is global rows i·mb … (i+1)·mb, one token mean each,
@@ -66,7 +70,7 @@ A loss that takes a ``group`` keyword pools statistics over the rows of a
 whole microbatch (Mixtral's router losses). ``make_train_step`` hands it
 the ranks that share the microbatch: the whole group without accumulation,
 none where each rank holds whole microbatches, else the rank's slot (a
-subgroup; on a model axis, of the ranks of its model index). Its ranks are weighed by ``n_r / N_i`` as above, so such a loss
+subgroup; on a model or expert axis, of the ranks of its line index). Its ranks are weighed by ``n_r / N_i`` as above, so such a loss
 scales the gradient of its pooled terms by ``N_i / n_r``.
 """
 
@@ -83,8 +87,8 @@ import torch
 import torch.distributed as dist
 
 from tony_tpu_torch.parallel.collectives import all_reduce_mean
-from tony_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP, AXIS_MODEL
-from tony_tpu_torch.parallel.sharding import Layout, ShardingRules
+from tony_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP
+from tony_tpu_torch.parallel.sharding import SPLIT_AXES, Layout, ShardingRules, split_dim
 
 
 def _leaves(tree: dict, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
@@ -105,18 +109,17 @@ def global_norm(tensors) -> torch.Tensor:
 
 def sharded_global_norm(grads: dict[str, torch.Tensor], layout: Layout) -> torch.Tensor:
     """‖g‖ of the whole leaves' gradients from this rank's blocks: the
-    squares of the leaves split on the fsdp or the model axis summed over
-    both (a block replicated on one of them divided by its size, so each
-    counts once), plus the whole leaves' once."""
+    squares of the leaves split on the fsdp, expert or model axis summed
+    over each of them (a block replicated on one of them divided by its
+    size, so each counts once), plus the whole leaves' once."""
     mesh = layout.mesh
     zero = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
     split = zero
     for n, g in grads.items():
         if layout.split(n):
-            copies = (mesh.shape[AXIS_FSDP] if layout.dim(n) is None else 1) * \
-                (mesh.shape[AXIS_MODEL] if layout.model_dim(n) is None else 1)
+            copies = math.prod(mesh.shape[a] for a in SPLIT_AXES if split_dim(layout.spec(n), mesh, a) is None)
             split = split + g.float().square().sum() / copies
-    for axis in (AXIS_FSDP, AXIS_MODEL):
+    for axis in SPLIT_AXES:
         if mesh.shape[axis] > 1:
             dist.all_reduce(split, group=mesh.axis_group(axis))
     whole = sum((g.float().square().sum() for n, g in grads.items() if not layout.split(n)), zero)
@@ -308,9 +311,9 @@ def _microbatch_group(group, slots: int, slot: int):
     """The ranks of ``group`` that share this rank's microbatch: all of them
     (one slot), none (a slot of one rank), or this rank's slot, a subgroup.
     ``dist.new_group`` is collective over the whole gang, so every rank
-    makes the slot groups of every group like ``group`` (on a model axis,
-    one a model index: the lines' groups, gathered), all in one order, and
-    keeps its own."""
+    makes the slot groups of every group like ``group`` (on a model or
+    expert axis, one an index of the lines: their groups, gathered), all in
+    one order, and keeps its own."""
     world = dist.get_world_size(group)
     if slots == 1:
         return group
@@ -414,9 +417,11 @@ def make_train_step(
 
     def reduce_grads(grads: dict, layout: Layout | None) -> None:
         """The gang's mean of the weighed gradients, in place: over
-        ``group`` (data × fsdp) for a leaf the fsdp axis leaves whole; for a
-        block of the fsdp axis (already summed over it by the gather's
-        backward) over the data axis, divided by fsdp."""
+        ``group`` (the data × fsdp ranks of this rank's line index, which
+        hold the same block of a leaf the model or expert axis splits) for
+        a leaf the fsdp axis leaves whole; for a block of the fsdp axis
+        (already summed over it by the gather's backward) over the data
+        axis, divided by fsdp."""
         split = [g for n, g in grads.items() if layout is not None and layout.dim(n) is not None]
         whole = [g for n, g in grads.items() if layout is None or layout.dim(n) is None]
         if whole:
