@@ -52,8 +52,8 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    (a subprocess, as is ``tony loadtest``) twice on the card, Llama-3-8B
    paged, 8 slots, max_len 2048: ``disagg`` (a prefill and a decode
    replica) and ``colocated`` (one replica), each under the same streamed
-   ``tony loadtest`` traffic (6 sessions x 2 turns, prompts of 768 or 1280
-   tokens sharing 512, 64 tokens a turn): 12/12 requests ok, prefix hits,
+   ``tony loadtest`` traffic (4 sessions x 2 turns, prompts of 768 or 1280
+   tokens sharing 512, 64 tokens a turn): 8/8 requests ok, prefix hits,
    B5 launched by the decode replica during the load, pages exported and
    adopted (``disagg``); SIGINT to the launcher kills the job, every
    replica logs its drain and exits, the launcher within 120 s; prints the
@@ -111,6 +111,9 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    run twice must give the same bits; a 2-layer whole-step check against
    the flash path; ``run_lm_training`` with a context axis of 4 at 4
    layers for 3 steps (B9/B10 launches must equal the schedule's count);
+   then Mixtral-8x7B widths at 2 layers, B=1, T=16384, 3 steps with a
+   context axis of 4 (B9/B10, B7/B8 once a layer pass) against the same
+   run without one (B1-B3), each loss within ``MOE_STEP_LOSS_REL``;
 6. MoE kernels (B7, B8; after the Llama phases, so their minutes of load
    do not run before the serve runs): the build report of the six passes
    of ``moe_gemm.cu`` (registers, spills, shared memory; a pass that
@@ -222,7 +225,7 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
     requests, the decode ms/step of both (reported), and a planted fault
     (one shard's row partial dropped) that must change the tokens;
 16. ``[mixtral-tp]``: the ``[tp]`` gang for Mixtral (``tp_phase`` with the
-    family) at Mixtral-8x7B widths cut to 2 layers (bf16, remat "full",
+    family) at Mixtral-8x7B widths cut to 1 layer (bf16, remat "full",
     B=1, T=2048): each rank's experts on F/tp = 7168 columns (B7/B8 on
     ``[8, 4096, 7168]`` blocks), 3 steps and a sharded save held as
     ``[tp]``'s, with the router losses among the held metrics, B1-B3, B7
@@ -248,12 +251,25 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
     argmax tp 1's where its margin is clear; contiguous expert blocks; a
     planted fault (one shard's expert partial dropped) that must read above
     the limit;
-18. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
+18. ``[cp-gang]``: a gang of two processes on the one card over gloo with a
+    context axis of 2, one context shard each (B9/B10 moving KV and dk/dv
+    between the processes): Llama-3-8B widths cut to 2 layers, B=1,
+    T=16384, 3 steps and a save, then a step of each planted fault (KV kept
+    in its process; RoPE without the window's offset); Mixtral-8x7B widths
+    cut to 1 layer, B=1, T=8192, 3 steps; each held to one process with the
+    context on a ``DeviceRing``: losses and grad norms (and router losses)
+    within ``GANG_LOSS_REL``, the step-1 gradients of ``wq``/``wk``/``wv``
+    within ``CP_STEP_GRAD_REL`` (where both faults must fail), Llama's
+    step-3 parameters and moments within ``FSDP_STATE_REL`` and its save
+    restored into one process bit for bit, each rank's launches the
+    schedule's for its ring position; prints peak memory and ms/step a rank;
+19. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
     their ``[bench-bert]`` launches and BERT cases, and the launches of the
-    phases of 12 to 17 as ``launches_hf_serve``, ``launches_mixtral_gang``,
+    phases of 12 to 18 as ``launches_hf_serve``, ``launches_mixtral_gang``,
     ``launches_fsdp``, the sum over the two ranks, ``launches_tp``,
-    ``launches_mixtral_tp`` and ``launches_mixtral_ep``, one rank's, and
-    ``launches_mixtral_tp_serve``)
+    ``launches_mixtral_tp`` and ``launches_mixtral_ep``, one rank's,
+    ``launches_mixtral_tp_serve``, ``launches_cp_train_mixtral`` and
+    ``launches_cp_gang``, the sum over its two ranks' sound runs)
     and, last, ``{"ok": true, "device": {...}}``.
 
 Each phase prints ``[phase] <name> start`` and ``[phase] <name> <s>s``, so a
@@ -379,6 +395,9 @@ RING_CASES = {
     "causal": dict(window=0, n_seg=1),
     "segments": dict(window=0, n_seg=3),    # 3 packed segments, boundaries off the shard edges
     "window": dict(window=1024, n_seg=1),   # sliding window 1024 < Tl: whole shards skipped
+    # [cp-gang]'s shape: a ring of 2 (Tl 8192) and its causal schedule, held
+    # to the plain steps only (its times are the causal case's)
+    "causal-n2": dict(window=0, n_seg=1, n=2, check_only=True),
 }
 # whole step (2 layers) with cp_impl "pallas" against the single-device flash
 # path (B1-B3): the loss within CP_STEP_LOSS_REL relative, every gradient leaf
@@ -391,6 +410,11 @@ CP_STEP_LOSS_REL = 1.5e-5
 CP_STEP_GRAD_REL = 2e-2
 CP_TRAIN_LAYERS = 4
 CP_TRAIN_STEPS = 3
+#: [cp-train]'s Mixtral part (A12a): Mixtral-8x7B widths cut to CP_MOE_LAYERS
+#: layers in this process, B=1, T=RING_T over a context of RING_N (B9/B10,
+#: B7/B8 on the whole rows), CP_MOE_STEPS steps, each loss held to the same
+#: run without a context axis (B1-B3) within MOE_STEP_LOSS_REL
+CP_MOE_LAYERS, CP_MOE_STEPS = 2, 3
 
 # the training gang at the full llama-1b preset: B=8, T=2048 over 4 seeded
 # shards, 8 steps with a checkpoint every 3 and a node loss at step 7 under
@@ -1948,11 +1972,12 @@ def plain_ring_steps(TR):
         yield
 
 
-def skipped_ring_step(TR, my: int = 3, src: int = 2):
-    """B9 with a planted fault: shard ``my`` never folds in the KV shard
-    ``src`` (a middle step of the ring: its state passes through unchanged)."""
+def skipped_ring_step(TR, my: int = 3, src: int = 2, n: int = RING_N):
+    """B9 with a planted fault: shard ``my`` of a ring of ``n`` never folds
+    in the KV shard ``src`` (a past step of the ring: its state passes
+    through unchanged)."""
     real = TR.ring_fwd_step
-    Tl = RING_T // RING_N
+    Tl = RING_T // n
 
     def step(*a, **kw):
         if kw["q_pos0"] == my * Tl and kw["k_pos0"] == src * Tl:
@@ -2003,10 +2028,11 @@ def ring_kernel_phase(torch, A, TR, flush) -> dict:
     from tony_tpu_torch.parallel.collectives import DeviceRing
 
     build = attention_build_report("ring_attention")
-    ring = DeviceRing(RING_N, "cuda")
-    Tl = RING_T // RING_N
     recs = {"ring_fwd": [], "ring_bwd": []}
     for name, c in RING_CASES.items():
+        n = c.get("n", RING_N)
+        ring = DeviceRing(n, "cuda")
+        Tl = RING_T // n
         q, k, v, do, seg, visible = ring_inputs(torch, A, c)
         segq, segk = TR._segments(ring, seg)
         w = c["window"]
@@ -2018,7 +2044,7 @@ def ring_kernel_phase(torch, A, TR, flush) -> dict:
         grads = bwd()
         with plain_ring_steps(TR):
             grads_p = bwd()
-        with mock.patch.object(TR, "ring_fwd_step", skipped_ring_step(TR)):
+        with mock.patch.object(TR, "ring_fwd_step", skipped_ring_step(TR, n - 1, n - 2, n)):
             o_f = fwd()[0]
         with mock.patch.object(TR, "_deliver_home", kept_home_dkv(TR)):
             grads_f = bwd()
@@ -2033,13 +2059,15 @@ def ring_kernel_phase(torch, A, TR, flush) -> dict:
             fault = max(row_rel_err(bad, want) for _, want, bad in triples)
             abs_err = max((got.float() - want.float()).abs().max().item() for got, want, _ in triples)
             errs[kname] = (err, fault, abs_err)
-            print(f"[ring] {kname} {name:8s} row err {err:.3e} (tol {FLASH_ROW_TOL}; planted fault "
+            print(f"[ring] {kname} {name:9s} n={n} row err {err:.3e} (tol {FLASH_ROW_TOL}; planted fault "
                   f"{fault:.3e}), max_abs_err {abs_err:.3e}"
                   + (f"; lse err {lse_err:.2e} (tol {LSE_ATOL})" if kname == "ring_fwd" else ""), flush=True)
         check(lse_err <= LSE_ATOL, f"ring_fwd {name}: lse error {lse_err} > {LSE_ATOL}")
         for kname, (err, fault, _) in errs.items():
             check(err <= FLASH_ROW_TOL, f"{kname} {name}: row error {err} > {FLASH_ROW_TOL}")
-            check(fault > FLASH_ROW_TOL, f"{kname} {name}: the check passes a planted fault ({fault})")
+            # (a NaN fails the limit too: on a ring of 2 the skipped step is
+            # the last, which writes o and lse)
+            check(not fault <= FLASH_ROW_TOL, f"{kname} {name}: the check passes a planted fault ({fault})")
         if name == "causal":
             # no atomics: a second pass gives the same bits
             o2, lse2 = fwd()
@@ -2051,6 +2079,15 @@ def ring_kernel_phase(torch, A, TR, flush) -> dict:
             check(same, "ring causal: two passes of the kernels differ in their bits")
             del o2, lse2, grads2
         del o, lse, grads, grads_f, o_f, outs
+        if c.get("check_only"):
+            recs["checks"] = recs.get("checks", []) + [
+                {"case": name, "n": n, "tl": Tl, "kernel": k_, "row_err": e[0], "max_abs_err": e[2], "lse_err": lse_err,
+                 # the kernels line is strict JSON: a non-finite fault reading is named, not printed
+                 "fault_row_err": e[1] if math.isfinite(e[1]) else None, "fault_finite": math.isfinite(e[1])}
+                for k_, e in errs.items()]
+            del q, k, v, do, seg, visible, o_p, lse_p, grads_p, fwd, bwd, segq, segk
+            torch.cuda.empty_cache()
+            continue
         # one diagonal step (shard 1 on its own KV) and one past step (shard 3
         # on shard 2's KV: every pair visible under the causal mask)
         f32 = dict(dtype=torch.float32, device="cuda")
@@ -2124,7 +2161,9 @@ def ring_kernel_phase(torch, A, TR, flush) -> dict:
             recs[kname].append(rec)
         del q, k, v, do, seg, visible, o_p, lse_p, grads_p, delta, segq, segk, fwd, bwd, passes
         torch.cuda.empty_cache()
-    return {kname: dict(rs[0], cases=rs, build=build) for kname, rs in recs.items()}
+    checks = recs.pop("checks", [])
+    return {kname: dict(rs[0], cases=rs, build=build, checks=[x for x in checks if x["kernel"] == kname])
+            for kname, rs in recs.items()}
 
 
 def cp_whole_step_check(torch, llama, A, TR) -> dict:
@@ -2233,6 +2272,79 @@ def cp_train_phase(torch, llama, A, TR) -> dict:
           f"{ms:.1f} ms/step, {rec['tok_per_s']:.0f} tok/s, MFU {rec['mfu_t16384']:.3f} (6N + causal attention "
           f"at T={RING_T}), peak memory {rec['max_memory_gib']:.1f} GiB, wall {wall:.1f}s; launches {launches}",
           flush=True)
+    return rec
+
+
+def cp_train_mixtral(torch, mixtral, A, MG, TR, cfg: dict | None = None, T: int = RING_T,
+                     device: str = "cuda") -> dict:
+    """[cp-train]'s Mixtral part (A12a): ``run_lm_training`` at Mixtral-8x7B's
+    widths cut to ``CP_MOE_LAYERS`` layers (``cfg`` and ``device`` another
+    config and device), B=1, T=``T``, ``CP_MOE_STEPS`` steps, once with a
+    context axis of ``RING_N`` in this process (``cp_impl="pallas"``: B9/B10
+    on the ring, B7/B8 on the whole rows) and once without (B1-B3). The
+    launch counts are set to 0 just before each run and read just after:
+    the context run's B9/B10 must be the schedule's, its B7/B8 once a layer
+    pass (remat "full": 2·L·S and L·S), and no flash launch; each loss
+    must be the run without a context axis's within ``MOE_STEP_LOSS_REL``."""
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+
+    cfg = mixtral.config_from_dict(cfg or {"preset": "mixtral-8x7b", "n_layers": CP_MOE_LAYERS, "cp_impl": "pallas"})
+    cuda = device == "cuda"
+    runs = {}
+    for n in (RING_N, 1):
+        loop = LoopConfig(steps=CP_MOE_STEPS, batch_size=1, seq_len=T, context_axis=n, warmup_steps=1,
+                          schedule_steps=CP_MOE_STEPS, log_every=1, device=device)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        for mod in (A, MG, TR):
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        log = run_lm_training(mixtral, cfg, loop)["log"]
+        runs[n] = {"log": log, "launches": {**A.launches, **MG.launches, **TR.launches},
+                   "wall_s": time.perf_counter() - t0,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0}
+    cp, one = runs[RING_N], runs[1]
+    L, S, Tl = cfg.n_layers, CP_MOE_STEPS, T // RING_N
+    for line in cp["log"]:
+        check(all(math.isfinite(line[k]) for k in ("loss", "grad_norm", "moe_balance_loss", "moe_z_loss")),
+              f"cp train mixtral: {line}")
+    check([x["step"] for x in cp["log"]] == list(range(1, S + 1)), f"cp train mixtral: steps {cp['log']}")
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(cp["log"], one["log"])]
+    for step, r in enumerate(rel, 1):
+        check(r <= MOE_STEP_LOSS_REL, f"cp train mixtral: step {step} loss {cp['log'][step - 1]['loss']} against "
+                                      f"{one['log'][step - 1]['loss']} without a context axis: {r:.2e} > "
+                                      f"{MOE_STEP_LOSS_REL:.0e}")
+    sched = [(my, s) for my in range(RING_N) for s in range(RING_N)]
+    want = {"ring_fwd": 2 * L * S * sum(TR.fwd_step_runs(my, s, RING_N, Tl, True, 0) for my, s in sched),
+            "ring_bwd_dq": L * S * sum(TR.bwd_step_runs(my, s, RING_N, Tl, True, 0) for my, s in sched),
+            "moe_fwd": 2 * L * S, "moe_bwd": L * S}
+    want["ring_bwd_dkv"] = want["ring_bwd_dq"]
+    got = cp["launches"]
+    if cuda:
+        check({k: got[k] for k in want} == want and not any(got[k] for k in A.launches),
+              f"cp train mixtral: launches {got} (want {want} and no flash launch)")
+    else:
+        check(not any(got.values()), f"cp train mixtral: launches on the CPU {got}")
+    steady = sorted(x["step_time_ms"] for x in cp["log"][1:])
+    rec = {"layers": L, "params": cfg.num_params(), "seq_len": T, "context": RING_N,
+           "losses": [x["loss"] for x in cp["log"]], "one_losses": [x["loss"] for x in one["log"]],
+           "grad_norms": [x["grad_norm"] for x in cp["log"]], "one_grad_norms": [x["grad_norm"] for x in one["log"]],
+           "balance": [x["moe_balance_loss"] for x in cp["log"]], "one_balance": [x["moe_balance_loss"] for x in one["log"]],
+           "loss_rel": rel, "launches": got, "launches_want": want, "one_launches": one["launches"],
+           "step_ms": steady[len(steady) // 2], "one_step_ms": sorted(x["step_time_ms"] for x in one["log"][1:])[0],
+           "max_memory_gib": cp["peak_gib"], "one_max_memory_gib": one["peak_gib"],
+           "wall_s": cp["wall_s"], "one_wall_s": one["wall_s"],
+           "launches_run": {**{k: got[k] for k in ("ring_fwd", "moe_fwd", "moe_bwd")},
+                            "ring_bwd": got["ring_bwd_dq"] + got["ring_bwd_dkv"]}}
+    print(f"[cp-train] {getattr(cfg, 'd_model')}-wide Mixtral ({cfg.num_experts} experts), {L} layers, B=1 T={T} over a "
+          f"context of {RING_N} (cp_impl pallas): losses "
+          f"{rec['losses']} (no context axis {rec['one_losses']}, worst rel {max(rel):.2e}, limit "
+          f"{MOE_STEP_LOSS_REL:.0e}); grad norms {rec['grad_norms']} ({rec['one_grad_norms']}); balance "
+          f"{rec['balance']} ({rec['one_balance']}); {rec['step_ms']:.1f} ms/step (no context axis "
+          f"{rec['one_step_ms']:.1f}), peak memory {rec['max_memory_gib']:.1f} GiB ({rec['one_max_memory_gib']:.1f}); "
+          f"launches {got}", flush=True)
     return rec
 
 
@@ -2385,11 +2497,11 @@ FLEET_ENGINE = ["--preset", "llama3-8b", "--kv", "paged", "--page_len", str(PLEN
                 "--max_len", str(MAXT), "--decode_chunk", "8"]
 FLEETS = {"disagg": ["--disagg", "--replicas", "1", "--prefill_replicas", "1"],
           "colocated": ["--replicas", "1"]}
-# `tony loadtest` traffic, the same for both fleets: 6 sessions x 2 turns =
-# 12 streamed requests; the longest conversation is 1280 + (64 + 8) + 64 = 1416 of the 2048 positions
-LOADTEST = ["--rate", "2", "--sessions", "6", "--turns", "2", "--prompt-mix", "768:1,1280:1",
+# `tony loadtest` traffic, the same for both fleets: 4 sessions x 2 turns =
+# 8 streamed requests; the longest conversation is 1280 + (64 + 8) + 64 = 1416 of the 2048 positions
+LOADTEST = ["--rate", "2", "--sessions", "4", "--turns", "2", "--prompt-mix", "768:1,1280:1",
             "--shared-prefix", "512", "--max-tokens", "64", "--seed", "0"]
-LOADTEST_REQUESTS = 12
+LOADTEST_REQUESTS = 8
 _ROUTER_LINE = re.compile(r"^\[tony-serve\] fleet router (http://\S+) ", re.M)
 _REPLICA_LINE = re.compile(r"^\[tony-serve\] (http://\S+) role=(serve|prefill) ", re.M)
 _DRAINED_LINE = re.compile(r"^\[tony-serve\] drained: (\d+) request\(s\) completed, exit 0$", re.M)
@@ -3845,9 +3957,9 @@ def mixtral_gang_phase(out_dir: Path) -> dict:
 FSDP_BACKEND = "gloo"
 FSDP_RANKS, FSDP_STEPS, FSDP_SAVE_EVERY = 2, 3, 2
 FSDP_FAULT_RANK = 1
-#: the sound run's depth: llama-1b cut to 8 of its 16 layers, which pays for
-#: part of the Mixtral model-axis phases' seconds
-FSDP_LAYERS = 8
+#: the sound run's depth: llama-1b cut to 4 of its 16 layers, which pays for
+#: part of the model-axis and context-gang phases' seconds
+FSDP_LAYERS = 4
 #: the planted faults' runs: one step at the preset cut to this depth (the
 #: embedding and the head, most of llama-1b's gloo traffic, stay whole)
 FSDP_FAULT_LAYERS = 2
@@ -4218,7 +4330,11 @@ def fsdp_phase(torch, llama, A, out_dir: Path, card: str, cfg: dict | None = Non
 # splits each leaf on one dim, as fsdp does)
 TP_RANKS, TP_STEPS = 2, 3
 TP_LAYERS, TP_B, TP_T = 2, 2, 2048
-MIXTRAL_TP_LAYERS, MIXTRAL_TP_B = 2, 1
+#: [mixtral-tp]'s depth, 1 layer since the context gang's phase came (2
+#: before): the router's step-3 mu reads 4.89e-2 of FSDP_STATE_REL's 5e-2
+#: there (4.42e-2 at 2 layers), the same bits on every H100 run so far; 2
+#: layers put the whole run 37 s under its 1,200 s limit
+MIXTRAL_TP_LAYERS, MIXTRAL_TP_B = 1, 1
 TP_FAULT_RANK = 1
 #: the planted faults' runs, one step each: every rank's row-parallel reduce
 #: also sums its gradient ("reduce"), and rank TP_FAULT_RANK's embedding keeps
@@ -4959,6 +5075,314 @@ def mixtral_tp_serve_phase(torch, mixtral, MG, card: str, cfg: dict | None = Non
 
 # -- main ----------------------------------------------------------------------
 
+# [cp-gang] (A12b): the context axis across a gang, CP_GANG_RANKS processes on
+# the one card over gloo (``FSDP_BACKEND``; nccl refuses two ranks on one
+# card), one context shard each: B9/B10 move KV and the riding dk/dv between
+# the processes (``ProcessRing``: gloo's ``all_to_all_single`` to the right
+# neighbour; ``gloo_cuda_probe``: gloo's point-to-point on CUDA tensors dies).
+# Llama-3-8B widths cut to CP_GANG_LAYERS layers, B=1, T=CP_GANG_T, 3 steps
+# and a save, then a step of each planted fault; Mixtral-8x7B widths cut to
+# CP_GANG_MOE_LAYERS layer, B=1, T=CP_GANG_MOE_T, 3 steps and a save. Each
+# held to one process with the context of 2 on a DeviceRing: the losses and
+# grad norms (and Mixtral's router losses) within GANG_LOSS_REL
+# (``FSDP_REL``), the step-3 parameters and moments within FSDP_STATE_REL
+CP_GANG_RANKS, CP_GANG_STEPS = 2, 3
+CP_GANG_LAYERS, CP_GANG_T = 2, 16384
+CP_GANG_MOE_LAYERS, CP_GANG_MOE_T = 1, 8192
+#: the planted faults: a ring whose KV never leaves its process (each slot
+#: receives the process's own), and RoPE without the window's offset (each
+#: window's positions from 0). At random weights over 8192 keys a window
+#: attends nearly uniformly, so neither moves the loss or the grad norm past
+#: GANG_LOSS_REL (H100: the local ring passed it); both move the step-1
+#: gradients of the attention's projections (CP_GANG_GRAD_LEAVES), which
+#: every rank and one process hold after the step's reduction, and which are
+#: held within CP_STEP_GRAD_REL in relative norm a leaf, the whole-step
+#: check's limit between the sound ring and a faulted one
+CP_GANG_FAULTS = ("local-kv", "rope")
+CP_GANG_GRAD_LEAVES = ("layers/wq", "layers/wk", "layers/wv")
+
+
+def record_first_grads(trainer, names: tuple, path: Path | None = None) -> tuple:
+    """While installed, the first AdamW update of this process leaves the
+    gradients of ``names`` (as given to the update, on the CPU) in the dict
+    returned, and writes them to ``path`` when one is given; the function
+    returned uninstalls it."""
+    import torch
+
+    got, real = {}, trainer.AdamW.update
+
+    def update(self, params, grads, state, norm):
+        if not got:
+            got.update({n: grads[n].detach().cpu() for n in names})
+            if path is not None:
+                torch.save(got, path)
+        return real(self, params, grads, state, norm)
+
+    trainer.AdamW.update = update
+    return got, lambda: setattr(trainer.AdamW, "update", real)
+
+
+def grad_rel(torch, got: dict, want: dict) -> dict:
+    """‖a − b‖ / ‖b‖ in f32 of each leaf of ``want``."""
+    return {n: float((got[n].float() - w.float()).norm() / w.float().norm().clamp_min(1e-30)) for n, w in want.items()}
+
+
+def keep_kv_local(collectives) -> None:
+    """A planted fault: every ``ProcessRing`` transfer stays in its process
+    (each receive buffer gets the process's own send), on every rank, so
+    no rank waits on a peer."""
+    def local(self, src, dst):
+        for a, b in zip(src, dst):
+            b.copy_(a)
+        return collectives._Done()
+
+    collectives.ProcessRing.send_recv = local
+
+
+def drop_rope_offset(llama) -> None:
+    """A planted fault: a window's RoPE positions restart at 0 (unpacked rows
+    take ``0…T/c`` instead of the window's global ``lo…hi``)."""
+    real = llama.context_inputs
+
+    def no_offset(tokens, mesh, segment_ids=None):
+        t, seg, positions = real(tokens, mesh, segment_ids)
+        return t, seg, positions if segment_ids is not None else None
+
+    llama.context_inputs = no_offset
+
+
+def cp_gang_rank(spec_json: str) -> None:
+    """One rank of the ``[cp-gang]`` gang (``RANK`` in the env):
+    ``run_lm_training`` with ``context_axis`` CP_GANG_RANKS for each run of
+    the spec (Llama and Mixtral sound, each with a save; each planted fault),
+    each in a gloo group of its own (a file store under the spec's
+    directory); each run's step reports, kernel launches, the fingerprint
+    and shape of each leaf the rank hands a save, peak memory and wall.
+    Writes ``rank<r>.json`` there."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from tony_tpu_torch.models import llama, mixtral
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import moe_gemm as MG
+    from tony_tpu_torch.ops import ring as TR
+    from tony_tpu_torch.parallel import collectives
+    from tony_tpu_torch.train import checkpoint as C
+    from tony_tpu_torch.train import trainer
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+
+    spec = json.loads(spec_json)
+    rank, work = int(os.environ["RANK"]), Path(spec["dir"])
+    cuda = spec["device"] == "cuda"
+    real = (C.CheckpointManager.save, collectives.ProcessRing.send_recv, llama.context_inputs, trainer.AdamW.update)
+    out = {}
+    for run in spec["runs"]:
+        saves: dict = {}
+
+        def save(self, step, state, force=False):
+            local = {name: t.to_local() if hasattr(t, "to_local") else t for name, t in _leaves(state)}
+            saves[step] = {name: {"shape": list(t.shape), "fp": fingerprint(torch, t)}
+                           for name, t in local.items() if hasattr(t, "shape")}
+            return real[0](self, step, state, force=force)
+
+        if cuda:
+            torch.cuda.set_device(0)
+            torch.cuda.reset_peak_memory_stats()
+        dist.init_process_group(FSDP_BACKEND, init_method=f"file://{work / ('store-' + run)}",
+                                world_size=CP_GANG_RANKS, rank=rank)
+        C.CheckpointManager.save = save
+        if run == "local-kv":
+            keep_kv_local(collectives)
+        if run == "rope":
+            drop_rope_offset(llama)
+        record_first_grads(trainer, CP_GANG_GRAD_LEAVES, work / f"grads-{run}-rank{rank}.pt")
+        for mod in (A, MG, TR):
+            mod.reset_launches()
+        model = {"llama": llama, "mixtral": mixtral}[spec[run]["model"]]
+        t0 = time.perf_counter()
+        try:
+            res = run_lm_training(model, model.config_from_dict(spec[run]["cfg"]), LoopConfig(**spec[run]["loop"]))
+        finally:
+            (C.CheckpointManager.save, collectives.ProcessRing.send_recv, llama.context_inputs,
+             trainer.AdamW.update) = real
+        out[run] = {"log": res["log"], "launches": {**A.launches, **MG.launches, **TR.launches}, "saves": saves,
+                    "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
+                    "wall_s": time.perf_counter() - t0}
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def cp_gang_launches(TR, my: int, L: int, S: int, Tl: int, moe: bool) -> dict:
+    """The launches ring position ``my`` of CP_GANG_RANKS makes in S steps of
+    L layers under remat "full" (the forward twice): B9 at the forward
+    steps the schedule runs, B10 at the backward's, B7/B8 (Mixtral) once
+    a layer pass."""
+    n = CP_GANG_RANKS
+    fwd = sum(TR.fwd_step_runs(my, s, n, Tl, True, 0) for s in range(n))
+    bwd = sum(TR.bwd_step_runs(my, s, n, Tl, True, 0) for s in range(n))
+    out = {"ring_fwd": 2 * L * S * fwd, "ring_bwd_dq": L * S * bwd, "ring_bwd_dkv": L * S * bwd,
+           "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    out.update({"moe_fwd": 2 * L * S, "moe_bwd": L * S} if moe else {"moe_fwd": 0, "moe_bwd": 0})
+    return out
+
+
+def cp_gang_line(rec: dict, card: str) -> str:
+    """The ``[cp-gang]`` report line."""
+    faults = "; ".join(f"{k}: loss {v['loss']} grad norm {v['grad_norm']} against one process's "
+                       f"{rec['llama']['one_losses'][0]} / {rec['llama']['one_grad_norms'][0]}, step-1 "
+                       f"{'/'.join(CP_GANG_GRAD_LEAVES)} gradients worst rel {v['worst_grad_rel']:.2e}, failed"
+                       for k, v in rec["faults"].items())
+    parts = []
+    for fam in ("llama", "mixtral"):
+        r = rec[fam]
+        moe = (f", balance {r['balance']} z {r['z']} (one process {r['one_balance']} / {r['one_z']})"
+               if fam == "mixtral" else "")
+        state = (f"; step {r['restored_step']} parameters and moments against one process's, worst "
+                 + ", ".join(f"{k} {v:.2e} ({r['state_leaf'][k]})" for k, v in r["state_rel"].items())
+                 + f" (limit {FSDP_STATE_REL:.0e}); the save restored into one process bit for bit in "
+                   f"{r['restore_s']:.1f} s")
+        parts.append(f"{r['preset']} widths {r['layers']} layers B=1 T={r['seq_len']} (T/{CP_GANG_RANKS} a rank): losses "
+                     f"{r['losses']} grad norms {r['grad_norms']} (one process {r['one_losses']} / "
+                     f"{r['one_grad_norms']}, worst rel {r['worst_rel']:.2e}, limit {FSDP_REL:.0e}){moe}; step-1 "
+                     f"{'/'.join(CP_GANG_GRAD_LEAVES)} gradients worst rel {r['worst_grad_rel']:.2e} (limit "
+                     f"{CP_STEP_GRAD_REL:.0e}){state}; "
+                     f"launches a rank {r['launches']} (the schedule's); ms/step a rank {r['step_ms']} (one process "
+                     f"{r['one_step_ms']}); peak a rank {[round(b / 2**30, 2) for b in r['peak_bytes']]} GiB (one "
+                     f"process {r['one_peak_bytes'] / 2**30:.2f} GiB)")
+    return (f"[cp-gang] {CP_GANG_RANKS} ranks on one card over {FSDP_BACKEND}, context {CP_GANG_RANKS}, cp_impl "
+            f"pallas: " + "; ".join(parts) + f"; seconds {rec['seconds']}; planted faults, {faults}; {card}")
+
+
+def cp_gang_phase(torch, llama, mixtral, A, out_dir: Path, card: str, cfgs: dict | None = None,
+                  T: tuple = (CP_GANG_T, CP_GANG_MOE_T), device: str = "cuda") -> dict:
+    """``[cp-gang]``: the gang of ``CP_GANG_RANKS`` on the card with a
+    context axis of as many (one shard a process, KV between the processes
+    through B9/B10), at Llama-3-8B and Mixtral-8x7B widths cut to depth
+    (``cfgs`` {"llama", "mixtral"}, ``T`` and ``device`` other configs,
+    lengths and device): Llama ``CP_GANG_STEPS`` steps with a save, a step
+    of each planted fault, Mixtral ``CP_GANG_STEPS`` steps with a save.
+    Each rank's losses and grad norms (and router losses) must be one
+    process's with the same context on a ``DeviceRing``
+    (``run_lm_training`` here), each rank's launches the schedule's for its
+    ring position, each save restored into one process the state the ranks
+    handed it, bit for bit, and its parameters and moments one process's
+    within ``FSDP_STATE_REL``; each planted fault must fail ``fsdp_check``.
+    Prints per-rank peak memory, launches and ms/step."""
+    from tony_tpu_torch.ops import moe_gemm as MG
+    from tony_tpu_torch.ops import ring as TR
+    from tony_tpu_torch.train import trainer
+    from tony_tpu_torch.train.checkpoint import restore_or_init
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+    from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState
+
+    cfgs = cfgs or {"llama": {"preset": "llama3-8b", "n_layers": CP_GANG_LAYERS, "cp_impl": "pallas"},
+                    "mixtral": {"preset": "mixtral-8x7b", "n_layers": CP_GANG_MOE_LAYERS, "cp_impl": "pallas"}}
+    cuda = device == "cuda"
+    work = (out_dir / "cp-gang").resolve()  # the ranks' file store takes an absolute path
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    loops = {fam: dict(batch_size=1, seq_len=t, log_every=1, warmup_steps=1, context_axis=CP_GANG_RANKS,
+                       device=device) for fam, t in zip(("llama", "mixtral"), T)}
+    spec = {"dir": str(work), "device": device, "runs": ["llama-ok", *CP_GANG_FAULTS, "mixtral-ok"],
+            **{f"{fam}-ok": {"model": fam, "cfg": cfgs[fam],
+                             "loop": dict(loops[fam], steps=CP_GANG_STEPS, checkpoint_dir=str(work / f"ckpt-{fam}"),
+                                          checkpoint_every=CP_GANG_STEPS)} for fam in ("llama", "mixtral")},
+            **{f: {"model": "llama", "cfg": cfgs["llama"], "loop": dict(loops["llama"], steps=1)}
+               for f in CP_GANG_FAULTS}}
+    t0 = time.perf_counter()
+    ranks = run_gang(work, spec, "cp_gang_rank", CP_GANG_RANKS, "cp-gang")
+    seconds = {"gang": time.perf_counter() - t0}
+    for run in spec["runs"]:
+        print(f"[cp-gang] {run}: wall a rank {[round(x[run]['wall_s'], 1) for x in ranks]} s, ms/step a rank "
+              f"{[[y['step_time_ms'] for y in x[run]['log']] for x in ranks]}, losses "
+              f"{[[y['loss'] for y in x[run]['log']] for x in ranks]}; {card}", flush=True)
+
+    def grads_of(run: str) -> list:
+        return [torch.load(work / f"grads-{run}-rank{r}.pt") for r in range(CP_GANG_RANKS)]
+
+    def worst_grad_rel(run: str, want: dict) -> float:
+        return max(v for got in grads_of(run) for v in grad_rel(torch, got, want).values())
+
+    rec: dict = {"faults": {}}
+    for fam, model in (("llama", llama), ("mixtral", mixtral)):
+        model_cfg = model.config_from_dict(cfgs[fam])
+        run = f"{fam}-ok"
+        if cuda:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        for mod in (A, MG, TR):
+            mod.reset_launches()
+        t0 = time.perf_counter()
+        held, unhold = hold_final_state(trainer)  # the final state, held to the gang's save
+        first, unrecord = record_first_grads(trainer, CP_GANG_GRAD_LEAVES)
+        try:
+            one = run_lm_training(model, model_cfg, LoopConfig(steps=CP_GANG_STEPS, **loops[fam]))["log"]
+        finally:
+            unrecord()
+            unhold()
+        seconds[f"one_{fam}"] = time.perf_counter() - t0
+        one_launches = {**A.launches, **MG.launches, **TR.launches}
+        one_peak = torch.cuda.max_memory_allocated() if cuda else 0
+        keys = ("loss", "grad_norm") + (("moe_balance_loss", "moe_z_loss") if fam == "mixtral" else ())
+        worst = fsdp_check(ranks, one, run, tag="cp-gang", keys=keys)
+        worst_grad = worst_grad_rel(run, first)
+        check(worst_grad <= CP_STEP_GRAD_REL, f"cp-gang: {fam} step-1 gradients of {CP_GANG_GRAD_LEAVES} against "
+                                              f"one process's: {worst_grad:.2e} > {CP_STEP_GRAD_REL:.0e}")
+        Tl = loops[fam]["seq_len"] // CP_GANG_RANKS
+        launches = [rec_r[run]["launches"] for rec_r in ranks]
+        for my, got in enumerate(launches):
+            want = cp_gang_launches(TR, my, model_cfg.n_layers, CP_GANG_STEPS, Tl, fam == "mixtral")
+            got = {k: got[k] for k in want}
+            check(got == want if cuda else not any(got.values()),
+                  f"cp-gang: {fam} rank {my} launches {got}, the schedule's {want}")
+        check(all(sum(x[k] for x in launches) == one_launches[k] for k in TR.launches),
+              f"cp-gang: {fam} the ranks' ring launches {launches} do not add up to one process's {one_launches}")
+        log0 = ranks[0][run]["log"]
+        r = {"preset": cfgs[fam]["preset"], "layers": model_cfg.n_layers, "seq_len": loops[fam]["seq_len"],
+             "losses": [x["loss"] for x in log0], "grad_norms": [x["grad_norm"] for x in log0],
+             "one_losses": [x["loss"] for x in one], "one_grad_norms": [x["grad_norm"] for x in one],
+             "worst_rel": worst, "worst_grad_rel": worst_grad,
+             "launches": [{k: v for k, v in x.items() if v} for x in launches],
+             "one_launches": {k: v for k, v in one_launches.items() if v},
+             "step_ms": [[x["step_time_ms"] for x in rec_r[run]["log"]] for rec_r in ranks],
+             "one_step_ms": [x["step_time_ms"] for x in one], "peak_bytes": [rec_r[run]["peak_bytes"] for rec_r in ranks],
+             "one_peak_bytes": one_peak, "wall_s": [round(rec_r[run]["wall_s"], 1) for rec_r in ranks]}
+        if fam == "mixtral":
+            r.update(balance=[x["moe_balance_loss"] for x in log0], z=[x["moe_z_loss"] for x in log0],
+                     one_balance=[x["moe_balance_loss"] for x in one], one_z=[x["moe_z_loss"] for x in one])
+        else:
+            for fault in CP_GANG_FAULTS:
+                got = {k: [x[fault]["log"][0][k] for x in ranks] for k in ("loss", "grad_norm")}
+                got["worst_grad_rel"] = worst_grad_rel(fault, first)
+                try:
+                    fsdp_check(ranks, one, fault, tag="cp-gang")
+                    check(got["worst_grad_rel"] <= CP_STEP_GRAD_REL, "step-1 gradients")
+                except SmokeFailure:
+                    rec["faults"][fault] = got
+                check(fault in rec["faults"], f"cp-gang: the planted fault {fault!r} passed: {got}")
+        one_state = {part: held[part] for part in ("params", "mu", "nu")}
+        opt = OptimizerConfig(learning_rate=3e-4, warmup_steps=1, total_steps=CP_GANG_STEPS).build()
+        t0 = time.perf_counter()
+        state, _, step = restore_or_init(str(work / f"ckpt-{fam}"), lambda: TrainState.create(
+            model.init(torch.Generator(device=device).manual_seed(1), model_cfg, device), opt), TrainState.load)
+        r["restore_s"] = time.perf_counter() - t0
+        check(step == CP_GANG_STEPS, f"cp-gang: {fam} one process restored step {step}, want {CP_GANG_STEPS}")
+        fsdp_blocks(torch, ranks, state.state_dict(), step, tag=f"cp-gang {fam}", run=run)
+        r["state_leaf"] = {}
+        r["state_rel"] = fsdp_state_check(torch, state.state_dict(), one_state, ranks[0][run]["saves"][str(step)],
+                                          f"{fam} step {step}", tag="cp-gang", leaves=r["state_leaf"])
+        r["restored_step"] = step
+        del state, one_state, held
+        rec[fam] = r
+    shutil.rmtree(work, ignore_errors=True)
+    rec["seconds"] = {k: round(v, 1) for k, v in seconds.items()}
+    rec["launches_sum"] = {k: sum(x[f"{fam}-ok"]["launches"][k] for x in ranks for fam in ("llama", "mixtral"))
+                           for k in ranks[0]["llama-ok"]["launches"]}
+    print(cp_gang_line(rec, card), flush=True)
+    return rec
+
+
 class Phases:
     """``with phases(name):`` runs one phase between a start line and its
     seconds, so a failure is named by the last start line (and by
@@ -5031,7 +5455,7 @@ def kernel_rows(kern: dict, path_launches: dict, fleet_b5: dict, bert_launches: 
             "launches": launches, "launches_run": run, "case": k["case"],
             "max_abs_err": k["max_abs_err"], "tol": k["tol"],
             **{x: k[x] for x in ("row_err", "fault_row_err", "w_err", "fault_w_err", "library_call",
-                                 "step_ms", "tflops") if x in k},
+                                 "step_ms", "tflops", "checks") if x in k},
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"], "cases": k["cases"],
         })
@@ -5140,6 +5564,7 @@ def main() -> int:
             cp_step = cp_whole_step_check(torch, llama, A, TR)
         with phase("cp-train"):
             cp_train = cp_train_phase(torch, llama, A, TR)
+            cp_train["mixtral"] = cp_train_mixtral(torch, mixtral, A, MG, TR)
         # Mixtral after the Llama phases, with their state freed
         with phase("moe-kernels"):
             flush = torch.empty(64 << 20, dtype=torch.int8, device="cuda")
@@ -5209,6 +5634,10 @@ def main() -> int:
             mixtral_tp = tp_phase(torch, mixtral, A, out_dir, card)
         with phase("mixtral-tp-serve"):
             mixtral_tp_serve = mixtral_tp_serve_phase(torch, mixtral, MG, card)
+        # the context axis across the gang (A12b), last: one shard a process,
+        # B9/B10 moving KV between the two processes on the card
+        with phase("cp-gang"):
+            cp_gang = cp_gang_phase(torch, llama, mixtral, A, out_dir, card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED in phase {phase.current}: {e}", file=sys.stderr, flush=True)
         return 1
@@ -5229,6 +5658,12 @@ def main() -> int:
             more[k]["mixtral_tp"] = mixtral_tp["launches_rank"][k]
             more[k]["mixtral_ep"] = mixtral_tp["ep"]["launches_rank"][k]
         more["moe_fwd"]["mixtral_tp_serve"] = mixtral_tp_serve["launches"]
+        for k in ("ring_fwd", "ring_bwd", "moe_fwd", "moe_bwd"):
+            more.setdefault(k, {})["cp_train_mixtral"] = cp_train["mixtral"]["launches_run"][k]
+        gang_sum = cp_gang["launches_sum"]
+        for k, n in (("ring_fwd", gang_sum["ring_fwd"]), ("ring_bwd", gang_sum["ring_bwd_dq"] + gang_sum["ring_bwd_dkv"]),
+                     ("moe_fwd", gang_sum["moe_fwd"]), ("moe_bwd", gang_sum["moe_bwd"])):
+            more[k]["cp_gang"] = n
         for k in ("paged_decode_attention", "int8_matmul"):
             more[k] = {"hf_serve": hf_serve["launches"][k]}
         kernels = kernel_rows(kern, path_launches, {f: rec["b5_launches"] for f, rec in fleet.items()},
@@ -5248,7 +5683,8 @@ def main() -> int:
          "bert": {"whole_step": bert_step, "pack": bert_pack}, "mnist": mnist,
          "resnet": {"whole_step": resnet_step, "train": resnet_train},
          "hf": {"load": hf_load, "serve": hf_serve}, "mixtral_gang": mixtral_gang, "fsdp": fsdp, "tp": tp,
-         "tp_serve": tp_serve, "mixtral_tp": mixtral_tp, "mixtral_tp_serve": mixtral_tp_serve}, indent=1))
+         "tp_serve": tp_serve, "mixtral_tp": mixtral_tp, "mixtral_tp_serve": mixtral_tp_serve,
+         "cp_gang": cp_gang}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -8,8 +8,10 @@ context axis of 4 on 4 of the 8 virtual devices ("pallas" runs JAX's ring
 kernels in TPU-interpret mode, whose emulation can wedge for want of
 executor threads when a collective kernel occupies every device of the
 process: ``tests/test_ring_pallas.py:255-265``) and against the port's
-mesh-free loss; a short ``run_lm_training`` with ``context_axis=4``
-against ``context_axis=1``; and what the CP path refuses. Weights cross with
+mesh-free loss; Mixtral's (A12a) the same way, its router losses too; a
+short ``run_lm_training`` with ``context_axis=4`` against
+``context_axis=1``; and what the CP path refuses. The context axis across
+a gang is ``tests/test_torch_cp_gang.py``'s. Weights cross with
 ``params_from_numpy``; inputs are numpy arrays from a seed.
 
 Tolerances: both sides are f32 and differ only in the order of their sums
@@ -175,6 +177,51 @@ def test_llama_loss_with_a_context_axis_matches_jax_and_the_mesh_free_loss(llama
     _assert_loss((tl, tg), (fl, fg), f"{cp_impl} vs no mesh")
 
 
+MIXTRAL_B, MIXTRAL_T = 2, 32
+
+
+@pytest.fixture(scope="module")
+def mixtral_case():
+    from tony_tpu.models import mixtral as JMx
+
+    jcfg = dataclasses.replace(JMx.MIXTRAL_TINY, dtype="float32", n_layers=1)
+    jp = JMx.init(jax.random.PRNGKey(2), jcfg)
+    tokens = np.random.default_rng(3).integers(0, jcfg.vocab_size, (MIXTRAL_B, MIXTRAL_T + 1)).astype(np.int32)
+    return jcfg, jp, jax.tree.map(np.asarray, jp), tokens
+
+
+@pytest.mark.parametrize("cp_impl", ["pallas", "xla", "ulysses"])
+def test_mixtral_loss_with_a_context_axis_matches_jax_and_the_mesh_free_loss(mixtral_case, cp_impl):
+    """Mixtral (A12a): ``loss_fn``, its router losses and every gradient leaf
+    with ``MeshSpec(context=4)`` in one process (each layer's attention over
+    the ring, the MoE on the whole rows) against JAX's on a context-4 mesh
+    of 4 devices, and against the port's loss without a mesh."""
+    from tony_tpu.models import mixtral as JMx
+    from tony_tpu_torch.models import mixtral as TMx
+
+    jcfg, jp, npp, tokens = mixtral_case
+    jcfg = dataclasses.replace(jcfg, cp_impl=cp_impl)
+    mesh = JMeshSpec(context=4).build(devices=jax.devices()[:4])
+    (jl, jaux), jg = jax.jit(jax.value_and_grad(
+        functools.partial(JMx.loss_fn, cfg=jcfg, mesh=mesh), has_aux=True))(jp, {"tokens": jnp.asarray(tokens)})
+    want = (float(jl), dict(_leaves(jax.tree.map(np.asarray, jg))))
+
+    cfg = dataclasses.replace(TMx.MIXTRAL_TINY, dtype="float32", cp_impl=cp_impl, n_layers=1)
+    got = []
+    for m in (MeshSpec(context=4).build("cpu"), None):
+        tp = params_from_numpy(npp, "cpu")
+        names, tensors = zip(*_leaves(tp))
+        for t in tensors:
+            t.requires_grad_(True)
+        loss, aux = TMx.loss_fn(tp, {"tokens": torch.from_numpy(tokens)}, cfg, m)
+        got.append((loss.item(), dict(zip(names, (g.numpy() for g in torch.autograd.grad(loss, tensors)))), aux))
+    (tl, tg, aux), (fl, fg, _) = got
+    _assert_loss((tl, tg), want, f"mixtral {cp_impl} vs JAX")
+    _assert_loss((tl, tg), (fl, fg), f"mixtral {cp_impl} vs no mesh")
+    for k in ("moe_balance_loss", "moe_z_loss"):
+        assert abs(aux[k].item() - float(jaux[k])) <= LOSS_REL * abs(float(jaux[k])), (k, aux[k], jaux[k])
+
+
 def test_pallas_ring_with_packing_and_a_window_matches_the_mesh_free_loss(llama_case):
     """Packed segments (boundaries off the shard edges, a padding tail) and a
     sliding window, which only ``cp_impl="pallas"`` composes with a context
@@ -214,10 +261,13 @@ def test_mesh_spec_builds_a_context_ring_and_refuses_other_axes():
     mesh = MeshSpec(context=4).build("cpu")
     assert mesh.shape == {"stage": 1, "data": 1, "fsdp": 1, "expert": 1, "context": 4, "model": 1}
     assert isinstance(mesh.ring, DeviceRing) and mesh.ring.n == 4 and mesh.device.type == "cpu"
-    for kw, item in ((dict(data=2), "A12"), (dict(model=2), "A8"), (dict(expert=2), "A11"),
-                     (dict(stage=2), "A13")):
+    for kw, item in ((dict(model=2), "A12c"), (dict(expert=2), "A11"), (dict(stage=2), "A13")):
         with pytest.raises(NotImplementedError, match=item):
             MeshSpec(context=2, **kw).build("cpu")
+    # a data axis beside the context axis is a gang's (one process a shard);
+    # one process holds a context axis alone
+    with pytest.raises(ValueError, match="needs a gang of as many processes"):
+        MeshSpec(context=2, data=2).build("cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             MeshSpec(context=2).build()
@@ -247,7 +297,11 @@ def test_the_context_path_refuses_what_jax_refuses():
 
     from tony_tpu_torch.models import mixtral
 
+    # Mixtral takes a context axis (A12a); beside a model axis it is refused (A12c)
     mcfg = dataclasses.replace(mixtral.MIXTRAL_TINY, dtype="float32")
-    with pytest.raises(NotImplementedError, match="A12"):
-        TLp.run_lm_training(mixtral, mcfg, TLp.LoopConfig(device="cpu", steps=1, seq_len=32,
-                                                          batch_size=2, context_axis=2))
+    with pytest.raises(NotImplementedError, match="A12c"):
+        TLp.run_lm_training(mixtral, mcfg, TLp.LoopConfig(device="cpu", steps=1, seq_len=32, batch_size=2,
+                                                          context_axis=2, model_axis=2))
+    log = TLp.run_lm_training(mixtral, mcfg, TLp.LoopConfig(device="cpu", steps=1, seq_len=32, batch_size=2,
+                                                            context_axis=2, log_every=1))["log"]
+    assert [x["step"] for x in log] == [1] and np.isfinite(log[0]["loss"])

@@ -900,3 +900,81 @@ def test_hf_dir_loads_straight_onto_the_card_as_on_the_cpu(gen, tmp_path, model,
         assert all(t.is_cuda for _, t in cs._leaves(card))
         assert cs.tree_mismatches(torch, {k: v for k, v in cs._leaves(card)},
                                   {k: v.cuda() for k, v in cs._leaves(host)}) == []
+
+
+_PROCESS_RING = r"""
+import datetime, sys, torch, torch.distributed as dist
+sys.path.insert(0, sys.argv[1])
+from tony_tpu_torch.ops import ring as TR
+from tony_tpu_torch.parallel.collectives import ProcessRing
+rank, store, inp, out = int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank, world_size=2,
+                        timeout=datetime.timedelta(seconds=120))
+ring = ProcessRing()
+res = {}
+for name, case in torch.load(inp).items():
+    q, k, v, do, seg = (None if t is None else t.cuda() for t in case)
+    Tl = q.shape[2] // 2
+    sl = slice(rank * Tl, (rank + 1) * Tl)
+    a, b, c = (t[:, :, sl].clone().requires_grad_(True) for t in (q, k, v))
+    TR.reset_launches()
+    if seg is None:
+        o = TR.ring_attention_pallas(a, b, c, ring, window=100)
+    else:
+        o = TR.ring_attention_pallas_seg(a, b, c, seg[:, sl], ring)
+    o.backward(do[:, :, sl])
+    torch.cuda.synchronize()
+    res[name] = {"grads": [t.cpu() for t in (o.detach(), a.grad, b.grad, c.grad)], "launches": dict(TR.launches)}
+torch.save(res, out)
+dist.destroy_process_group()
+"""
+
+
+def test_ring_kernels_over_a_two_process_gloo_ring_match_a_device_ring(gen, tmp_path):
+    """B9/B10 with one context shard in each of two processes on the one card
+    (``ProcessRing`` over gloo: KV and the riding dk/dv move between the
+    processes) against a ``DeviceRing`` of 2 in this process on the same
+    card, in bf16 and f32, with a window and with packed segments: each
+    rank's o, dq, dk and dv the matching shard's within 1e-6 (the same
+    kernels on the same inputs), and each rank's launches its half of the
+    schedule's."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from tony_tpu_torch.ops import ring as TR
+    from tony_tpu_torch.parallel.collectives import DeviceRing
+
+    cases = {"bf16-window": _flash_inputs(gen, torch.bfloat16, 1, 8, 2, 2 * 512, 128, 1),
+             "f32-segments": _flash_inputs(gen, torch.float32, 2, 8, 2, 2 * 200, 64, 3)}
+    torch.save({n: [None if t is None else t.cpu() for t in c] for n, c in cases.items()}, tmp_path / "in.pt")
+    root = str(Path(__file__).resolve().parents[1])
+    procs = [subprocess.Popen([sys.executable, "-c", _PROCESS_RING, root, str(r), str(tmp_path / "store"),
+                               str(tmp_path / "in.pt"), str(tmp_path / f"rank{r}.pt")],
+                              env=dict(os.environ, PYTHONPATH=root), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
+    got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    ring = DeviceRing(2, "cuda")
+    for name, (q, k, v, do, seg) in cases.items():
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        TR.reset_launches()
+        o = (TR.ring_attention_pallas(*leaves, ring, window=100) if seg is None
+             else TR.ring_attention_pallas_seg(*leaves, seg, ring))
+        o.backward(do)
+        whole = [o.detach(), *(t.grad for t in leaves)]
+        for r in range(2):
+            sl = slice(r * q.shape[2] // 2, (r + 1) * q.shape[2] // 2)
+            for what, mine, ref in zip(("o", "dq", "dk", "dv"), got[r][name]["grads"], whole):
+                torch.testing.assert_close(mine.float(), ref[:, :, sl].float().cpu(), atol=1e-6, rtol=0,
+                                           msg=f"{name} rank {r} {what}")
+        assert {k: sum(g[name]["launches"][k] for g in got) for k in TR.launches} == TR.launches, name

@@ -234,7 +234,7 @@ def test_fleet_line_names_every_number_and_the_card(handoff):
            "prefix_hit_tokens": 5120, "b5_launches": 4096, "stop_s": 6.0,
            "kv_handoff_pages": 60 if handoff else None, "handoff_p50_ms": 900.0 if handoff else None}
     line = cs.fleet_line(rec, "NVIDIA H100 80GB HBM3, 700.00 W")
-    assert line.startswith(f"[fleet] {rec['fleet']}: startup 31.2 s; 12/12 ok, 120.5 tok/s")
+    assert line.startswith(f"[fleet] {rec['fleet']}: startup 31.2 s; 8/8 ok, 120.5 tok/s")
     for part in ("TTFT p50/p95/p99 250.0 / 600.0 / 700.0 ms", "gap between tokens p50 38.10 ms",
                  "latency p50/p99 2600.0 / 3900.0 ms", "B5 4096", "NVIDIA H100 80GB HBM3, 700.00 W"):
         assert part in line
@@ -242,14 +242,14 @@ def test_fleet_line_names_every_number_and_the_card(handoff):
 
 
 def test_fleet_traffic_is_tony_loadtests_and_fits_the_engine():
-    """``LOADTEST`` as ``tony loadtest`` parses it: 12 streamed requests, the
+    """``LOADTEST`` as ``tony loadtest`` parses it: 8 streamed requests, the
     shared prefix inside every first prompt, and the longest conversation
     (first prompt, then each turn's answer and fresh tokens) inside max_len."""
     pytest.importorskip("jax")
     from tony_tpu.cli.loadtest import build_spec
 
     spec, _ = build_spec(["--url", "http://127.0.0.1:1", *cs.LOADTEST])
-    assert spec.sessions * spec.turns == cs.LOADTEST_REQUESTS == 12 and spec.stream
+    assert spec.sessions * spec.turns == cs.LOADTEST_REQUESTS == 8 and spec.stream
     assert sorted(n for n, _ in spec.prompt_mix) == [768, 1280] and spec.shared_prefix == 512
     longest = max(n for n, _ in spec.prompt_mix) + (spec.turns - 1) * (spec.max_tokens + spec.turn_tokens)
     assert longest + spec.max_tokens == 1416 < 1500 < cs.MAXT
@@ -892,3 +892,99 @@ def test_mixtral_ep_launches_and_the_ep2_kernel_case_reach_the_report():
     assert 'more[k]["mixtral_ep"] = mixtral_tp["ep"]["launches_rank"][k]' in main
     assert cs.MOE_CASES["ep2"] == dict(tokens=2048, skew="random", experts=cs.MOE_E // 2)
     assert cs.MIXTRAL_EP_RUNS == ("ep-ok", "ep-unsummed", "ep-span0")
+
+
+@pytest.fixture(scope="module")
+def cp_records(tmp_path_factory):
+    """``cp_train_mixtral`` and ``cp_gang_phase`` on the CPU at the tiny
+    Llama and Mixtral in f32 through the plain B9/B10 steps: the context of
+    4 in one process against none, and the gloo gang of two with one
+    context shard each (one intra-op thread a rank) against one process,
+    with the restore and the planted faults, as the card runs them at full
+    widths."""
+    import torch
+
+    from tony_tpu_torch.models import llama, mixtral
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import moe_gemm as MG
+    from tony_tpu_torch.ops import ring as TR
+
+    tiny = {"preset": "tiny", "dtype": "float32", "cp_impl": "pallas"}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return (cs.cp_train_mixtral(torch, mixtral, A, MG, TR, cfg=tiny, T=32, device="cpu"),
+                cs.cp_gang_phase(torch, llama, mixtral, A, tmp_path_factory.mktemp("cp_gang"), "cpu",
+                                 cfgs={"llama": tiny, "mixtral": tiny}, T=(32, 32), device="cpu"))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_cp_train_mixtral_holds_the_context_run_to_the_run_without(cp_records):
+    """A12a's smoke on the CPU: Mixtral's losses with a context of 4 are those
+    without a context axis (f32: within 1e-6), no kernel launched on the
+    CPU, and the schedule's launches computed for the card."""
+    rec, _ = cp_records
+    assert max(rec["loss_rel"]) <= 1e-6 and len(rec["losses"]) == cs.CP_MOE_STEPS
+    assert not any(rec["launches"].values())
+    L, S = rec["layers"], cs.CP_MOE_STEPS
+    assert rec["launches_want"]["moe_fwd"] == 2 * L * S and rec["launches_want"]["moe_bwd"] == L * S
+    assert rec["launches_want"]["ring_bwd_dq"] < rec["launches_want"]["ring_fwd"] // 2  # causal steps skipped
+
+
+def test_cp_gang_phase_holds_the_gang_to_one_process_and_catches_both_faults(cp_records):
+    """A12b's smoke on the CPU: each rank's Llama and Mixtral losses, grad
+    norms and router losses are one process's (f32: within 1e-5), each
+    family's save restores into one process bit for bit and its parameters
+    and moments are one process's within 1e-5, no kernel launched on the
+    CPU, and the ring
+    that keeps KV local and RoPE without the window's offset each move the
+    first loss past ``FSDP_REL``."""
+    _, rec = cp_records
+    for fam in ("llama", "mixtral"):
+        assert rec[fam]["worst_rel"] <= 1e-5 and rec[fam]["losses"] == rec[fam]["one_losses"]
+        assert rec[fam]["launches"] == [{}, {}]
+        assert rec[fam]["restored_step"] == cs.CP_GANG_STEPS and max(rec[fam]["state_rel"].values()) <= 1e-5
+    assert set(rec["faults"]) == set(cs.CP_GANG_FAULTS)
+    one = rec["llama"]["one_losses"][0]
+    for fault, got in rec["faults"].items():
+        assert all(abs(x - one) > cs.FSDP_REL * one for x in got["loss"]), fault
+    line = cs.cp_gang_line(rec, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert line.startswith("[cp-gang] 2 ranks on one card over gloo, context 2, cp_impl pallas: tiny widths 2 layers")
+    for text in ("local-kv: loss", "rope: loss", "balance", "NVIDIA H100 80GB HBM3, 700.00 W"):
+        assert text in line, text
+    assert line.count("the save restored into one process bit for bit") == 2
+
+
+def test_cp_gang_launches_follow_the_causal_schedule():
+    """Rank 0 of a causal ring of 2 skips its backward step over the future
+    window; both run every forward step (the first and the last always)."""
+    from tony_tpu_torch.ops import ring as TR
+
+    r0, r1 = (cs.cp_gang_launches(TR, my, 2, 3, 8192, moe=False) for my in (0, 1))
+    assert r0["ring_fwd"] == r1["ring_fwd"] == 2 * 2 * 3 * 2
+    assert (r0["ring_bwd_dq"], r1["ring_bwd_dq"]) == (2 * 3, 2 * 3 * 2)
+    assert cs.cp_gang_launches(TR, 0, 1, 3, 4096, moe=True)["moe_fwd"] == 6
+
+
+def test_ring_phase_holds_the_kernels_at_the_context_gangs_shape():
+    """The ring phase also holds B9/B10 against their plain steps on a ring
+    of ``CP_GANG_RANKS`` over ``CP_GANG_T`` (each rank's window, and the
+    causal schedule of that ring), its fault at that ring's past step."""
+    cases = {c.get("n", cs.RING_N): c for c in cs.RING_CASES.values()}
+    assert cs.RING_T == cs.CP_GANG_T and cases[cs.CP_GANG_RANKS] == dict(window=0, n_seg=1, n=cs.CP_GANG_RANKS,
+                                                                         check_only=True)
+    calls = []
+    step = cs.skipped_ring_step(type("TR", (), {"ring_fwd_step": staticmethod(lambda **kw: calls.append(kw))}),
+                                1, 0, 2)
+    assert step(q_pos0=8192, k_pos0=0) is None and not calls
+    step(q_pos0=8192, k_pos0=8192)
+    assert calls == [dict(q_pos0=8192, k_pos0=8192)]
+
+
+def test_cp_phases_run_in_main_and_reach_the_report():
+    src = (ROOT / "chip_smoke.py").read_text()
+    main = src[src.index("def main() -> int:"):]
+    assert 'cp_train["mixtral"] = cp_train_mixtral(torch, mixtral, A, MG, TR)' in main
+    assert main.index('phase("mixtral-tp-serve")') < main.index('phase("cp-gang")') < main.index("except SmokeFailure")
+    assert 'more[k]["cp_gang"] = n' in main and '["cp_train_mixtral"]' in main

@@ -228,7 +228,7 @@ def test_state_load_checks_every_leaf_before_copying():
 
 
 def test_unported_options_and_gangs_raise(monkeypatch):
-    """The axes still to port, a context axis across a gang (A12), a global
+    """The axes still to port, a model axis beside a context axis (A12c), a global
     batch that does not divide by the gang, and a gang launched without the
     torch.distributed rendezvous. The expert axis is ported for every
     family (Llama's leaves stay whole on it), and one process holds none
@@ -245,8 +245,8 @@ def test_unported_options_and_gangs_raise(monkeypatch):
         with pytest.raises(ValueError, match="not divisible by model"):  # one process holds no model axis of 2
             TLp.run_lm_training(model, cfg, TLp.LoopConfig(device="cpu", model_axis=2))
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A12"):
-        TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", steps=1, context_axis=2))
+    with pytest.raises(NotImplementedError, match="A12c"):  # a context axis alone spans a gang
+        TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", steps=1, context_axis=2, model_axis=2))
     monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
     with pytest.raises(RuntimeError, match="framework=pytorch"):

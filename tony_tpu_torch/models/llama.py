@@ -6,10 +6,16 @@ stacked layers (leading dim L on every block weight), weights ``[K, N]``
 used as ``x @ w``. The layer scan is a Python loop over the stacked dim
 (each stacked weight is unbound once per forward, so its gradient is
 stacked once in the backward). A mesh may carry a context axis
-(``parallel/mesh.py``): with the JAX package's single-process semantics the
-model runs on whole ``[B, T, ...]`` tensors and only attention splits T
-into the mesh ring's shards (``cp_impl``: "xla" ring, "pallas" ring
-kernels, "ulysses"). On an ``fsdp`` axis the params hold this rank's blocks
+(``parallel/mesh.py``): only attention splits T into the mesh ring's
+shards (``cp_impl``: "xla" ring, "pallas" ring kernels, "ulysses"). In one
+process the model runs on whole ``[B, T, ...]`` tensors, with the JAX
+package's single-process semantics; in a gang each process takes its
+window of every row (``context_window``): ``hidden_states`` and
+``loss_fn`` take whole rows, run on the window's tokens at their global
+positions (RoPE, packed positions and the segment table from the whole
+row) and return the window's hidden states and its targets' loss, the
+target at a window's edge being the next window's first token. On an
+``fsdp`` axis the params hold this rank's blocks
 per ``sharding_rules`` (JAX's) and each leaf is gathered where it is used:
 the embedding before the take, layer i's weights inside its (remat) block,
 the head before the product or the chunked CE.
@@ -38,7 +44,7 @@ from tony_tpu_torch.ops import layers as L
 from tony_tpu_torch.ops.ring import ring_attention_pallas, ring_attention_pallas_seg
 from tony_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 from tony_tpu_torch.parallel.context import ring_attention, ulysses_attention
-from tony_tpu_torch.parallel.mesh import AXIS_MODEL, axis_size, context_degree, model_group
+from tony_tpu_torch.parallel.mesh import AXIS_MODEL, axis_size, context_degree, context_window, model_group
 from tony_tpu_torch.parallel.sharding import P, Place, ShardingRules, gather, gathering, keep_whole
 
 
@@ -285,16 +291,31 @@ def _block(x, lp: dict, cos, sin, cfg: LlamaConfig, mesh, segment_ids=None, posi
     return x + reduce_from_model(L.swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), group)
 
 
+def context_inputs(tokens: torch.Tensor, mesh, segment_ids=None):
+    """This process's window of whole rows (``context_window``): (tokens,
+    segment ids, RoPE positions), the positions global along the row —
+    per segment from the whole row's ids when packed, ``lo…hi`` for a
+    window that does not start the row, None (``0…T``) for one that is the
+    whole row."""
+    T = tokens.shape[1]
+    lo, hi = context_window(mesh, T)
+    if segment_ids is not None:
+        return tokens[:, lo:hi], segment_ids[:, lo:hi], segment_positions(segment_ids)[:, lo:hi]
+    positions = None if (lo, hi) == (0, T) else torch.arange(lo, hi, device=tokens.device)
+    return tokens[:, lo:hi], None, positions
+
+
 def hidden_states(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None,
                   segment_ids=None) -> torch.Tensor:
-    """tokens [B, T] → final-norm hidden states [B, T, D]. ``segment_ids``
-    [B, T] confines attention within packed segments and restarts RoPE
-    positions at every boundary."""
+    """tokens [B, T] → final-norm hidden states [B, T_w, D] of this
+    process's window of the rows (all T but in a context gang).
+    ``segment_ids`` [B, T] confines attention within packed segments and
+    restarts RoPE positions at every boundary."""
     T = tokens.shape[1]
     check_model_axis(cfg, axis_size(mesh, AXIS_MODEL))
     cos, sin = L.rope_frequencies(cfg.head_dim, T, cfg.rope_theta, cfg.rope_scaling,
                                   device=tokens.device)
-    positions = segment_positions(segment_ids) if segment_ids is not None else None
+    tokens, segment_ids, positions = context_inputs(tokens, mesh, segment_ids)
     rules = sharding_rules(cfg)
     x = embed_lookup(gather(params["embed"], rules.spec_for("embed"), mesh), tokens, mesh)
     block_fn = attn_ops.remat_block(
@@ -310,8 +331,8 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=Non
 
 def forward(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None,
             segment_ids=None) -> torch.Tensor:
-    """tokens [B, T] → logits [B, T, V] (on a model axis this rank's
-    ``V/tp`` columns of them)."""
+    """tokens [B, T] → logits [B, T_w, V] of this process's window (on a
+    model axis this rank's ``V/tp`` columns of them)."""
     x = hidden_states(params, tokens, cfg, mesh, segment_ids=segment_ids)
     return copy_to_model(x, model_group(mesh)) @ lm_head(params, cfg, mesh)
 
@@ -327,9 +348,13 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, mesh=None) -> tuple[tor
     (next-token CE loss, {"loss", "tokens"}). ``cfg.ce_chunk > 0`` fuses the
     lm head and CE per chunk so the [B, T, V] logits never exist. On a
     model axis the CE is vocab-parallel, and every rank of a model line
-    gets the same loss and count."""
+    gets the same loss and count. In a context gang the loss and count are
+    over this process's window of the targets (the trainer weighs the
+    ranks by their counts)."""
     tokens = batch["tokens"]
     targets, seg_in = mask_packed_targets(tokens, batch.get("segment_ids"))
+    lo, hi = context_window(mesh, targets.shape[1])
+    targets = targets[:, lo:hi]
     group = model_group(mesh)
     if cfg.ce_chunk > 0:
         x = copy_to_model(hidden_states(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in), group)

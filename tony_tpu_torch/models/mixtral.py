@@ -20,8 +20,13 @@ holds ``F/tp`` columns of every expert and runs B7/B8 on them
 rank holds the contiguous span of ``E/ep`` whole experts, their fsdp blocks
 gathered a layer at a time, and runs them on the expert line's shared rows
 (``moe_ffn``); the rest of the model is replicated over the line. A context
-axis (A12), an expert axis beside a model axis (A11's rest) and
-``pp_value_and_grad`` (A13) wait.
+axis runs Llama's context-parallel attention (``llama._attention``, each
+layer's ``attention_residual``): in one process on whole rows, in a gang on
+each process's window of them (``llama.context_inputs``), whose ``B·T/c``
+tokens the ragged dispatch routes through B7/B8, with the router losses
+over the whole batch (``group``: the data × fsdp × context ranks), as JAX's
+GSPMD run of ``_ragged_expert_ffn`` takes them. An expert axis beside a
+model or context axis (A11's rest) and ``pp_value_and_grad`` (A13) wait.
 
 ``moe_dispatch`` and ``capacity_factor`` are JAX's: the ragged dispatch
 (B7/B8 where eligible), ``ragged_xla``, and the capacity dispatches
@@ -47,7 +52,8 @@ from tony_tpu_torch.ops import attention as attn_ops
 from tony_tpu_torch.ops import layers as L
 from tony_tpu_torch.parallel.collectives import copy_to_model
 from tony_tpu_torch.parallel.expert import MoEConfig, check_dispatch, check_expert_axis, moe_ffn
-from tony_tpu_torch.parallel.mesh import AXIS_EXPERT, AXIS_MODEL, axis_size, context_degree, model_group
+from tony_tpu_torch.parallel.mesh import (AXIS_EXPERT, AXIS_MODEL, axis_size, context_degree, context_window,
+                                          model_group)
 from tony_tpu_torch.parallel.sharding import P, Place, ShardingRules, gather, gathering, keep_whole
 
 _AUX = ("moe_balance_loss", "moe_z_loss", "moe_dropped_frac")
@@ -166,22 +172,20 @@ def _layer(x, lp: dict, cos, sin, cfg: MixtralConfig, mesh, segment_ids=None, po
 
 def hidden_states(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=None,
                   segment_ids=None, group=None) -> tuple[torch.Tensor, dict]:
-    """tokens [B, T] → (final-norm hidden states [B, T, D], moe aux losses:
+    """tokens [B, T] → (final-norm hidden states [B, T_w, D] of this
+    process's window of the rows (``llama.hidden_states``), moe aux losses:
     balance and z summed over layers, dropped fraction averaged).
     ``segment_ids`` [B, T] (packed sequences): segment-confined attention,
     per-segment RoPE positions, and padding (segment 0) routed with zero
     gates and left out of the router losses. ``group``: the ranks sharing
     the batch, over which the router losses are taken (``moe_ffn``)."""
-    if context_degree(mesh, tensor_parallel=True) > 1:
-        raise NotImplementedError(
-            "Mixtral with a context axis is not ported yet (ROADMAP queue A12, Mixtral CP); "
-            "the port trains it on the data, fsdp, expert and model axes")
+    context_degree(mesh, tensor_parallel=True)  # a mesh the port does not run raises
     llama_mod.check_model_axis(cfg, axis_size(mesh, AXIS_MODEL))
     check_expert_axis(cfg.num_experts, axis_size(mesh, AXIS_EXPERT))
     T = tokens.shape[1]
     cos, sin = L.rope_frequencies(cfg.head_dim, T, cfg.rope_theta, cfg.rope_scaling,
                                   device=tokens.device)
-    positions = llama_mod.segment_positions(segment_ids) if segment_ids is not None else None
+    tokens, segment_ids, positions = llama_mod.context_inputs(tokens, mesh, segment_ids)
     token_mask = (segment_ids != 0) if segment_ids is not None else None
     rules = sharding_rules(cfg)
     x = llama_mod.embed_lookup(gather(params["embed"], rules.spec_for("embed"), mesh), tokens, mesh)
@@ -202,7 +206,7 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=N
 
 def forward(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=None,
             segment_ids=None, group=None) -> tuple[torch.Tensor, dict]:
-    """tokens [B, T] → (logits [B, T, V] (on a model axis this rank's
+    """tokens [B, T] → (logits [B, T_w, V] of this process's window (on a model axis this rank's
     ``V/tp`` columns of them), moe aux losses)."""
     x, aux = hidden_states(params, tokens, cfg, mesh, segment_ids=segment_ids, group=group)
     return copy_to_model(x, model_group(mesh)) @ lm_head(params, cfg, mesh), aux
@@ -244,11 +248,18 @@ def loss_fn(params: dict, batch: dict, cfg: MixtralConfig, mesh=None,
     ``n``. There the router losses are JAX's per-shard means, each shard's
     ``1/R`` share summed over ``group`` (``parallel/expert.py``), and the
     same scale leaves each shard's with weight ``1/R`` in the gang's
-    gradient, as JAX's ``pmean`` gives it."""
+    gradient, as JAX's ``pmean`` gives it.
+
+    In a context gang ``group`` also spans the context line, whose ranks
+    each hold a window of the same rows: CE and ``n`` are over this
+    process's window of the targets, and the router losses over every
+    window's tokens, so ``Σn`` counts each target once."""
     if group is not None and dist.get_world_size(group) == 1:
         group = None
     tokens = batch["tokens"]
     targets, seg_in = llama_mod.mask_packed_targets(tokens, batch.get("segment_ids"))
+    lo, hi = context_window(mesh, targets.shape[1])
+    targets = targets[:, lo:hi]
     line = model_group(mesh)
     if cfg.ce_chunk > 0:
         x, aux = hidden_states(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in, group=group)

@@ -14,8 +14,17 @@ calls only the interface:
   CUDA events, so the double-buffer protocol the TPU kernel runs with
   semaphores (``ops/ring.py:143-166``, ``:274-286``) runs on the card too.
 - ``ProcessRing(group)``: one shard per process of a ``torch.distributed``
-  group (gloo on the CPU, nccl on cards), with point-to-point sends to rank
-  + 1 and receives from rank - 1.
+  group, each sending to rank + 1 and receiving from rank - 1 through an
+  ``all_to_all_single`` whose only non-empty splits are the right
+  neighbour's send and the left neighbour's receive. That collective runs
+  on gloo (CPU tensors, and CUDA tensors of ranks that share a card, which
+  nccl refuses) and on nccl alike, while gloo's point-to-point hands its
+  TCP transport the tensor's data pointer and has no CUDA path. The work's
+  ``wait()`` orders the current stream after the transfer, and the
+  transfer starts after everything already enqueued on it (gloo stages
+  CUDA tensors through pinned host buffers on a side stream that first
+  waits for the current one; nccl's stream does the same), so the
+  double-buffer protocol of ``DeviceRing`` holds across processes.
 
 The interface: ``n`` (ring size), ``positions`` (the ring positions this
 process holds, in order along the sequence), ``split``/``join`` (a tensor
@@ -83,6 +92,9 @@ class _EventWait:
 
 
 class _Works:
+    """Collective works in flight: ``wait()`` returns once each has run and,
+    for CUDA tensors, has made the current stream wait for its copies."""
+
     def __init__(self, works):
         self.works = works
 
@@ -159,15 +171,14 @@ class DeviceRing:
 
 
 class ProcessRing:
-    """One shard of the context ring per process of ``group``."""
+    """One shard of the context ring per process of ``group`` (its rank r at
+    ring position r)."""
 
     def __init__(self, group=None):
         self.group = group if group is not None else dist.group.WORLD
         self.n = dist.get_world_size(self.group)
         self.rank = dist.get_rank(self.group)
         self.positions = (self.rank,)
-        self._right = dist.get_global_rank(self.group, (self.rank + 1) % self.n)
-        self._left = dist.get_global_rank(self.group, (self.rank - 1) % self.n)
 
     def split(self, x: torch.Tensor, dim: int) -> list[torch.Tensor]:
         return [x]
@@ -176,12 +187,16 @@ class ProcessRing:
         return xs[0]
 
     def _p2p(self, src, dst, to_right: bool = True):
-        send_to, recv_from = (self._right, self._left) if to_right else (self._left, self._right)
-        ops = []
+        """Each ``src`` buffer to the neighbour on one side, each ``dst``
+        (contiguous) from the other's, in flight until ``wait()``."""
+        step = 1 if to_right else -1
+        works = []
         for s, d in zip(src, dst):
-            ops.append(dist.P2POp(dist.isend, s.contiguous(), send_to, self.group))
-            ops.append(dist.P2POp(dist.irecv, d, recv_from, self.group))
-        return _Works(dist.batch_isend_irecv(ops))
+            sends, recvs = [0] * self.n, [0] * self.n
+            sends[(self.rank + step) % self.n] = recvs[(self.rank - step) % self.n] = s.numel()
+            works.append(dist.all_to_all_single(d.view(-1), s.reshape(-1), output_split_sizes=recvs,
+                                                input_split_sizes=sends, group=self.group, async_op=True))
+        return _Works(works)
 
     def send_recv(self, src, dst):
         """``dst[0] ←`` rank - 1's ``src[0]`` for each pair of buffers ``[1, ...]``."""
@@ -197,10 +212,9 @@ class ProcessRing:
         return [_Rotate.apply(xs[0], self)]
 
     def all_gather(self, xs: list[torch.Tensor], dim: int) -> torch.Tensor:
-        x = xs[0].contiguous()
-        out = [torch.empty_like(x) for _ in range(self.n)]
-        dist.all_gather(out, x, group=self.group)
-        return torch.cat(out, dim)
+        """The ranks' shards concatenated along ``dim`` in ring order (no
+        gradient: the segment ids' table)."""
+        return _gather(xs[0], self.group, dim)
 
     def all_to_all(self, xs: list[torch.Tensor], split_dim: int, concat_dim: int) -> list[torch.Tensor]:
         _check_split(xs[0], split_dim, self.n)

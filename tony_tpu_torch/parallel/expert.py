@@ -47,7 +47,8 @@ keep whole. An expert axis beside a model or context axis raises (the mesh
 refuses it: JAX's GSPMD gather fallback is not ported).
 
 The router's statistics follow JAX. In a gang each process holds a slice of
-the batch (``group``: the data × fsdp ranks that share it):
+the batch (``group``: the data × fsdp ranks that share it, and in a context
+gang the context line's too, each rank a window of the same rows):
 
 - everywhere but the ragged dispatches on an expert axis, JAX takes them
   over the global arrays, and ``_gating`` sums them over the group inside
@@ -580,13 +581,18 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor, w_up:
     x [B, T, D]; router_w [D, E]; w_gate/w_up [E, D, F]; w_down [E, F, D]
     (``F/tp`` of F on a model axis, this rank's ``E/ep`` experts on an
     expert axis) → (y [B, T, D], aux losses). ``group``: the data × fsdp
-    ranks that share the batch (``_gating``), never a model or expert line,
-    whose ranks hold the same rows."""
+    (× context) ranks that share the batch (``_gating``), never a model or
+    expert line, whose ranks hold the same rows."""
     context_degree(mesh, tensor_parallel=True)  # stages (A13) raise
     check_dispatch(cfg.dispatch)
     ep = axis_size(mesh, AXIS_EXPERT)
     check_expert_axis(cfg.num_experts, ep)
     if cfg.dispatch in ("gather", "dense"):
+        if mesh is not None and mesh.context_line is not None:
+            raise NotImplementedError(
+                f"moe_dispatch {cfg.dispatch!r} in a context gang is not ported yet (ROADMAP queue A12d): "
+                "its capacity counts an expert's slots over a whole row, and each process holds a window of "
+                "the row; the context gang runs the 'ragged' and 'ragged_xla' dispatches")
         return _capacity_ffn(x, router_w, w_gate, w_up, w_down, cfg, mesh, token_mask, group)
     if ep > 1:
         return _ragged_expert_ffn_ep(x, router_w, w_gate, w_up, w_down, cfg, mesh, token_mask, group)

@@ -4,37 +4,47 @@ Counterpart of ``tony_tpu/parallel/mesh.py``: the same six axes
 (``stage``, ``data``, ``fsdp``, ``expert``, ``context``, ``model``) and the
 same ``MeshSpec``. The port runs five axes:
 
-- ``context``: every context shard on this process's one device, in the
-  ``Mesh``'s ``ring`` (a ``DeviceRing``), as the JAX package's
-  single-process mesh over virtual devices holds them;
+- ``context``: the sequence split into ring shards (``Mesh.ring``). In one
+  process every shard sits on its one device, in a ``DeviceRing``, as the
+  JAX package's single-process mesh over virtual devices holds them. In a
+  gang each process holds one shard, and the ring is a ``ProcessRing`` over
+  its context line: the ranks of one context line take the same rows, each
+  its window of the sequence (``context_window``), and hold the same
+  blocks of every leaf (no rule splits a parameter on ``context``);
 - ``data`` and ``fsdp``: the gang, one device a process, rank r at
   (data r // fsdp, fsdp r % fsdp). The batch splits over both (JAX's
   ``batch_spec(("data", "fsdp"))``), and the trainer reduces the gradients
   over the ``Mesh``'s ``group`` (all of them); ``fsdp`` also splits the
   parameters and their optimizer state (``parallel/sharding.py``), which
-  the ``device_mesh``'s (a torch ``DeviceMesh`` over (data, fsdp)) groups
-  gather and reduce-scatter. ``MeshSpec.auto`` fills the gang into
+  the ``device_mesh``'s (a torch ``DeviceMesh`` over the gang's axes)
+  groups gather and reduce-scatter. ``MeshSpec.auto`` fills the gang into
   ``fsdp``, as JAX's does; a data axis is asked for by name
   (``MeshSpec(data=2)``);
 - ``model``: Megatron's tensor parallelism (Llama and Mixtral), one device a
   process: the gang's ranks are laid out row-major over (data, fsdp,
-  model), ``model`` varying fastest as in JAX's ``ALL_AXES`` order. The
-  ranks of one model line hold the other blocks of the same leaves and
-  take the same rows, so the ``Mesh``'s ``group`` is then the data × fsdp
-  ranks of this rank's model index, and ``model_group(mesh)`` the model
-  line;
+  expert, context, model), ``model`` varying fastest as in JAX's
+  ``ALL_AXES`` order. The ranks of one model line hold the other blocks of
+  the same leaves and take the same rows, so the ``Mesh``'s ``group`` is
+  then the data × fsdp ranks of this rank's model index, and
+  ``model_group(mesh)`` the model line;
 - ``expert``: expert parallelism (Mixtral), one device a process, laid out
-  between fsdp and model as in ``ALL_AXES``: the ranks of one expert line
+  between fsdp and context as in ``ALL_AXES``: the ranks of one expert line
   take the same rows and hold the other experts of the same leaves (rank
   ``ei`` the contiguous span ``[ei·E/ep, (ei+1)·E/ep)``), so the ``group``
   is the data × fsdp ranks of this rank's expert index and
   ``expert_group(mesh)`` the expert line.
 
+With a context axis in a gang the ``group`` spans data × fsdp × context
+(every rank: their losses are over disjoint targets, so their token counts,
+gradients and router statistics are summed), and ``replicas`` is the data ×
+context line that holds this rank's fsdp blocks, over which the trainer
+averages them.
+
 ``build`` gives a ``Mesh`` whose ``shape`` is the JAX mesh's dict and whose
-``device`` is the card (or the CPU, when asked for). A context axis across
-a gang or beside a model axis (A12), an expert axis beside a model or
-context axis (A11's rest: JAX's GSPMD gather fallback) and a stage axis
-above 1 (A13) raise until they are ported.
+``device`` is the card (or the CPU, when asked for). A model axis beside a
+context axis (A12c), an expert axis beside a model or context axis (A11's
+rest: JAX's GSPMD gather fallback) and a stage axis above 1 (A13) raise
+until they are ported.
 """
 
 from __future__ import annotations
@@ -47,7 +57,7 @@ import torch.distributed as dist
 
 from tony_tpu_torch import constants
 from tony_tpu_torch.device import resolve_device
-from tony_tpu_torch.parallel.collectives import DeviceRing
+from tony_tpu_torch.parallel.collectives import DeviceRing, ProcessRing
 from tony_tpu_torch.runtime import gang_device_mesh, process_count
 
 AXIS_DATA = "data"
@@ -67,25 +77,38 @@ _UNPORTED = {AXIS_STAGE: "A13"}
 #: runs tensor parallelism also runs the model axis
 _MODEL_AXES = (AXIS_CONTEXT, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT)
 #: the gang's axes, in ``ALL_AXES`` order: the ``DeviceMesh``'s dimensions
-GANG_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_MODEL)
+GANG_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_CONTEXT, AXIS_MODEL)
 
 
 @dataclass(frozen=True)
 class Mesh:
     """What the port reads of a mesh: ``shape`` (axis → size, all six axes),
-    the device the shards live on, the context ring, the process group the
-    batch splits over (the data × fsdp ranks of this rank's expert and
-    model index: the whole gang without either axis; None for one
-    process), the gang's ``DeviceMesh`` over (data, fsdp, expert, model)
-    and the whole gang's group, which
-    saves and restores checkpoints together (both None for one process)."""
+    the device the shards live on, the context ring (a ``DeviceRing`` in
+    one process, a ``ProcessRing`` over the context line in a gang), the
+    process group the batch splits over (the data × fsdp × context ranks of
+    this rank's expert and model index: the whole gang without either
+    axis; None for one process), the gang's ``DeviceMesh`` over (data,
+    fsdp, expert, context, model), the whole gang's group, which saves and
+    restores checkpoints together, and ``replicas``, the group of the data
+    × context ranks that hold this rank's fsdp blocks (None where both axes
+    are 1; all but ``shape``, ``device`` and ``ring`` None for one
+    process)."""
 
     shape: dict
     device: torch.device
-    ring: DeviceRing
+    ring: DeviceRing | ProcessRing
     group: object = None
     device_mesh: object = None
     gang: object = None
+    replicas: object = None
+
+    @property
+    def context_line(self):
+        """The process group of this rank's context line where the context
+        axis spans processes, one shard a process (its ranks share their
+        rows, each a window of them); None where this process holds every
+        shard of the ring."""
+        return self.ring.group if len(self.ring.positions) < self.ring.n else None
 
     def axis_group(self, axis: str):
         """The process group of this rank's line along a gang axis."""
@@ -124,10 +147,11 @@ class MeshSpec:
     def auto(cls, n_devices: int | None = None, *, model: int = 1, context: int = 1,
              expert: int = 1, stage: int = 1) -> "MeshSpec":
         """Fill the devices left after the asked axes into fsdp, as JAX's
-        launch-time path does. The devices default to the gang's: each
-        process holds every context shard on its one device, as JAX's
-        single-process mesh does over virtual devices."""
-        n = n_devices if n_devices is not None else process_count() * context
+        launch-time path does. The devices default to the gang's, one a
+        process; one process holds every context shard on its one device,
+        as JAX's single-process mesh does over virtual devices."""
+        procs = process_count()
+        n = n_devices if n_devices is not None else procs if procs > 1 else context
         used = model * context * expert * stage
         if n % used:
             raise ValueError(f"{n} devices not divisible by model*context*expert*stage={used}")
@@ -135,19 +159,21 @@ class MeshSpec:
         return cls(stage=stage, fsdp=rest, expert=expert, context=context, model=model)
 
     def build(self, device: torch.device | str | None = None) -> Mesh:
-        """A ``Mesh`` on ``device`` (CUDA unless the CPU is asked for) whose
-        context ring holds all ``context`` shards there and whose data, fsdp,
-        expert and model axes are the gang this process joined (``data ×
-        fsdp × expert × model`` its processes). A gang over ``TPU_NUM_SLICES`` slices (the env; 1 when
-        unset) puts a slice boundary on one axis, which a data, fsdp or
-        stage axis must absorb, as in JAX; the gang's axes are outermost."""
+        """A ``Mesh`` on ``device`` (CUDA unless the CPU is asked for) over
+        the gang this process joined, one process a device: ``data × fsdp ×
+        expert × context × model`` processes, each holding one context shard
+        (its context line's ``ProcessRing``); a single process holds all
+        ``context`` shards in a ``DeviceRing`` instead. A gang over
+        ``TPU_NUM_SLICES`` slices (the env; 1 when unset) puts a slice
+        boundary on one axis, which a data, fsdp or stage axis must absorb,
+        as in JAX; the gang's axes are outermost."""
         unported = {a: self.axis_sizes[a] for a in self.active_axes() if a in _UNPORTED}
         if unported:
             items = sorted(set(_UNPORTED[a] for a in unported))
             raise NotImplementedError(
                 f"mesh axes {unported} are not ported yet (ROADMAP queue {', '.join(items)}; experts "
                 "with pipeline stages come with A13); "
-                "the port runs the data, fsdp, expert and model axes (the gang) and a context axis")
+                "the port runs the data, fsdp, expert, context and model axes")
         if self.expert > 1 and (self.model > 1 or self.context > 1):
             raise NotImplementedError(
                 f"an expert axis ({self.expert}) beside a model ({self.model}) or context ({self.context}) "
@@ -156,16 +182,14 @@ class MeshSpec:
         if self.model > 1 and self.context > 1:
             raise NotImplementedError(
                 f"a model axis ({self.model}) beside a context axis ({self.context}) is not ported yet "
-                "(ROADMAP queue A12): the port runs the model axis (A8b) across a gang and holds every "
-                "context shard in one process")
-        procs = self.data * self.fsdp * self.expert * self.model
-        if procs > 1 and self.context > 1:
-            raise NotImplementedError(
-                f"a context axis ({self.context}) across a gang of {procs} processes is not "
-                "ported yet (ROADMAP queue A12); the port holds every context shard in one process")
-        if procs != process_count():
-            raise ValueError(f"data {self.data} x fsdp {self.fsdp} x expert {self.expert} x model {self.model} "
-                             f"needs a gang of as many processes, one device a process; this gang has "
+                "(ROADMAP queue A12c); the port runs the model axis (A8b) and the context axis (A12) "
+                "each with the data and fsdp axes")
+        procs = self.data * self.fsdp * self.expert * self.context * self.model
+        one_process = process_count() == 1 and procs == self.context
+        if procs != process_count() and not one_process:
+            raise ValueError(f"data {self.data} x fsdp {self.fsdp} x expert {self.expert} x context "
+                             f"{self.context} x model {self.model} needs a gang of as many processes, one "
+                             f"device a process (one process holds a context axis alone); this gang has "
                              f"{process_count()}")
         num_slices = int(os.environ.get(constants.ENV_TPU_NUM_SLICES, "1") or "1")
         if num_slices > 1 and not any(self.axis_sizes[a] % num_slices == 0 and self.axis_sizes[a] > 1
@@ -173,19 +197,25 @@ class MeshSpec:
             raise ValueError(f"cannot place {num_slices} slices: no DCN-safe axis "
                              f"(one of {sorted(DCN_SAFE_AXES)}) is divisible by the slice count")
         dev = resolve_device(device)
-        if procs == 1:
-            return Mesh(shape={a: self.axis_sizes[a] for a in ALL_AXES}, device=dev,
-                        ring=DeviceRing(self.context, dev))
-        device_mesh = gang_device_mesh(dev.type, (self.data, self.fsdp, self.expert, self.model), GANG_AXES)
+        shape = {a: self.axis_sizes[a] for a in ALL_AXES}
+        if one_process:
+            return Mesh(shape=shape, device=dev, ring=DeviceRing(self.context, dev))
+        device_mesh = gang_device_mesh(dev.type, tuple(self.axis_sizes[a] for a in GANG_AXES), GANG_AXES)
         group = dist.group.WORLD
         inner = self.expert * self.model
         if inner > 1:
             # one group an (expert, model) index, every rank making all of them in order
             group, _ = dist.new_subgroups_by_enumeration(
                 [list(range(m, procs, inner)) for m in range(inner)])
-        return Mesh(shape={a: self.axis_sizes[a] for a in ALL_AXES}, device=dev,
-                    ring=DeviceRing(self.context, dev), group=group, device_mesh=device_mesh,
-                    gang=dist.group.WORLD)
+        replicas = None
+        if self.data * self.context > 1:
+            # one group an (fsdp, expert, model) index: the data × context ranks that hold its blocks
+            ranks = torch.arange(procs).reshape([self.axis_sizes[a] for a in GANG_AXES])
+            replicas, _ = dist.new_subgroups_by_enumeration(
+                ranks.permute(1, 2, 4, 0, 3).reshape(-1, self.data * self.context).tolist())
+        ring = ProcessRing(device_mesh.get_group(AXIS_CONTEXT)) if self.context > 1 else DeviceRing(1, dev)
+        return Mesh(shape=shape, device=dev, ring=ring, group=group, device_mesh=device_mesh,
+                    gang=dist.group.WORLD, replicas=replicas)
 
 
 def context_degree(mesh, tensor_parallel: bool = False) -> int:
@@ -203,6 +233,20 @@ def context_degree(mesh, tensor_parallel: bool = False) -> int:
             "(ROADMAP queue A8b's second part: BERT on the model axis; A13); "
             "the port runs the data, fsdp, expert and context axes, and the model axis for Llama and Mixtral")
     return shape[AXIS_CONTEXT]
+
+
+def context_window(mesh, T: int) -> tuple[int, int]:
+    """The positions ``[lo, hi)`` of a length-``T`` sequence that this
+    process's context shards cover: the whole of it without a mesh or with
+    every shard in this process, ``[r·T/c, (r+1)·T/c)`` at ring position r
+    of a ``ProcessRing`` of c."""
+    if mesh is None or mesh.context_line is None:
+        return 0, T
+    n = mesh.ring.n
+    if T % n:
+        raise ValueError(f"sequence {T} does not split into {n} context shards")
+    Tl = T // n
+    return mesh.ring.positions[0] * Tl, (mesh.ring.positions[-1] + 1) * Tl
 
 
 def model_group(mesh):

@@ -63,7 +63,7 @@ from tony_tpu_torch.ops import attention, moe_gemm, ring
 from tony_tpu_torch.parallel.expert import check_expert_axis
 from tony_tpu_torch.parallel.mesh import MeshSpec
 from tony_tpu_torch.runtime import (init_distributed, process_count, process_index,
-                                    shutdown_distributed, world_size_from_env)
+                                    shutdown_distributed)
 from tony_tpu_torch.train.checkpoint import UrgentSaveSignal, restore_or_init
 from tony_tpu_torch.train.input_pipeline import InputPipeline
 from tony_tpu_torch.train.metrics import detect_peak_flops, flops_per_token_for_batch
@@ -168,7 +168,7 @@ def _refuse_unported(model_module, loop: LoopConfig, model_cfg) -> None:
     if loop.stage_axis > 1:
         raise NotImplementedError(
             f"stage_axis {loop.stage_axis}: not ported yet — the port trains a gang on the data, fsdp, "
-            "expert and model axes with a context axis in one process (ROADMAP queue A13 stages)")
+            "expert, context and model axes (ROADMAP queue A13 stages)")
     if loop.expert_axis > 1:
         if loop.model_axis > 1 or loop.context_axis > 1:
             raise NotImplementedError(
@@ -185,12 +185,8 @@ def _refuse_unported(model_module, loop: LoopConfig, model_cfg) -> None:
         if loop.context_axis > 1:
             raise NotImplementedError(
                 f"model_axis {loop.model_axis} with context_axis {loop.context_axis}: not ported yet "
-                "(ROADMAP queue A12); the model axis runs across the gang, a context axis in one process")
-    procs = world_size_from_env()
-    if procs > 1 and loop.context_axis > 1:
-        raise NotImplementedError(
-            f"context_axis {loop.context_axis} in a gang of {procs} processes: not ported yet "
-            "(ROADMAP queue A12); a context axis runs in one process")
+                "(ROADMAP queue A12c); the model axis and the context axis each run with the data and "
+                "fsdp axes")
     if loop.seq_len % loop.context_axis:
         raise ValueError(f"seq_len {loop.seq_len} does not split into context_axis "
                          f"{loop.context_axis} shards")
@@ -248,14 +244,16 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
     procs = process_count()
     mesh = MeshSpec.auto(model=loop.model_axis, context=loop.context_axis,
                          expert=loop.expert_axis, stage=loop.stage_axis).build(device)
-    # the batch splits over data × fsdp; the ranks of a model or expert line take the same rows
-    line = loop.model_axis * loop.expert_axis
+    # the batch splits over data × fsdp; the ranks of a model, expert or
+    # context line take the same rows (the context axis is the gang's only
+    # in a gang: one process holds every shard of it)
+    line = loop.model_axis * loop.expert_axis * (loop.context_axis if procs > 1 else 1)
     rows_world, rows_rank = procs // line, process_index() // line
     if loop.batch_size % rows_world:
         raise ValueError(
             f"global batch_size {loop.batch_size} must divide by the gang's "
-            f"{rows_world} processes that split the batch (data x fsdp: a model or expert line takes one "
-            "row slice; elastic restarts re-split the SAME global batch across the new gang)")
+            f"{rows_world} processes that split the batch (data x fsdp: a model, expert or context line "
+            "takes one row slice; elastic restarts re-split the SAME global batch across the new gang)")
     local_rows = loop.batch_size // rows_world
 
     opt = OptimizerConfig(
@@ -282,7 +280,7 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
     # a mesh of one device reaches the model as None: the unsharded path
     model_mesh = mesh if math.prod(mesh.shape[a] for a in ("context", "fsdp", "expert", "model")) > 1 else None
     loss_fn = functools.partial(model_module.loss_fn, cfg=model_cfg, mesh=model_mesh)
-    step_fn = make_train_step(loss_fn, opt, group=mesh.group)
+    step_fn = make_train_step(loss_fn, opt, group=mesh.group, mesh=mesh)
     probe = model_module.synthetic_batch(_batch_generator(device, 0, 0), 1, loop.seq_len, model_cfg)
     meter = Throughput(
         tokens_per_step=loop.batch_size * loop.seq_len,

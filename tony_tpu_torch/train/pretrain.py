@@ -1,8 +1,14 @@
-"""Llama pretraining on one device, the port's counterpart of
-``examples/llama/pretrain.py``:
+"""Llama pretraining, the port's counterpart of ``examples/llama/pretrain.py``:
+one process on one device, or a gang under ``tony submit`` (framework
+pytorch) on the data, fsdp, model, expert and context axes. With
+``--context_axis C`` in a gang of ``C`` times the data × fsdp workers each
+process holds one window of the sequence, its attention the preset's
+``cp_impl`` (the plain ring; ``run_lm_training`` with a config of
+``cp_impl="pallas"`` runs the ring kernels B9/B10):
 
     python -m tony_tpu_torch.train.pretrain --preset llama3-8b [--steps N ...]
     python -m tony_tpu_torch.train.pretrain --preset tiny --device cpu --steps 3
+    python -m tony_tpu_torch.train.pretrain --preset tiny --device cpu --steps 3 --context_axis 2
 """
 
 import sys

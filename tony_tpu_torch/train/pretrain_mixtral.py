@@ -3,7 +3,9 @@ one process on one device, or a gang under ``tony submit`` (framework
 pytorch) on the data and fsdp axes, whose router losses are taken over the
 gang's global batch (``mixtral.loss_fn``'s ``group``), with
 ``--model_axis N`` on the model axis too (each expert's F over N ranks) or
-``--expert_axis N`` on the expert axis (E/N whole experts a rank).
+``--expert_axis N`` on the expert axis (E/N whole experts a rank), or
+``--context_axis N`` on the context axis (a window of the sequence a rank,
+as Llama's).
 ``--moe_dispatch`` picks JAX's dispatch (ragged, ragged_xla, gather,
 dense) and ``--capacity_factor`` the capacity dispatches' slots:
 
@@ -11,6 +13,7 @@ dense) and ``--capacity_factor`` the capacity dispatches' slots:
     python -m tony_tpu_torch.train.pretrain_mixtral --preset tiny --device cpu --steps 3 [--model_axis 2]
     python -m tony_tpu_torch.train.pretrain_mixtral --preset tiny --device cpu --steps 3 --expert_axis 2 \\
         [--moe_dispatch gather --capacity_factor 2.0]
+    python -m tony_tpu_torch.train.pretrain_mixtral --preset tiny --device cpu --steps 3 --context_axis 2
 """
 
 import argparse

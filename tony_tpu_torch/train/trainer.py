@@ -56,6 +56,18 @@ first). Mixtral's router losses on an expert axis are JAX's per-shard
 means under its ``pmean``; ``parallel/expert.py`` says how each shard's
 ends with weight 1/R under this weighing.
 
+On a ``context`` axis across the gang the ranks of a context line take the
+same rows, each a window of the sequence, so their losses are over
+disjoint targets: ``group`` then spans data × fsdp × context (every rank),
+the weighing counts each rank's own targets (``n_r`` of its window), and
+the mean of the weighed gradients over the group sums the context line's
+partial gradients (the ring's backward sends each window's dk/dv home, so
+a rank's gradient is its part of the line's). Every leaf is whole on the
+context axis: an fsdp block's gradient is averaged over ``Mesh.replicas``
+(the data × context ranks that hold it), and the global norm counts it
+once. Only the ranks that hold their own rows count as slots below
+(``Mesh.context_line`` names the line's group).
+
 With ``accum_steps`` A > 1 the gang computes JAX's scan over the global
 batch: microbatch i is global rows i·mb … (i+1)·mb, one token mean each,
 and the loss and gradients are the mean over the A microbatches. Rank r
@@ -64,7 +76,10 @@ rank holds A / W whole microbatches (A % W == 0: it accumulates them, and
 the ranks weigh the same) or each microbatch spans W / A whole ranks
 (W % A == 0: rank r weighs ``n_r / N_i``, N_i its microbatch's count, from
 the same one collective). A layout that straddles a microbatch boundary
-raises.
+raises. W counts the ranks that hold rows of their own: a context line
+shares its microbatch, so a rank that accumulates whole microbatches
+weighs each by ``n_r / N_i`` over its line (one collective of two scalars
+a microbatch on the line's group).
 
 A loss that takes a ``group`` keyword pools statistics over the rows of a
 whole microbatch (Mixtral's router losses). ``make_train_step`` hands it
@@ -87,7 +102,7 @@ import torch
 import torch.distributed as dist
 
 from tony_tpu_torch.parallel.collectives import all_reduce_mean
-from tony_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP
+from tony_tpu_torch.parallel.mesh import AXIS_FSDP
 from tony_tpu_torch.parallel.sharding import SPLIT_AXES, Layout, ShardingRules, split_dim
 
 
@@ -315,13 +330,13 @@ def _microbatch_group(group, slots: int, slot: int):
     expert axis, one an index of the lines: their groups, gathered), all in
     one order, and keeps its own."""
     world = dist.get_world_size(group)
+    per = world // slots
     if slots == 1:
         return group
-    if slots == world:
+    if per == 1:
         return None
     lines = [None] * dist.get_world_size()
     dist.all_gather_object(lines, dist.get_process_group_ranks(group))
-    per = world // slots
     slot_ranks = [list(line[i * per:(i + 1) * per]) for line in sorted({tuple(x) for x in lines})
                   for i in range(slots)]
     mine, _ = dist.new_subgroups_by_enumeration(slot_ranks)
@@ -333,6 +348,7 @@ def make_train_step(
     optimizer: AdamW,
     accum_steps: int = 1,
     group=None,
+    mesh=None,
 ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
     """loss_fn(params, batch) -> (loss, aux). Returns a step that updates the
     state in place and returns it with its metrics.
@@ -345,9 +361,13 @@ def make_train_step(
     its ``layout`` splits them (the module docstring), ``accum_steps``
     counting the global batch's microbatches. A ``loss_fn`` with a
     ``group`` keyword is given the ranks that share its microbatch (the
-    module docstring)."""
+    module docstring). ``mesh``: the loss's mesh, whose ``context_line``
+    (a context axis across the gang) names the ranks that share their
+    rows."""
+    context = mesh.context_line if mesh is not None else None
     world = dist.get_world_size(group) if group is not None else 1
-    local_steps, slots = gang_slots(accum_steps, world) if group is not None else (accum_steps, 1)
+    line = dist.get_world_size(context) if context is not None else 1
+    local_steps, slots = gang_slots(accum_steps, world // line) if group is not None else (accum_steps, 1)
     slot = dist.get_rank(group) * slots // world if group is not None else 0
     if group is not None and "group" in inspect.signature(loss_fn).parameters:
         loss_fn = functools.partial(loss_fn, group=_microbatch_group(group, slots, slot))
@@ -363,7 +383,7 @@ def make_train_step(
         def f32(v):
             return torch.as_tensor(v, dtype=torch.float32, device=loss.device).detach()
 
-        n = f32(1 if accum_steps > 1 and slots == world else aux.get("tokens", 1))
+        n = f32(1 if local_steps > 1 or (accum_steps > 1 and slots == world) else aux.get("tokens", 1))
         names = [k for k in aux if k.startswith("moe_")]
         counts = torch.zeros(slots, dtype=torch.float32, device=loss.device)
         sums = torch.zeros_like(counts)
@@ -405,10 +425,14 @@ def make_train_step(
         loss_sum = torch.zeros((), dtype=torch.float32, device=tensors[0].device)
         sums = [torch.zeros_like(p, dtype=torch.float32) for p in tensors]
         for i in range(local_steps):
-            loss, _ = loss_fn(params, {k: v[i] for k, v in micro.items()})
+            loss, aux = loss_fn(params, {k: v[i] for k, v in micro.items()})
+            if context is not None:
+                loss, reported = _line_weighed(loss, aux["tokens"], context, line)
+            else:
+                reported = loss.detach().float()
             for s, g in zip(sums, torch.autograd.grad(loss, tensors)):
                 s += g
-            loss_sum += loss.detach().float()
+            loss_sum += reported
         inv = 1.0 / local_steps
         loss, aux = loss_sum * inv, {}
         if group is not None:
@@ -417,11 +441,12 @@ def make_train_step(
 
     def reduce_grads(grads: dict, layout: Layout | None) -> None:
         """The gang's mean of the weighed gradients, in place: over
-        ``group`` (the data × fsdp ranks of this rank's line index, which
-        hold the same block of a leaf the model or expert axis splits) for
-        a leaf the fsdp axis leaves whole; for a block of the fsdp axis
-        (already summed over it by the gather's backward) over the data
-        axis, divided by fsdp."""
+        ``group`` (the data × fsdp (× context) ranks of this rank's line
+        index, which hold the same block of a leaf the model or expert axis
+        splits) for a leaf the fsdp axis leaves whole; for a block of the
+        fsdp axis (already summed over it by the gather's backward) over
+        the data × context ranks that hold it (``Mesh.replicas``), divided
+        by fsdp."""
         split = [g for n, g in grads.items() if layout is not None and layout.dim(n) is not None]
         whole = [g for n, g in grads.items() if layout is None or layout.dim(n) is None]
         if whole:
@@ -429,8 +454,8 @@ def make_train_step(
         if split:
             mesh = layout.mesh
             inv = torch.tensor(1.0 / mesh.shape[AXIS_FSDP], device=split[0].device)
-            if mesh.shape[AXIS_DATA] > 1:
-                all_reduce_mean(split, mesh.axis_group(AXIS_DATA), scale=inv)
+            if mesh.replicas is not None:
+                all_reduce_mean(split, mesh.replicas, scale=inv)
             else:
                 for g in split:
                     g.mul_(inv)
@@ -454,6 +479,18 @@ def make_train_step(
         return state, metrics
 
     return train_step
+
+
+def _line_weighed(loss: torch.Tensor, n, context, line: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """A microbatch's loss on a context line, whose ranks hold windows of
+    its rows: (this rank's loss weighed by ``n · line / N``, so the line's
+    summed gradients are ``line`` times the microbatch's token mean's; that
+    mean itself), N the line's count from one collective of two scalars."""
+    n = torch.as_tensor(n, dtype=torch.float32, device=loss.device).detach()
+    both = torch.stack([n, loss.detach().float() * n])
+    dist.all_reduce(both, group=context)
+    total = both[0].clamp_min(1.0)
+    return loss * (n * line / total), both[1] / total
 
 
 class Throughput:
