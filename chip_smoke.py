@@ -52,8 +52,8 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    (a subprocess, as is ``tony loadtest``) twice on the card, Llama-3-8B
    paged, 8 slots, max_len 2048: ``disagg`` (a prefill and a decode
    replica) and ``colocated`` (one replica), each under the same streamed
-   ``tony loadtest`` traffic (4 sessions x 2 turns, prompts of 768 or 1280
-   tokens sharing 512, 64 tokens a turn): 8/8 requests ok, prefix hits,
+   ``tony loadtest`` traffic (2 sessions x 2 turns, prompts of 768 or 1280
+   tokens sharing 512, 64 tokens a turn): 4/4 requests ok, prefix hits,
    B5 launched by the decode replica during the load, pages exported and
    adopted (``disagg``); SIGINT to the launcher kills the job, every
    replica logs its drain and exits, the launcher within 120 s; prints the
@@ -66,21 +66,21 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    2 layers, B=1, T=2048); two planted faults (a query head dropped by B1,
    or by B3) must fail the limits the kernels pass;
 5. train: ``run_lm_training`` in this process at the full 8B width cut to
-   4 layers (bf16, remat "full", ce_chunk 512, B=4, T=2048): 3 steps with a
+   2 layers (bf16, remat "full", ce_chunk 512, B=4, T=2048): 3 steps with a
    checkpoint, then a second call to 6 steps that must resume at step 3;
    prints loss and grad_norm per step, tok/s, ms/step, MFU, peak memory and
    the B1-B3 launches of the two calls; then the same step on a fresh state
    split with CUDA events into loss + gradients and the optimizer update,
    and its device time by kernel family from ``torch.profiler`` with the
    card's busy share of the profiled window;
-5r. remat policies: the train shape (4 layers, B=4, T=2048) under "full",
+5r. remat policies: the train shape (2 layers, B=4, T=2048) under "full",
    "dots" and "flash" from one state and batch: the loss and every gradient
    of each against "full"'s within the whole-step limits (and whether the
    bits are identical), B1 launched 2L / 2L / L times a forward and
    backward and B2, B3 L times; then the mean ms/step of 3 train steps and
    the peak memory under each;
-5a. gang: the training gang at the full ``llama-1b`` preset (16 layers,
-   bf16, remat "full", B=8, T=2048) on four ``*.tonytok`` shards written
+5a. gang: the training gang at ``llama-1b`` cut to 8 of its 16 layers
+   (bf16, remat "full", B=8, T=2048) on four ``*.tonytok`` shards written
    from a seed: ``tony submit`` (run as ``python -m tony_tpu.cli.main``, a
    subprocess) of ``python -m tony_tpu_torch.train.pretrain`` for 8 steps
    with an asynchronous checkpoint every 3 and a node loss at step 7: one
@@ -106,7 +106,9 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    tok/s, MFU, peak memory and B1-B3 launches (B1 L times a step);
 5c. context parallelism (B9, B10): the ring kernels' build report, then
    the whole ring pass over a ``DeviceRing`` of 4 on the card at 8B
-   widths, B=1, T=16384 (causal, 3 segments, window 1024) against the
+   widths, B=1, T=16384 (causal, 3 segments, window 1024; and on rings of
+   2: over T=16384, ``[cp-gang]``'s shape, held only, and over T=8192 on
+   16 query and 4 kv heads, ``[cp-tp]``'s, held and timed) against the
    plain steps, with two planted faults that must fail; the causal pass
    run twice must give the same bits; a 2-layer whole-step check against
    the flash path; ``run_lm_training`` with a context axis of 4 at 4
@@ -142,7 +144,7 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    (d1024, 8 layers, 8 experts top-2, F 2048, remat "flash", ce_chunk 512,
    B=44, T=2048) as in 5b, MFU on the active parameters;
 9. Mixtral serve: the in-process ``ContinuousBatcher`` (paged KV, 8 slots,
-   max_len 2048) at Mixtral-8x7B width cut to 27 of 32 layers, with the
+   max_len 2048) at Mixtral-8x7B width cut to 8 of 32 layers, with the
    Llama serve runs' traffic: the mixed batch (prefill through B7, decode
    through the all-expert products; prefix hits, the identical greedy
    prompts agree, the first token of one request timed) and the decode
@@ -253,23 +255,39 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
     the limit;
 18. ``[cp-gang]``: a gang of two processes on the one card over gloo with a
     context axis of 2, one context shard each (B9/B10 moving KV and dk/dv
-    between the processes): Llama-3-8B widths cut to 2 layers, B=1,
-    T=16384, 3 steps and a save, then a step of each planted fault (KV kept
+    between the processes): Llama-3-8B widths cut to 1 layer, B=1,
+    T=16384, 2 steps and a save, then a step of each planted fault (KV kept
     in its process; RoPE without the window's offset); Mixtral-8x7B widths
-    cut to 1 layer, B=1, T=8192, 3 steps; each held to one process with the
-    context on a ``DeviceRing``: losses and grad norms (and router losses)
-    within ``GANG_LOSS_REL``, the step-1 gradients of ``wq``/``wk``/``wv``
-    within ``CP_STEP_GRAD_REL`` (where both faults must fail), Llama's
-    step-3 parameters and moments within ``FSDP_STATE_REL`` and its save
-    restored into one process bit for bit, each rank's launches the
-    schedule's for its ring position; prints peak memory and ms/step a rank;
-19. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
+    cut to 1 layer, B=1, T=8192, 2 steps and a save; each held to one
+    process with the context on a ``DeviceRing``: losses and grad norms
+    (and router losses) within ``GANG_LOSS_REL``, the step-1 gradients of
+    ``wq``/``wk``/``wv`` within ``CP_STEP_GRAD_REL`` (where both faults
+    must fail), the step-2 parameters and moments within
+    ``FSDP_STATE_REL`` and each save restored into one process bit for
+    bit, each rank's launches the schedule's for its ring position; prints
+    peak memory and ms/step a rank;
+19. ``[cp-tp]``: a gang of four processes on the one card over gloo on
+    ``context 2 × model 2`` (A12c): each rank a window of T/2 on its model
+    blocks (16 query and 4 kv heads, F/2, V/2), B9/B10 on those heads
+    with KV between the two ranks of its model index, Megatron's pair and
+    the vocab-parallel CE over its model line: Llama-3-8B widths cut to 1
+    layer, B=1, T=8192, 3 steps and a save, then a step of each planted
+    fault (a context ring across the model lines; ``reduce_from_model``
+    over the context line); held to one process with the context of 2 on a
+    ``DeviceRing``: losses and grad norms within ``GANG_LOSS_REL``, the
+    step-1 ``wq``/``wk``/``wv`` gradients joined over the model line within
+    ``CP_STEP_GRAD_REL``, the step-3 parameters and moments within
+    ``FSDP_STATE_REL``, the save restored into one process bit for bit,
+    each rank's launches the schedule's for its ring position; prints the
+    bytes, peak memory and ms/step a rank;
+20. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
     their ``[bench-bert]`` launches and BERT cases, and the launches of the
-    phases of 12 to 18 as ``launches_hf_serve``, ``launches_mixtral_gang``,
+    phases of 12 to 19 as ``launches_hf_serve``, ``launches_mixtral_gang``,
     ``launches_fsdp``, the sum over the two ranks, ``launches_tp``,
     ``launches_mixtral_tp`` and ``launches_mixtral_ep``, one rank's,
-    ``launches_mixtral_tp_serve``, ``launches_cp_train_mixtral`` and
-    ``launches_cp_gang``, the sum over its two ranks' sound runs)
+    ``launches_mixtral_tp_serve``, ``launches_cp_train_mixtral``,
+    ``launches_cp_gang``, the sum over its two ranks' sound runs, and
+    ``launches_cp_tp``, the sum over its four ranks')
     and, last, ``{"ok": true, "device": {...}}``.
 
 Each phase prints ``[phase] <name> start`` and ``[phase] <name> <s>s``, so a
@@ -350,7 +368,8 @@ STEP_GRAD_REL = 5e-2
 #: the train, remat and breakdown phases' depth: Llama-3-8B cut to 4 layers
 #: (its checkpoint round trip ~11.5 GB), which pays for part of the Mixtral
 #: model-axis phases' seconds
-TRAIN_LAYERS = 4
+#: 2 layers, a cut that keeps the command within its time limit
+TRAIN_LAYERS = 2
 
 # Mixtral-8x7B widths of the MoE kernels (B7, B8): D, F, experts, top-k
 MOE_D, MOE_F, MOE_E, MOE_K = 4096, 14336, 8, 2
@@ -379,11 +398,11 @@ MOE_STEP_LOSS_REL = 3e-5
 MOE_STEP_GRAD_REL = 2e-2
 MOE_TRAIN_LAYERS = 2
 MOE_TRAIN_STEPS = 4
-# the deepest cut that fits one 80 GB card: bf16 weights of 2.90 GB a layer
-# plus 0.52 GB of embed and head are 78.9 GB (73.5 GiB) at 27 layers, and
-# with the KV pool (68 MB a layer) and the prefill temporaries the engine
-# peaks at 77.6 of the H100's 79.2 GiB; a 28th layer adds 2.7 GiB
-MOE_SERVE_LAYERS = 27
+# bf16 weights of 2.90 GB a layer plus 0.52 GB of embed and head: 27 layers
+# are the deepest cut that fits one 80 GB card; 8 (23.7 GB) keep the
+# command within its time limit (the init of 27 layers' random weights took
+# most of the phase's seconds)
+MOE_SERVE_LAYERS = 8
 
 # context-parallel Llama training (B9, B10): B=1, T=16384 over a context of 4
 # (Tl 4096) on a DeviceRing on the card; the ring kernels are held against
@@ -395,6 +414,9 @@ RING_CASES = {
     "causal": dict(window=0, n_seg=1),
     "segments": dict(window=0, n_seg=3),    # 3 packed segments, boundaries off the shard edges
     "window": dict(window=1024, n_seg=1),   # sliding window 1024 < Tl: whole shards skipped
+    # [cp-tp]'s shape: a rank's 16 query and 4 kv heads (Llama-3-8B's over a
+    # model axis of 2) on a ring of 2 over T 8192 (Tl 4096), timed
+    "cp2xtp2": dict(window=0, n_seg=1, n=2, T=8192, H=16, Hkv=4),
     # [cp-gang]'s shape: a ring of 2 (Tl 8192) and its causal schedule, held
     # to the plain steps only (its times are the causal case's)
     "causal-n2": dict(window=0, n_seg=1, n=2, check_only=True),
@@ -416,9 +438,11 @@ CP_TRAIN_STEPS = 3
 #: run without a context axis (B1-B3) within MOE_STEP_LOSS_REL
 CP_MOE_LAYERS, CP_MOE_STEPS = 2, 3
 
-# the training gang at the full llama-1b preset: B=8, T=2048 over 4 seeded
+# the training gang at llama-1b cut to GANG_LAYERS of its 16 layers (a cut
+# that keeps the command within its time limit): B=8, T=2048 over 4 seeded
 # shards, 8 steps with a checkpoint every 3 and a node loss at step 7 under
-# ``tony submit``. Saves are asynchronous and a 5.24 GB write outlasts three steps, so the
+# ``tony submit``. Saves are asynchronous and a write (~2.9 GB) outlasts
+# three steps, so the
 # save at step 6 first joins step 3's write: step 3 is published before
 # step 7 is reported, and the restart resumes at the newest step the
 # worker's log shows published (3, or 6 if its write also ended).
@@ -427,6 +451,7 @@ CP_MOE_LAYERS, CP_MOE_STEPS = 2, 3
 # kernel or library reduction on the path runs in another order between the
 # two (bf16, 8 steps: a few ulps of the loss)
 GANG_STEPS, GANG_CKPT_EVERY, GANG_LOSS_AT = 8, 3, 7
+GANG_LAYERS = 8
 GANG_B, GANG_T, GANG_SHARDS = 8, 2048, 4
 GANG_LOSS_REL = 2e-3
 
@@ -1390,9 +1415,9 @@ BENCH_RECIPES = {
     "bert": ("bert", {"preset": "bert-base", "remat": True, "attn_impl": "auto"}, 384, 512),
 }
 BENCH_STEPS = 6
-# the asynchronous save at the gang's shape (llama-1b, B=8, T=2048): saves
-# after step 4, whose write (~4-6 s: one torch.save at ~0.8-1.3 GB/s) the 10 steps
-# after it (~4.3 s) overlap, and after the last step
+# the asynchronous save at the gang's shape (llama-1b cut to GANG_LAYERS
+# layers, B=8, T=2048): saves after step 4, whose write (one torch.save at
+# ~0.8-1.3 GB/s) the 10 steps after it overlap, and after the last step
 ASYNC_STEPS, ASYNC_SAVE_AT = 14, (4, 14)
 
 
@@ -1571,7 +1596,7 @@ def async_save_phase(torch, llama, out_dir: Path) -> dict:
     from tony_tpu_torch.train.checkpoint import CheckpointManager
     from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState, make_train_step
 
-    cfg = llama.config_from_dict("llama-1b")
+    cfg = dataclasses.replace(llama.config_from_dict("llama-1b"), n_layers=GANG_LAYERS)
     opt = OptimizerConfig(learning_rate=3e-4, warmup_steps=2, total_steps=ASYNC_STEPS).build()
     work = out_dir / "async_save"
     shutil.rmtree(work, ignore_errors=True)
@@ -1621,7 +1646,8 @@ def async_save_phase(torch, llama, out_dir: Path) -> dict:
                "steps_during_write": len(during), "during_write_ms": ms(during), "steady_ms": ms(steady),
                "step_ms": [1e3 * (b - a) for a, b in steps]}
         out[mode] = rec
-        print(f"[async-save] {mode}: llama-1b B={GANG_B} T={GANG_T}, {ASYNC_STEPS} steps, saves after steps "
+        print(f"[async-save] {mode}: llama-1b cut to {GANG_LAYERS} layers B={GANG_B} T={GANG_T}, {ASYNC_STEPS} "
+              f"steps, saves after steps "
               f"{list(ASYNC_SAVE_AT)}: dispatch s {({k: round(v, 3) for k, v in rec['dispatch_s'].items()})}, "
               f"write s {({k: round(v, 3) for k, v in rec['write_s'].items()})}; {len(during)} steps during "
               f"the first write at {rec['during_write_ms']:.1f} ms against {rec['steady_ms']:.1f} ms steady (medians); "
@@ -1713,9 +1739,9 @@ def nccl_one_rank_check(torch) -> dict:
 
 
 def gang_phase(torch, llama, A, out_dir: Path) -> dict:
-    """The training gang at the full ``llama-1b`` preset (16 layers, d_model
-    2048, bf16, remat "full", B=8, T=2048) on ``*.tonytok`` shards written
-    here from a seed:
+    """The training gang at ``llama-1b`` cut to ``GANG_LAYERS`` of its 16
+    layers (d_model 2048, bf16, remat "full", B=8, T=2048) on ``*.tonytok``
+    shards written here from a seed:
 
     1. ``tony submit`` (framework pytorch, one worker) of ``python -m
        tony_tpu_torch.train.pretrain --data_dir ...`` for ``GANG_STEPS`` steps
@@ -1742,7 +1768,7 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
     from tony_tpu_torch.obs import metrics as obs_metrics
     from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
 
-    cfg = llama.config_from_dict("llama-1b")
+    cfg = dataclasses.replace(llama.config_from_dict("llama-1b"), n_layers=GANG_LAYERS)
     work = out_dir / "gang"
     shutil.rmtree(work, ignore_errors=True)
     data, ck, stop, root = work / "data", work / "ckpt", work / "stop", work / "tony"
@@ -1750,7 +1776,8 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
     rng = np.random.default_rng(0)
     for i in range(GANG_SHARDS):  # 4 x 2^18 tokens: 511 windows of 2049, more than the 64 drawn
         write_token_shard(data / f"shard-{i:02d}.tonytok", rng.integers(0, cfg.vocab_size, 1 << 18))
-    run = ["--preset", "llama-1b", "--data_dir", str(data), "--steps", str(GANG_STEPS),
+    run = ["--preset", "llama-1b", "--n_layers", str(GANG_LAYERS), "--data_dir", str(data),
+           "--steps", str(GANG_STEPS),
            "--batch_size", str(GANG_B), "--seq_len", str(GANG_T), "--log_every", "1",
            "--warmup_steps", "2"]
     cmd = (f"cd {ROOT} && PYTHONPATH={ROOT} {sys.executable} -m tony_tpu_torch.train.pretrain "
@@ -1916,7 +1943,7 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
         return {"step_ms": ms, "tok_per_s": tokens / ms * 1e3, "mfu": med([x["mfu"] for x in steady])}
 
     rec = {
-        "preset": "llama-1b", "params": cfg.num_params(), "batch": GANG_B, "seq_len": GANG_T,
+        "preset": "llama-1b", "layers": GANG_LAYERS, "params": cfg.num_params(), "batch": GANG_B, "seq_len": GANG_T,
         "launches": launches, "submit_wall_s": wall, "resumed_at": at, "published_attempt0": published,
         "gang": speed(gang_log), "in_process": speed(here), "loss_worst_rel": worst, "same_bits": same_bits,
         "peak_gib_worker": peak / 2**30, "peak_gib_in_process": peak_inproc / 2**30,
@@ -1931,7 +1958,8 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
     print(f"[gang] worker .obs instruments: {rec['obs_instruments']}", flush=True)
     print(f"[gang] tony goodput: restarts 1, goodput {ledger['goodput_fraction']:.3f}, phases ms "
           f"{ledger['phases_ms']}", flush=True)
-    print(f"[gang] llama-1b B={GANG_B} T={GANG_T}: gang {rec['gang']['step_ms']:.1f} ms/step "
+    print(f"[gang] llama-1b cut to {GANG_LAYERS} layers B={GANG_B} T={GANG_T}: gang "
+          f"{rec['gang']['step_ms']:.1f} ms/step "
           f"{rec['gang']['tok_per_s']:.0f} tok/s MFU {rec['gang']['mfu']:.3f}; in-process "
           f"{rec['in_process']['step_ms']:.1f} ms/step {rec['in_process']['tok_per_s']:.0f} tok/s MFU "
           f"{rec['in_process']['mfu']:.3f}; losses same bits {same_bits} (worst rel {worst:.2e}); "
@@ -1948,13 +1976,14 @@ def gang_phase(torch, llama, A, out_dir: Path) -> dict:
 
 
 def ring_inputs(torch, A, c):
-    """q, k, v, do at Llama-3-8B widths over the whole T=16384, three packed
-    segments with boundaries off the shard edges, the visible (query, key)
-    pairs of the case."""
+    """q, k, v, do at Llama-3-8B widths over the whole T=16384 (the case's
+    ``T`` and heads where it names them), three packed segments with
+    boundaries off the shard edges, the visible (query, key) pairs of the
+    case."""
     g = torch.Generator(device="cuda").manual_seed(4)
-    T = RING_T
+    T, h, hkv = c.get("T", RING_T), c.get("H", H), c.get("Hkv", HKV)
     rnd = lambda *s: torch.randn(*s, generator=g, device="cuda").to(torch.bfloat16)  # noqa: E731
-    q, k, v, do = rnd(1, H, T, DH), rnd(1, HKV, T, DH), rnd(1, HKV, T, DH), rnd(1, H, T, DH)
+    q, k, v, do = rnd(1, h, T, DH), rnd(1, hkv, T, DH), rnd(1, hkv, T, DH), rnd(1, h, T, DH)
     seg = None
     if c["n_seg"] > 1:
         cuts = torch.tensor([int(0.31 * T) + 5, int(0.68 * T) + 11], device="cuda")
@@ -1972,12 +2001,12 @@ def plain_ring_steps(TR):
         yield
 
 
-def skipped_ring_step(TR, my: int = 3, src: int = 2, n: int = RING_N):
-    """B9 with a planted fault: shard ``my`` of a ring of ``n`` never folds
-    in the KV shard ``src`` (a past step of the ring: its state passes
-    through unchanged)."""
+def skipped_ring_step(TR, my: int = 3, src: int = 2, n: int = RING_N, T: int = RING_T):
+    """B9 with a planted fault: shard ``my`` of a ring of ``n`` over ``T``
+    never folds in the KV shard ``src`` (a past step of the ring: its state
+    passes through unchanged)."""
     real = TR.ring_fwd_step
-    Tl = RING_T // n
+    Tl = T // n
 
     def step(*a, **kw):
         if kw["q_pos0"] == my * Tl and kw["k_pos0"] == src * Tl:
@@ -2000,17 +2029,20 @@ def kept_home_dkv(TR):
     return deliver
 
 
-def ring_cost(pairs: int, seg) -> dict:
+def ring_cost(pairs: int, seg, c: dict | None = None) -> dict:
     """(operations, bytes, the launches' own operations) of one ring pass on
-    this run's data, as ``flash_cost``. B9 as B1. B10 as the TPU kernel's
-    one pass of five products a visible pair (q.k, do.v, p.do, ds.q, ds.k:
-    10 H DH), reading q, k, v, do, lse, delta once and writing dq, dk, dv
-    once; the port's dq and dk/dv step kernels each recompute q.k and do.v
-    (14 H DH), work of the split and not of the function."""
-    qb, kvb, row = H * RING_T * DH * 2, HKV * RING_T * DH * 2, H * RING_T * 4
-    segb = RING_T * 4 if seg is not None else 0
-    return {"ring_fwd": (4 * H * DH * pairs, 2 * qb + 2 * kvb + row + segb, 4 * H * DH * pairs),
-            "ring_bwd": (10 * H * DH * pairs, 3 * qb + 4 * kvb + 2 * row + segb, 14 * H * DH * pairs)}
+    this run's data (the case ``c``'s length and heads, Llama-3-8B's T=16384
+    by default), as ``flash_cost``. B9 as B1. B10 as the TPU kernel's one
+    pass of five products a visible pair (q.k, do.v, p.do, ds.q, ds.k: 10 H
+    DH), reading q, k, v, do, lse, delta once and writing dq, dk, dv once;
+    the port's dq and dk/dv step kernels each recompute q.k and do.v (14 H
+    DH), work of the split and not of the function."""
+    c = c or {}
+    T, h, hkv = c.get("T", RING_T), c.get("H", H), c.get("Hkv", HKV)
+    qb, kvb, row = h * T * DH * 2, hkv * T * DH * 2, h * T * 4
+    segb = T * 4 if seg is not None else 0
+    return {"ring_fwd": (4 * h * DH * pairs, 2 * qb + 2 * kvb + row + segb, 4 * h * DH * pairs),
+            "ring_bwd": (10 * h * DH * pairs, 3 * qb + 4 * kvb + 2 * row + segb, 14 * h * DH * pairs)}
 
 
 def ring_kernel_phase(torch, A, TR, flush) -> dict:
@@ -2030,9 +2062,9 @@ def ring_kernel_phase(torch, A, TR, flush) -> dict:
     build = attention_build_report("ring_attention")
     recs = {"ring_fwd": [], "ring_bwd": []}
     for name, c in RING_CASES.items():
-        n = c.get("n", RING_N)
+        n, T = c.get("n", RING_N), c.get("T", RING_T)
         ring = DeviceRing(n, "cuda")
-        Tl = RING_T // n
+        Tl = T // n
         q, k, v, do, seg, visible = ring_inputs(torch, A, c)
         segq, segk = TR._segments(ring, seg)
         w = c["window"]
@@ -2044,7 +2076,7 @@ def ring_kernel_phase(torch, A, TR, flush) -> dict:
         grads = bwd()
         with plain_ring_steps(TR):
             grads_p = bwd()
-        with mock.patch.object(TR, "ring_fwd_step", skipped_ring_step(TR, n - 1, n - 2, n)):
+        with mock.patch.object(TR, "ring_fwd_step", skipped_ring_step(TR, n - 1, n - 2, n, T)):
             o_f = fwd()[0]
         with mock.patch.object(TR, "_deliver_home", kept_home_dkv(TR)):
             grads_f = bwd()
@@ -2088,12 +2120,12 @@ def ring_kernel_phase(torch, A, TR, flush) -> dict:
             del q, k, v, do, seg, visible, o_p, lse_p, grads_p, fwd, bwd, segq, segk
             torch.cuda.empty_cache()
             continue
-        # one diagonal step (shard 1 on its own KV) and one past step (shard 3
-        # on shard 2's KV: every pair visible under the causal mask)
+        # one diagonal step (shard 1 on its own KV) and one past step (shard
+        # n-1 on shard n-2's KV: every pair visible under the causal mask)
         f32 = dict(dtype=torch.float32, device="cuda")
         delta = (do.float() * o_p.float()).sum(-1)
         step_ms = {}
-        for sname, my, src in (("diagonal", 1, 1), ("past", 3, 2)):
+        for sname, my, src in (("diagonal", 1, 1), ("past", n - 1, n - 2)):
             sl = slice(my * Tl, (my + 1) * Tl)
             qs, dos, os_ = (t[:, :, sl].contiguous() for t in (q, do, o_p))
             ks, vs = (t[:, :, src * Tl:(src + 1) * Tl].contiguous() for t in (k, v))
@@ -2114,7 +2146,7 @@ def ring_kernel_phase(torch, A, TR, flush) -> dict:
         # the library yardstick: SDPA over the whole sequence on head-expanded
         # K/V (a boolean mask for segments and the window), never the MATH
         # backend's T x T scores
-        rep = H // HKV
+        rep = q.shape[1] // k.shape[1]
         kk = k.repeat_interleave(rep, 1).requires_grad_(True)
         vv = v.repeat_interleave(rep, 1).requires_grad_(True)
         qq = q.detach().clone().requires_grad_(True)
@@ -2134,14 +2166,16 @@ def ring_kernel_phase(torch, A, TR, flush) -> dict:
         del lib_o, qq, kk, vv, mask
         torch.cuda.empty_cache()
         pairs = int(visible.sum().item())
-        cost = ring_cost(pairs, seg)
+        cost = ring_cost(pairs, seg, c)
         passes = {"ring_fwd": (fwd, lib_fwd, "sdpa forward over the whole sequence"),
                   "ring_bwd": (bwd, lib_bwd, "sdpa backward alone over the whole sequence")}
         for kname, (run, lib_ms, lib_call) in passes.items():
             err, fault, abs_err = errs[kname]
             flops, nbytes, kernel_flops = cost[kname]
             rec = {"case": name, "max_abs_err": abs_err, "row_err": err, "tol": FLASH_ROW_TOL,
-                   "fault_row_err": fault, "pairs": pairs, "flops": flops, "bytes": nbytes,
+                   # the kernels line is strict JSON: a non-finite fault reading is named, not printed
+                   "fault_row_err": fault if math.isfinite(fault) else None, "fault_finite": math.isfinite(fault),
+                   "pairs": pairs, "flops": flops, "bytes": nbytes,
                    "kernel_flops": kernel_flops,
                    "ms": time_ms(torch, run, flush, iters=10),
                    "step_ms": {s: {x: t for x, t in d.items() if x.startswith(kname)} for s, d in step_ms.items()},
@@ -2497,11 +2531,12 @@ FLEET_ENGINE = ["--preset", "llama3-8b", "--kv", "paged", "--page_len", str(PLEN
                 "--max_len", str(MAXT), "--decode_chunk", "8"]
 FLEETS = {"disagg": ["--disagg", "--replicas", "1", "--prefill_replicas", "1"],
           "colocated": ["--replicas", "1"]}
-# `tony loadtest` traffic, the same for both fleets: 4 sessions x 2 turns =
-# 8 streamed requests; the longest conversation is 1280 + (64 + 8) + 64 = 1416 of the 2048 positions
-LOADTEST = ["--rate", "2", "--sessions", "4", "--turns", "2", "--prompt-mix", "768:1,1280:1",
+# `tony loadtest` traffic, the same for both fleets: 2 sessions x 2 turns =
+# 4 streamed requests (a cut that keeps the command within its time limit);
+# the longest conversation is 1280 + (64 + 8) + 64 = 1416 of the 2048 positions
+LOADTEST = ["--rate", "2", "--sessions", "2", "--turns", "2", "--prompt-mix", "768:1,1280:1",
             "--shared-prefix", "512", "--max-tokens", "64", "--seed", "0"]
-LOADTEST_REQUESTS = 8
+LOADTEST_REQUESTS = 4
 _ROUTER_LINE = re.compile(r"^\[tony-serve\] fleet router (http://\S+) ", re.M)
 _REPLICA_LINE = re.compile(r"^\[tony-serve\] (http://\S+) role=(serve|prefill) ", re.M)
 _DRAINED_LINE = re.compile(r"^\[tony-serve\] drained: (\d+) request\(s\) completed, exit 0$", re.M)
@@ -4146,11 +4181,13 @@ def fsdp_check(ranks: list, one: list, run: str = "ok", tag: str = "fsdp",
     return worst
 
 
-def fsdp_blocks(torch, ranks: list, whole: dict, step: int, tag: str = "fsdp", run: str = "ok") -> int:
+def fsdp_blocks(torch, ranks: list, whole: dict, step: int, tag: str = "fsdp", run: str = "ok",
+                index=lambda rank: rank) -> int:
     """The blocks each rank handed its save of ``step`` in ``run`` against
     the same blocks of ``whole`` (a one-process restore's tree), bit for
-    bit; each split leaf's blocks together its whole bytes (one axis of the
-    ranks splits it: rank r's block is block r). Returns the leaves split."""
+    bit; each split leaf's blocks together its whole bytes (one axis of
+    ``FSDP_RANKS`` splits it: rank r's block is block ``index(r)``).
+    Returns the leaves split."""
     split = 0
     for name, t in _leaves(whole):
         if not hasattr(t, "shape"):
@@ -4164,7 +4201,7 @@ def fsdp_blocks(torch, ranks: list, whole: dict, step: int, tag: str = "fsdp", r
             check(shapes[0][dims[0]] * FSDP_RANKS == t.shape[dims[0]],
                   f"{tag}: {name} blocks {shapes} of {list(t.shape)}")
         for rank, rec in enumerate(ranks):
-            block = t.chunk(FSDP_RANKS, dims[0])[rank] if dims else t
+            block = t.chunk(FSDP_RANKS, dims[0])[index(rank)] if dims else t
             check(rec[run]["saves"][str(step)][name]["fp"] == fingerprint(torch, block),
                   f"{tag}: rank {rank}'s block of {name} at step {step} is not the one-process restore's")
     return split
@@ -5080,14 +5117,17 @@ def mixtral_tp_serve_phase(torch, mixtral, MG, card: str, cfg: dict | None = Non
 # card), one context shard each: B9/B10 move KV and the riding dk/dv between
 # the processes (``ProcessRing``: gloo's ``all_to_all_single`` to the right
 # neighbour; ``gloo_cuda_probe``: gloo's point-to-point on CUDA tensors dies).
-# Llama-3-8B widths cut to CP_GANG_LAYERS layers, B=1, T=CP_GANG_T, 3 steps
-# and a save, then a step of each planted fault; Mixtral-8x7B widths cut to
-# CP_GANG_MOE_LAYERS layer, B=1, T=CP_GANG_MOE_T, 3 steps and a save. Each
-# held to one process with the context of 2 on a DeviceRing: the losses and
-# grad norms (and Mixtral's router losses) within GANG_LOSS_REL
-# (``FSDP_REL``), the step-3 parameters and moments within FSDP_STATE_REL
-CP_GANG_RANKS, CP_GANG_STEPS = 2, 3
-CP_GANG_LAYERS, CP_GANG_T = 2, 16384
+# Llama-3-8B widths cut to CP_GANG_LAYERS layers, B=1, T=CP_GANG_T,
+# CP_GANG_STEPS steps and a save, then a step of each planted fault;
+# Mixtral-8x7B widths cut to CP_GANG_MOE_LAYERS layer, B=1, T=CP_GANG_MOE_T,
+# CP_GANG_STEPS steps and a save. Each held to one process with the context
+# of 2 on a DeviceRing: the losses and grad norms (and Mixtral's router
+# losses) within GANG_LOSS_REL (``FSDP_REL``), the last step's parameters and
+# moments within FSDP_STATE_REL
+#: (2 steps and 1 layer: with the other cuts, they keep the command within
+#: its time limit beside the model-beside-context phase)
+CP_GANG_RANKS, CP_GANG_STEPS = 2, 2
+CP_GANG_LAYERS, CP_GANG_T = 1, 16384
 CP_GANG_MOE_LAYERS, CP_GANG_MOE_T = 1, 8192
 #: the planted faults: a ring whose KV never leaves its process (each slot
 #: receives the process's own), and RoPE without the window's offset (each
@@ -5100,6 +5140,25 @@ CP_GANG_MOE_LAYERS, CP_GANG_MOE_T = 1, 8192
 #: check's limit between the sound ring and a faulted one
 CP_GANG_FAULTS = ("local-kv", "rope")
 CP_GANG_GRAD_LEAVES = ("layers/wq", "layers/wk", "layers/wv")
+
+# [cp-tp] (A12c): a model axis beside the context axis, CP_TP_RANKS processes
+# on the one card over gloo, ``MeshSpec(context=2, model=2)``: each rank a
+# window of T/2 on its model blocks (16 of Llama-3-8B's 32 query heads, 4 of
+# its 8 kv heads, 7168 FFN columns, 64128 vocabulary rows), B9/B10 on those
+# heads with KV moving between the two ranks of its model index, Megatron's
+# pair and the vocab-parallel CE over its model line. Llama-3-8B widths cut
+# to CP_TP_LAYERS layer, B=1, T=CP_TP_T, CP_TP_STEPS steps and a save, then a
+# step of each planted fault; held to one process with the context of 2 on a
+# DeviceRing as [cp-gang] is: losses and grad norms within GANG_LOSS_REL,
+# the step-1 attention gradients, joined over the model line, within
+# CP_STEP_GRAD_REL, the step-3 state within FSDP_STATE_REL
+CP_TP_CONTEXT, CP_TP_MODEL = 2, 2
+CP_TP_RANKS = CP_TP_CONTEXT * CP_TP_MODEL
+CP_TP_LAYERS, CP_TP_T, CP_TP_STEPS = 1, 8192, 3
+#: the planted faults: a context ring across the model lines (each rank
+#: receives the other model rank's kv heads), and ``reduce_from_model``
+#: summing over the context line instead of the model line
+CP_TP_FAULTS = ("cross-line", "context-sum")
 
 
 def record_first_grads(trainer, names: tuple, path: Path | None = None) -> tuple:
@@ -5151,14 +5210,55 @@ def drop_rope_offset(llama) -> None:
     llama.context_inputs = no_offset
 
 
+def crossed_context_lines(context: int = CP_TP_CONTEXT, model: int = CP_TP_MODEL) -> list:
+    """The ranks of a ``context × model`` gang (rank ``c·model + m``) in
+    rings that pair window 0 of model index m with the other windows of
+    model index ``model - 1 - m``: each window keeps its ring position and
+    receives another model rank's heads."""
+    return [[c * model + (m if c == 0 else model - 1 - m) for c in range(context)] for m in range(model)]
+
+
+def cross_line_ring(mesh_mod) -> None:
+    """A planted fault of ``[cp-tp]``: each rank's context ring is a line of
+    ``crossed_context_lines``, so the KV of the other model rank's heads
+    arrives in place of its own. Every rank makes the crossed groups as it
+    builds its mesh."""
+    import torch.distributed as dist
+
+    real = mesh_mod.ProcessRing
+
+    def crossed(group=None):
+        mine, _ = dist.new_subgroups_by_enumeration(crossed_context_lines())
+        return real(mine)
+
+    mesh_mod.ProcessRing = crossed
+
+
+def context_sum(collectives) -> None:
+    """A planted fault of ``[cp-tp]``: ``reduce_from_model`` sums its
+    partials over the rank's context line instead of its model line (the
+    embedding's rows and the row-parallel outputs of attention and the
+    FFN); every rank makes the context lines' groups here."""
+    import torch.distributed as dist
+
+    lines = [[c * CP_TP_MODEL + m for c in range(CP_TP_CONTEXT)] for m in range(CP_TP_MODEL)]
+    line, _ = dist.new_subgroups_by_enumeration(lines)
+
+    def forward(ctx, x, group):
+        ctx.group = group
+        return collectives._psum_f32(x, line)
+
+    collectives._ReduceFromModel.forward = staticmethod(forward)
+
+
 def cp_gang_rank(spec_json: str) -> None:
-    """One rank of the ``[cp-gang]`` gang (``RANK`` in the env):
-    ``run_lm_training`` with ``context_axis`` CP_GANG_RANKS for each run of
-    the spec (Llama and Mixtral sound, each with a save; each planted fault),
-    each in a gloo group of its own (a file store under the spec's
-    directory); each run's step reports, kernel launches, the fingerprint
-    and shape of each leaf the rank hands a save, peak memory and wall.
-    Writes ``rank<r>.json`` there."""
+    """One rank of the ``[cp-gang]`` or ``[cp-tp]`` gang (``RANK`` in the
+    env; the spec's ``ranks`` of them): ``run_lm_training`` for each run of
+    the spec (the sound runs, each with a save; each planted fault), each in
+    a gloo group of its own (a file store under the spec's directory); each
+    run's step reports, kernel launches, the fingerprint and shape of each
+    leaf the rank hands a save, peak memory and wall. Writes
+    ``rank<r>.json`` there."""
     import torch
     import torch.distributed as dist
 
@@ -5168,6 +5268,7 @@ def cp_gang_rank(spec_json: str) -> None:
     from tony_tpu_torch.ops import moe_gemm as MG
     from tony_tpu_torch.ops import ring as TR
     from tony_tpu_torch.parallel import collectives
+    from tony_tpu_torch.parallel import mesh as mesh_mod
     from tony_tpu_torch.train import checkpoint as C
     from tony_tpu_torch.train import trainer
     from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
@@ -5175,7 +5276,8 @@ def cp_gang_rank(spec_json: str) -> None:
     spec = json.loads(spec_json)
     rank, work = int(os.environ["RANK"]), Path(spec["dir"])
     cuda = spec["device"] == "cuda"
-    real = (C.CheckpointManager.save, collectives.ProcessRing.send_recv, llama.context_inputs, trainer.AdamW.update)
+    real = (C.CheckpointManager.save, collectives.ProcessRing.send_recv, llama.context_inputs, trainer.AdamW.update,
+            mesh_mod.ProcessRing, collectives._ReduceFromModel.forward)
     out = {}
     for run in spec["runs"]:
         saves: dict = {}
@@ -5190,12 +5292,16 @@ def cp_gang_rank(spec_json: str) -> None:
             torch.cuda.set_device(0)
             torch.cuda.reset_peak_memory_stats()
         dist.init_process_group(FSDP_BACKEND, init_method=f"file://{work / ('store-' + run)}",
-                                world_size=CP_GANG_RANKS, rank=rank)
+                                world_size=spec.get("ranks", CP_GANG_RANKS), rank=rank)
         C.CheckpointManager.save = save
         if run == "local-kv":
             keep_kv_local(collectives)
         if run == "rope":
             drop_rope_offset(llama)
+        if run == "cross-line":
+            cross_line_ring(mesh_mod)
+        if run == "context-sum":
+            context_sum(collectives)
         record_first_grads(trainer, CP_GANG_GRAD_LEAVES, work / f"grads-{run}-rank{rank}.pt")
         for mod in (A, MG, TR):
             mod.reset_launches()
@@ -5205,19 +5311,19 @@ def cp_gang_rank(spec_json: str) -> None:
             res = run_lm_training(model, model.config_from_dict(spec[run]["cfg"]), LoopConfig(**spec[run]["loop"]))
         finally:
             (C.CheckpointManager.save, collectives.ProcessRing.send_recv, llama.context_inputs,
-             trainer.AdamW.update) = real
+             trainer.AdamW.update, mesh_mod.ProcessRing) = real[:5]
+            collectives._ReduceFromModel.forward = staticmethod(real[5])
         out[run] = {"log": res["log"], "launches": {**A.launches, **MG.launches, **TR.launches}, "saves": saves,
                     "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
                     "wall_s": time.perf_counter() - t0}
     (work / f"rank{rank}.json").write_text(json.dumps(out))
 
 
-def cp_gang_launches(TR, my: int, L: int, S: int, Tl: int, moe: bool) -> dict:
-    """The launches ring position ``my`` of CP_GANG_RANKS makes in S steps of
-    L layers under remat "full" (the forward twice): B9 at the forward
+def cp_gang_launches(TR, my: int, L: int, S: int, Tl: int, moe: bool, n: int = CP_GANG_RANKS) -> dict:
+    """The launches ring position ``my`` of a ring of ``n`` makes in S steps
+    of L layers under remat "full" (the forward twice): B9 at the forward
     steps the schedule runs, B10 at the backward's, B7/B8 (Mixtral) once
     a layer pass."""
-    n = CP_GANG_RANKS
     fwd = sum(TR.fwd_step_runs(my, s, n, Tl, True, 0) for s in range(n))
     bwd = sum(TR.bwd_step_runs(my, s, n, Tl, True, 0) for s in range(n))
     out = {"ring_fwd": 2 * L * S * fwd, "ring_bwd_dq": L * S * bwd, "ring_bwd_dkv": L * S * bwd,
@@ -5380,6 +5486,155 @@ def cp_gang_phase(torch, llama, mixtral, A, out_dir: Path, card: str, cfgs: dict
     rec["launches_sum"] = {k: sum(x[f"{fam}-ok"]["launches"][k] for x in ranks for fam in ("llama", "mixtral"))
                            for k in ranks[0]["llama-ok"]["launches"]}
     print(cp_gang_line(rec, card), flush=True)
+    return rec
+
+
+def cp_tp_line(rec: dict, card: str) -> str:
+    """The ``[cp-tp]`` report line."""
+    faults = "; ".join(f"{k}: loss {v['loss']} grad norm {v['grad_norm']} against one process's "
+                       f"{rec['one_losses'][0]} / {rec['one_grad_norms'][0]}, step-1 "
+                       f"{'/'.join(CP_GANG_GRAD_LEAVES)} gradients worst rel {v['worst_grad_rel']:.2e}, failed"
+                       for k, v in rec["faults"].items())
+    state = ", ".join(f"{k} {v:.2e} ({rec['state_leaf'][k]})" for k, v in rec["state_rel"].items())
+    return (f"[cp-tp] {CP_TP_RANKS} ranks on one card over {FSDP_BACKEND}, context {CP_TP_CONTEXT} x model "
+            f"{CP_TP_MODEL}, cp_impl pallas: {rec['preset']} widths {rec['layers']} layer(s) B=1 T={rec['seq_len']} "
+            f"(T/{CP_TP_CONTEXT} a rank on {rec['heads']} query and {rec['kv_heads']} kv heads): losses "
+            f"{rec['losses']} grad norms {rec['grad_norms']} (one process, context {CP_TP_CONTEXT} on a DeviceRing: "
+            f"{rec['one_losses']} / {rec['one_grad_norms']}, worst rel {rec['worst_rel']:.2e}, limit "
+            f"{FSDP_REL:.0e}); step-1 {'/'.join(CP_GANG_GRAD_LEAVES)} gradients joined over the model line, worst "
+            f"rel {rec['worst_grad_rel']:.2e} (limit {CP_STEP_GRAD_REL:.0e}); step {rec['restored_step']} "
+            f"parameters and moments against one process's, worst {state} (limit {FSDP_STATE_REL:.0e}); the save "
+            f"restored into one process bit for bit in {rec['restore_s']:.1f} s; launches a rank {rec['launches']} "
+            f"(the schedule's); ms/step a rank {rec['step_ms']} (one process {rec['one_step_ms']}); per rank "
+            f"params {rec['param_bytes'] / 1e9:.3f} GB + moments {rec['opt_bytes'] / 1e9:.3f} GB, peak a rank "
+            f"{[round(b / 2**30, 2) for b in rec['peak_bytes']]} GiB (one process {rec['one_peak_bytes'] / 2**30:.2f} "
+            f"GiB); seconds {rec['seconds']}; planted faults, {faults}; {card}")
+
+
+def cp_tp_phase(torch, llama, A, out_dir: Path, card: str, cfg: dict | None = None, T: int = CP_TP_T,
+                device: str = "cuda") -> dict:
+    """``[cp-tp]``: the gang of ``CP_TP_RANKS`` on the card on ``context
+    CP_TP_CONTEXT × model CP_TP_MODEL`` (one window and one model block a
+    process, KV between the ranks of a model index through B9/B10) at
+    Llama-3-8B widths cut to depth (``cfg``, ``T`` and ``device`` another
+    config, length and device): ``CP_TP_STEPS`` steps with a save, then a
+    step of each planted fault. Each rank's losses and grad norms must be
+    one process's with the context on a ``DeviceRing`` (``run_lm_training``
+    here), the step-1 attention gradients joined over the model line
+    within ``CP_STEP_GRAD_REL``, each rank's launches the schedule's for its
+    ring position, the save restored into one process the blocks the
+    ranks handed it, bit for bit, and its state one process's within
+    ``FSDP_STATE_REL``; each planted fault must fail a check. Prints the
+    bytes a rank, its peak memory, launches and ms/step."""
+    from tony_tpu_torch.ops import ring as TR
+    from tony_tpu_torch.train import trainer
+    from tony_tpu_torch.train.checkpoint import restore_or_init
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+    from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState
+
+    cfg = cfg or {"preset": "llama3-8b", "n_layers": CP_TP_LAYERS, "cp_impl": "pallas"}
+    model_cfg = llama.config_from_dict(cfg)
+    cuda = device == "cuda"
+    work = (out_dir / "cp-tp").resolve()  # the ranks' file store takes an absolute path
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    loop = dict(batch_size=1, seq_len=T, log_every=1, warmup_steps=1, context_axis=CP_TP_CONTEXT, device=device)
+    gang_loop = dict(loop, model_axis=CP_TP_MODEL)
+    spec = {"dir": str(work), "device": device, "ranks": CP_TP_RANKS, "runs": ["ok", *CP_TP_FAULTS],
+            "ok": {"model": "llama", "cfg": cfg, "loop": dict(gang_loop, steps=CP_TP_STEPS, checkpoint_dir=str(
+                work / "ckpt"), checkpoint_every=CP_TP_STEPS)},
+            **{f: {"model": "llama", "cfg": cfg, "loop": dict(gang_loop, steps=1)} for f in CP_TP_FAULTS}}
+    t0 = time.perf_counter()
+    ranks = run_gang(work, spec, "cp_gang_rank", CP_TP_RANKS, "cp-tp")
+    seconds = {"gang": time.perf_counter() - t0}
+    for run in spec["runs"]:
+        print(f"[cp-tp] {run}: wall a rank {[round(x[run]['wall_s'], 1) for x in ranks]} s, ms/step a rank "
+              f"{[[y['step_time_ms'] for y in x[run]['log']] for x in ranks]}, losses "
+              f"{[[y['loss'] for y in x[run]['log']] for x in ranks]}; {card}", flush=True)
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    TR.reset_launches()
+    t0 = time.perf_counter()
+    held, unhold = hold_final_state(trainer)  # the final state, held to the gang's save
+    first, unrecord = record_first_grads(trainer, CP_GANG_GRAD_LEAVES)
+    try:
+        one = run_lm_training(llama, model_cfg, LoopConfig(steps=CP_TP_STEPS, **loop))["log"]
+    finally:
+        unrecord()
+        unhold()
+    seconds["one"] = time.perf_counter() - t0
+    one_launches = dict(TR.launches)
+    one_peak = torch.cuda.max_memory_allocated() if cuda else 0
+
+    def worst_grad_rel(run: str) -> float:
+        """The step-1 gradients of each context rank's model line, joined
+        along the dim the model axis splits, against one process's."""
+        got = [torch.load(work / f"grads-{run}-rank{r}.pt") for r in range(CP_TP_RANKS)]
+        worst = 0.0
+        for c in range(CP_TP_CONTEXT):
+            line = got[c * CP_TP_MODEL:(c + 1) * CP_TP_MODEL]
+            joined = {}
+            for n, w in first.items():
+                d = next(i for i in range(w.ndim) if line[0][n].shape[i] != w.shape[i])
+                joined[n] = torch.cat([g[n] for g in line], d)
+            worst = max(worst, *grad_rel(torch, joined, first).values())
+        return worst
+
+    rec = {"preset": cfg.get("preset", ""), "layers": model_cfg.n_layers, "seq_len": T,
+           "heads": model_cfg.n_heads // CP_TP_MODEL, "kv_heads": model_cfg.n_kv_heads // CP_TP_MODEL, "faults": {}}
+    rec["worst_rel"] = fsdp_check(ranks, one, "ok", tag="cp-tp")
+    rec["worst_grad_rel"] = worst_grad_rel("ok")
+    check(rec["worst_grad_rel"] <= CP_STEP_GRAD_REL,
+          f"cp-tp: step-1 gradients of {CP_GANG_GRAD_LEAVES} joined over the model line against one process's: "
+          f"{rec['worst_grad_rel']:.2e} > {CP_STEP_GRAD_REL:.0e}")
+    Tl = T // CP_TP_CONTEXT
+    launches = [x["ok"]["launches"] for x in ranks]
+    for r, got in enumerate(launches):
+        want = cp_gang_launches(TR, r // CP_TP_MODEL, model_cfg.n_layers, CP_TP_STEPS, Tl, False, n=CP_TP_CONTEXT)
+        got = {k: got[k] for k in want}
+        check(got == want if cuda else not any(got.values()),
+              f"cp-tp: rank {r} (ring position {r // CP_TP_MODEL}) launches {got}, the schedule's {want}")
+    check(all(sum(x[k] for x in launches) == CP_TP_MODEL * one_launches[k] for k in TR.launches),
+          f"cp-tp: the ranks' ring launches {launches} are not {CP_TP_MODEL} times one process's {one_launches}")
+    for fault in CP_TP_FAULTS:
+        got = {k: [x[fault]["log"][0][k] for x in ranks] for k in ("loss", "grad_norm")}
+        got["worst_grad_rel"] = worst_grad_rel(fault)
+        try:
+            fsdp_check(ranks, one, fault, tag="cp-tp")
+            check(got["worst_grad_rel"] <= CP_STEP_GRAD_REL, "step-1 gradients")
+        except SmokeFailure:
+            rec["faults"][fault] = got
+        check(fault in rec["faults"], f"cp-tp: the planted fault {fault!r} passed: {got}")
+    one_state = {part: held[part] for part in ("params", "mu", "nu")}
+    opt = OptimizerConfig(learning_rate=3e-4, warmup_steps=1, total_steps=CP_TP_STEPS).build()
+    t0 = time.perf_counter()
+    state, _, step = restore_or_init(str(work / "ckpt"), lambda: TrainState.create(
+        llama.init(torch.Generator(device=device).manual_seed(1), model_cfg, device), opt), TrainState.load)
+    rec["restore_s"] = time.perf_counter() - t0
+    check(step == CP_TP_STEPS, f"cp-tp: one process restored step {step}, want {CP_TP_STEPS}")
+    split = fsdp_blocks(torch, ranks, state.state_dict(), step, tag="cp-tp", run="ok",
+                        index=lambda r: r % CP_TP_MODEL)
+    check(split > 0, "cp-tp: no leaf was split over the model axis")
+    rec["state_leaf"] = {}
+    rec["state_rel"] = fsdp_state_check(torch, state.state_dict(), one_state, ranks[0]["ok"]["saves"][str(step)],
+                                        f"step {step}", tag="cp-tp", leaves=rec["state_leaf"])
+    rec["restored_step"] = step
+    del state, one_state, held
+    log0 = ranks[0]["ok"]["log"]
+    rec.update(losses=[x["loss"] for x in log0], grad_norms=[x["grad_norm"] for x in log0],
+               one_losses=[x["loss"] for x in one], one_grad_norms=[x["grad_norm"] for x in one],
+               launches=[{k: v for k, v in x.items() if v} for x in launches],
+               one_launches={k: v for k, v in one_launches.items() if v},
+               step_ms=[[x["step_time_ms"] for x in r_["ok"]["log"]] for r_ in ranks],
+               one_step_ms=[x["step_time_ms"] for x in one], peak_bytes=[r_["ok"]["peak_bytes"] for r_ in ranks],
+               one_peak_bytes=one_peak, param_bytes=log0[-1].get("param_bytes", 0),
+               opt_bytes=log0[-1].get("opt_bytes", 0), split_leaves=split)
+    rec["launches_sum"] = {k: sum(x["ok"]["launches"][k] for x in ranks) for k in ranks[0]["ok"]["launches"]}
+    shutil.rmtree(work, ignore_errors=True)
+    rec["seconds"] = {k: round(v, 1) for k, v in seconds.items()}
+    print(cp_tp_line(rec, card), flush=True)
     return rec
 
 
@@ -5638,6 +5893,10 @@ def main() -> int:
         # B9/B10 moving KV between the two processes on the card
         with phase("cp-gang"):
             cp_gang = cp_gang_phase(torch, llama, mixtral, A, out_dir, card)
+        # a model axis beside the context axis (A12c): four processes, each a
+        # window and a model block, B9/B10 on its 16 query and 4 kv heads
+        with phase("cp-tp"):
+            cp_tp = cp_tp_phase(torch, llama, A, out_dir, card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED in phase {phase.current}: {e}", file=sys.stderr, flush=True)
         return 1
@@ -5664,6 +5923,9 @@ def main() -> int:
         for k, n in (("ring_fwd", gang_sum["ring_fwd"]), ("ring_bwd", gang_sum["ring_bwd_dq"] + gang_sum["ring_bwd_dkv"]),
                      ("moe_fwd", gang_sum["moe_fwd"]), ("moe_bwd", gang_sum["moe_bwd"])):
             more[k]["cp_gang"] = n
+        tp_sum = cp_tp["launches_sum"]
+        more["ring_fwd"]["cp_tp"] = tp_sum["ring_fwd"]
+        more["ring_bwd"]["cp_tp"] = tp_sum["ring_bwd_dq"] + tp_sum["ring_bwd_dkv"]
         for k in ("paged_decode_attention", "int8_matmul"):
             more[k] = {"hf_serve": hf_serve["launches"][k]}
         kernels = kernel_rows(kern, path_launches, {f: rec["b5_launches"] for f, rec in fleet.items()},
@@ -5684,7 +5946,7 @@ def main() -> int:
          "resnet": {"whole_step": resnet_step, "train": resnet_train},
          "hf": {"load": hf_load, "serve": hf_serve}, "mixtral_gang": mixtral_gang, "fsdp": fsdp, "tp": tp,
          "tp_serve": tp_serve, "mixtral_tp": mixtral_tp, "mixtral_tp_serve": mixtral_tp_serve,
-         "cp_gang": cp_gang}, indent=1))
+         "cp_gang": cp_gang, "cp_tp": cp_tp}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -261,13 +261,15 @@ def test_mesh_spec_builds_a_context_ring_and_refuses_other_axes():
     mesh = MeshSpec(context=4).build("cpu")
     assert mesh.shape == {"stage": 1, "data": 1, "fsdp": 1, "expert": 1, "context": 4, "model": 1}
     assert isinstance(mesh.ring, DeviceRing) and mesh.ring.n == 4 and mesh.device.type == "cpu"
-    for kw, item in ((dict(model=2), "A12c"), (dict(expert=2), "A11"), (dict(stage=2), "A13")):
+    for kw, item in ((dict(expert=2), "A11"), (dict(stage=2), "A13")):
         with pytest.raises(NotImplementedError, match=item):
             MeshSpec(context=2, **kw).build("cpu")
-    # a data axis beside the context axis is a gang's (one process a shard);
-    # one process holds a context axis alone
-    with pytest.raises(ValueError, match="needs a gang of as many processes"):
-        MeshSpec(context=2, data=2).build("cpu")
+    # a data or model axis beside the context axis is a gang's (one process
+    # a shard; tests/test_torch_cp_tp.py for the model axis); one process
+    # holds a context axis alone
+    for kw in (dict(data=2), dict(model=2)):
+        with pytest.raises(ValueError, match="needs a gang of as many processes"):
+            MeshSpec(context=2, **kw).build("cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             MeshSpec(context=2).build()
@@ -292,14 +294,15 @@ def test_the_context_path_refuses_what_jax_refuses():
     tiny = dataclasses.replace(TM.LLAMA_TINY, dtype="float32")
     with pytest.raises(ValueError, match="does not split into context_axis"):
         TLp.run_lm_training(TM, tiny, TLp.LoopConfig(device="cpu", steps=1, seq_len=30, context_axis=4))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    # a model axis beside the context axis is the gang's (A12c): one process holds none
+    with pytest.raises(ValueError, match="not divisible by model"):
         TLp.run_lm_training(TM, tiny, TLp.LoopConfig(device="cpu", steps=1, context_axis=2, model_axis=2))
 
     from tony_tpu_torch.models import mixtral
 
-    # Mixtral takes a context axis (A12a); beside a model axis it is refused (A12c)
+    # Mixtral takes a context axis (A12a), and a model axis beside it in a gang (A12c)
     mcfg = dataclasses.replace(mixtral.MIXTRAL_TINY, dtype="float32")
-    with pytest.raises(NotImplementedError, match="A12c"):
+    with pytest.raises(ValueError, match="not divisible by model"):
         TLp.run_lm_training(mixtral, mcfg, TLp.LoopConfig(device="cpu", steps=1, seq_len=32, batch_size=2,
                                                           context_axis=2, model_axis=2))
     log = TLp.run_lm_training(mixtral, mcfg, TLp.LoopConfig(device="cpu", steps=1, seq_len=32, batch_size=2,

@@ -736,6 +736,27 @@ def test_ring_on_card_matches_the_plain_ring(gen, dtype, B, H, Hkv, n, Tl, D, wi
         assert _row_err(g, w) <= ROW_TOL[dtype], f"{name}: row err {_row_err(g, w)}"
 
 
+def test_ring_at_a_context_model_ranks_local_heads_matches_the_plain_ring(gen):
+    """B9/B10 at the shape a rank of ``context 2 × model 2`` gives them at
+    Llama-3-8B widths: its 16 query heads and 4 kv heads (``H/2``,
+    ``Hkv/2``) on a ring of 2 over T 8192 (Tl 4096), against the plain
+    steps, o and lse, dq, dk and dv, with the schedule's launches."""
+    from tony_tpu_torch.ops import ring as TR
+
+    n, Tl = 2, 4096
+    q, k, v, do, seg = _flash_inputs(gen, torch.bfloat16, 1, 16, 4, n * Tl, 128, 1)
+    (o_p, lse_p), grads_p = _ring_pass(q, k, v, do, seg, n, 0, plain=True)
+    TR.reset_launches()
+    (o, lse), grads = _ring_pass(q, k, v, do, seg, n, 0, plain=False, fwd=(o_p, lse_p))
+    fwd = sum(TR.fwd_step_runs(my, s, n, Tl, True, 0) for my in range(n) for s in range(n))
+    bwd = sum(TR.bwd_step_runs(my, s, n, Tl, True, 0) for my in range(n) for s in range(n))
+    assert TR.launches == {"ring_fwd": fwd, "ring_bwd_dq": bwd, "ring_bwd_dkv": bwd}
+    assert (lse - lse_p).abs().max().item() <= LSE_ATOL
+    for name, g, w in zip(("o", "dq", "dk", "dv"), (o, *grads), (o_p, *grads_p)):
+        assert bool(torch.isfinite(g.float()).all()), name
+        assert _row_err(g, w) <= ROW_TOL[torch.bfloat16], f"{name}: row err {_row_err(g, w)}"
+
+
 def test_ring_autograd_on_card_matches_full_attention(gen):
     """``ring_attention_pallas_seg`` on the card against autograd through the
     full-sequence reference, in f32 (TF32 off)."""

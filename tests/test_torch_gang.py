@@ -694,14 +694,22 @@ def _step_lines(path: Path) -> dict[int, float]:
 def test_tony_submit_gang_resumes_exactly_once_after_node_loss(tmp_tony_root, tmp_path, shards, capsys):
     """``tony submit`` (framework pytorch) of a 2-worker gloo gang of
     ``python -m tony_tpu_torch.train.pretrain --device cpu`` with
-    ``node-loss:worker:1@step+5`` (armed once step 5 is reported, so after
-    the checkpoint of step 4 is on disk): the gang restarts once, resumes
+    ``node-loss:worker:1@step+9`` (armed once step 9 is reported): the gang
+    restarts once, resumes
     from the newest checkpoint with a validated cursor, consumes every global slot
     once, logs the losses of one process on the same global batches, and
     its step metrics reach ``tony top`` and ``tony goodput``. Attempt 0 is
     given a far horizon so the node loss always lands mid-run; after
     training, each worker waits for a stop file so that ``tony top`` reads
-    a live gang."""
+    a live gang.
+
+    Saves are asynchronous: step 4's write runs in rank 0's writer thread
+    while the gang trains on, and may still be in flight when step 5 is
+    reported (``[ckpt] step 4 published`` can come after it under load), so
+    a node loss armed at step 5 could restart a gang that has nothing on
+    disk. The save of step 8 first joins step 4's write, and no rank
+    reports step 9 before rank 0 has made that save (step 9's gradient
+    mean waits for it): once step 9 is reported, step 4 is published."""
     from tony_tpu.cli.goodput import main as goodput_main
     from tony_tpu.cli.introspect import main_top
     from tony_tpu.cluster.client import Client
@@ -720,7 +728,7 @@ def test_tony_submit_gang_resumes_exactly_once_after_node_loss(tmp_tony_root, tm
         keys.TASK_METRICS_INTERVAL_MS: "200", keys.AM_GANG_TIMEOUT_MS: "60000",
         keys.STAGING_ROOT: str(tmp_tony_root), "tony.worker.instances": "2",
         keys.APPLICATION_FRAMEWORK: "pytorch", keys.EXECUTES: cmd,
-        keys.TASK_RESTART_ON_FAILURE: "true", keys.CHAOS_SPEC: "node-loss:worker:1@step+5",
+        keys.TASK_RESTART_ON_FAILURE: "true", keys.CHAOS_SPEC: "node-loss:worker:1@step+9",
         keys.CHECKPOINT_DIR: str(ck), keys.CHECKPOINT_INTERVAL_STEPS: "4",
         keys.TRACE_ENABLED: "true",
     })

@@ -234,7 +234,7 @@ def test_fleet_line_names_every_number_and_the_card(handoff):
            "prefix_hit_tokens": 5120, "b5_launches": 4096, "stop_s": 6.0,
            "kv_handoff_pages": 60 if handoff else None, "handoff_p50_ms": 900.0 if handoff else None}
     line = cs.fleet_line(rec, "NVIDIA H100 80GB HBM3, 700.00 W")
-    assert line.startswith(f"[fleet] {rec['fleet']}: startup 31.2 s; 8/8 ok, 120.5 tok/s")
+    assert line.startswith(f"[fleet] {rec['fleet']}: startup 31.2 s; 4/4 ok, 120.5 tok/s")
     for part in ("TTFT p50/p95/p99 250.0 / 600.0 / 700.0 ms", "gap between tokens p50 38.10 ms",
                  "latency p50/p99 2600.0 / 3900.0 ms", "B5 4096", "NVIDIA H100 80GB HBM3, 700.00 W"):
         assert part in line
@@ -242,14 +242,14 @@ def test_fleet_line_names_every_number_and_the_card(handoff):
 
 
 def test_fleet_traffic_is_tony_loadtests_and_fits_the_engine():
-    """``LOADTEST`` as ``tony loadtest`` parses it: 8 streamed requests, the
+    """``LOADTEST`` as ``tony loadtest`` parses it: 4 streamed requests, the
     shared prefix inside every first prompt, and the longest conversation
     (first prompt, then each turn's answer and fresh tokens) inside max_len."""
     pytest.importorskip("jax")
     from tony_tpu.cli.loadtest import build_spec
 
     spec, _ = build_spec(["--url", "http://127.0.0.1:1", *cs.LOADTEST])
-    assert spec.sessions * spec.turns == cs.LOADTEST_REQUESTS == 8 and spec.stream
+    assert spec.sessions * spec.turns == cs.LOADTEST_REQUESTS == 4 and spec.stream
     assert sorted(n for n, _ in spec.prompt_mix) == [768, 1280] and spec.shared_prefix == 512
     longest = max(n for n, _ in spec.prompt_mix) + (spec.turns - 1) * (spec.max_tokens + spec.turn_tokens)
     assert longest + spec.max_tokens == 1416 < 1500 < cs.MAXT
@@ -988,3 +988,84 @@ def test_cp_phases_run_in_main_and_reach_the_report():
     assert 'cp_train["mixtral"] = cp_train_mixtral(torch, mixtral, A, MG, TR)' in main
     assert main.index('phase("mixtral-tp-serve")') < main.index('phase("cp-gang")') < main.index("except SmokeFailure")
     assert 'more[k]["cp_gang"] = n' in main and '["cp_train_mixtral"]' in main
+
+
+@pytest.fixture(scope="module")
+def cp_tp_record(tmp_path_factory):
+    """``cp_tp_phase`` on the CPU at the tiny Llama in f32 through the plain
+    B9/B10 steps: the gloo gang of four on ``context 2 × model 2`` (one
+    intra-op thread a rank) against one process with the context of 2,
+    with the restore and both planted faults, as the card runs it at
+    Llama-3-8B widths."""
+    import torch
+
+    from tony_tpu_torch.models import llama
+    from tony_tpu_torch.ops import attention as A
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return cs.cp_tp_phase(torch, llama, A, tmp_path_factory.mktemp("cp_tp"), "cpu",
+                              cfg={"preset": "tiny", "dtype": "float32", "cp_impl": "pallas"}, T=32, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_cp_tp_phase_holds_the_gang_to_one_process_and_catches_both_faults(cp_tp_record):
+    """A12c's smoke on the CPU: each rank's losses and grad norms are one
+    process's (f32: within 1e-5), the step-1 attention gradients joined over
+    the model line too, the save restores into one process bit for bit with
+    every model-split leaf's blocks, the state within 1e-5, no kernel
+    launched on the CPU, and the ring across the model lines and the
+    context-line sum each fail a check; the line names every number and the
+    card."""
+    rec = cp_tp_record
+    assert rec["worst_rel"] <= 1e-5 and rec["losses"] == rec["one_losses"] and len(rec["losses"]) == cs.CP_TP_STEPS
+    assert rec["worst_grad_rel"] <= 1e-5 and (rec["heads"], rec["kv_heads"]) == (2, 1)
+    assert rec["launches"] == [{}] * cs.CP_TP_RANKS and rec["split_leaves"] >= 9
+    assert rec["restored_step"] == cs.CP_TP_STEPS and max(rec["state_rel"].values()) <= 1e-5
+    assert set(rec["faults"]) == set(cs.CP_TP_FAULTS)
+    one = rec["one_losses"][0]
+    for fault, got in rec["faults"].items():
+        moved = [abs(x - one) > cs.FSDP_REL * one for x in got["loss"]]
+        assert any(moved) or got["worst_grad_rel"] > cs.CP_STEP_GRAD_REL, (fault, got)
+    line = cs.cp_tp_line(rec, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert line.startswith("[cp-tp] 4 ranks on one card over gloo, context 2 x model 2, cp_impl pallas: tiny widths")
+    for text in ("cross-line: loss", "context-sum: loss", "joined over the model line",
+                 "the save restored into one process bit for bit", "NVIDIA H100 80GB HBM3, 700.00 W"):
+        assert text in line, text
+
+
+def test_cp_tp_ring_fault_crosses_the_model_lines_and_keeps_the_windows():
+    """The ring fault's lines pair each window with the other model index's
+    rank of the other window (so its KV heads are another rank's), each rank
+    at its own window's ring position."""
+    lines = cs.crossed_context_lines()
+    assert lines == [[0, 3], [1, 2]]
+    assert all(r // cs.CP_TP_MODEL == pos for line in lines for pos, r in enumerate(line))
+    assert all(len({r % cs.CP_TP_MODEL for r in line}) == cs.CP_TP_MODEL for line in lines)
+
+
+def test_ring_phase_times_the_kernels_at_cp_tps_shape():
+    """The ring phase's ``cp2xtp2`` case: a ``[cp-tp]`` rank's 16 query and 4
+    kv heads over T=8192 on a ring of 2, timed, its bytes and operations
+    those of its heads and length; ``causal-n2`` stays the case of
+    ``[cp-gang]``'s ring of 2."""
+    c = cs.RING_CASES["cp2xtp2"]
+    assert c == dict(window=0, n_seg=1, n=cs.CP_TP_CONTEXT, T=cs.CP_TP_T, H=cs.H // cs.CP_TP_MODEL,
+                     Hkv=cs.HKV // cs.CP_TP_MODEL)
+    full, half = cs.ring_cost(100, None), cs.ring_cost(100, None, c)
+    assert half["ring_fwd"][0] * 2 == full["ring_fwd"][0]  # half the heads: half the operations a pair
+    assert half["ring_fwd"][1] * 4 == full["ring_fwd"][1]  # half the heads over half the length
+    calls = []
+    step = cs.skipped_ring_step(type("TR", (), {"ring_fwd_step": staticmethod(lambda **kw: calls.append(kw))}),
+                                1, 0, 2, cs.CP_TP_T)
+    assert step(q_pos0=4096, k_pos0=0) is None and not calls
+
+
+def test_cp_tp_phase_runs_after_cp_gang_in_main_and_reaches_the_report():
+    src = (ROOT / "chip_smoke.py").read_text()
+    main = src[src.index("def main() -> int:"):]
+    assert main.index('phase("cp-gang")') < main.index('phase("cp-tp")') < main.index("except SmokeFailure")
+    assert 'more["ring_fwd"]["cp_tp"] = tp_sum["ring_fwd"]' in main
+    assert '"cp_tp": cp_tp' in main

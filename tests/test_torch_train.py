@@ -228,11 +228,12 @@ def test_state_load_checks_every_leaf_before_copying():
 
 
 def test_unported_options_and_gangs_raise(monkeypatch):
-    """The axes still to port, a model axis beside a context axis (A12c), a global
-    batch that does not divide by the gang, and a gang launched without the
-    torch.distributed rendezvous. The expert axis is ported for every
-    family (Llama's leaves stay whole on it), and one process holds none
-    of 2."""
+    """The axes still to port, an expert axis beside a context axis (A11's
+    rest), a global batch that does not divide by the gang, and a gang
+    launched without the torch.distributed rendezvous. The expert axis is
+    ported for every family (Llama's leaves stay whole on it), and one
+    process holds none of 2; a model axis beside a context axis runs in a
+    gang (``tests/test_torch_cp_tp.py``)."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", stage_axis=2))
     with pytest.raises(ValueError, match="not divisible by model"):
@@ -245,8 +246,8 @@ def test_unported_options_and_gangs_raise(monkeypatch):
         with pytest.raises(ValueError, match="not divisible by model"):  # one process holds no model axis of 2
             TLp.run_lm_training(model, cfg, TLp.LoopConfig(device="cpu", model_axis=2))
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A12c"):  # a context axis alone spans a gang
-        TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", steps=1, context_axis=2, model_axis=2))
+    with pytest.raises(NotImplementedError, match="A11"):  # a context axis alone spans a gang
+        TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", steps=1, context_axis=2, expert_axis=2))
     monkeypatch.delenv("WORLD_SIZE")
     monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
     with pytest.raises(RuntimeError, match="framework=pytorch"):

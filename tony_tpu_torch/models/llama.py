@@ -27,8 +27,11 @@ heads, ``Hkv/tp`` kv heads, ``F/tp`` FFN columns), the row blocks of
 head. A block runs on its local heads (B1-B3 per rank): ``copy_to_model``
 at the input of the column products, ``reduce_from_model`` after the row
 products; the embedding takes its local rows and sums over the line; the
-loss is the vocab-parallel CE (``ops/layers.py``). Pipeline stages (A13)
-raise until they are ported.
+loss is the vocab-parallel CE (``ops/layers.py``). Beside a context axis
+in a gang each rank does this on its window of the rows, and its context
+ring (the ranks of its model index) moves the ``Hkv/tp`` kv heads it holds,
+as JAX's ring runs on each model line's heads. Pipeline stages (A13) raise
+until they are ported.
 """
 
 from __future__ import annotations
@@ -42,9 +45,10 @@ import torch
 from tony_tpu_torch.ops import attention as attn_ops
 from tony_tpu_torch.ops import layers as L
 from tony_tpu_torch.ops.ring import ring_attention_pallas, ring_attention_pallas_seg
-from tony_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
+from tony_tpu_torch.parallel.collectives import all_gather, copy_to_model, reduce_from_model
 from tony_tpu_torch.parallel.context import ring_attention, ulysses_attention
-from tony_tpu_torch.parallel.mesh import AXIS_MODEL, axis_size, context_degree, context_window, model_group
+from tony_tpu_torch.parallel.mesh import (AXIS_CONTEXT, AXIS_MODEL, axis_size, context_degree, context_window,
+                                          model_group)
 from tony_tpu_torch.parallel.sharding import P, Place, ShardingRules, gather, gathering, keep_whole
 
 
@@ -168,9 +172,14 @@ def sharding_rules(cfg: LlamaConfig) -> ShardingRules:
     ])
 
 
-def check_model_axis(cfg: LlamaConfig, tp: int) -> None:
+def check_model_axis(cfg: LlamaConfig, tp: int, mesh=None) -> None:
     """Refuse a model axis of ``tp`` that does not split whole heads, kv
-    heads, vocabulary rows and FFN columns."""
+    heads, vocabulary rows and FFN columns; beside a context axis of
+    ``mesh``, the ring kernels' refusal first, in JAX's words."""
+    if tp > 1 and cfg.cp_impl == "pallas" and axis_size(mesh, AXIS_CONTEXT) > 1 and cfg.n_kv_heads % tp:
+        raise ValueError(
+            "cp_impl='pallas' shards kv heads over 'model' and batch over data×fsdp explicitly: "
+            f"n_kv_heads {cfg.n_kv_heads} must divide by model={tp} (cp_impl='xla' has no such constraint)")
     if tp > 1 and (cfg.n_heads % tp or cfg.n_kv_heads % tp or cfg.vocab_size % tp or cfg.d_ff % tp):
         raise ValueError(f"n_heads {cfg.n_heads}, n_kv_heads {cfg.n_kv_heads}, vocab_size {cfg.vocab_size} "
                          f"and d_ff {cfg.d_ff} must divide the model axis ({tp})")
@@ -181,7 +190,13 @@ def _attention(q, k, v, cfg: LlamaConfig, mesh, segment_ids=None) -> torch.Tenso
     PyTorch ring, the ring kernels, or Ulysses' all-to-all) when the mesh's
     context axis is real, else single-device ``mha``.
 
-    q: [B, H, T, Dh]; k/v: [B, Hkv, T, Dh]; segment_ids [B, T] (packing)."""
+    q: [B, H, T, Dh]; k/v: [B, Hkv, T, Dh] (on a model axis this rank's
+    ``H/tp`` and ``Hkv/tp`` heads); segment_ids [B, T] (packing). Every
+    head is its own attention, so each route runs on the local heads, but
+    for Ulysses where its all-to-all does not split them over the context
+    degree while it splits all ``H`` (JAX's check, on the global heads):
+    the model line's heads are then gathered, all of them attended on every
+    rank of the line, and this rank's taken back."""
     if cfg.cp_impl not in ("xla", "pallas", "ulysses"):
         raise ValueError(f"cp_impl must be 'xla', 'pallas', or 'ulysses', got {cfg.cp_impl!r}")
     cp = context_degree(mesh, tensor_parallel=True)
@@ -209,7 +224,16 @@ def _attention(q, k, v, cfg: LlamaConfig, mesh, segment_ids=None) -> torch.Tenso
             if cfg.n_heads % cp:
                 raise ValueError(f"cp_impl='ulysses' needs n_heads {cfg.n_heads} divisible by the "
                                  f"context degree {cp} (use 'xla'/'pallas' ring)")
-            if cfg.n_kv_heads % cp:
+            group = model_group(mesh)
+            if group is not None and q.shape[1] % cp:
+                # the line's heads whole (the gather's backward sums each
+                # rank's gradient into its own block)
+                H = q.shape[1]
+                q, k, v = (all_gather(t, group, 1) for t in (q, k, v))
+                o = _attention(q, k, v, cfg, dataclasses.replace(mesh, shape={**mesh.shape, AXIS_MODEL: 1}))
+                m = mesh.axis_index(AXIS_MODEL)
+                return o[:, m * H:(m + 1) * H]
+            if k.shape[1] % cp:
                 k, v = attn_ops.repeat_kv(k, n_rep), attn_ops.repeat_kv(v, n_rep)
             return ulysses_attention(q, k, v, ring=ring, attn_fn=partial(
                 attn_ops.mha, causal=True, impl=cfg.attn_impl))
@@ -312,7 +336,7 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: LlamaConfig, mesh=Non
     ``segment_ids`` [B, T] confines attention within packed segments and
     restarts RoPE positions at every boundary."""
     T = tokens.shape[1]
-    check_model_axis(cfg, axis_size(mesh, AXIS_MODEL))
+    check_model_axis(cfg, axis_size(mesh, AXIS_MODEL), mesh)
     cos, sin = L.rope_frequencies(cfg.head_dim, T, cfg.rope_theta, cfg.rope_scaling,
                                   device=tokens.device)
     tokens, segment_ids, positions = context_inputs(tokens, mesh, segment_ids)

@@ -25,8 +25,11 @@ layer's ``attention_residual``): in one process on whole rows, in a gang on
 each process's window of them (``llama.context_inputs``), whose ``B·T/c``
 tokens the ragged dispatch routes through B7/B8, with the router losses
 over the whole batch (``group``: the data × fsdp × context ranks), as JAX's
-GSPMD run of ``_ragged_expert_ffn`` takes them. An expert axis beside a
-model or context axis (A11's rest) and ``pp_value_and_grad`` (A13) wait.
+GSPMD run of ``_ragged_expert_ffn`` takes them. Beside a model axis the
+window runs on the rank's heads and ``F/tp`` expert columns, and ``group``
+is the data × fsdp × context ranks of its model index. An expert axis
+beside a model or context axis (A11's rest) and ``pp_value_and_grad`` (A13)
+wait.
 
 ``moe_dispatch`` and ``capacity_factor`` are JAX's: the ragged dispatch
 (B7/B8 where eligible), ``ragged_xla``, and the capacity dispatches
@@ -180,7 +183,7 @@ def hidden_states(params: dict, tokens: torch.Tensor, cfg: MixtralConfig, mesh=N
     gates and left out of the router losses. ``group``: the ranks sharing
     the batch, over which the router losses are taken (``moe_ffn``)."""
     context_degree(mesh, tensor_parallel=True)  # a mesh the port does not run raises
-    llama_mod.check_model_axis(cfg, axis_size(mesh, AXIS_MODEL))
+    llama_mod.check_model_axis(cfg, axis_size(mesh, AXIS_MODEL), mesh)
     check_expert_axis(cfg.num_experts, axis_size(mesh, AXIS_EXPERT))
     T = tokens.shape[1]
     cos, sin = L.rope_frequencies(cfg.head_dim, T, cfg.rope_theta, cfg.rope_scaling,

@@ -18,7 +18,10 @@ four dispatches (``cfg.dispatch``):
   ``torch.matmul`` a group: XLA work in JAX, not a Pallas kernel);
 - ``"gather"`` and ``"dense"``: the capacity dispatches, plain products
   (``_expert_mlp``) on the dispatched ``[E, B, C, D]`` bank, with
-  ``moe_dropped_frac`` the share of choices past an expert's capacity.
+  ``moe_dropped_frac`` the share of choices past an expert's capacity. In a
+  context gang, whose ranks hold windows of the rows, the capacity and each
+  choice's slot are the whole row's, as JAX's GSPMD run on whole rows takes
+  them (``_route_common``).
 
 The experts run on this rank's rows. A mesh's axes change who computes what:
 
@@ -223,16 +226,34 @@ def _gating(x: torch.Tensor, router_w: torch.Tensor, cfg: MoEConfig,
     return gate_vals, gate_idx, choice_onehot, aux
 
 
-def _route_common(x, router_w, cfg: MoEConfig, token_mask=None, group=None):
+def _route_common(x, router_w, cfg: MoEConfig, token_mask=None, group=None, ring=None):
     """The capacity dispatches' routing prefix: the gating and each choice's
     capacity slot, counted over the row's choices k-major (``[B, T, K, E]``
-    positions; JAX's ``_route_common``)."""
+    positions; JAX's ``_route_common``).
+
+    ``ring``: the ``ProcessRing`` of a context gang, whose ranks hold the
+    windows of these rows in ring order. A choice's slot is still its place
+    among the whole row's choices: after every window's choices at k' < k,
+    then the earlier windows' at k, then this window's before it at k. One
+    all-gather of the windows' ``[B, K, E]`` counts gives both prefixes."""
     B, T, _ = x.shape
     E, K = cfg.num_experts, cfg.top_k
     gate_vals, gate_idx, onehot, aux = _gating(x, router_w, cfg, token_mask, group)
-    flat = onehot.transpose(1, 2).reshape(B, K * T, E)
-    pos = (torch.cumsum(flat, dim=1) - flat).reshape(B, K, T, E).transpose(1, 2)
+    if ring is None:
+        flat = onehot.transpose(1, 2).reshape(B, K * T, E)
+        pos = (torch.cumsum(flat, dim=1) - flat).reshape(B, K, T, E).transpose(1, 2)
+        return gate_vals, gate_idx, onehot, pos, aux
+    every = ring.all_gather([onehot.sum(dim=1)[None]], 0)                 # [windows, B, K, E]
+    total = every.sum(dim=0)
+    before = torch.cumsum(total, dim=1) - total + every[:ring.positions[0]].sum(dim=0)
+    pos = torch.cumsum(onehot, dim=1) - onehot + before[:, None]
     return gate_vals, gate_idx, onehot, pos, aux
+
+
+def _row_capacity(T: int, cfg: MoEConfig, ring) -> int:
+    """``capacity`` of a whole row, of which a context gang's rank holds a
+    window of ``T`` tokens."""
+    return capacity(T * (ring.n if ring is not None else 1), cfg)
 
 
 def _dropped_frac(kept: torch.Tensor, aux: dict, cfg: MoEConfig, group) -> dict:
@@ -249,13 +270,14 @@ def _dropped_frac(kept: torch.Tensor, aux: dict, cfg: MoEConfig, group) -> dict:
     return aux
 
 
-def route(x, router_w, cfg: MoEConfig, token_mask: torch.Tensor | None = None, group=None):
+def route(x, router_w, cfg: MoEConfig, token_mask: torch.Tensor | None = None, group=None, ring=None):
     """Top-k routing with capacity, GShard's dense representation: x [B, T,
     D] → (dispatch [B, T, E, C] 0/1, combine [B, T, E, C] f32, aux). A
-    choice past ``capacity(T)`` of its expert's slots in its row is dropped."""
-    T = x.shape[1]
-    C = capacity(T, cfg)
-    gate_vals, _, onehot, pos, aux = _route_common(x, router_w, cfg, token_mask, group)
+    choice past ``capacity(T)`` of its expert's slots in its row is dropped.
+    ``ring``: x holds a window of the rows (``_route_common``); C and the
+    slots are the whole row's, and this window's tokens fill its slots."""
+    C = _row_capacity(x.shape[1], cfg, ring)
+    gate_vals, _, onehot, pos, aux = _route_common(x, router_w, cfg, token_mask, group, ring)
     within = (pos < C).float()
     # one_hot of a position >= C is all zeros, as jax.nn.one_hot makes it
     slot = F.one_hot(pos.long().clamp(max=C), C + 1)[..., :C].float()        # [B,T,K,E,C]
@@ -265,13 +287,14 @@ def route(x, router_w, cfg: MoEConfig, token_mask: torch.Tensor | None = None, g
     return dispatch, combine, _dropped_frac(dispatch.sum(), aux, cfg, group)
 
 
-def route_indices(x, router_w, cfg: MoEConfig, token_mask: torch.Tensor | None = None, group=None):
+def route_indices(x, router_w, cfg: MoEConfig, token_mask: torch.Tensor | None = None, group=None, ring=None):
     """``route``'s slots as gather indices: (src [B, E, C] int64 token of
     each slot, valid [B, E, C] bool, gate [B, E, C] f32 combine weight,
-    aux). Masked tokens claim no slot."""
+    aux). Masked tokens claim no slot. ``ring``: as ``route``'s; a slot of
+    another window's token is not valid here."""
     B, T, _ = x.shape
-    E, C, K = cfg.num_experts, capacity(T, cfg), cfg.top_k
-    gate_vals, gate_idx, onehot, pos, aux = _route_common(x, router_w, cfg, token_mask, group)
+    E, C, K = cfg.num_experts, _row_capacity(T, cfg, ring), cfg.top_k
+    gate_vals, gate_idx, onehot, pos, aux = _route_common(x, router_w, cfg, token_mask, group, ring)
     pos_of_choice = (pos * onehot).sum(dim=-1).long()                         # [B,T,K]
     within = pos_of_choice < C
     if token_mask is not None:
@@ -544,21 +567,24 @@ def _capacity_ffn(x, router_w, w_gate, w_up, w_down, cfg: MoEConfig, mesh, token
     """The ``"gather"`` and ``"dense"`` dispatches: the routing on every rank
     of a line, this rank's experts' part of the dispatched bank and of the
     combine (all of them on a model line, whose ranks hold F columns), and
-    ``y`` summed over the line."""
+    ``y`` summed over the line. In a context gang the slots are the whole
+    row's (``_route_common``'s ``ring``): each window fills the bank's slots
+    of its own tokens, runs the experts on it and combines its tokens."""
     B, T, D = x.shape
     dtype = x.dtype
     line = expert_group(mesh) or model_group(mesh)
+    ring = mesh.ring if mesh is not None and mesh.context_line is not None else None
     lo, n_local = _expert_span(mesh, cfg.num_experts)
     mine = slice(lo, lo + n_local)
     rows = copy_to_model(x, line)
     if cfg.dispatch == "dense":
-        dispatch, combine, aux = route(x, router_w, cfg, token_mask, group)
+        dispatch, combine, aux = route(x, router_w, cfg, token_mask, group, ring)
         combine = copy_to_model(combine, line)[:, :, mine]
         xe = torch.einsum("btec,btd->ebcd", dispatch[:, :, mine].to(dtype), rows)
         ye = _expert_mlp(xe, w_gate, w_up, w_down)
         y = torch.einsum("ebcd,btec->btd", ye, combine.to(dtype))
         return reduce_from_model(y, line).to(dtype), aux
-    src, valid, gate, aux = route_indices(x, router_w, cfg, token_mask, group)
+    src, valid, gate, aux = route_indices(x, router_w, cfg, token_mask, group, ring)
     src, valid = checkpoint_name(src, "moe_route")[:, mine], checkpoint_name(valid, "moe_route")[:, mine]
     gate = copy_to_model(checkpoint_name(gate, "moe_route"), line)[:, mine]
     C = src.shape[-1]
@@ -588,11 +614,6 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor, w_up:
     ep = axis_size(mesh, AXIS_EXPERT)
     check_expert_axis(cfg.num_experts, ep)
     if cfg.dispatch in ("gather", "dense"):
-        if mesh is not None and mesh.context_line is not None:
-            raise NotImplementedError(
-                f"moe_dispatch {cfg.dispatch!r} in a context gang is not ported yet (ROADMAP queue A12d): "
-                "its capacity counts an expert's slots over a whole row, and each process holds a window of "
-                "the row; the context gang runs the 'ragged' and 'ragged_xla' dispatches")
         return _capacity_ffn(x, router_w, w_gate, w_up, w_down, cfg, mesh, token_mask, group)
     if ep > 1:
         return _ragged_expert_ffn_ep(x, router_w, w_gate, w_up, w_down, cfg, mesh, token_mask, group)

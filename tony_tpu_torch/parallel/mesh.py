@@ -40,11 +40,18 @@ gradients and router statistics are summed), and ``replicas`` is the data ×
 context line that holds this rank's fsdp blocks, over which the trainer
 averages them.
 
+A model axis beside a context axis runs Megatron's pair inside each
+window and the context ring on each model line, as JAX's ``shard_map`` over
+``P(BATCH_AXES, "model", "context", None)`` does: the ``ProcessRing`` of a
+rank is its context line, the ranks of its (data, fsdp, model) index, so KV
+moves only between the ranks that hold the same ``Hkv/model`` heads; the
+``group`` is the data × fsdp × context ranks of its model index, and
+``replicas`` the data × context ranks of its (fsdp, model) index.
+
 ``build`` gives a ``Mesh`` whose ``shape`` is the JAX mesh's dict and whose
-``device`` is the card (or the CPU, when asked for). A model axis beside a
-context axis (A12c), an expert axis beside a model or context axis (A11's
-rest: JAX's GSPMD gather fallback) and a stage axis above 1 (A13) raise
-until they are ported.
+``device`` is the card (or the CPU, when asked for). An expert axis beside a
+model or context axis (A11's rest: JAX's GSPMD gather fallback) and a stage
+axis above 1 (A13) raise until they are ported.
 """
 
 from __future__ import annotations
@@ -179,11 +186,6 @@ class MeshSpec:
                 f"an expert axis ({self.expert}) beside a model ({self.model}) or context ({self.context}) "
                 "axis is not ported yet (ROADMAP queue A11, the rest: JAX runs that layout through its GSPMD "
                 "gather dispatch); the port runs the expert axis with the data and fsdp axes")
-        if self.model > 1 and self.context > 1:
-            raise NotImplementedError(
-                f"a model axis ({self.model}) beside a context axis ({self.context}) is not ported yet "
-                "(ROADMAP queue A12c); the port runs the model axis (A8b) and the context axis (A12) "
-                "each with the data and fsdp axes")
         procs = self.data * self.fsdp * self.expert * self.context * self.model
         one_process = process_count() == 1 and procs == self.context
         if procs != process_count() and not one_process:

@@ -20,10 +20,12 @@ and at the end, and resume after a gang restart.
   it): the ranks of a model or expert line take the same rows, so rows,
   shards and the data cursor are cut by the data × fsdp index.
   ``context_axis > 1`` trains with every context shard on this process's
-  one device; a context axis across a gang or beside a model axis, the
+  one device, or in a gang one shard a process, each rank a window of its
+  line's rows; beside ``model_axis > 1`` (a gang of data × fsdp × context ×
+  model processes) each window runs on the rank's heads and columns. The
   model axis for BERT, an expert axis beside a model or context axis, and
   the stage axis raise until ported (ROADMAP queue A8b's second part, A11,
-  A12, A13).
+  A13).
 - Batches come from ``*.tonytok`` shards under ``data_dir`` through
   ``TokenLoader`` (a pure function of (data_seed, global slot); rank 0
   writes the consumption cursor beside each checkpoint and a resume
@@ -182,11 +184,6 @@ def _refuse_unported(model_module, loop: LoopConfig, model_cfg) -> None:
             raise NotImplementedError(
                 f"model_axis {loop.model_axis} for {name}: not ported yet — the port runs the model axis "
                 "for Llama and Mixtral (ROADMAP queue A8b's second part: BERT's wqkv blocks and MLM head)")
-        if loop.context_axis > 1:
-            raise NotImplementedError(
-                f"model_axis {loop.model_axis} with context_axis {loop.context_axis}: not ported yet "
-                "(ROADMAP queue A12c); the model axis and the context axis each run with the data and "
-                "fsdp axes")
     if loop.seq_len % loop.context_axis:
         raise ValueError(f"seq_len {loop.seq_len} does not split into context_axis "
                          f"{loop.context_axis} shards")

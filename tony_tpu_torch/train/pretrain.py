@@ -4,11 +4,15 @@ pytorch) on the data, fsdp, model, expert and context axes. With
 ``--context_axis C`` in a gang of ``C`` times the data × fsdp workers each
 process holds one window of the sequence, its attention the preset's
 ``cp_impl`` (the plain ring; ``run_lm_training`` with a config of
-``cp_impl="pallas"`` runs the ring kernels B9/B10):
+``cp_impl="pallas"`` runs the ring kernels B9/B10). ``--context_axis C
+--model_axis M`` together take a gang of ``C·M`` times the data × fsdp
+workers: each window on the rank's ``1/M`` of the heads and FFN columns,
+the ring on each model line's kv heads:
 
     python -m tony_tpu_torch.train.pretrain --preset llama3-8b [--steps N ...]
     python -m tony_tpu_torch.train.pretrain --preset tiny --device cpu --steps 3
     python -m tony_tpu_torch.train.pretrain --preset tiny --device cpu --steps 3 --context_axis 2
+    python -m tony_tpu_torch.train.pretrain --preset tiny --device cpu --steps 3 --context_axis 2 --model_axis 2
 """
 
 import sys

@@ -5,15 +5,17 @@ gang's global batch (``mixtral.loss_fn``'s ``group``), with
 ``--model_axis N`` on the model axis too (each expert's F over N ranks) or
 ``--expert_axis N`` on the expert axis (E/N whole experts a rank), or
 ``--context_axis N`` on the context axis (a window of the sequence a rank,
-as Llama's).
-``--moe_dispatch`` picks JAX's dispatch (ragged, ragged_xla, gather,
-dense) and ``--capacity_factor`` the capacity dispatches' slots:
+as Llama's), with ``--model_axis M`` beside it in a gang of ``N·M`` times
+the data × fsdp workers. ``--moe_dispatch`` picks JAX's dispatch (ragged,
+ragged_xla, gather, dense) and ``--capacity_factor`` the capacity
+dispatches' slots, which in a context gang are the whole row's:
 
     python -m tony_tpu_torch.train.pretrain_mixtral --preset mixtral-8x7b [--n_layers 1] [--steps N ...]
     python -m tony_tpu_torch.train.pretrain_mixtral --preset tiny --device cpu --steps 3 [--model_axis 2]
     python -m tony_tpu_torch.train.pretrain_mixtral --preset tiny --device cpu --steps 3 --expert_axis 2 \\
         [--moe_dispatch gather --capacity_factor 2.0]
-    python -m tony_tpu_torch.train.pretrain_mixtral --preset tiny --device cpu --steps 3 --context_axis 2
+    python -m tony_tpu_torch.train.pretrain_mixtral --preset tiny --device cpu --steps 3 --context_axis 2 \\
+        [--model_axis 2] [--moe_dispatch gather --capacity_factor 1.0]
 """
 
 import argparse

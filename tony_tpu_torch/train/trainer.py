@@ -58,15 +58,18 @@ ends with weight 1/R under this weighing.
 
 On a ``context`` axis across the gang the ranks of a context line take the
 same rows, each a window of the sequence, so their losses are over
-disjoint targets: ``group`` then spans data × fsdp × context (every rank),
-the weighing counts each rank's own targets (``n_r`` of its window), and
+disjoint targets: ``group`` then spans data × fsdp × context (every rank
+of this rank's model index, the whole gang without a model axis), the
+weighing counts each rank's own targets (``n_r`` of its window), and
 the mean of the weighed gradients over the group sums the context line's
 partial gradients (the ring's backward sends each window's dk/dv home, so
 a rank's gradient is its part of the line's). Every leaf is whole on the
 context axis: an fsdp block's gradient is averaged over ``Mesh.replicas``
 (the data × context ranks that hold it), and the global norm counts it
-once. Only the ranks that hold their own rows count as slots below
-(``Mesh.context_line`` names the line's group).
+once, as it counts a model block once a model rank (the norm sums over
+the split axes only, never over the context line, whose ranks hold the
+same reduced gradients). Only the ranks that hold their own rows count as
+slots below (``Mesh.context_line`` names the line's group).
 
 With ``accum_steps`` A > 1 the gang computes JAX's scan over the global
 batch: microbatch i is global rows i·mb … (i+1)·mb, one token mean each,
