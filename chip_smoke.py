@@ -79,7 +79,7 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
    bits are identical), B1 launched 2L / 2L / L times a forward and
    backward and B2, B3 L times; then the mean ms/step of 3 train steps and
    the peak memory under each;
-5a. gang: the training gang at ``llama-1b`` cut to 8 of its 16 layers
+5a. gang: the training gang at ``llama-1b`` cut to 4 of its 16 layers
    (bf16, remat "full", B=8, T=2048) on four ``*.tonytok`` shards written
    from a seed: ``tony submit`` (run as ``python -m tony_tpu.cli.main``, a
    subprocess) of ``python -m tony_tpu_torch.train.pretrain`` for 8 steps
@@ -271,23 +271,42 @@ Needs one CUDA card. Phases, any failure exits non-zero before the result:
     blocks (16 query and 4 kv heads, F/2, V/2), B9/B10 on those heads
     with KV between the two ranks of its model index, Megatron's pair and
     the vocab-parallel CE over its model line: Llama-3-8B widths cut to 1
-    layer, B=1, T=8192, 3 steps and a save, then a step of each planted
+    layer, B=1, T=8192, 2 steps and a save, then a step of each planted
     fault (a context ring across the model lines; ``reduce_from_model``
     over the context line); held to one process with the context of 2 on a
     ``DeviceRing``: losses and grad norms within ``GANG_LOSS_REL``, the
     step-1 ``wq``/``wk``/``wv`` gradients joined over the model line within
-    ``CP_STEP_GRAD_REL``, the step-3 parameters and moments within
+    ``CP_STEP_GRAD_REL``, the last step's parameters and moments within
     ``FSDP_STATE_REL``, the save restored into one process bit for bit,
     each rank's launches the schedule's for its ring position; prints the
     bytes, peak memory and ms/step a rank;
-20. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
+20. ``[pp]``: a gang of two processes on the one card over gloo on ``stage
+    2`` (A13a), the 1F1B schedule, one stage a process (its layer; the
+    embedding on stage 0, the final norm and head on stage 1), the
+    activations and gradients of each tick between the two:
+    Llama-3-8B widths cut to 2 layers, B=4, T=2048, 4 microbatches, 3
+    steps and a save, then a step of each planted fault (the backward
+    reading the next microbatch's residual; the schedule one tick short);
+    Mixtral-8x7B widths cut to 2 layers, 2 steps and a save, then a step of
+    its fault (the router losses' cotangent seeded without the token
+    count); each held to one process's ``make_train_step`` over the same
+    4 microbatches on the same seed, run before the gang: losses and grad
+    norms within ``GANG_LOSS_REL`` and the same on both ranks, the step-1
+    gradients of every leaf within ``CP_STEP_GRAD_REL`` of its max (the
+    router printed apart; each fault must fail), the last step's state
+    within ``FSDP_STATE_REL``, each save restored into one process bit for
+    bit, each rank's launches the schedule's (B1, B7 three times a layer and
+    microbatch, B2, B3, B8 once); prints the bytes reckoned a rank, peak
+    memory, ms/step, ticks and the ring exchange's share of a step;
+21. prints ``{"kernels": [...]}`` (B5 with its fleet launches, B1-B3 with
     their ``[bench-bert]`` launches and BERT cases, and the launches of the
-    phases of 12 to 19 as ``launches_hf_serve``, ``launches_mixtral_gang``,
+    phases of 12 to 20 as ``launches_hf_serve``, ``launches_mixtral_gang``,
     ``launches_fsdp``, the sum over the two ranks, ``launches_tp``,
     ``launches_mixtral_tp`` and ``launches_mixtral_ep``, one rank's,
     ``launches_mixtral_tp_serve``, ``launches_cp_train_mixtral``,
-    ``launches_cp_gang``, the sum over its two ranks' sound runs, and
-    ``launches_cp_tp``, the sum over its four ranks')
+    ``launches_cp_gang``, the sum over its two ranks' sound runs,
+    ``launches_cp_tp``, the sum over its four ranks', and ``launches_pp``,
+    stage 0's over both families' sound runs)
     and, last, ``{"ok": true, "device": {...}}``.
 
 Each phase prints ``[phase] <name> start`` and ``[phase] <name> <s>s``, so a
@@ -303,6 +322,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -343,10 +363,11 @@ FLASH_CASES = {
     "long": dict(B=1, T=8192, window=0, n_seg=1, **_LLAMA_HEADS),       # where JAX streams dk/dv
     "segments": dict(B=4, T=2048, window=0, n_seg=3, **_LLAMA_HEADS),   # 3 packed segments a row
     "window": dict(B=4, T=2048, window=1024, n_seg=1, **_LLAMA_HEADS),  # sliding window 1024
+    "pp": dict(B=1, T=2048, window=0, n_seg=1, **_LLAMA_HEADS),         # a [pp] microbatch: B/M = 1 row
     "bert": dict(B=384, T=512, window=0, n_seg=1, **_BERT_HEADS),       # bench.py's bert recipe
     "bert_packed": dict(B=64, T=512, window=0, n_seg=3, pad=True, **_BERT_HEADS),
 }
-LLAMA_FLASH_CASES = ("train", "long", "segments", "window")
+LLAMA_FLASH_CASES = ("train", "long", "segments", "window", "pp")
 #: run in the BERT phases, after the others; also held to the same bits twice
 #: and to a query head dropped by B1 and by B3 (each must fail the row limit)
 BERT_FLASH_CASES = ("bert", "bert_packed")
@@ -379,6 +400,7 @@ MOE_CASES = {
     "prefill": dict(tokens=1000, skew="random"),     # one 1000-token prompt
     "tp2": dict(tokens=2048, skew="random", F=MOE_F // 2),  # a [mixtral-tp] rank's F/2 blocks, B=1, T=2048
     "ep2": dict(tokens=2048, skew="random", experts=MOE_E // 2),  # a [mixtral-ep] rank's span of 4 experts
+    "pp": dict(tokens=2048, skew="random"),  # a [pp] microbatch: one row of 2048 tokens, all 8 experts, full F
 }
 # ys and dxs of the bf16 kernels against their plain versions row by row
 # (``row_rel_err``), each expert's dW in relative Frobenius norm: both sum in
@@ -441,7 +463,7 @@ CP_MOE_LAYERS, CP_MOE_STEPS = 2, 3
 # the training gang at llama-1b cut to GANG_LAYERS of its 16 layers (a cut
 # that keeps the command within its time limit): B=8, T=2048 over 4 seeded
 # shards, 8 steps with a checkpoint every 3 and a node loss at step 7 under
-# ``tony submit``. Saves are asynchronous and a write (~2.9 GB) outlasts
+# ``tony submit``. Saves are asynchronous and a write (~1.9 GB) outlasts
 # three steps, so the
 # save at step 6 first joins step 3's write: step 3 is published before
 # step 7 is reported, and the restart resumes at the newest step the
@@ -451,7 +473,7 @@ CP_MOE_LAYERS, CP_MOE_STEPS = 2, 3
 # kernel or library reduction on the path runs in another order between the
 # two (bf16, 8 steps: a few ulps of the loss)
 GANG_STEPS, GANG_CKPT_EVERY, GANG_LOSS_AT = 8, 3, 7
-GANG_LAYERS = 8
+GANG_LAYERS = 4
 GANG_B, GANG_T, GANG_SHARDS = 8, 2048, 4
 GANG_LOSS_REL = 2e-3
 
@@ -5151,10 +5173,10 @@ CP_GANG_GRAD_LEAVES = ("layers/wq", "layers/wk", "layers/wv")
 # step of each planted fault; held to one process with the context of 2 on a
 # DeviceRing as [cp-gang] is: losses and grad norms within GANG_LOSS_REL,
 # the step-1 attention gradients, joined over the model line, within
-# CP_STEP_GRAD_REL, the step-3 state within FSDP_STATE_REL
+# CP_STEP_GRAD_REL, the last step's state within FSDP_STATE_REL
 CP_TP_CONTEXT, CP_TP_MODEL = 2, 2
 CP_TP_RANKS = CP_TP_CONTEXT * CP_TP_MODEL
-CP_TP_LAYERS, CP_TP_T, CP_TP_STEPS = 1, 8192, 3
+CP_TP_LAYERS, CP_TP_T, CP_TP_STEPS = 1, 8192, 2
 #: the planted faults: a context ring across the model lines (each rank
 #: receives the other model rank's kv heads), and ``reduce_from_model``
 #: summing over the context line instead of the model line
@@ -5638,6 +5660,426 @@ def cp_tp_phase(torch, llama, A, out_dir: Path, card: str, cfg: dict | None = No
     return rec
 
 
+# [pp] (A13a): the 1F1B schedule across a gang of PP_RANKS processes on the
+# one card over gloo, ``MeshSpec(stage=2)``: each rank one stage (its L/2
+# layers; the embedding on stage 0, the final norm and head on stage 1),
+# the activations and gradients a tick over ``ProcessRing.exchange``.
+# Llama-3-8B widths at PP_LAYERS layers, B=PP_B, T=PP_T, PP_M microbatches,
+# remat "full", PP_STEPS steps and a save, then a step of each Llama fault;
+# Mixtral-8x7B widths at PP_MOE_LAYERS layers, the same B, T and M,
+# PP_MOE_STEPS steps and a save, then a step of its fault. Held to one
+# process's flat ``make_train_step`` on the same seed and batches with
+# ``accum_steps`` PP_M (run before the gang, never beside it: JAX's scan
+# over the same microbatches, so Mixtral's router losses are the same
+# per-microbatch statistics as the schedule's): losses and grad norms within
+# GANG_LOSS_REL, the step-1 gradients of every leaf a rank holds within
+# CP_STEP_GRAD_REL of the leaf's max (JAX's rule for its 1F1B tests; the
+# router printed apart), the last step's state within FSDP_STATE_REL, each
+# save restored into one process bit for bit
+PP_RANKS, PP_B, PP_T, PP_M = 2, 4, 2048, 4
+PP_LAYERS, PP_STEPS = 2, 3
+PP_MOE_LAYERS, PP_MOE_STEPS = 2, 2
+#: the planted faults: the backward unit reads the residual slot of the
+#: next microbatch; the tick loop stops one tick early (stage 0's last
+#: backward never runs); Mixtral's aux cotangent seeded without the
+#: pre-counted tokens
+PP_FAULTS = ("stale-residual", "short-schedule", "aux-unseeded")
+PP_RUNS = ("llama-ok", "stale-residual", "short-schedule", "mixtral-ok", "aux-unseeded")
+
+
+def plant_pp_fault(run: str, pipeline) -> None:
+    """Install ``run``'s planted fault in ``pipeline`` (nothing for a sound run)."""
+    if run == "stale-residual":
+        pipeline.Schedule.read_slot = lambda self, m: (m + 1) % (2 * self.stages)
+    if run == "short-schedule":
+        pipeline.Schedule.ticks = lambda self: self.microbatches + 2 * self.stages - 2
+    if run == "aux-unseeded":
+        real = pipeline.spmd_pipeline_1f1b
+        pipeline.spmd_pipeline_1f1b = lambda *a, **k: real(*a, **{**k, "aux_seed_scale": 1.0})
+
+
+def max_rel(torch, got, want) -> float:
+    """‖got − want‖∞ / ‖want‖∞ in f32 (JAX's rule in its 1F1B tests)."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def pp_stage_block(name: str, whole, stage: int, stages: int = PP_RANKS):
+    """The part of a whole leaf that stage ``stage`` holds: its block of a
+    stacked layer leaf, the leaf itself otherwise."""
+    return whole.chunk(stages, 0)[stage] if name.startswith("layers/") else whole
+
+
+def pp_rank(spec_json: str) -> None:
+    """One rank of the ``[pp]`` gang (``RANK`` in the env, its stage):
+    ``run_lm_training`` with ``stage_axis`` 2 for each run of the spec, each
+    in a gloo group of its own (a file store under the spec's directory):
+    each run's step reports, kernel launches, the step-1 gradient error of
+    each leaf it holds against one process's (read from the spec's file),
+    the schedule's ``Ticks`` a step, the fingerprint and shape
+    of each leaf it hands a save, peak memory and wall. Writes
+    ``rank<r>.json`` there."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from tony_tpu_torch.models import llama, mixtral
+    from tony_tpu_torch.ops import attention as A
+    from tony_tpu_torch.ops import moe_gemm as MG
+    from tony_tpu_torch.parallel import pipeline
+    from tony_tpu_torch.train import checkpoint as C
+    from tony_tpu_torch.train import trainer
+    from tony_tpu_torch.train.loop import LoopConfig, run_lm_training
+
+    spec = json.loads(spec_json)
+    rank, work = int(os.environ["RANK"]), Path(spec["dir"])
+    cuda = spec["device"] == "cuda"
+    real = (C.CheckpointManager.save, pipeline.Schedule.read_slot, pipeline.Schedule.ticks,
+            pipeline.spmd_pipeline_1f1b, trainer.AdamW.update)
+    out, refs = {}, {}
+    for run in spec["runs"]:
+        saves, errs, stats, timing = {}, {}, [], {}
+        fam = spec[run]["model"]
+
+        def save(self, step, state, force=False):
+            local = {name: t.to_local() if hasattr(t, "to_local") else t for name, t in _leaves(state)}
+            saves[step] = {name: {"shape": list(t.shape), "fp": fingerprint(torch, t)}
+                           for name, t in local.items() if hasattr(t, "shape")}
+            return real[0](self, step, state, force=force)
+
+        def update(self, params, grads, state, norm):
+            if not errs:  # the first step's gradients against one process's, leaf by leaf
+                t0 = time.perf_counter()
+                if fam not in refs:  # this stage's part of them, read once a family
+                    refs.clear()
+                    whole = torch.load(work / f"ref-{fam}.pt", mmap=True)
+                    refs[fam] = {n: pp_stage_block(n, whole[n], rank).to(g.device) for n, g in grads.items()}
+                    del whole
+                for name, g in grads.items():
+                    errs[name] = max_rel(torch, g, refs[fam][name])
+                timing["compare_s"] = time.perf_counter() - t0
+            return real[4](self, params, grads, state, norm)
+
+        if cuda:
+            torch.cuda.set_device(0)
+            torch.cuda.reset_peak_memory_stats()
+        dist.init_process_group(FSDP_BACKEND, init_method=f"file://{work / ('store-' + run)}",
+                                world_size=PP_RANKS, rank=rank)
+        C.CheckpointManager.save = save
+        trainer.AdamW.update = update
+        plant_pp_fault(run, pipeline)
+        schedule = pipeline.spmd_pipeline_1f1b
+
+        def timed(*a, schedule=schedule, stats=stats, **k):
+            out = schedule(*a, **k)
+            stats.append(dict(vars(out[-1])))
+            return out
+
+        pipeline.spmd_pipeline_1f1b = timed
+        for mod in (A, MG):
+            mod.reset_launches()
+        model = {"llama": llama, "mixtral": mixtral}[fam]
+        t0 = time.perf_counter()
+        try:
+            res = run_lm_training(model, model.config_from_dict(spec[run]["cfg"]), LoopConfig(**spec[run]["loop"]))
+        finally:
+            (C.CheckpointManager.save, pipeline.Schedule.read_slot, pipeline.Schedule.ticks,
+             pipeline.spmd_pipeline_1f1b, trainer.AdamW.update) = real
+        out[run] = {"log": res["log"], "launches": {**A.launches, **MG.launches}, "saves": saves, "grad_err": errs,
+                    "stats": stats, "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
+                    "wall_s": time.perf_counter() - t0, **timing}
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def pp_launches(L: int, steps: int, moe: bool, stage: int, M: int = PP_M, stages: int = PP_RANKS) -> dict:
+    """Stage ``stage``'s launches in ``steps`` steps of L layers (L/S a
+    stage) under remat "full": B1 (B7) three times a layer and microbatch
+    (the forward unit, then the backward unit's recompute and its remat
+    replay), twice on the last stage (its forward unit runs no layer), B2,
+    B3 (B8) once."""
+    passes = M * (L // stages) * steps
+    fwd = (2 if stage == stages - 1 else 3) * passes
+    out = {"flash_fwd": fwd, "flash_bwd_dq": passes, "flash_bwd_dkv": passes}
+    out.update({"moe_fwd": fwd, "moe_bwd": passes} if moe else {"moe_fwd": 0, "moe_bwd": 0})
+    return out
+
+
+def pp_bytes(tree: dict, stage: int, stages: int = PP_RANKS) -> dict:
+    """A stage's parameters (its L/S layers, the embedding on the first
+    stage, the final norm and head on the last) and the bytes it holds of
+    them, of their moments, of the f32 accumulators and the gradients,
+    reckoned from the parameter tree (on the meta device) before any run."""
+    from tony_tpu_torch.parallel.sharding import stage_owner
+
+    n = nbytes = 0
+    for name, t in _leaves(tree):
+        owner = stage_owner(name, stages)
+        if owner is None:
+            k = t.numel() // stages
+        elif owner == stage:
+            k = t.numel()
+        else:
+            continue
+        n += k
+        nbytes += k * t.element_size()
+    return {"params": n, "param_bytes": nbytes, "moment_bytes": 2 * nbytes, "grad_bytes": nbytes,
+            "acc_bytes": 4 * n, "total_bytes": 4 * nbytes + 4 * n}
+
+
+def pp_reference(torch, model, model_cfg, steps: int, B: int, T: int, device: str, grads_path: Path) -> dict:
+    """One process's ``steps`` of ``make_train_step`` with ``accum_steps``
+    PP_M from the weights and batches the loop draws on its seed (the
+    loop's init and synthetic batches): each step's loss, grad norm and ms,
+    the step-1 gradients written to ``grads_path`` in each leaf's dtype (the
+    schedule's are cast to it), the final state on the host, and the peak
+    memory."""
+    from tony_tpu_torch.train import trainer
+    from tony_tpu_torch.train.loop import _batch_generator
+
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    opt = trainer.OptimizerConfig(learning_rate=3e-4, warmup_steps=1, total_steps=steps).build()
+    state = trainer.TrainState.create(model.init(torch.Generator(device=device).manual_seed(0), model_cfg, device),
+                                      opt)
+    step_fn = trainer.make_train_step(functools.partial(model.loss_fn, cfg=model_cfg), opt, accum_steps=PP_M)
+    dtypes = {n: p.dtype for n, p in _leaves(state.params)}
+    real = trainer.AdamW.update
+
+    def update(self, params, grads, opt_state, norm):
+        if opt_state["count"] == 0:  # the step-1 gradients, in each leaf's dtype, as the schedule gives them
+            torch.save({n: g.detach().to(dtypes[n]).cpu() for n, g in grads.items()}, grads_path)
+        return real(self, params, grads, opt_state, norm)
+
+    trainer.AdamW.update = update
+    log = []
+    try:
+        for s in range(steps):
+            batch = model.synthetic_batch(_batch_generator(torch.device(device), 0, s), B, T, model_cfg)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])  # synchronises the device
+            log.append({"step": s + 1, "loss": loss, "grad_norm": norm,
+                        "step_time_ms": round((time.perf_counter() - t0) * 1000, 2)})
+    finally:
+        trainer.AdamW.update = real
+    out = {"log": log, "peak": torch.cuda.max_memory_allocated() if cuda else 0,
+           "state": {"params": {n: t.detach().cpu() for n, t in _leaves(state.params)},
+                     **{part: {n: t.cpu() for n, t in state.opt_state[part].items()} for part in ("mu", "nu")}}}
+    del state, step_fn
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_line(rec: dict, card: str) -> str:
+    """The ``[pp]`` report line."""
+    faults = "; ".join(f"{k}: loss {v['loss']} grad norm {v['grad_norm']} against one process's "
+                       f"{v['one_loss']} / {v['one_grad_norm']}, step-1 gradients worst rel {v['worst_grad']:.2e} "
+                       f"({v['worst_leaf']})" + (f", router {v['router']:.2e}" if "router" in v else "") + ", failed"
+                       for k, v in rec["faults"].items())
+    parts = []
+    for fam in ("llama", "mixtral"):
+        r = rec[fam]
+        router = f", router {r['router_err']:.2e}" if fam == "mixtral" else ""
+        state = ", ".join(f"{k} {v:.2e} ({r['state_leaf'][k]})" for k, v in r["state_rel"].items())
+        parts.append(
+            f"{r['preset']} widths {r['layers']} layers B={r['batch']} T={r['seq_len']} M={PP_M}: losses {r['losses']} "
+            f"grad norms "
+            f"{r['grad_norms']} (one process {r['one_losses']} / {r['one_grad_norms']}, worst rel "
+            f"{r['worst_rel']:.2e}, limit {FSDP_REL:.0e}); step-1 gradients of every leaf a rank holds, worst "
+            f"{r['worst_grad']:.2e} ({r['worst_leaf']}){router} (limit {CP_STEP_GRAD_REL:.0e}); step "
+            f"{r['restored_step']} parameters and moments against one process's, worst {state} (limit "
+            f"{FSDP_STATE_REL:.0e}); the save restored into one process bit for bit in {r['restore_s']:.1f} s; "
+            f"launches a rank {r['launches']} (the schedule's); reckoned a rank {r['reckoned']}; peak a rank "
+            f"{[round(b / 2**30, 2) for b in r['peak_bytes']]} GiB (one process {r['one_peak_bytes'] / 2**30:.2f} "
+            f"GiB); ms/step a rank {r['step_ms']} (first step apart; one process {r['one_step_ms']}); "
+            f"{r['ticks']} ticks a step; shares of a rank's steps after the first: waiting for its own units "
+            f"before the ring exchange {r['sync_share']}, in the ring exchange {r['exchange_share']} (the "
+            f"transfer and the wait for the peer), the fastest tick's exchange times the ticks "
+            f"{r['transfer_share']} (the transfer alone, at most)")
+    return (f"[pp] {PP_RANKS} ranks on one card over {FSDP_BACKEND}, stage {PP_RANKS}, 1F1B: " + "; ".join(parts)
+            + f"; seconds {rec['seconds']}; planted faults, {faults}; {card}")
+
+
+def pp_phase(torch, llama, mixtral, out_dir: Path, card: str, cfgs: dict | None = None,
+             B: int = PP_B, T: int = PP_T, device: str = "cuda") -> dict:
+    """``[pp]``: the 1F1B gang of ``PP_RANKS`` on the card, one stage a
+    process, at Llama-3-8B and Mixtral-8x7B widths cut to depth (``cfgs``
+    {"llama", "mixtral"}, ``B``, ``T`` and ``device`` other configs, sizes
+    and device): Llama ``PP_STEPS`` steps with a save and a step of each of
+    its faults, Mixtral ``PP_MOE_STEPS`` steps with a save and a step of its
+    fault. One process first runs each family's flat step on the same seed,
+    its step-1 gradients written for the ranks. Each rank's losses and grad
+    norms must be one process's within ``GANG_LOSS_REL`` and the two ranks'
+    the same, its step-1 gradients within ``CP_STEP_GRAD_REL`` (the router
+    printed apart), its launches the schedule's, each save restored into
+    one process the leaves the ranks handed it, bit for bit, its state one
+    process's within ``FSDP_STATE_REL``; each planted fault must fail a
+    check. Prints the bytes reckoned a rank, peak memory, ms/step, ticks and
+    the shares of a step that the schedule's clocks (``pipeline.Ticks``)
+    read."""
+    from tony_tpu_torch.train.checkpoint import restore_or_init
+    from tony_tpu_torch.train.trainer import OptimizerConfig, TrainState
+
+    cfgs = cfgs or {"llama": {"preset": "llama3-8b", "n_layers": PP_LAYERS},
+                    "mixtral": {"preset": "mixtral-8x7b", "n_layers": PP_MOE_LAYERS}}
+    models = {"llama": llama, "mixtral": mixtral}
+    steps = {"llama": PP_STEPS, "mixtral": PP_MOE_STEPS}
+    cuda = device == "cuda"
+    work = (out_dir / "pp").resolve()  # the ranks' file store takes an absolute path
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    loop = dict(batch_size=B, seq_len=T, log_every=1, warmup_steps=1, device=device)
+    pp = dict(loop, stage_axis=PP_RANKS, pp_microbatches=PP_M)
+    fam_of = {"llama-ok": "llama", "stale-residual": "llama", "short-schedule": "llama", "mixtral-ok": "mixtral",
+              "aux-unseeded": "mixtral"}
+    spec = {"dir": str(work), "device": device, "runs": list(PP_RUNS),
+            **{run: {"model": fam, "cfg": cfgs[fam],
+                     "loop": dict(pp, steps=steps[fam], checkpoint_dir=str(work / f"ckpt-{fam}"),
+                                  checkpoint_every=steps[fam]) if run.endswith("-ok") else dict(pp, steps=1)}
+               for run, fam in fam_of.items()}}
+    rec: dict = {"faults": {}}
+    seconds: dict = {}
+    shapes = {fam: model.init(torch.Generator(), model.config_from_dict(cfgs[fam]), "meta")
+              for fam, model in models.items()}
+    reckoned = {fam: [pp_bytes(shapes[fam], s) for s in range(PP_RANKS)] for fam in models}
+    for fam, r in reckoned.items():
+        print(f"[pp] {fam} reckoned a rank before any run: " + "; ".join(
+            f"stage {s}: {x['params'] / 1e9:.3f} G parameters, {x['total_bytes'] / 2**30:.2f} GiB of parameters, "
+            f"moments, gradients and f32 accumulators" for s, x in enumerate(r)), flush=True)
+
+    # one process's steps first, each family's step-1 gradients on disk
+    one: dict = {}
+    for fam, model in models.items():
+        t0 = time.perf_counter()
+        one[fam] = pp_reference(torch, model, model.config_from_dict(cfgs[fam]), steps[fam], B, T, device,
+                                work / f"ref-{fam}.pt")
+        seconds[f"one_{fam}"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ranks = run_gang(work, spec, "pp_rank", PP_RANKS, "pp", timeout=900)
+    seconds["gang"] = time.perf_counter() - t0
+    for run in PP_RUNS:
+        print(f"[pp] {run}: wall a rank {[round(x[run]['wall_s'], 1) for x in ranks]} s (the step-1 gradient "
+              f"comparison {[round(x[run].get('compare_s', 0), 1) for x in ranks]} s of it), ms/step a rank "
+              f"{[[y['step_time_ms'] for y in x[run]['log']] for x in ranks]}, losses "
+              f"{[[y['loss'] for y in x[run]['log']] for x in ranks]}, step-1 gradients worst rel a rank "
+              f"{[max(x[run]['grad_err'].values()) for x in ranks]}; {card}", flush=True)
+
+    def grad_worst(run: str) -> tuple[float, str]:
+        return max((e, n) for x in ranks for n, e in x[run]["grad_err"].items())
+
+    for fam, model in models.items():
+        model_cfg = model.config_from_dict(cfgs[fam])
+        run = f"{fam}-ok"
+        keys = ("loss", "grad_norm")
+        worst = fsdp_check(ranks, one[fam]["log"], run, tag="pp", keys=keys)
+        logs = [[{k: x[k] for k in ("step", *keys)} for x in r_[run]["log"]] for r_ in ranks]
+        check(all(lg == logs[0] for lg in logs), f"pp: {fam} the ranks' losses and grad norms differ: {logs}")
+        router = max((e for x in ranks for n, e in x[run]["grad_err"].items() if n == "layers/router"), default=0.0)
+        worst_grad, worst_leaf = max((e, n) for x in ranks for n, e in x[run]["grad_err"].items()
+                                     if n != "layers/router")
+        print(f"[pp] {fam} step-1 gradients a rank: "
+              + "; ".join(f"rank {i} " + ", ".join(f"{n} {e:.2e}" for n, e in sorted(x[run]["grad_err"].items()))
+                          for i, x in enumerate(ranks)), flush=True)
+        check(worst_grad <= CP_STEP_GRAD_REL, f"pp: {fam} step-1 gradient of {worst_leaf} against one process's: "
+                                              f"{worst_grad:.2e} > {CP_STEP_GRAD_REL:.0e}")
+        check(router <= CP_STEP_GRAD_REL, f"pp: {fam} step-1 router gradient against one process's: "
+                                          f"{router:.2e} > {CP_STEP_GRAD_REL:.0e}")
+        launches = [r_[run]["launches"] for r_ in ranks]
+        want = [pp_launches(model_cfg.n_layers, steps[fam], fam == "mixtral", i) for i in range(PP_RANKS)]
+        for i, got in enumerate(launches):
+            got = {k: got[k] for k in want[i]}
+            check(got == want[i] if cuda else not any(got.values()),
+                  f"pp: {fam} rank {i} launches {got}, the schedule's {want[i]}")
+        stats = [r_[run]["stats"] for r_ in ranks]
+        step_ms = [[x["step_time_ms"] for x in r_[run]["log"]] for r_ in ranks]
+        steady = [sum(ms[1:]) / max(len(ms) - 1, 1) for ms in step_ms]
+
+        def share(key: str, per_tick: bool = False) -> list:
+            """A clock's share of each rank's steps after the first."""
+            return [round(sum(s[key] * (s["ticks"] if per_tick else 1) for s in st[1:]) * 1000
+                          / max(sum(ms[1:]), 1e-9), 3) for st, ms in zip(stats, step_ms)]
+        r = {"preset": cfgs[fam]["preset"], "layers": model_cfg.n_layers, "batch": B, "seq_len": T,
+             "losses": [x["loss"] for x in ranks[0][run]["log"]],
+             "grad_norms": [x["grad_norm"] for x in ranks[0][run]["log"]],
+             "one_losses": [x["loss"] for x in one[fam]["log"]],
+             "one_grad_norms": [x["grad_norm"] for x in one[fam]["log"]], "worst_rel": worst,
+             "worst_grad": worst_grad, "worst_leaf": worst_leaf, "router_err": router,
+             "launches": [{k: v for k, v in x.items() if v} for x in launches], "launches_want": want,
+             "reckoned": [f"{x['params'] / 1e9:.3f} G params, {x['total_bytes'] / 2**30:.2f} GiB"
+                          for x in reckoned[fam]],
+             "peak_bytes": [r_[run]["peak_bytes"] for r_ in ranks], "one_peak_bytes": one[fam]["peak"],
+             "step_ms": step_ms, "one_step_ms": [x["step_time_ms"] for x in one[fam]["log"]],
+             "ticks": stats[0][0]["ticks"], "ticks_s": stats,
+             "sync_share": share("sync_s"), "exchange_share": share("exchange_s"),
+             "transfer_share": share("fastest_s", per_tick=True), "steady_ms": steady}
+        # the save, restored into one process: the leaves the ranks handed it, bit for bit
+        opt = OptimizerConfig(learning_rate=3e-4, warmup_steps=1, total_steps=steps[fam]).build()
+        t0 = time.perf_counter()
+        state, _, step = restore_or_init(str(work / f"ckpt-{fam}"), lambda: TrainState.create(
+            model.init(torch.Generator(device=device).manual_seed(1), model_cfg, device), opt), TrainState.load)
+        r["restore_s"] = time.perf_counter() - t0
+        check(step == steps[fam], f"pp: {fam} one process restored step {step}, want {steps[fam]}")
+        whole = dict(_leaves(state.state_dict()))
+        for i, x in enumerate(ranks):
+            saved = x[run]["saves"][str(step)]
+            check(set(saved) <= set(whole), f"pp: {fam} rank {i} saved leaves the restore lacks")
+            for name, got in saved.items():
+                leaf = name.split("/", 1)[1] if name.startswith("params/") else name.split("/", 2)[-1]
+                block = pp_stage_block(leaf, whole[name], i)
+                check(got["fp"] == fingerprint(torch, block) and got["shape"] == list(block.shape),
+                      f"pp: {fam} rank {i}'s {name} at step {step} is not the one-process restore's")
+        check(all(name in set().union(*(x[run]["saves"][str(step)] for x in ranks))
+                  for name, t in whole.items() if hasattr(t, "shape")),
+              f"pp: {fam} a leaf of the restore was saved by no rank")
+        r["state_rel"], r["state_leaf"] = {}, {}
+        for part in ("params", "mu", "nu"):
+            mine = dict(_leaves(state.params if part == "params" else state.opt_state[part]))
+            worst_s = (0.0, "")
+            for name, ref in one[fam]["state"][part].items():
+                for i in range(PP_RANKS if name.startswith("layers/") else 1):
+                    a = pp_stage_block(name, mine[name].detach(), i)
+                    b = pp_stage_block(name, ref, i).to(a.device).float()
+                    err = float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
+                    worst_s = max(worst_s, (err, name))
+            r["state_rel"][part], r["state_leaf"][part] = worst_s
+            check(worst_s[0] <= FSDP_STATE_REL, f"pp: {fam} step {step} {part}/{worst_s[1]}: {worst_s[0]:.2e} > "
+                                                f"{FSDP_STATE_REL:.0e} from one process's")
+        r["restored_step"] = step
+        del state, whole
+        gc.collect()
+        rec[fam] = r
+        # the planted faults of this family: each must fail a check
+        for fault in [f for f in PP_FAULTS if fam_of[f] == fam]:
+            log0 = [x[fault]["log"][0] for x in ranks]
+            got = {"loss": [x["loss"] for x in log0], "grad_norm": [x["grad_norm"] for x in log0],
+                   "one_loss": one[fam]["log"][0]["loss"], "one_grad_norm": one[fam]["log"][0]["grad_norm"]}
+            got["worst_grad"], got["worst_leaf"] = grad_worst(fault)
+            if fam == "mixtral":
+                got["router"] = max(x[fault]["grad_err"]["layers/router"] for x in ranks)
+            try:
+                fsdp_check(ranks, one[fam]["log"], fault, tag="pp")
+                check(got["worst_grad"] <= CP_STEP_GRAD_REL, "step-1 gradients")
+            except SmokeFailure:
+                rec["faults"][fault] = got
+            check(fault in rec["faults"], f"pp: the planted fault {fault!r} passed: {got}")
+    for fam in models:
+        del one[fam]["state"]
+    shutil.rmtree(work, ignore_errors=True)
+    rec["seconds"] = {k: round(v, 1) for k, v in seconds.items()}
+    rec["launches_rank"] = [{k: x["llama-ok"]["launches"][k] + x["mixtral-ok"]["launches"][k]
+                             for k in x["llama-ok"]["launches"]} for x in ranks]
+    rec["launches_sum"] = {k: sum(x[k] for x in rec["launches_rank"]) for k in rec["launches_rank"][0]}
+    print(pp_line(rec, card), flush=True)
+    return rec
+
+
 class Phases:
     """``with phases(name):`` runs one phase between a start line and its
     seconds, so a failure is named by the last start line (and by
@@ -5897,6 +6339,10 @@ def main() -> int:
         # window and a model block, B9/B10 on its 16 query and 4 kv heads
         with phase("cp-tp"):
             cp_tp = cp_tp_phase(torch, llama, A, out_dir, card)
+        # pipeline stages (A13a), last: one stage a process, the 1F1B
+        # schedule's activations and gradients between the two on the card
+        with phase("pp"):
+            pp = pp_phase(torch, llama, mixtral, out_dir, card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED in phase {phase.current}: {e}", file=sys.stderr, flush=True)
         return 1
@@ -5925,6 +6371,8 @@ def main() -> int:
             more[k]["cp_gang"] = n
         tp_sum = cp_tp["launches_sum"]
         more["ring_fwd"]["cp_tp"] = tp_sum["ring_fwd"]
+        for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "moe_fwd", "moe_bwd"):
+            more[k]["pp"] = pp["launches_sum"][k]
         more["ring_bwd"]["cp_tp"] = tp_sum["ring_bwd_dq"] + tp_sum["ring_bwd_dkv"]
         for k in ("paged_decode_attention", "int8_matmul"):
             more[k] = {"hf_serve": hf_serve["launches"][k]}
@@ -5946,7 +6394,7 @@ def main() -> int:
          "resnet": {"whole_step": resnet_step, "train": resnet_train},
          "hf": {"load": hf_load, "serve": hf_serve}, "mixtral_gang": mixtral_gang, "fsdp": fsdp, "tp": tp,
          "tp_serve": tp_serve, "mixtral_tp": mixtral_tp, "mixtral_tp_serve": mixtral_tp_serve,
-         "cp_gang": cp_gang, "cp_tp": cp_tp}, indent=1))
+         "cp_gang": cp_gang, "cp_tp": cp_tp, "pp": pp}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

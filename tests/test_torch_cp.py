@@ -261,9 +261,10 @@ def test_mesh_spec_builds_a_context_ring_and_refuses_other_axes():
     mesh = MeshSpec(context=4).build("cpu")
     assert mesh.shape == {"stage": 1, "data": 1, "fsdp": 1, "expert": 1, "context": 4, "model": 1}
     assert isinstance(mesh.ring, DeviceRing) and mesh.ring.n == 4 and mesh.device.type == "cpu"
-    for kw, item in ((dict(expert=2), "A11"), (dict(stage=2), "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            MeshSpec(context=2, **kw).build("cpu")
+    with pytest.raises(NotImplementedError, match="A11"):
+        MeshSpec(context=2, expert=2).build("cpu")
+    with pytest.raises(ValueError, match="pipeline parallelism does not compose with a context axis"):  # JAX's
+        MeshSpec(context=2, stage=2).build("cpu")
     # a data or model axis beside the context axis is a gang's (one process
     # a shard; tests/test_torch_cp_tp.py for the model axis); one process
     # holds a context axis alone

@@ -604,10 +604,10 @@ def test_pretrain_mixtral_passes_the_dispatch_fields(monkeypatch):
 
 def test_the_expert_axis_refuses_what_is_not_ported():
     """An expert axis beside a model or context axis (A11's rest, Llama's
-    too), with stages (A13), or over experts it does not divide (JAX's
+    too), with stages (A13c), or over experts it does not divide (JAX's
     words) raises before anything is built."""
     for kw, item in ((dict(expert=2, model=2), "A11"), (dict(expert=2, context=2), "A11"),
-                     (dict(expert=2, stage=2), "A13")):
+                     (dict(expert=2, stage=2), "A13c")):
         with pytest.raises(NotImplementedError, match=item):
             MeshSpec(**kw).build("cpu")
     with pytest.raises(NotImplementedError, match="A11"):

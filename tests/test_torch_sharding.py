@@ -120,14 +120,14 @@ def test_one_process_fills_a_mesh_of_one_and_refuses_a_bigger_gang(monkeypatch):
 
 def test_an_fsdp_axis_of_one_moves_nothing():
     """No mesh, or a mesh whose fsdp axis is 1: every leaf whole, the
-    placements on the gang's (data, fsdp, expert, context, model) dims all ``Replicate``,
+    placements on the gang's (stage, data, fsdp, expert, context, model) dims all ``Replicate``,
     and ``gather``/``gathering`` the identity."""
     from torch.distributed.tensor import Replicate
 
     rules = TL.sharding_rules(TL.LLAMA_TINY)
     w = torch.randn(4, 8)
     for mesh in (None, TMesh.MeshSpec().build("cpu")):
-        assert TS.placements(rules.spec_for("embed"), mesh) == [Replicate()] * len(TMesh.GANG_AXES) == [Replicate()] * 5
+        assert TS.placements(rules.spec_for("embed"), mesh) == [Replicate()] * len(TMesh.GANG_AXES) == [Replicate()] * 6
         assert TS.shard(w, rules.spec_for("embed"), mesh) is w
         assert TS.gather(w, rules.spec_for("embed"), mesh) is w
         block = lambda x, lp: x  # noqa: E731

@@ -291,15 +291,17 @@ def test_kv_handoff_prompt_is_five_full_pages():
 
 
 def test_llama_flash_cases_keep_their_values_and_bert_cases_read_theirs():
-    """The four Llama-3-8B cases keep their shapes (causal GQA, Dh 128) and
-    run in the early kernel phase; the BERT cases (bench.py's shape and packed
-    rows, non-causal MHA, Dh 64) only in the BERT phases."""
+    """The Llama-3-8B cases keep their shapes (causal GQA, Dh 128), with
+    ``[pp]``'s microbatch of one row beside them, and run in the early kernel
+    phase; the BERT cases (bench.py's shape and packed rows, non-causal MHA,
+    Dh 64) only in the BERT phases."""
     heads = dict(H=32, Hkv=8, Dh=128, causal=True)
     assert {n: cs.FLASH_CASES[n] for n in cs.LLAMA_FLASH_CASES} == {
         "train": dict(B=4, T=2048, window=0, n_seg=1, **heads),
         "long": dict(B=1, T=8192, window=0, n_seg=1, **heads),
         "segments": dict(B=4, T=2048, window=0, n_seg=3, **heads),
         "window": dict(B=4, T=2048, window=1024, n_seg=1, **heads),
+        "pp": dict(B=1, T=2048, window=0, n_seg=1, **heads),
     }
     bert_heads = dict(H=12, Hkv=12, Dh=64, causal=False, window=0)
     assert cs.FLASH_CASES["bert"] == dict(B=384, T=512, n_seg=1, **bert_heads)
@@ -1069,3 +1071,98 @@ def test_cp_tp_phase_runs_after_cp_gang_in_main_and_reaches_the_report():
     assert main.index('phase("cp-gang")') < main.index('phase("cp-tp")') < main.index("except SmokeFailure")
     assert 'more["ring_fwd"]["cp_tp"] = tp_sum["ring_fwd"]' in main
     assert '"cp_tp": cp_tp' in main
+
+
+@pytest.fixture(scope="module")
+def pp_record(tmp_path_factory):
+    """``pp_phase`` on the CPU at the tiny Llama and Mixtral in f32 (the
+    bf16 wire): the gloo gang of two, one stage each (one intra-op thread a
+    rank), against one process's accumulated step, with the restores and
+    the three planted faults, as the card runs them at full widths."""
+    import torch
+
+    from tony_tpu_torch.models import llama, mixtral
+
+    tiny = {"preset": "tiny", "dtype": "float32"}
+    return cs.pp_phase(torch, llama, mixtral, tmp_path_factory.mktemp("pp"), "cpu",
+                       cfgs={"llama": tiny, "mixtral": tiny}, B=4, T=32, device="cpu")
+
+
+def test_pp_phase_holds_the_gang_to_one_process_and_catches_every_fault(pp_record):
+    """A13a's smoke on the CPU: each family's losses and grad norms are one
+    process's within ``FSDP_REL``, its step-1 gradients (the router too)
+    within ``CP_STEP_GRAD_REL``, its save restored bit for bit and its state
+    within ``FSDP_STATE_REL``, no kernel launched on the CPU; the stale
+    residual moves the loss, the short schedule leaves it and moves stage
+    0's gradients, the unseeded aux leaves it and moves the router's."""
+    rec = pp_record
+    for fam, steps in (("llama", cs.PP_STEPS), ("mixtral", cs.PP_MOE_STEPS)):
+        r = rec[fam]
+        assert r["worst_rel"] <= cs.FSDP_REL and len(r["losses"]) == steps
+        assert r["worst_grad"] <= cs.CP_STEP_GRAD_REL and r["router_err"] <= cs.CP_STEP_GRAD_REL
+        assert r["launches"] == [{}, {}] and r["ticks"] == cs.PP_M + 2 * cs.PP_RANKS - 1
+        # the schedule's clocks: no device to wait for on the CPU; the
+        # fastest tick's exchange times the ticks within the exchanges' sum
+        assert r["sync_share"] == [0, 0] and all(0 <= t <= e for t, e in zip(r["transfer_share"], r["exchange_share"]))
+        assert r["restored_step"] == steps and max(r["state_rel"].values()) <= cs.FSDP_STATE_REL
+    assert rec["mixtral"]["router_err"] > 0
+    faults = rec["faults"]
+    assert set(faults) == set(cs.PP_FAULTS)
+    moved = {k: [abs(x - v["one_loss"]) > cs.FSDP_REL * v["one_loss"] for x in v["loss"]] for k, v in faults.items()}
+    assert all(moved["stale-residual"]) and not any(moved["short-schedule"]) and not any(moved["aux-unseeded"])
+    assert faults["short-schedule"]["worst_grad"] > cs.CP_STEP_GRAD_REL
+    assert faults["aux-unseeded"]["worst_leaf"] == "layers/router"
+    line = cs.pp_line(rec, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert line.startswith("[pp] 2 ranks on one card over gloo, stage 2, 1F1B: tiny widths 2 layers B=4 T=32 M=4")
+    for text in ("stale-residual: loss", "short-schedule: loss", "aux-unseeded: loss", "router",
+                 "ring exchange", "ticks a step", "reckoned a rank", "NVIDIA H100 80GB HBM3, 700.00 W"):
+        assert text in line, text
+    assert line.count("the save restored into one process bit for bit") == 2
+
+
+def test_pp_launches_follow_the_1f1b_schedule_under_full_remat():
+    """A stage of L/S layers launches B1 (and B7) three times a layer and
+    microbatch, twice on the last stage (its forward unit runs no layer),
+    B2, B3 (and B8) once; the faults are the three asked for."""
+    want = cs.pp_launches(2, 3, moe=False, stage=0)
+    assert want == {"flash_fwd": 36, "flash_bwd_dq": 12, "flash_bwd_dkv": 12, "moe_fwd": 0, "moe_bwd": 0}
+    assert cs.pp_launches(2, 3, moe=False, stage=1) == dict(want, flash_fwd=24)
+    moe = cs.pp_launches(2, 2, moe=True, stage=0)
+    assert moe["flash_fwd"] == moe["moe_fwd"] == 24 and moe["flash_bwd_dq"] == moe["moe_bwd"] == 8
+    last = cs.pp_launches(2, 2, moe=True, stage=1)
+    assert last["flash_fwd"] == last["moe_fwd"] == 16 and last["flash_bwd_dq"] == last["moe_bwd"] == 8
+    assert cs.PP_FAULTS == ("stale-residual", "short-schedule", "aux-unseeded")
+    assert cs.PP_RUNS == ("llama-ok", "stale-residual", "short-schedule", "mixtral-ok", "aux-unseeded")
+
+
+def test_pp_bytes_reckon_a_stages_part_of_the_tree():
+    """Stage 0 holds half of each stacked layer leaf and the embedding, stage
+    1 the other half and the final norm and head: together the whole tree,
+    each leaf once."""
+    import torch
+
+    from tony_tpu_torch.models import llama
+
+    cfg = llama.config_from_dict({"preset": "llama3-8b", "n_layers": 2})
+    tree = llama.init(torch.Generator(), cfg, "meta")
+    stages = [cs.pp_bytes(tree, s) for s in range(2)]
+    assert sum(x["params"] for x in stages) == cfg.num_params()
+    assert stages[0]["params"] - stages[1]["params"] == cfg.vocab_size * cfg.d_model - cfg.d_model - cfg.d_model * cfg.vocab_size
+    assert stages[0]["acc_bytes"] == 4 * stages[0]["params"] and stages[0]["moment_bytes"] == 2 * stages[0]["param_bytes"]
+
+
+def test_pp_phase_runs_last_in_main_and_reaches_the_report():
+    src = (ROOT / "chip_smoke.py").read_text()
+    main = src[src.index("def main() -> int:"):]
+    assert main.index('phase("cp-tp")') < main.index('phase("pp")') < main.index("except SmokeFailure")
+    assert 'more[k]["pp"] = pp["launches_sum"][k]' in main
+    assert '"pp": pp' in main
+
+
+def test_the_kernel_phases_hold_b1_b3_and_b7_b8_at_a_pp_microbatch():
+    """``[pp]`` runs B1-B3 on one row of T=2048 at the Llama heads and B7/B8
+    on 2048 tokens over all 8 experts at full F: a kernel case at each shape,
+    held to the plain versions by the flash and MoE kernel phases."""
+    assert cs.PP_B // cs.PP_M == cs.FLASH_CASES["pp"]["B"] == 1 and cs.FLASH_CASES["pp"]["T"] == cs.PP_T
+    assert "pp" in cs.LLAMA_FLASH_CASES
+    assert cs.MOE_CASES["pp"] == dict(tokens=cs.PP_B // cs.PP_M * cs.PP_T, skew="random")

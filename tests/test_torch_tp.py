@@ -655,7 +655,7 @@ def test_tp_refuses_int8_resolves_dense_and_counts_devices(monkeypatch):
 
 def test_the_model_axis_still_refuses_what_is_not_ported(monkeypatch):
     """BERT on the model axis (A8b's second part), a model axis beside an
-    expert axis (A11's rest), and the stage axis (A13) raise by name, for
+    expert axis (A11's rest), and a stage axis beside it (A13c) raise by name, for
     Mixtral too; a model axis beside a context axis is a gang's (A12c,
     ``test_torch_cp_tp.py``), which one process does not hold; Mixtral's TP
     engine serves (its tokens are held to JAX's in
@@ -670,11 +670,11 @@ def test_the_model_axis_still_refuses_what_is_not_ported(monkeypatch):
     for mod, cfg in ((TL, TCFG), (mixtral, mixtral.MIXTRAL_TINY)):
         with pytest.raises(ValueError, match="not divisible by model"):
             loop.run_lm_training(mod, cfg, loop.LoopConfig(device="cpu", steps=1, model_axis=2, context_axis=2))
-    for kw, item in ((dict(expert_axis=2), "A11"), (dict(stage_axis=2), "A13")):
+    for kw, item in ((dict(expert_axis=2), "A11"), (dict(stage_axis=2), "A13c")):
         with pytest.raises(NotImplementedError, match=item):
             loop.run_lm_training(mixtral, mixtral.MIXTRAL_TINY, loop.LoopConfig(device="cpu", steps=1, model_axis=2,
                                                                                **kw))
-    for kw, item in ((dict(expert=2, model=2), "A11"), (dict(stage=2), "A13")):
+    for kw, item in ((dict(expert=2, model=2), "A11"), (dict(stage=2, model=2), "A13c")):
         with pytest.raises(NotImplementedError, match=item):
             MeshSpec(**kw).build("cpu")
     with pytest.raises(ValueError, match="needs a gang of as many processes"):

@@ -228,14 +228,16 @@ def test_state_load_checks_every_leaf_before_copying():
 
 
 def test_unported_options_and_gangs_raise(monkeypatch):
-    """The axes still to port, an expert axis beside a context axis (A11's
-    rest), a global batch that does not divide by the gang, and a gang
-    launched without the torch.distributed rendezvous. The expert axis is
-    ported for every family (Llama's leaves stay whole on it), and one
-    process holds none of 2; a model axis beside a context axis runs in a
-    gang (``tests/test_torch_cp_tp.py``)."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", stage_axis=2))
+    """The options still to port (the interleaved schedule, A13b), an
+    expert axis beside a context axis (A11's rest), a global batch that does
+    not divide by the gang, and a gang launched without the
+    torch.distributed rendezvous. The expert axis is ported for every
+    family (Llama's leaves stay whole on it), and one process holds none of
+    2; a model axis beside a context axis runs in a gang
+    (``tests/test_torch_cp_tp.py``), and so does the stage axis
+    (``tests/test_torch_pp.py``)."""
+    with pytest.raises(NotImplementedError, match="not ported yet.*A13b"):
+        TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", stage_axis=2, pp_chunks=2))
     with pytest.raises(ValueError, match="not divisible by model"):
         TLp.run_lm_training(TM, _tcfg(), TLp.LoopConfig(device="cpu", expert_axis=2))
     from tony_tpu_torch.models import bert, mixtral

@@ -30,8 +30,15 @@ products; the embedding takes its local rows and sums over the line; the
 loss is the vocab-parallel CE (``ops/layers.py``). Beside a context axis
 in a gang each rank does this on its window of the rows, and its context
 ring (the ranks of its model index) moves the ``Hkv/tp`` kv heads it holds,
-as JAX's ring runs on each model line's heads. Pipeline stages (A13) raise
-until they are ported.
+as JAX's ring runs on each model line's heads.
+
+On a ``stage`` axis the model trains through ``pp_value_and_grad``, the
+1F1B schedule (``parallel/pipeline.py``): each rank holds its stage's
+``L/S`` layers (the embedding on the first stage, the final norm and head
+on the last) and runs them per microbatch through the same ``_block``
+under ``remat_block``, each layer's fsdp blocks gathered as
+``hidden_states`` gathers them; no model or context axis reaches a stage,
+as JAX's stage passes ``mesh=None`` to ``_block``.
 """
 
 from __future__ import annotations
@@ -47,8 +54,9 @@ from tony_tpu_torch.ops import layers as L
 from tony_tpu_torch.ops.ring import ring_attention_pallas, ring_attention_pallas_seg
 from tony_tpu_torch.parallel.collectives import all_gather, copy_to_model, reduce_from_model
 from tony_tpu_torch.parallel.context import ring_attention, ulysses_attention
-from tony_tpu_torch.parallel.mesh import (AXIS_CONTEXT, AXIS_MODEL, axis_size, context_degree, context_window,
-                                          model_group)
+from tony_tpu_torch.parallel import pipeline
+from tony_tpu_torch.parallel.mesh import (AXIS_CONTEXT, AXIS_MODEL, AXIS_STAGE, axis_size, check_stage_layout,
+                                          context_degree, context_window, model_group)
 from tony_tpu_torch.parallel.sharding import P, Place, ShardingRules, gather, gathering, keep_whole
 
 
@@ -388,6 +396,90 @@ def loss_fn(params: dict, batch: dict, cfg: LlamaConfig, mesh=None) -> tuple[tor
         logits = forward(params, tokens[:, :-1], cfg, mesh, segment_ids=seg_in)
         loss, n = L.cross_entropy_loss(logits, targets, group=group)
     return loss, {"loss": loss, "tokens": n}
+
+
+def flat_value_and_grad(loss_fn, params: dict, batch: dict, cfg, mesh) -> tuple[torch.Tensor, dict, dict]:
+    """``(loss, metrics, grads)`` of ``loss_fn`` on this rank's batch, the
+    grads mirroring ``params`` (``pp_value_and_grad`` without stages)."""
+    loss, metrics = loss_fn(params, batch, cfg, mesh)
+
+    def leaves(tree):
+        return [x for v in tree.values() for x in (leaves(v) if isinstance(v, dict) else [v])]
+
+    grads = iter(torch.autograd.grad(loss, leaves(params)))
+
+    def like(tree):
+        return {k: like(v) if isinstance(v, dict) else next(grads) for k, v in tree.items()}
+
+    return loss.detach(), metrics, like(params)
+
+
+def pp_value_and_grad(params: dict, batch: dict, cfg: LlamaConfig, mesh, num_microbatches: int = 2,
+                      wire_dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, dict, dict]:
+    """1F1B pipeline train-step core (JAX's ``pp_value_and_grad``, its 1F1B
+    branch): ``(loss, {"loss", "tokens"}, grads)``, the grads mirroring this
+    rank's ``params`` (its stage's part of the tree) and the whole step's:
+    the gang's token mean over the global batch. ``batch``: this rank's rows
+    of each microbatch (its data × fsdp shard of them, ``pipeline.microbatch_rows``).
+    Packed batches (segment ids) apply per microbatch: confinement,
+    per-segment RoPE and boundary target masking. A stage axis of 1 runs the
+    flat loss and its gradients, as JAX's."""
+    if axis_size(mesh, AXIS_STAGE) <= 1:
+        return flat_value_and_grad(loss_fn, params, batch, cfg, mesh)
+    check_stage_layout(mesh.shape)
+    tokens = batch["tokens"]
+    B, T = tokens.shape[0], tokens.shape[1] - 1
+    cos, sin = L.rope_frequencies(cfg.head_dim, T, cfg.rope_theta, cfg.rope_scaling, device=tokens.device)
+    rules = sharding_rules(cfg)
+
+    def stage_fn(stage_lp, h, mb):
+        seg_in, positions = stage_inputs(mb)
+        block_fn = attn_ops.remat_block(
+            gathering(partial(_block, cos=cos, sin=sin, cfg=cfg, mesh=None, segment_ids=seg_in,
+                              positions=positions), rules, mesh),
+            cfg.remat, cfg.remat_policy)
+        return run_layers(block_fn, stage_lp, h)
+
+    nll, ntok, _, grads = pipeline.pp_step(
+        params, batch, rules=rules, mesh=mesh, num_microbatches=num_microbatches,
+        act_shape=(B // num_microbatches, T, cfg.d_model), compute_dtype=cfg.tdtype, wire_dtype=wire_dtype,
+        stage_fn=stage_fn, embed_fn=partial(pp_embed, rules=rules, mesh=mesh),
+        loss_head_fn=partial(pp_loss_head, cfg=cfg, rules=rules, mesh=mesh))
+    loss = nll / ntok.clamp_min(1.0)
+    return loss, {"loss": loss, "tokens": ntok}, grads
+
+
+def stage_inputs(mb: dict):
+    """A microbatch's (input segment ids, RoPE positions): None, None unpacked."""
+    seg = mb.get("segment_ids")
+    seg_in = seg[:, :-1] if seg is not None else None
+    return seg_in, segment_positions(seg_in) if seg_in is not None else None
+
+
+def run_layers(block_fn, stacked: dict, h):
+    """``h`` through each layer of ``stacked`` in turn."""
+    per_layer = {name: w.unbind(0) for name, w in stacked.items()}
+    for i in range(next(iter(stacked.values())).shape[0]):
+        h = block_fn(h, {name: ws[i] for name, ws in per_layer.items()})
+    return h
+
+
+def pp_embed(embed: torch.Tensor, mb: dict, rules, mesh) -> torch.Tensor:
+    """The first stage's embedding of a microbatch's input tokens (its fsdp
+    blocks gathered)."""
+    return embed_lookup(gather(embed, rules.spec_for("embed"), mesh), mb["tokens"][:, :-1])
+
+
+def pp_loss_head(head: dict, y: torch.Tensor, mb: dict, cfg, rules, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """The last stage's head: ``(nll sum, true count)`` of a microbatch's
+    targets, the fused CE always (one chunk for ``ce_chunk <= 0``). The count
+    is the true one, not the CE's clamp of 1, so an all-pad microbatch adds
+    no tokens; ``mean · n`` is the exact sum even then."""
+    targets, _ = mask_packed_targets(mb["tokens"], mb.get("segment_ids"))
+    x = L.rms_norm(y, head["final_norm"], cfg.norm_eps)
+    mean, n = L.chunked_cross_entropy_loss(x, gather(head["lm_head"], rules.spec_for("lm_head"), mesh), targets,
+                                           chunk=cfg.ce_chunk)
+    return mean * n, (targets != -100).sum()
 
 
 def synthetic_batch(gen: torch.Generator, batch_size: int, seq_len: int, cfg: LlamaConfig) -> dict:

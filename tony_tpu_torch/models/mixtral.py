@@ -28,8 +28,13 @@ over the whole batch (``group``: the data × fsdp × context ranks), as JAX's
 GSPMD run of ``_ragged_expert_ffn`` takes them. Beside a model axis the
 window runs on the rank's heads and ``F/tp`` expert columns, and ``group``
 is the data × fsdp × context ranks of its model index. An expert axis
-beside a model or context axis (A11's rest) and ``pp_value_and_grad`` (A13)
-wait.
+beside a model or context axis (A11's rest) waits.
+
+On a ``stage`` axis ``pp_value_and_grad`` runs the 1F1B schedule
+(``parallel/pipeline.py``) with the experts stage-local, the ragged
+dispatch (B7/B8) inside each stage, as JAX's "PP×EP deployment shape of an
+8×7B"; the router losses thread through the hand-scheduled backward as the
+stage's aux scalar, a per-microbatch and per-shard mean as JAX's.
 
 ``moe_dispatch`` and ``capacity_factor`` are JAX's: the ragged dispatch
 (B7/B8 where eligible), ``ragged_xla``, and the capacity dispatches
@@ -55,8 +60,9 @@ from tony_tpu_torch.ops import attention as attn_ops
 from tony_tpu_torch.ops import layers as L
 from tony_tpu_torch.parallel.collectives import copy_to_model
 from tony_tpu_torch.parallel.expert import MoEConfig, check_dispatch, check_expert_axis, moe_ffn
-from tony_tpu_torch.parallel.mesh import (AXIS_EXPERT, AXIS_MODEL, axis_size, context_degree, context_window,
-                                          model_group)
+from tony_tpu_torch.parallel import pipeline
+from tony_tpu_torch.parallel.mesh import (AXIS_EXPERT, AXIS_MODEL, AXIS_STAGE, axis_size, check_stage_layout,
+                                          context_degree, context_window, model_group)
 from tony_tpu_torch.parallel.sharding import P, Place, ShardingRules, gather, gathering, keep_whole
 
 _AUX = ("moe_balance_loss", "moe_z_loss", "moe_dropped_frac")
@@ -279,6 +285,55 @@ def loss_fn(params: dict, batch: dict, cfg: MixtralConfig, mesh=None,
         balance, z = _scale_grad(balance, s), _scale_grad(z, s)
     loss = ce + balance + z
     return loss, {"loss": loss, "ce_loss": ce, "tokens": n, **aux}
+
+
+def pp_value_and_grad(params: dict, batch: dict, cfg: MixtralConfig, mesh, num_microbatches: int = 2,
+                      wire_dtype: torch.dtype = torch.bfloat16) -> tuple[torch.Tensor, dict, dict]:
+    """1F1B pipeline train-step core for the MoE model (JAX's
+    ``pp_value_and_grad``): ``(loss, {"loss", "ce_loss", "tokens",
+    "moe_aux_loss"}, grads)``, the grads mirroring this rank's ``params``
+    (``llama.pp_value_and_grad``'s contract). The objective is ``CE mean +
+    aux``, the balance and z losses summed over a stage's layers and averaged
+    over microbatches and batch shards; their cotangent is seeded with the
+    global batch's valid-target count, counted before the schedule (one
+    scalar sum over the data × fsdp ranks), so the division by the count
+    after it leaves them at unit scale. A bf16 wire may flip near-tie
+    routing against an unpipelined f32 run, as JAX's docstring says."""
+    if axis_size(mesh, AXIS_STAGE) <= 1:
+        return llama_mod.flat_value_and_grad(loss_fn, params, batch, cfg, mesh)
+    check_stage_layout(mesh.shape, moe=True)
+    tokens = batch["tokens"]
+    B, T = tokens.shape[0], tokens.shape[1] - 1
+    cos, sin = L.rope_frequencies(cfg.head_dim, T, cfg.rope_theta, cfg.rope_scaling, device=tokens.device)
+    rules = sharding_rules(cfg)
+
+    def stage_fn(stage_lp, h, mb):
+        seg_in, positions = llama_mod.stage_inputs(mb)
+        token_mask = (seg_in != 0) if seg_in is not None else None
+
+        def block(x_aux, lp):
+            x, aux = x_aux
+            x, balance, z, _ = _layer(x, lp, cos, sin, cfg, None, segment_ids=seg_in, positions=positions,
+                                      token_mask=token_mask)
+            return x, aux + balance + z
+
+        block_fn = attn_ops.remat_block(gathering(block, rules, mesh), cfg.remat, cfg.remat_policy)
+        return llama_mod.run_layers(block_fn, stage_lp, (h, torch.zeros((), dtype=torch.float32, device=h.device)))
+
+    # the valid-target count, known before the schedule, seeds the aux cotangent
+    targets_all, _ = llama_mod.mask_packed_targets(tokens, batch.get("segment_ids"))
+    ntok_pre = (targets_all != -100).sum().float()
+    if dist.get_world_size(mesh.group) > 1:
+        dist.all_reduce(ntok_pre, group=mesh.group)
+    nll, ntok, aux, grads = pipeline.pp_step(
+        params, batch, rules=rules, mesh=mesh, num_microbatches=num_microbatches,
+        act_shape=(B // num_microbatches, T, cfg.d_model), compute_dtype=cfg.tdtype, wire_dtype=wire_dtype,
+        stage_fn=stage_fn, embed_fn=partial(llama_mod.pp_embed, rules=rules, mesh=mesh),
+        loss_head_fn=partial(llama_mod.pp_loss_head, cfg=cfg, rules=rules, mesh=mesh),
+        stage_has_aux=True, aux_seed_scale=ntok_pre)
+    ce = nll / ntok.clamp_min(1.0)
+    loss = ce + aux
+    return loss, {"loss": loss, "ce_loss": ce, "tokens": ntok, "moe_aux_loss": aux}, grads
 
 
 synthetic_batch = llama_mod.synthetic_batch

@@ -60,7 +60,15 @@ one process (the serving engine's), each on its own device:
 as none does in JAX: the expert axis's MoE shares its rows over the line
 and sums its output (``parallel/expert.py``). The data axis's reduction of the gradients is
 ``all_reduce_mean`` (``psum`` over the gang, divided by its size), packed
-into flat f32 buckets so a step makes a few calls instead of one a tensor.
+into flat f32 buckets so a step makes a few calls instead of one a tensor;
+``all_reduce_sum`` is the same sum without the division (the pipeline's
+f32 accumulators over the data × fsdp ranks).
+
+The ``stage`` axis's hand-off is ``ProcessRing.exchange`` over the stage
+line: each tick of the 1F1B schedule sends its activation to the next
+stage and its gradient to the previous one, both rings whole (JAX's two
+``ppermute`` rings, ``pipeline.py:336-341``, wrap-arounds included), on
+every tick, bubbles too, so no rank of the line waits on one that skipped.
 """
 
 from __future__ import annotations
@@ -197,6 +205,17 @@ class ProcessRing:
             works.append(dist.all_to_all_single(d.view(-1), s.reshape(-1), output_split_sizes=recvs,
                                                 input_split_sizes=sends, group=self.group, async_op=True))
         return _Works(works)
+
+    def exchange(self, right: torch.Tensor, left: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One pipeline tick's hand-off: ``right`` to rank + 1 and ``left``
+        to rank - 1 (mod n), both in flight at once; returns (rank - 1's
+        ``right``, rank + 1's ``left``), ordered on the current stream."""
+        got_right, got_left = torch.empty_like(right), torch.empty_like(left)
+        works = [self._p2p([right.contiguous()], [got_right]),
+                 self._p2p([left.contiguous()], [got_left], to_right=False)]
+        for w in works:
+            w.wait()
+        return got_right, got_left
 
     def send_recv(self, src, dst):
         """``dst[0] ←`` rank - 1's ``src[0]`` for each pair of buffers ``[1, ...]``."""
@@ -464,6 +483,16 @@ def all_reduce_mean(tensors: list[torch.Tensor], group=None, scale: torch.Tensor
     divides by the world size. Call it from the thread that runs the step:
     collectives of one group must be issued in the same order on every
     rank."""
+    _bucketed(tensors, group, scale, mean=True)
+
+
+def all_reduce_sum(tensors: list[torch.Tensor], group=None) -> None:
+    """Replace each tensor, in place, by its sum over the ``group``'s ranks
+    (``all_reduce_mean``'s f32 buckets, without the division)."""
+    _bucketed(tensors, group, None, mean=False)
+
+
+def _bucketed(tensors: list[torch.Tensor], group, scale: torch.Tensor | None, mean: bool) -> None:
     world = dist.get_world_size(group)
     nccl = dist.get_backend(group) == dist.Backend.NCCL
     bucket: list[torch.Tensor] = []
@@ -473,11 +502,12 @@ def all_reduce_mean(tensors: list[torch.Tensor], group=None, scale: torch.Tensor
             flat = torch.cat([b.reshape(-1).float() for b in bucket])
             if scale is not None:
                 flat *= scale
-            if nccl:
+            if mean and nccl:
                 dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=group)
             else:
                 dist.all_reduce(flat, group=group)
-                flat /= world
+                if mean:
+                    flat /= world
             for b, part in zip(bucket, flat.split([b.numel() for b in bucket])):
                 b.copy_(part.view_as(b))
             bucket, filled = [], 0

@@ -48,10 +48,20 @@ moves only between the ranks that hold the same ``Hkv/model`` heads; the
 ``group`` is the data × fsdp × context ranks of its model index, and
 ``replicas`` the data × context ranks of its (fsdp, model) index.
 
+- ``stage``: pipeline parallelism (Llama and Mixtral, the 1F1B schedule of
+  ``parallel/pipeline.py``), one stage a process, laid out outermost as in
+  ``ALL_AXES``: the ranks of one stage line (``Mesh.stage_line``, the ranks
+  of one (data, fsdp) index) take the same rows, as JAX replicates the
+  batch over ``stage``, and hold the other stages' layers; the ``group`` is
+  the data × fsdp ranks of this rank's stage index. Beside it the port runs
+  the data and fsdp axes; a context axis is refused in JAX's words, and a
+  model axis, or an expert axis for Llama, waits for A13c (JAX refuses
+  Mixtral's expert axis with stages, in the words the loop repeats).
+
 ``build`` gives a ``Mesh`` whose ``shape`` is the JAX mesh's dict and whose
 ``device`` is the card (or the CPU, when asked for). An expert axis beside a
-model or context axis (A11's rest: JAX's GSPMD gather fallback) and a stage
-axis above 1 (A13) raise until they are ported.
+model or context axis (A11's rest: JAX's GSPMD gather fallback) raises until
+it is ported.
 """
 
 from __future__ import annotations
@@ -77,14 +87,15 @@ AXIS_STAGE = "stage"
 # canonical order: slowest-varying (DCN-friendly) first
 ALL_AXES = (AXIS_STAGE, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_CONTEXT, AXIS_MODEL)
 DCN_SAFE_AXES = frozenset({AXIS_DATA, AXIS_FSDP, AXIS_STAGE})
-_UNPORTED = {AXIS_STAGE: "A13"}
 #: the axes every port model runs under (``context_degree``): the context
 #: ring, and the gang's data, fsdp and expert axes (a family without
 #: experts is refused an expert axis by the training loop); a model that
 #: runs tensor parallelism also runs the model axis
 _MODEL_AXES = (AXIS_CONTEXT, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT)
 #: the gang's axes, in ``ALL_AXES`` order: the ``DeviceMesh``'s dimensions
-GANG_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_CONTEXT, AXIS_MODEL)
+GANG_AXES = (AXIS_STAGE, AXIS_DATA, AXIS_FSDP, AXIS_EXPERT, AXIS_CONTEXT, AXIS_MODEL)
+#: JAX's refusal of a stage axis beside a context axis (``llama.py:431``)
+STAGE_CONTEXT = "pipeline parallelism does not compose with a context axis"
 
 
 @dataclass(frozen=True)
@@ -93,10 +104,10 @@ class Mesh:
     the device the shards live on, the context ring (a ``DeviceRing`` in
     one process, a ``ProcessRing`` over the context line in a gang), the
     process group the batch splits over (the data × fsdp × context ranks of
-    this rank's expert and model index: the whole gang without either
-    axis; None for one process), the gang's ``DeviceMesh`` over (data,
-    fsdp, expert, context, model), the whole gang's group, which saves and
-    restores checkpoints together, and ``replicas``, the group of the data
+    this rank's stage, expert and model index: the whole gang without those
+    axes; None for one process), the gang's ``DeviceMesh`` over (stage,
+    data, fsdp, expert, context, model), the whole gang's group, which saves
+    and restores checkpoints together, and ``replicas``, the group of the data
     × context ranks that hold this rank's fsdp blocks (None where both axes
     are 1; all but ``shape``, ``device`` and ``ring`` None for one
     process)."""
@@ -116,6 +127,12 @@ class Mesh:
         rows, each a window of them); None where this process holds every
         shard of the ring."""
         return self.ring.group if len(self.ring.positions) < self.ring.n else None
+
+    @property
+    def stage_line(self):
+        """The process group of this rank's stage line, the ranks of its
+        (data, fsdp) index, one a stage (None without a stage axis)."""
+        return self.axis_group(AXIS_STAGE) if self.shape[AXIS_STAGE] > 1 else None
 
     def axis_group(self, axis: str):
         """The process group of this rank's line along a gang axis."""
@@ -167,31 +184,26 @@ class MeshSpec:
 
     def build(self, device: torch.device | str | None = None) -> Mesh:
         """A ``Mesh`` on ``device`` (CUDA unless the CPU is asked for) over
-        the gang this process joined, one process a device: ``data × fsdp ×
-        expert × context × model`` processes, each holding one context shard
-        (its context line's ``ProcessRing``); a single process holds all
-        ``context`` shards in a ``DeviceRing`` instead. A gang over
+        the gang this process joined, one process a device: ``stage × data ×
+        fsdp × expert × context × model`` processes, each holding one
+        context shard (its context line's ``ProcessRing``); a single process
+        holds all ``context`` shards in a ``DeviceRing`` instead. A gang over
         ``TPU_NUM_SLICES`` slices (the env; 1 when unset) puts a slice
         boundary on one axis, which a data, fsdp or stage axis must absorb,
         as in JAX; the gang's axes are outermost."""
-        unported = {a: self.axis_sizes[a] for a in self.active_axes() if a in _UNPORTED}
-        if unported:
-            items = sorted(set(_UNPORTED[a] for a in unported))
-            raise NotImplementedError(
-                f"mesh axes {unported} are not ported yet (ROADMAP queue {', '.join(items)}; experts "
-                "with pipeline stages come with A13); "
-                "the port runs the data, fsdp, expert, context and model axes")
+        if self.stage > 1:
+            check_stage_layout(self.axis_sizes)
         if self.expert > 1 and (self.model > 1 or self.context > 1):
             raise NotImplementedError(
                 f"an expert axis ({self.expert}) beside a model ({self.model}) or context ({self.context}) "
                 "axis is not ported yet (ROADMAP queue A11, the rest: JAX runs that layout through its GSPMD "
                 "gather dispatch); the port runs the expert axis with the data and fsdp axes")
-        procs = self.data * self.fsdp * self.expert * self.context * self.model
+        procs = self.stage * self.data * self.fsdp * self.expert * self.context * self.model
         one_process = process_count() == 1 and procs == self.context
         if procs != process_count() and not one_process:
-            raise ValueError(f"data {self.data} x fsdp {self.fsdp} x expert {self.expert} x context "
-                             f"{self.context} x model {self.model} needs a gang of as many processes, one "
-                             f"device a process (one process holds a context axis alone); this gang has "
+            raise ValueError(f"stage {self.stage} x data {self.data} x fsdp {self.fsdp} x expert {self.expert} "
+                             f"x context {self.context} x model {self.model} needs a gang of as many processes, "
+                             f"one device a process (one process holds a context axis alone); this gang has "
                              f"{process_count()}")
         num_slices = int(os.environ.get(constants.ENV_TPU_NUM_SLICES, "1") or "1")
         if num_slices > 1 and not any(self.axis_sizes[a] % num_slices == 0 and self.axis_sizes[a] > 1
@@ -203,28 +215,49 @@ class MeshSpec:
         if one_process:
             return Mesh(shape=shape, device=dev, ring=DeviceRing(self.context, dev))
         device_mesh = gang_device_mesh(dev.type, tuple(self.axis_sizes[a] for a in GANG_AXES), GANG_AXES)
+        # the ranks over (stage, data, fsdp, expert, context, model)
+        ranks = torch.arange(procs).reshape([self.axis_sizes[a] for a in GANG_AXES])
         group = dist.group.WORLD
-        inner = self.expert * self.model
-        if inner > 1:
-            # one group an (expert, model) index, every rank making all of them in order
+        if self.stage * self.expert * self.model > 1:
+            # one group a (stage, expert, model) index, every rank making all of them in order
             group, _ = dist.new_subgroups_by_enumeration(
-                [list(range(m, procs, inner)) for m in range(inner)])
+                ranks.permute(0, 3, 5, 1, 2, 4).reshape(-1, self.data * self.fsdp * self.context).tolist())
         replicas = None
         if self.data * self.context > 1:
-            # one group an (fsdp, expert, model) index: the data × context ranks that hold its blocks
-            ranks = torch.arange(procs).reshape([self.axis_sizes[a] for a in GANG_AXES])
+            # one group a (stage, fsdp, expert, model) index: the data × context ranks that hold its blocks
             replicas, _ = dist.new_subgroups_by_enumeration(
-                ranks.permute(1, 2, 4, 0, 3).reshape(-1, self.data * self.context).tolist())
+                ranks.permute(0, 2, 3, 5, 1, 4).reshape(-1, self.data * self.context).tolist())
         ring = ProcessRing(device_mesh.get_group(AXIS_CONTEXT)) if self.context > 1 else DeviceRing(1, dev)
         return Mesh(shape=shape, device=dev, ring=ring, group=group, device_mesh=device_mesh,
                     gang=dist.group.WORLD, replicas=replicas)
 
 
+def check_stage_layout(sizes: dict, moe: bool = False) -> None:
+    """Refuse, before anything is built, the axes a stage axis does not
+    run beside: an expert axis (with ``moe``, Mixtral's, in JAX's words: its
+    1F1B keeps the experts stage-local; A13c for Llama), a model axis
+    (A13c), and a context axis (JAX's words; a layout with a model axis too
+    waits for A13c first)."""
+    if moe and sizes.get(AXIS_EXPERT, 1) > 1:
+        raise ValueError(
+            "stage_axis > 1 keeps experts stage-local (ragged dispatch inside "
+            "each stage) — use an expert axis of 1 with pipeline parallelism")
+    beside = {a: sizes[a] for a in (AXIS_MODEL, AXIS_EXPERT) if sizes.get(a, 1) > 1}
+    if beside:
+        raise NotImplementedError(
+            f"a stage axis ({sizes[AXIS_STAGE]}) beside {beside} is not ported yet (ROADMAP queue A13c: JAX's "
+            "pipeline leaves those axes automatic; Mixtral's experts stay stage-local, as JAX's); the port "
+            "runs the stage axis with the data and fsdp axes")
+    if sizes.get(AXIS_CONTEXT, 1) > 1:
+        raise ValueError(STAGE_CONTEXT)
+
+
 def context_degree(mesh, tensor_parallel: bool = False) -> int:
     """The context degree of ``mesh`` (1 for None); raises for a mesh the
-    port does not run (a stage axis above 1, a model axis where the caller
-    does not run ``tensor_parallel``, or not a mesh of the port). The data,
-    fsdp, expert and model axes are the gang's."""
+    port does not run (a stage axis above 1, whose models train through
+    ``pp_value_and_grad``, a model axis where the caller does not run
+    ``tensor_parallel``, or not a mesh of the port). The data, fsdp,
+    expert and model axes are the gang's."""
     if mesh is None:
         return 1
     shape = mesh.shape if isinstance(mesh, Mesh) else None
@@ -232,8 +265,8 @@ def context_degree(mesh, tensor_parallel: bool = False) -> int:
     if shape is None or any(v > 1 for a, v in shape.items() if a not in runs):
         raise NotImplementedError(
             "a device mesh with TP or pipeline axes is not ported yet for this model "
-            "(ROADMAP queue A8b's second part: BERT on the model axis; A13); "
-            "the port runs the data, fsdp, expert and context axes, and the model axis for Llama and Mixtral")
+            "(ROADMAP queue A8b's second part: BERT on the model axis); a stage axis trains through "
+            "pp_value_and_grad (Llama and Mixtral); the port runs the data, fsdp, expert and context axes, and the model axis for Llama and Mixtral")
     return shape[AXIS_CONTEXT]
 
 

@@ -35,6 +35,17 @@ expert parallelism, and the model computes on them (``models/llama.py``,
 layer at a time, as JAX's ``shard_map`` ``in_specs`` gather them).
 ``Layout`` is what a train state keeps of this: the rules and the mesh, by
 leaf name.
+
+On a ``stage`` axis (the 1F1B pipeline, ``parallel/pipeline.py``) a rank
+holds only its stage's part of a decoder's tree (``stage_owner``): its
+``L/S`` layers, a ``Shard(0)`` block of every stacked ``layers/*`` leaf
+(``Layout.spec`` names ``stage`` on their leading dim), the embedding on
+the first stage, and the final norm and the head on the last; within the
+stage the rules split them as they would. JAX keeps every leaf on every
+stage, and its ``psum`` over ``stage`` makes the copies equal, so holding
+each once gives the same bits without a whole-model gradient sum. A leaf
+this rank does not hold is left out of its tree (``Layout.place`` gives
+None, ``prune`` drops it).
 """
 
 from __future__ import annotations
@@ -45,10 +56,15 @@ from typing import Callable, Iterable
 import torch
 
 from tony_tpu_torch.parallel.collectives import all_gather
-from tony_tpu_torch.parallel.mesh import AXIS_EXPERT, AXIS_FSDP, AXIS_MODEL, GANG_AXES, Mesh, axis_size
+from tony_tpu_torch.parallel.mesh import (AXIS_EXPERT, AXIS_FSDP, AXIS_MODEL, AXIS_STAGE, GANG_AXES, Mesh,
+                                          axis_size)
 
-#: the axes that split parameters, in the order their blocks nest
+#: the axes that split parameters within a stage, in the order their blocks nest
 SPLIT_AXES = (AXIS_FSDP, AXIS_EXPERT, AXIS_MODEL)
+#: every axis that cuts a rank's block: the stage's layers first
+PLACED_AXES = (AXIS_STAGE, *SPLIT_AXES)
+#: the leaves a stage axis splits on their leading (layer) dim
+STAGE_SPLIT = "layers/"
 
 #: ``init``'s hook: (leaf name, whole leaf as drawn) → the tensor to keep
 Place = Callable[[str, torch.Tensor], torch.Tensor]
@@ -120,9 +136,9 @@ def shard_dim(spec: tuple, mesh: Mesh | None) -> int | None:
 
 
 def placements(spec: tuple, mesh: Mesh | None) -> list:
-    """The torch placements of a leaf with ``spec`` on the gang's (data,
-    fsdp, expert, model) dimensions: ``Shard(d)`` on an axis that splits
-    dim d, else ``Replicate()``."""
+    """The torch placements of a leaf with ``spec`` on the gang's (stage,
+    data, fsdp, expert, context, model) dimensions: ``Shard(d)`` on an axis
+    that splits dim d, else ``Replicate()``."""
     from torch.distributed.tensor import Replicate, Shard
 
     dims = [split_dim(spec, mesh, a) for a in GANG_AXES]
@@ -131,11 +147,11 @@ def placements(spec: tuple, mesh: Mesh | None) -> list:
 
 def shard(full: torch.Tensor, spec: tuple, mesh: Mesh | None) -> torch.Tensor:
     """This rank's block of ``full`` (a copy, so ``full`` can be freed), or
-    ``full`` itself when the mesh does not split it: its fsdp block, then
-    the expert and model blocks of that, as ``DTensor`` nests two shards
-    of one dim."""
+    ``full`` itself when the mesh does not split it: its stage block (a
+    ``Layout``'s spec of a stacked leaf), its fsdp block, then the expert
+    and model blocks of that, as ``DTensor`` nests two shards of one dim."""
     out = full
-    for axis in SPLIT_AXES:
+    for axis in PLACED_AXES:
         dim = split_dim(spec, mesh, axis)
         if dim is None:
             continue
@@ -209,14 +225,27 @@ def model_shards(params: dict, rules: ShardingRules, n: int, prefix: str = "") -
 
 class Layout:
     """Where a train state's leaves live: ``rules`` over ``mesh``, by leaf
-    name ('layers/wq'). ``sharded`` is whether any leaf is split at all."""
+    name ('layers/wq'). ``sharded`` is whether any leaf is split, or held
+    by one stage, at all."""
 
     def __init__(self, rules: ShardingRules, mesh: Mesh | None):
         self.rules, self.mesh = rules, mesh
-        self.sharded = any(axis_size(mesh, a) > 1 for a in SPLIT_AXES)
+        self.stages = axis_size(mesh, AXIS_STAGE)
+        self.sharded = self.stages > 1 or any(axis_size(mesh, a) > 1 for a in SPLIT_AXES)
 
     def spec(self, name: str) -> tuple:
-        return self.rules.spec_for(name)
+        """The rules' spec; on a stage axis a stacked leaf's leading dim
+        names ``stage``."""
+        spec = self.rules.spec_for(name)
+        if self.stages > 1 and name.startswith(STAGE_SPLIT):
+            return (AXIS_STAGE, *spec[1:])
+        return spec
+
+    def owns(self, name: str) -> bool:
+        """Whether this rank holds (a block of) the leaf: every leaf but
+        another stage's (``stage_owner``)."""
+        owner = stage_owner(name, self.stages)
+        return owner is None or owner == self.mesh.axis_index(AXIS_STAGE)
 
     def dim(self, name: str) -> int | None:
         """The dim the fsdp axis splits (None: whole on that axis)."""
@@ -230,13 +259,14 @@ class Layout:
         """Whether this rank holds a block of the leaf on any axis."""
         return any(split_dim(self.spec(name), self.mesh, a) is not None for a in SPLIT_AXES)
 
-    def place(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """``init``'s hook: keep this rank's block of a freshly drawn leaf."""
-        return shard(full, self.spec(name), self.mesh)
+    def place(self, name: str, full: torch.Tensor) -> torch.Tensor | None:
+        """``init``'s hook: keep this rank's block of a freshly drawn leaf
+        (None for another stage's leaf)."""
+        return shard(full, self.spec(name), self.mesh) if self.owns(name) else None
 
     def full_shape(self, name: str, local: torch.Tensor) -> tuple:
         shape = list(local.shape)
-        for axis in SPLIT_AXES:
+        for axis in PLACED_AXES:
             if (dim := split_dim(self.spec(name), self.mesh, axis)) is not None:
                 shape[dim] *= axis_size(self.mesh, axis)
         return tuple(shape)
@@ -244,14 +274,37 @@ class Layout:
     def block(self, name: str, local: torch.Tensor):
         """``local`` as the checkpoint sees it: where the leaf is split, a
         ``DTensor`` over the gang's ``DeviceMesh`` on the same storage, its
-        placements and whole shape the leaf's; else ``local`` itself."""
-        if not self.split(name):
+        placements and whole shape the leaf's (``Replicate`` on the stage
+        dim for a leaf one stage holds, which only that stage's ranks save);
+        else ``local`` itself."""
+        if not self.split(name) and split_dim(self.spec(name), self.mesh, AXIS_STAGE) is None:
             return local
         from torch.distributed.tensor import DTensor
 
         shape = torch.Size(self.full_shape(name, local))
         return DTensor.from_local(local.detach(), self.mesh.device_mesh, placements(self.spec(name), self.mesh),
                                   run_check=False, shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+def stage_owner(name: str, stages: int) -> int | None:
+    """The stage that holds a decoder leaf whole on a stage axis of
+    ``stages``: None for the stacked layers (split over the stages) and
+    without a stage axis; the first stage for the embedding; the last for
+    the rest (the final norm and the head), as the 1F1B schedule runs them."""
+    if stages == 1 or name.startswith(STAGE_SPLIT):
+        return None
+    return 0 if name == "embed" else stages - 1
+
+
+def prune(tree: dict) -> dict:
+    """``tree`` without its None leaves (those another stage holds)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = prune(v)
+        elif v is not None:
+            out[k] = v
+    return out
 
 
 def keep_whole(name: str, full: torch.Tensor) -> torch.Tensor:

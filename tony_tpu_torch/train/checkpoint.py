@@ -35,6 +35,13 @@ step written on ``{fsdp: 4}`` restores onto ``{fsdp: 2}``, ``{data: 2}``
 or one process; a ``state.pt`` step comes back whole, and the caller cuts
 its blocks. DCP and ``DTensor`` are imported only where a sharded step is
 written or read.
+
+A stage gang's ranks hold different leaves (``parallel/sharding.py``
+``stage_owner``): each saves only its own, so DCP's metadata holds each leaf
+once, the embedding from the first stage's ranks and the head from the
+last's, with ``Replicate`` on the stage dim where one stage holds a leaf.
+A restore reads the leaves the caller holds and names the others as None,
+for the caller to check (``TrainState.load``).
 ``restore_or_init`` keeps the JAX function's corruption tolerance: a step
 that fails to load is quarantined as ``.corrupt-<step>`` and the
 next-newest step is tried, down to a fresh init; every rank of a gang hits
@@ -302,18 +309,22 @@ def read_sharded(path: str, like: dict | None = None, host_mesh=lambda m: m) -> 
     rank's block where ``like`` holds a ``DTensor``, whole where it holds a
     tensor), or every leaf whole without ``like``. With ``like``, every
     leaf's name, whole shape and dtype is checked against the step's
-    metadata before anything is read. No collective: each rank reads its own."""
+    metadata before anything is read; a leaf of the step that ``like``
+    lacks (another stage's) comes back None, unread. No collective: each
+    rank reads its own."""
     import torch.distributed.checkpoint as dcp
 
     reader = dcp.FileSystemReader(path)
     saved = reader.read_metadata().state_dict_metadata
+    others = {}
     if like is None:
         targets = {name: torch.empty(tuple(m.size), dtype=m.properties.dtype) if hasattr(m, "size") else None
                    for name, m in saved.items()}
     else:
         mine = dict(_flat(like))
-        if mine.keys() != saved.keys():
-            raise ValueError(f"checkpoint leaves differ: {sorted(mine.keys() ^ saved.keys())}")
+        if mine.keys() - saved.keys():
+            raise ValueError(f"checkpoint leaves differ: {sorted(mine.keys() - saved.keys())}")
+        others = dict.fromkeys(saved.keys() - mine.keys())
         targets = {}
         for name, v in mine.items():
             if not torch.is_tensor(v):
@@ -328,7 +339,7 @@ def read_sharded(path: str, like: dict | None = None, host_mesh=lambda m: m) -> 
             else:
                 targets[name] = torch.empty(v.shape, dtype=v.dtype)
     dcp.load(targets, storage_reader=reader, no_dist=True)
-    return _nest({k: v.to_local() if _is_block(v) else v for k, v in targets.items()})
+    return _nest({**others, **{k: v.to_local() if _is_block(v) else v for k, v in targets.items()}})
 
 
 def read_whole(step_dir: str) -> dict:

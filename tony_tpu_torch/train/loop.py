@@ -22,10 +22,21 @@ and at the end, and resume after a gang restart.
   ``context_axis > 1`` trains with every context shard on this process's
   one device, or in a gang one shard a process, each rank a window of its
   line's rows; beside ``model_axis > 1`` (a gang of data × fsdp × context ×
-  model processes) each window runs on the rank's heads and columns. The
-  model axis for BERT, an expert axis beside a model or context axis, and
-  the stage axis raise until ported (ROADMAP queue A8b's second part, A11,
-  A13).
+  model processes) each window runs on the rank's heads and columns.
+  ``stage_axis > 1`` trains Llama and Mixtral through the 1F1B schedule
+  (``make_pp_train_step`` over the model's ``pp_value_and_grad``, JAX's
+  loop), one stage a process, ``pp_microbatches`` microbatches a step,
+  ``MeshSpec.auto(stage=…)`` filling the rest of the gang into fsdp: each
+  rank holds its stage's part of the state, the ranks of a stage line take
+  the same rows, and a data × fsdp shard takes its block of each
+  microbatch's rows (``pipeline.microbatch_rows``: JAX's split of the
+  microbatch over the batch axes). The model axis for BERT, an expert axis
+  beside a model or context axis, the interleaved schedule
+  (``pp_chunks > 1``) and a stage axis beside a model axis or Llama's expert
+  axis raise until ported (ROADMAP queue A8b's second part, A11, A13b,
+  A13c); a stage axis beside a context axis, for a model without
+  ``pp_value_and_grad``, or beside Mixtral's expert axis raises in JAX's
+  words.
 - Batches come from ``*.tonytok`` shards under ``data_dir`` through
   ``TokenLoader`` (a pure function of (data_seed, global slot); rank 0
   writes the consumption cursor beside each checkpoint and a resume
@@ -62,16 +73,17 @@ from tony_tpu_torch.obs import logging as obs_logging
 from tony_tpu_torch.obs import metrics as obs_metrics
 from tony_tpu_torch.obs import trace as obs_trace
 from tony_tpu_torch.ops import attention, moe_gemm, ring
+from tony_tpu_torch.parallel.pipeline import microbatch_rows
 from tony_tpu_torch.parallel.expert import check_expert_axis
-from tony_tpu_torch.parallel.mesh import MeshSpec
+from tony_tpu_torch.parallel.mesh import MeshSpec, check_stage_layout
 from tony_tpu_torch.runtime import (init_distributed, process_count, process_index,
                                     shutdown_distributed)
 from tony_tpu_torch.train.checkpoint import UrgentSaveSignal, restore_or_init
 from tony_tpu_torch.train.input_pipeline import InputPipeline
 from tony_tpu_torch.train.metrics import detect_peak_flops, flops_per_token_for_batch
 from tony_tpu_torch.train.profiling import StepProfiler
-from tony_tpu_torch.train.trainer import (OptimizerConfig, Throughput, TrainState, make_train_step,
-                                          sharded_init, tree_bytes)
+from tony_tpu_torch.train.trainer import (OptimizerConfig, Throughput, TrainState, make_pp_train_step,
+                                          make_train_step, sharded_init, tree_bytes)
 
 _FIRST_STEP_SECONDS = obs_metrics.gauge(
     "tony_train_first_step_seconds",
@@ -168,9 +180,19 @@ def _refuse_unported(model_module, loop: LoopConfig, model_cfg) -> None:
             "loss_fn takes MLM batches (masked_pos/masked_targets or targets); train BERT on "
             "synthetic batches")
     if loop.stage_axis > 1:
-        raise NotImplementedError(
-            f"stage_axis {loop.stage_axis}: not ported yet — the port trains a gang on the data, fsdp, "
-            "expert, context and model axes (ROADMAP queue A13 stages)")
+        if not hasattr(model_module, "pp_value_and_grad"):
+            raise ValueError(
+                f"{model_module.__name__} has no pp_value_and_grad — "
+                "pipeline parallelism (stage_axis > 1) needs a model with a "
+                "1F1B train-step core (llama and mixtral families have one)")
+        if loop.pp_chunks > 1:
+            raise NotImplementedError(
+                f"pp_chunks {loop.pp_chunks}: the interleaved 1F1B schedule is not ported yet (ROADMAP queue "
+                "A13b); the port runs the 1F1B schedule (pp_chunks 1)")
+        check_stage_layout({"stage": loop.stage_axis, "context": loop.context_axis, "model": loop.model_axis,
+                            "expert": loop.expert_axis}, moe=hasattr(model_cfg, "num_experts"))
+        if model_cfg.n_layers % loop.stage_axis:
+            raise ValueError(f"{model_cfg.n_layers} layers not divisible by {loop.stage_axis} stages")
     if loop.expert_axis > 1:
         if loop.model_axis > 1 or loop.context_axis > 1:
             raise NotImplementedError(
@@ -243,15 +265,20 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
                          expert=loop.expert_axis, stage=loop.stage_axis).build(device)
     # the batch splits over data × fsdp; the ranks of a model, expert or
     # context line take the same rows (the context axis is the gang's only
-    # in a gang: one process holds every shard of it)
+    # in a gang: one process holds every shard of it), and so do the ranks
+    # of a stage line, the outermost axis
     line = loop.model_axis * loop.expert_axis * (loop.context_axis if procs > 1 else 1)
-    rows_world, rows_rank = procs // line, process_index() // line
+    stages = loop.stage_axis
+    rows_world, rows_rank = procs // (line * stages), process_index() % (procs // stages) // line
     if loop.batch_size % rows_world:
         raise ValueError(
             f"global batch_size {loop.batch_size} must divide by the gang's "
-            f"{rows_world} processes that split the batch (data x fsdp: a model, expert or context line "
-            "takes one row slice; elastic restarts re-split the SAME global batch across the new gang)")
+            f"{rows_world} processes that split the batch (data x fsdp: a stage, model, expert or context "
+            "line takes one row slice; elastic restarts re-split the SAME global batch across the new gang)")
     local_rows = loop.batch_size // rows_world
+    # a stage gang's data × fsdp shard takes its block of each microbatch,
+    # cut from the global batch (global order: the loader's rows are the same)
+    pp_rows = stages > 1 and rows_world > 1
 
     opt = OptimizerConfig(
         learning_rate=loop.learning_rate, warmup_steps=loop.warmup_steps,
@@ -276,8 +303,14 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
     # loss that takes ``group`` (Mixtral's router losses) the ranks sharing its batch
     # a mesh of one device reaches the model as None: the unsharded path
     model_mesh = mesh if math.prod(mesh.shape[a] for a in ("context", "fsdp", "expert", "model")) > 1 else None
-    loss_fn = functools.partial(model_module.loss_fn, cfg=model_cfg, mesh=model_mesh)
-    step_fn = make_train_step(loss_fn, opt, group=mesh.group, mesh=mesh)
+    if stages > 1:
+        # the 1F1B schedule produces its own gradients (parallel/pipeline.py)
+        step_fn = make_pp_train_step(functools.partial(
+            model_module.pp_value_and_grad, cfg=model_cfg, mesh=mesh, num_microbatches=loop.pp_microbatches),
+            opt, mesh)
+    else:
+        loss_fn = functools.partial(model_module.loss_fn, cfg=model_cfg, mesh=model_mesh)
+        step_fn = make_train_step(loss_fn, opt, group=mesh.group, mesh=mesh)
     probe = model_module.synthetic_batch(_batch_generator(device, 0, 0), 1, loop.seq_len, model_cfg)
     meter = Throughput(
         tokens_per_step=loop.batch_size * loop.seq_len,
@@ -300,7 +333,8 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
                     f"[train] data cursor validated: resuming the global stream at batch "
                     f"{start_step} (written at world size {cursor.world_size}, now {rows_world})",
                     step=start_step)
-        loader = TokenLoader(paths, local_rows, loop.seq_len, shard_id=rows_rank, num_shards=rows_world,
+        loader = TokenLoader(paths, loop.batch_size if pp_rows else local_rows, loop.seq_len,
+                             shard_id=0 if pp_rows else rows_rank, num_shards=1 if pp_rows else rows_world,
                              seed=loop.data_seed, start_index=start_step)
         obs_logging.info(f"[train] data: {len(paths)} shards, {loader.total_tokens} tokens, "
                          f"native={loader.is_native}")
@@ -314,9 +348,14 @@ def _train(model_module, model_cfg, loop: LoopConfig, tracer, device: torch.devi
         """Batch ``step`` of this rank; runs on the pipeline's thread, in step
         order, and issues no collective."""
         if loader is not None:
-            return {"tokens": torch.from_numpy(loader.next()).to(device, torch.long)}
-        batch = model_module.synthetic_batch(_batch_generator(device, loop.data_seed, step),
-                                             loop.batch_size, loop.seq_len, model_cfg)
+            batch = {"tokens": torch.from_numpy(loader.next()).to(device, torch.long)}
+            if not pp_rows:
+                return batch
+        else:
+            batch = model_module.synthetic_batch(_batch_generator(device, loop.data_seed, step),
+                                                 loop.batch_size, loop.seq_len, model_cfg)
+        if stages > 1:
+            return microbatch_rows(batch, loop.pp_microbatches, rows_world, rows_rank)
         return {k: v[rows_rank * local_rows:(rows_rank + 1) * local_rows] for k, v in batch.items()}
 
     # a drain request reaches each rank's executor on its own clock; the

@@ -8,7 +8,10 @@ gang's global batch (``mixtral.loss_fn``'s ``group``), with
 as Llama's), with ``--model_axis M`` beside it in a gang of ``N·M`` times
 the data × fsdp workers. ``--moe_dispatch`` picks JAX's dispatch (ragged,
 ragged_xla, gather, dense) and ``--capacity_factor`` the capacity
-dispatches' slots, which in a context gang are the whole row's:
+dispatches' slots, which in a context gang are the whole row's.
+``--stage_axis S --pp_microbatches N`` trains through the 1F1B pipeline
+schedule with the experts stage-local (the ragged dispatch inside each
+stage), one stage a process:
 
     python -m tony_tpu_torch.train.pretrain_mixtral --preset mixtral-8x7b [--n_layers 1] [--steps N ...]
     python -m tony_tpu_torch.train.pretrain_mixtral --preset tiny --device cpu --steps 3 [--model_axis 2]
@@ -16,6 +19,8 @@ dispatches' slots, which in a context gang are the whole row's:
         [--moe_dispatch gather --capacity_factor 2.0]
     python -m tony_tpu_torch.train.pretrain_mixtral --preset tiny --device cpu --steps 3 --context_axis 2 \\
         [--model_axis 2] [--moe_dispatch gather --capacity_factor 1.0]
+    python -m tony_tpu_torch.train.pretrain_mixtral --preset tiny --device cpu --steps 3 --stage_axis 2 \
+        --pp_microbatches 4
 """
 
 import argparse

@@ -84,6 +84,15 @@ shares its microbatch, so a rank that accumulates whole microbatches
 weighs each by ``n_r / N_i`` over its line (one collective of two scalars
 a microbatch on the line's group).
 
+On a ``stage`` axis the step is ``make_pp_train_step``'s: the model's
+``pp_value_and_grad`` (the 1F1B schedule, ``parallel/pipeline.py``) gives
+each rank the whole step's gradients of the leaves it holds (its stage's
+layers, the embedding on the first stage, the head on the last; its fsdp
+blocks of them), already summed over the data × fsdp ranks, and no leaf's
+gradient crosses the stage line: the global norm sums each rank's squares
+(over fsdp as above) and then the stage line's, one scalar, and AdamW
+updates the rank's own leaves, so the clip is JAX's.
+
 A loss that takes a ``group`` keyword pools statistics over the rows of a
 whole microbatch (Mixtral's router losses). ``make_train_step`` hands it
 the ranks that share the microbatch: the whole group without accumulation,
@@ -106,7 +115,7 @@ import torch.distributed as dist
 
 from tony_tpu_torch.parallel.collectives import all_reduce_mean
 from tony_tpu_torch.parallel.mesh import AXIS_FSDP
-from tony_tpu_torch.parallel.sharding import SPLIT_AXES, Layout, ShardingRules, split_dim
+from tony_tpu_torch.parallel.sharding import SPLIT_AXES, Layout, ShardingRules, prune, split_dim
 
 
 def _leaves(tree: dict, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
@@ -130,6 +139,10 @@ def sharded_global_norm(grads: dict[str, torch.Tensor], layout: Layout) -> torch
     squares of the leaves split on the fsdp, expert or model axis summed
     over each of them (a block replicated on one of them divided by its
     size, so each counts once), plus the whole leaves' once."""
+    return torch.sqrt(_sharded_square_sum(grads, layout))
+
+
+def _sharded_square_sum(grads: dict[str, torch.Tensor], layout: Layout) -> torch.Tensor:
     mesh = layout.mesh
     zero = torch.zeros((), dtype=torch.float32, device=next(iter(grads.values())).device)
     split = zero
@@ -141,7 +154,7 @@ def sharded_global_norm(grads: dict[str, torch.Tensor], layout: Layout) -> torch
         if mesh.shape[axis] > 1:
             dist.all_reduce(split, group=mesh.axis_group(axis))
     whole = sum((g.float().square().sum() for n, g in grads.items() if not layout.split(n)), zero)
-    return torch.sqrt(split + whole)
+    return split + whole
 
 
 def tree_bytes(tree: dict) -> int:
@@ -160,6 +173,9 @@ class TrainState:
 
     @classmethod
     def create(cls, params: dict, optimizer: "AdamW", layout: Layout | None = None) -> "TrainState":
+        """The state of ``params`` (its None leaves, another stage's, left
+        out) with fresh moments."""
+        params = prune(params)
         for _, p in _leaves(params):
             p.requires_grad_(True)
         return cls(params=params, opt_state=optimizer.init(params), step=0, layout=layout)
@@ -183,14 +199,18 @@ class TrainState:
         """Copy a saved state into this state's tensors (in place): each leaf
         this rank's block of it, or the whole leaf, which is cut to the
         block. Every leaf's name, shape and dtype is checked before any is
-        copied."""
+        copied. On a stage axis the saved state also holds the leaves of
+        the other stages (whole, or None where a restore left them unread),
+        which this rank skips; any other leaf it lacks raises."""
         pairs = []
         theirs_by_part = {"params": saved["params"], "opt_state/mu": saved["opt_state"]["mu"],
                           "opt_state/nu": saved["opt_state"]["nu"]}
         for part, tree in self._trees().items():
             mine, theirs = dict(_leaves(tree)), dict(_leaves(theirs_by_part[part]))
-            if mine.keys() != theirs.keys():
-                raise ValueError(f"checkpoint {part} leaves differ: {sorted(mine.keys() ^ theirs.keys())}")
+            others = {n for n in theirs.keys() - mine.keys() if self.layout is not None and not self.layout.owns(n)}
+            if mine.keys() != theirs.keys() - others:
+                raise ValueError(f"checkpoint {part} leaves differ: "
+                                 f"{sorted(mine.keys() ^ (theirs.keys() - others))}")
             for name, t in mine.items():
                 s = theirs[name]
                 whole = t.shape if self.layout is None else self.layout.full_shape(name, t)
@@ -284,7 +304,8 @@ def sharded_init(init_fn: Callable[..., dict], rules: ShardingRules, mesh, optim
     drawn, which keeps this rank's block of it per ``rules`` on ``mesh``.
     Every rank draws every whole leaf from the same seeded generator, so the
     blocks are those of the one-process init, and the peak is one whole
-    leaf; the moments are made from the blocks, so they are split alike."""
+    leaf; the moments are made from the blocks, so they are split alike. On
+    a stage axis a rank keeps only its stage's leaves (``Layout.place``)."""
     layout = Layout(rules, mesh)
     return TrainState.create(init_fn(layout.place), optimizer, layout)
 
@@ -471,15 +492,50 @@ def make_train_step(
         if accum_steps > 1:
             aux = {}  # the scan's metrics carry no aux, as in JAX
         norm = global_norm(grads.values()) if layout is None else sharded_global_norm(grads, layout)
-        optimizer.update(state.params, grads, state.opt_state, norm)
-        state.step += 1
-        metrics = {
-            "loss": loss.float(),
-            "grad_norm": norm,
-            "step": state.step,
-            **{k: v.detach() if torch.is_tensor(v) else v for k, v in aux.items() if k != "loss"},
-        }
-        return state, metrics
+        return _apply(state, optimizer, grads, norm, loss, aux)
+
+    return train_step
+
+
+def _apply(state: TrainState, optimizer: AdamW, grads: dict, norm: torch.Tensor, loss: torch.Tensor,
+           aux: dict) -> tuple[TrainState, dict]:
+    """What both step builders do after the gradients: the update with the
+    clip's norm, the step count, the metrics (the loss, the norm, the step
+    and the loss's aux)."""
+    optimizer.update(state.params, grads, state.opt_state, norm)
+    state.step += 1
+    metrics = {
+        "loss": loss.float().detach(),
+        "grad_norm": norm,
+        "step": state.step,
+        **{k: v.detach() if torch.is_tensor(v) else v for k, v in aux.items() if k != "loss"},
+    }
+    return state, metrics
+
+
+def make_pp_train_step(
+    value_and_grad_fn: Callable[[Any, Any], tuple[torch.Tensor, dict, dict]],
+    optimizer: AdamW,
+    mesh,
+) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
+    """Counterpart of JAX's ``make_pp_train_step``: a step from a function
+    that produces the gradients itself, ``value_and_grad_fn(params, batch)
+    -> (loss, aux, grads)`` (the model's ``pp_value_and_grad``: the 1F1B
+    schedule runs its backward inside the pipeline loop), whose ``grads``
+    mirror this rank's ``params`` and are the whole step's, summed over the
+    data × fsdp ranks; the state is ``sharded_init``'s (its ``layout`` on
+    the stage mesh). The global norm counts every leaf once across the
+    stages (the module docstring); everything after the gradients is
+    ``make_train_step``'s."""
+    stage_line = mesh.stage_line if mesh is not None else None
+
+    def train_step(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
+        loss, aux, grads = value_and_grad_fn(state.params, batch)
+        grads = dict(_leaves(grads))
+        sq = _sharded_square_sum(grads, state.layout)
+        if stage_line is not None:
+            dist.all_reduce(sq, group=stage_line)
+        return _apply(state, optimizer, grads, torch.sqrt(sq), loss, aux)
 
     return train_step
 
